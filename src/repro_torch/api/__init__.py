@@ -1,0 +1,22 @@
+"""``repro_torch.api`` - the typed entry point of the port:
+
+    >>> from repro_torch.api import PartitionSpec, partition
+    >>> result = partition(PartitionSpec(algo="cuttana", k=8,
+    ...                                  source="dataset:web-s"), device="cuda")
+    >>> result.quality()
+"""
+from repro_torch.api.registry import REGISTRY, PartitionerInfo, get_info, list_algorithms
+from repro_torch.api.result import PartitionResult
+from repro_torch.api.runner import partition
+from repro_torch.api.spec import STREAM_ORDERS, PartitionSpec
+
+__all__ = [
+    "PartitionSpec",
+    "PartitionResult",
+    "partition",
+    "PartitionerInfo",
+    "REGISTRY",
+    "get_info",
+    "list_algorithms",
+    "STREAM_ORDERS",
+]
