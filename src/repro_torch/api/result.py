@@ -1,5 +1,6 @@
 """``PartitionResult``: the result of a spec run (port of
-``repro.api.result``, limited to :meth:`PartitionResult.quality`)."""
+``repro.api.result``, limited to :meth:`PartitionResult.quality` and the
+parallel engine's :attr:`PartitionResult.profile`)."""
 from __future__ import annotations
 
 import dataclasses
@@ -30,6 +31,14 @@ class PartitionResult:
     @property
     def k(self) -> int:
         return self.spec.k
+
+    @property
+    def profile(self) -> dict | None:
+        """Per-superstep wall-clock profile from the parallel engine
+        (``None`` for sequential algorithms): worker count, queue wait, and
+        the prep/score/place/exchange/merge phase split, plus up to 64
+        per-superstep rows. See :mod:`repro_torch.core.profile`."""
+        return self.telemetry.get("profile")
 
     def quality(self) -> dict:
         """Lazily computed + cached λ_EC / λ_CV / imbalances, scanned on

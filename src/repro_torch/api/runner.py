@@ -20,7 +20,13 @@ from repro_torch.graph.csr import CSRGraph
 __all__ = ["partition"]
 
 # telemetry keys that are phase wall times, surfaced into result.timings
-_TIMING_KEYS = ("phase1_seconds", "phase2_seconds", "stream_seconds")
+_TIMING_KEYS = (
+    "phase1_seconds",
+    "phase2_seconds",
+    "base_seconds",
+    "stream_seconds",
+    "refine_seconds",
+)
 
 
 def partition(
@@ -37,6 +43,11 @@ def partition(
     algorithm name; ``overrides`` are applied on top (e.g.
     ``partition(g, "cuttana", k=8, device="cpu")``). ``graph`` may be None
     when the spec has a ``source``; ``partition(spec)`` is the short form.
+
+    Parallel algorithms additionally surface ``telemetry["profile"]`` (the
+    per-superstep phase timings, see ``PartitionResult.profile``) and, when
+    ``num_shards=0``/``"auto"`` or ``chunk=0`` was requested,
+    ``telemetry["autotune"]`` recording the resolved knobs and their source.
     """
     device = resolve_device(device)
     if spec is None and isinstance(graph, (PartitionSpec, dict, str)):

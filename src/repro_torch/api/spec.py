@@ -137,6 +137,10 @@ def _normalize_params(info: PartitionerInfo, params: Any):
                 f"unknown {info.name!r} params {sorted(unknown)}; "
                 f"valid fields: {sorted(valid)}"
             )
+        if params.get("num_shards") == "auto":
+            # spec sugar for the auto-tuned shard count; 0 is the canonical
+            # (JSON-round-trippable, type-checked) encoding
+            params = {**params, "num_shards": 0}
         return _check_param_types(info, cls(**params))
     raise ValueError(
         f"params for {info.name!r} must be a dict or {cls.__name__}, "
@@ -146,6 +150,8 @@ def _normalize_params(info: PartitionerInfo, params: Any):
 
 # field annotations in the params blocks (all from-__future__ strings)
 _FIELD_TYPES = {"int": int, "float": (int, float), "bool": bool, "str": str}
+# algorithms whose chunk may be 0: resolved through the auto-tuner
+_AUTO_CHUNK = ("cuttana-parallel", "fennel-parallel")
 
 
 def _check_param_types(info: PartitionerInfo, block: Any):
@@ -168,11 +174,25 @@ def _check_param_types(info: PartitionerInfo, block: Any):
                 f"{info.name!r} param {field.name!r} must be {ann}, "
                 f"got {type(value).__name__} {value!r}"
             )
+        if field.name == "num_shards" and value < 0:
+            # 0 (spec sugar: "auto") resolves through the tuning artifact at
+            # run time; anything negative is a caller error
+            raise ValueError(
+                f"{info.name!r} param 'num_shards' must be >= 1, "
+                f"or 0/'auto' for the tuned shard count, got {value!r}"
+            )
+        if field.name == "max_workers" and value < 0:
+            raise ValueError(
+                f"{info.name!r} param 'max_workers' must be >= 0 "
+                f"(0 = one thread per shard up to cpu_count), got {value!r}"
+            )
     from repro_torch.core.engine import EngineConfig
 
     # every ported block has a chunk; EngineConfig raises for chunk < 1 and
-    # for prefetch outside auto/on/off or "on" (not ported yet)
-    EngineConfig(chunk=block.chunk, prefetch=getattr(block, "prefetch", "auto"))
+    # for prefetch outside auto/on/off or "on" (not ported yet). A chunk of
+    # 0 is "auto" for the _AUTO_CHUNK algorithms, resolved at run time.
+    chunk = 1 if block.chunk == 0 and info.name in _AUTO_CHUNK else block.chunk
+    EngineConfig(chunk=chunk, prefetch=getattr(block, "prefetch", "auto"))
     if hasattr(block, "strategy"):
         from repro_torch.core.priority import make_priority
 

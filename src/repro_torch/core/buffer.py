@@ -52,10 +52,13 @@ class PriorityBuffer:
         heapq.heappush(self._heap, (-self.score(v), v, int(self._version[v])))
         self._size += 1
 
-    def notify_many(self, vs: np.ndarray) -> list[int]:
+    def notify_many(self, vs: np.ndarray, parts=None) -> list[int]:
         """Bump every buffered vertex in ``vs`` once per occurrence (a placed
         vertex's whole neighbourhood); returns the now-complete ones in
-        first-occurrence order WITHOUT removing them (the caller cascades)."""
+        first-occurrence order WITHOUT removing them (the caller cascades).
+        ``parts`` is the reference's argument for partition-tracking
+        priorities (``tracks_parts``); the port's only priority, ``eq6``,
+        tracks none, so it is ignored."""
         if self._size == 0 or vs.size == 0:
             return []
         inmask = self._in[vs]

@@ -1,6 +1,7 @@
 """CUTTANA: prioritized buffered streaming + coarsened refinement (paper §III).
 
-Port of ``repro.core.cuttana`` (:func:`partition` and its phase 2).
+Port of ``repro.core.cuttana``: :func:`partition`, its phase 2, and
+:func:`refine_any` (phase 2 applied to any partitioner's output).
 
 Phase 1 (Algorithm 1) runs through
 :class:`repro_torch.core.engine.StreamEngine`: ``use_buffer=True`` selects
@@ -146,3 +147,37 @@ def partition(
             subpartitions=int(subp.kp),
         )
     return part
+
+
+def refine_any(
+    graph: CSRGraph,
+    part: np.ndarray,
+    k: int,
+    epsilon: float = 0.05,
+    balance_mode: str = "edge",
+    subparts_per_partition: int | None = None,
+    thresh: float = 0.0,
+    seed: int = 0,
+    *,
+    device: str | torch.device | None = None,
+) -> np.ndarray:
+    """Paper §III-B: refinement applies to *any* partitioner's output.
+
+    Builds sub-partitions by re-streaming vertices (in id order, on the
+    host) inside their fixed partition assignment, then runs phase-2 trades
+    on the device-built sub-partition graph."""
+    device = resolve_device(device)
+    n = graph.num_vertices
+    if subparts_per_partition is None:
+        subparts_per_partition = int(max(8, min(4096, n // (8 * k))))
+    subp = SubPartitioner(
+        graph, k, subparts_per_partition, balance_mode=balance_mode, seed=seed
+    )
+    indptr, indices = graph.indptr, graph.indices
+    for v in range(n):
+        nbrs = indices[indptr[v] : indptr[v + 1]]
+        subp.assign(v, int(part[v]), nbrs, nbrs.size)
+    refined, _, _ = _phase2_refine(
+        graph, subp, k, epsilon, balance_mode, thresh, None, device
+    )
+    return refined

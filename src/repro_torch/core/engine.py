@@ -1,56 +1,77 @@
-"""Batched streaming engine: one scoring core for FENNEL, LDG and CUTTANA.
+"""Batched streaming engine: one scoring core for FENNEL, LDG and CUTTANA,
+sequential and sharded.
 
-Port of the sequential half of ``repro.core.engine`` (scorers,
-:class:`EngineConfig`, :class:`ImmediatePolicy`, :class:`BufferedPolicy`,
-:class:`StreamEngine`); the sharded policies arrive with the parallel
-engine.
+Port of ``repro.core.engine``: scorers, :class:`EngineConfig`,
+:class:`ImmediatePolicy` (with the restreaming ``reassign`` mode),
+:class:`BufferedPolicy`, the sharded policies
+(:class:`ShardedImmediatePolicy`, :class:`ShardedBufferedPolicy`) around the
+bulk-synchronous superstep core, and :class:`StreamEngine`.
 
-The stream is consumed in chunks of ``C`` vertices. For the immediate
-policy, all ``C x K`` assigned-neighbour histograms of a chunk come from ONE
-call of the partition-score kernel (:mod:`repro_torch.kernels.partition_score`),
-which reads the chunk's CSR rows and the ``part_of`` mirror directly on the
-device. A host loop then places the chunk's vertices in stream order,
-correcting the histograms for in-chunk neighbours, so assignments are
-bit-identical to the reference.
+The sequential stream is consumed in chunks of ``C`` vertices. For the
+immediate policy, all ``C x K`` assigned-neighbour histograms of a chunk
+come from ONE call of the partition-score kernel
+(:mod:`repro_torch.kernels.partition_score`), which reads the chunk's CSR
+rows and the ``part_of`` mirror directly on the device. A host loop then
+places the chunk's vertices in stream order, correcting the histograms for
+in-chunk neighbours, so assignments are bit-identical to the reference.
+
+The sharded policies run S interleaved shard frontiers per superstep. ONE
+call of the sharded partition-score kernel per superstep histograms every
+shard's candidates against the superstep-start ``part_of``; the shard tasks
+then place their candidates on pool threads, and the shared state is
+exchanged at the superstep boundary. ``num_shards=1`` delegates to the
+sequential policies.
 
 What lives where, and why:
 
 * On the device: the CSR ``indptr``/``indices``, the stream order, the
-  ``part_of`` mirror (:attr:`PartitionState.part_of_dev`) and the kernel's
-  inputs and outputs. After each chunk's placements are flushed to the host
-  state, the same assignments are written into the mirror before the next
-  launch. The buffered policy places one vertex at a time on the host and
-  syncs the whole mirror once when it ends.
-* On the host, in numpy as in the reference: the per-vertex placement loops
-  (:meth:`ImmediatePolicy.run`, :meth:`BufferedPolicy.run`), the priority
-  buffer and its Eq. 6 priority, the sub-partitioner, and the tie-break
-  generator. Each placement depends on the one before it; a torch op per
-  vertex would cost a launch plus a device-to-host sync per vertex, 10-100x
-  the numpy cost.
+  ``part_of`` mirror (:attr:`PartitionState.part_of_dev`) and the kernels'
+  inputs and outputs. The immediate policy writes each chunk's placements
+  into the mirror before the next launch; the sharded policies write each
+  superstep's placements into it at the boundary exchange, before the next
+  superstep's launch. The buffered policy places one vertex at a time on the
+  host and syncs the whole mirror once when it ends.
+* On the host, in numpy as in the reference: the placement loops, the
+  priority buffers and their Eq. 6 priority, the sub-partitioner, and the
+  tie-break generator. Each placement depends on the one before it; a torch
+  op per vertex would cost a launch plus a device-to-host sync per vertex,
+  10-100x the numpy cost.
+* Threads: the shard tasks, the buffered shards' ingests and the chained
+  sub-partition merge run on :class:`~repro_torch.core.executor.ShardPool`
+  threads and touch numpy only. Every launch, copy and mirror write stays
+  on the main thread, on the current stream.
 
 On the CPU (``device="cpu"``) the same code runs with CPU tensors, and the
-kernel wrapper takes its plain PyTorch version.
+kernel wrappers take their plain PyTorch versions.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
 
 from repro_torch.core.base import FennelParams, PartitionState
 from repro_torch.core.buffer import PriorityBuffer
+from repro_torch.core.executor import ShardPool
 from repro_torch.core.priority import BufferStats, make_priority
+from repro_torch.core.profile import SuperstepProfiler
 from repro_torch.core.subpartition import SubPartitioner
 from repro_torch.graph.csr import CSRGraph
-from repro_torch.graph.stream import stream_order
-from repro_torch.kernels.partition_score.ops import fennel_scores_gather
+from repro_torch.graph.stream import ShardedStream, stream_order
+from repro_torch.kernels.partition_score.ops import (
+    fennel_scores_gather,
+    fennel_scores_sharded_gather,
+)
 
 __all__ = [
     "FennelScorer",
     "LDGScorer",
     "ImmediatePolicy",
     "BufferedPolicy",
+    "ShardedImmediatePolicy",
+    "ShardedBufferedPolicy",
     "EngineConfig",
     "StreamEngine",
 ]
@@ -122,6 +143,17 @@ class FennelScorer:
             size = 0.0
         return None, -(self._ag * size**self._gm1)
 
+    def affine_arrays(self, v_counts, e_counts):
+        """Vectorised :meth:`affine_update`: ``(mul, add)`` for a whole load
+        view at once (``mul`` None => 1). Elementwise over any shape, and the
+        same libm ``pow`` as the scalar path. Stateless - safe to call from
+        concurrent shard tasks."""
+        if self.hybrid:
+            size = 0.5 * (v_counts + self.mu * e_counts)
+        else:
+            size = np.asarray(v_counts, dtype=np.float64)
+        return None, -(self._ag * np.power(np.maximum(size, 0.0), self._gm1))
+
 
 class LDGScorer:
     """Linear Deterministic Greedy: ``hist_i * max(1 - size_i/C, 0)`` with a
@@ -166,19 +198,40 @@ class LDGScorer:
             f = 0.0
         return f, -(1e-9 * lp)
 
+    def affine_arrays(self, v_counts, e_counts):
+        """Vectorised :meth:`affine_update` (see FennelScorer): stateless,
+        elementwise, including the nan path for edgeless edge-mode graphs."""
+        loads = np.asarray(
+            v_counts if self.balance_mode == "vertex" else e_counts,
+            dtype=np.float64,
+        )
+        if self._cap == 0.0:
+            return np.full_like(loads, np.nan), -(1e-9 * loads)
+        return np.maximum(1.0 - loads / self._cap, 0.0), -(1e-9 * loads)
+
 
 # ------------------------------------------------------------------- config
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     """Chunking knobs for the scoring core.
 
-    ``prefetch`` is the reference's decode-ahead switch for out-of-core
-    graphs: for a resident graph ``"auto"`` and ``"off"`` both stream
-    synchronously; ``"on"`` needs an out-of-core graph and raises until the
-    port has one."""
+    ``max_workers`` threads run the sharded policies' per-shard superstep
+    tasks (``None``/``0`` = auto: ``min(num_shards, cpu_count)``); results
+    are bit-identical for every worker count because shard tasks write
+    disjoint buffers. ``wave`` is the vectorised placement width inside a
+    shard task: candidates are scored ``wave`` at a time against a frozen
+    penalty/histogram view, refreshed exactly between waves.
+
+    ``prefetch`` is the reference's decode-ahead switch. For a resident
+    graph ``"auto"`` keeps the sharded policies' ahead-of-time frontier
+    expansion on and ``"off"`` turns it off (the synchronous baseline);
+    neither changes assignments. ``"on"`` needs an out-of-core graph and
+    raises until the port has one."""
 
     chunk: int = 512
     prefetch: str = "auto"
+    max_workers: int | None = None
+    wave: int = 128
 
     def __post_init__(self) -> None:
         if self.prefetch not in ("auto", "on", "off"):
@@ -197,7 +250,13 @@ class EngineConfig:
 # ----------------------------------------------------------------- policies
 class ImmediatePolicy:
     """Place every stream vertex as soon as it arrives (FENNEL / LDG /
-    CUTTANA without its buffer), scoring each chunk with one kernel call."""
+    CUTTANA without its buffer), scoring each chunk with one kernel call.
+    With ``reassign=True`` the stream *re-visits* already assigned vertices
+    (restreaming): each vertex is pulled out of its current partition,
+    rescored against the full assignment, and may move."""
+
+    def __init__(self, reassign: bool = False):
+        self.reassign = reassign
 
     def run(self, eng: "StreamEngine") -> None:
         """Host loop for scorers with the affine contract
@@ -206,9 +265,15 @@ class ImmediatePolicy:
         dwarfs the arithmetic); the numpy state and the device mirror are
         written once per chunk. Every operation is the same IEEE double
         computation as the reference, so results are bit-identical."""
+        if self.reassign and eng.subp is not None:
+            # SubPartitioner has no unassign: re-adding an already-placed
+            # vertex would double-count its sub-partition mass
+            raise ValueError("reassign mode does not support a subpartitioner")
         state = eng.state
         scorer = eng.scorer
         subp = eng.subp
+        part_of = state.part_of
+        reassign = self.reassign
         v_counts, e_counts = state.v_counts, state.e_counts
         k = state.k
         krange = range(k)
@@ -232,12 +297,21 @@ class ImmediatePolicy:
             dst, starts = corr
             for i in range(len(bl)):
                 v, deg = bl[i], dl[i]
+                cur = -1
+                if reassign:
+                    cur = int(part_of[v])  # pre-pass value: writes deferred
+                    v_list[cur] -= 1
+                    e_list[cur] -= deg
+                    u = scorer.affine_update(v_list[cur], e_list[cur])
+                    if mul is not None:
+                        mul[cur] = u[0]
+                    add[cur] = u[1]
                 row = H[i]
                 inc = 1 if vertex_mode else deg
                 best = neg_inf
                 if mul is None:
                     for p in krange:
-                        if load[p] + inc > cap:
+                        if load[p] + inc > cap and p != cur:
                             sc[p] = neg_inf
                             continue
                         s = row[p] + add[p]
@@ -246,7 +320,7 @@ class ImmediatePolicy:
                             best = s
                 else:
                     for p in krange:
-                        if load[p] + inc > cap:
+                        if load[p] + inc > cap and p != cur:
                             sc[p] = neg_inf
                             continue
                         s = row[p] * mul[p] + add[p]
@@ -270,10 +344,17 @@ class ImmediatePolicy:
                 add[p] = u[1]
                 if subp is not None:
                     subp.assign(v, p, nbr_views[i], deg)
-                for j in dst[starts[i] : starts[i + 1]]:
-                    H[j][p] += 1.0
+                if p != cur:
+                    if reassign:
+                        for j in dst[starts[i] : starts[i + 1]]:
+                            rj = H[j]
+                            rj[cur] -= 1.0
+                            rj[p] += 1.0
+                    else:
+                        for j in dst[starts[i] : starts[i + 1]]:
+                            H[j][p] += 1.0
             # flush the chunk into the numpy state and the device mirror
-            state.part_of[batch] = assigned
+            part_of[batch] = assigned
             v_counts[:] = v_list
             e_counts[:] = e_list
             eng.flush_chunk(start, batch.shape[0], assigned)
@@ -375,6 +456,644 @@ def _iter_chunk_expansions(eng: "StreamEngine"):
         yield start, batch, degs, _expand_csr_batch(indptr, indices, batch, degs)
 
 
+# --------------------------------------------------------- sharded policies
+def _check_num_shards(num_shards) -> int:
+    s = int(num_shards)
+    if s < 1 or s != num_shards:
+        raise ValueError(f"num_shards must be a positive integer, got {num_shards!r}")
+    return s
+
+
+@dataclasses.dataclass
+class _ShardPrep:
+    """Frontier expansion for one shard's superstep batch.
+
+    Everything here is derived from the immutable CSR plus the batch ids
+    alone - no dependence on the evolving assignment - so preps can be (and
+    are) computed on pool threads one superstep AHEAD of their use.
+    """
+
+    batch: np.ndarray  # int64[c] candidate ids (contiguous)
+    degs: np.ndarray  # int64[c]
+    rows: np.ndarray  # int64[nnz] local row index per neighbour slot
+    cols: np.ndarray  # int64[nnz] neighbour ids
+    corr_src: np.ndarray  # int64[nc] in-shard same-superstep pairs sorted by
+    corr_dst: np.ndarray  # src; dst is placed later than src in shard order
+
+
+def _prepare_shard(indptr, indices, batch) -> _ShardPrep:
+    """Build one shard's :class:`_ShardPrep` (numpy only, thread-safe)."""
+    batch = np.ascontiguousarray(batch, dtype=np.int64)
+    degs = (indptr[batch + 1] - indptr[batch]).astype(np.int64)
+    rows, cols = _expand_csr_batch(indptr, indices, batch, degs)
+    if cols.size:
+        # in-shard same-superstep correction pairs via sorted membership
+        # lookup: position of each neighbour id inside the batch, if any
+        order = np.argsort(batch, kind="stable")
+        sb = batch[order]
+        loc = np.searchsorted(sb, cols)
+        np.minimum(loc, sb.size - 1, out=loc)
+        cpos = np.where(sb[loc] == cols, order[loc], -1)
+        emask = (cpos >= 0) & (cpos < rows)
+        src, dst = cpos[emask], rows[emask]
+        o = np.argsort(src, kind="stable")
+        src, dst = src[o], dst[o]
+    else:
+        src = dst = np.empty(0, dtype=np.int64)
+    return _ShardPrep(batch, degs, rows, cols, src, dst)
+
+
+class _SuperstepRunner:
+    """Bulk-synchronous superstep core shared by the sharded policies.
+
+    Per superstep, every shard's candidate vertices are histogrammed against
+    the *superstep-start snapshot* of ``part_of`` in ONE sharded
+    partition-score call on the main thread (:meth:`_histograms`). Each
+    shard then places its candidates against a local view (snapshot + its
+    own deltas, with the remaining per-partition capacity split evenly
+    across shards). Assignments and loads are exchanged only at the
+    superstep boundary - the paper's relaxed-consistency parallel design.
+    Same-shard same-superstep neighbours are corrected exactly between
+    placement waves; cross-shard ones are not, and are counted as
+    ``boundary_conflicts`` for the merge + coarsen + refine pass to
+    reconcile.
+
+    Concurrency model: each shard is one task on a :class:`ShardPool`. A
+    task reads only snapshot arrays and its own :class:`_ShardPrep`, and
+    writes only its disjoint slices of the superstep's assignment/histogram
+    buffers - tasks commute, so assignments are bit-identical for every
+    ``max_workers``. The merge back into shared state is a vectorised
+    bincount reduction on the main thread, which also writes the
+    placements into the device mirror; the sub-partition merge is a
+    FIFO-chained pool task that may overlap the next superstep's scoring.
+    """
+
+    def __init__(
+        self,
+        eng: "StreamEngine",
+        sharded: ShardedStream,
+        reassign: bool = False,
+        need_cols: bool = False,
+    ):
+        if not hasattr(eng.scorer, "affine_arrays"):
+            raise ValueError(
+                "sharded policies require a scorer with the affine contract "
+                "(scores == hist * mul + add); got "
+                f"{type(eng.scorer).__name__}"
+            )
+        if reassign and eng.subp is not None:
+            # same contract as ImmediatePolicy: SubPartitioner has no unassign
+            raise ValueError("reassign mode does not support a subpartitioner")
+        self.eng = eng
+        self.sharded = sharded
+        self.reassign = reassign
+        self.need_cols = need_cols
+        state = eng.state
+        self.k = state.k
+        self.shard_of = sharded.shard_of(eng.graph.num_vertices)
+        self.step_mark = np.full(eng.graph.num_vertices, -1, dtype=np.int64)
+        self.step = 0
+        self.sync_rounds = 0
+        self.boundary_conflicts = 0
+        self.vertex_mode = state.balance_mode == "vertex"
+        self.cap = (
+            state.vertex_capacity if self.vertex_mode else state.edge_capacity
+        )
+        self.wave = max(int(eng.config.wave), 1)
+        self.pool = ShardPool(eng.config.max_workers, sharded.num_shards)
+        self.profile = SuperstepProfiler(workers=self.pool.workers)
+        self.prefetch_ahead = eng.prefetch_ahead
+        self._zero_sizes = torch.zeros(
+            (sharded.num_shards, state.k), dtype=torch.float32, device=eng.device
+        )
+        self._subp_chain = None
+        self._v0: np.ndarray | None = None
+        self._e0: np.ndarray | None = None
+
+    def close(self) -> None:
+        """Flush the chained sub-partition merges and stop the pool. Must
+        run before anything reads ``eng.subp`` state (phase 2)."""
+        if self._subp_chain is not None:
+            t0 = time.perf_counter()
+            self._subp_chain.result()
+            self.profile.add("merge", time.perf_counter() - t0)
+            self._subp_chain = None
+        self.pool.shutdown()
+
+    # ----------------------------------------------------------- prefetch
+    def prepare_async(self, batches: list[np.ndarray]) -> list:
+        """Submit per-shard frontier expansion; futures align with shards."""
+        indptr, indices = self.eng.graph.indptr, self.eng.graph.indices
+        return [
+            self.pool.submit(_prepare_shard, indptr, indices, b)
+            if b.shape[0]
+            else None
+            for b in batches
+        ]
+
+    def wait_preps(self, futs: list) -> list[_ShardPrep | None]:
+        t0 = time.perf_counter()
+        preps = [f.result() if f is not None else None for f in futs]
+        self.profile.add("prep", time.perf_counter() - t0)
+        return preps
+
+    # -------------------------------------------------------- histogramming
+    def _histograms(self, big: np.ndarray, counts: list[int]):
+        """float64[total, K] assigned-neighbour histograms of the whole
+        superstep from ONE sharded partition-score call, and the candidates'
+        ids on the device. Rows are the candidates shard after shard; the
+        engine scores with ``alpha=0`` (the penalties change with every
+        placement, so the shard tasks apply them on the host), so the counts
+        are exact integers and equal the reference's."""
+        eng = self.eng
+        total = big.shape[0]
+        packed = np.empty(total + len(counts) + 1, dtype=np.int64)
+        packed[:total] = big
+        packed[total] = 0
+        np.cumsum(counts, out=packed[total + 1 :])
+        # one host-to-device copy for the candidates and the shard bounds
+        packed_dev = torch.from_numpy(packed).to(eng.device)
+        batch_dev = packed_dev[:total]
+        g = eng._dgraph
+        out = fennel_scores_sharded_gather(
+            g.indptr, g.indices, eng.state.part_of_dev, batch_dev,
+            packed_dev[total:], self._zero_sizes, 0.0, 1.5,
+        )
+        return out.cpu().numpy().astype(np.float64), batch_dev
+
+    # ------------------------------------------------------- per-shard task
+    def _shard_task(self, prep: _ShardPrep, hist_rows, out, room):
+        """One shard's superstep work: wave-vectorised placement. Reads only
+        snapshot arrays and ``prep``; writes only this shard's
+        ``hist_rows``/``out`` slices - safe and deterministic under any pool
+        scheduling."""
+        t0 = time.perf_counter()
+        old = (
+            self.eng.state.part_of[prep.batch].astype(np.int64)
+            if self.reassign
+            else None
+        )
+        t1 = time.perf_counter()
+        self._place_shard(prep, hist_rows, out, room, old)
+        t2 = time.perf_counter()
+        return t1 - t0, t2 - t1, old
+
+    def _place_shard(self, prep, hist, out, room, old):
+        """Wave-vectorised placement of one shard's candidates.
+
+        ``wave`` candidates are scored at a time against the superstep
+        snapshot plus this shard's own running deltas: within a wave the
+        balance penalty and in-shard neighbour histograms are frozen; between
+        waves both are refreshed exactly. A wave whose picks would overshoot
+        a partition's shard-local headroom is replayed per vertex against
+        live loads, so the capacity rule is enforced exactly as
+        sequentially. Ties break to the lowest partition index -
+        deterministic without consuming shared rng state, which is what
+        makes assignments independent of the worker count.
+        """
+        k = self.k
+        scorer = self.eng.scorer
+        c = prep.batch.shape[0]
+        degf = prep.degs.astype(np.float64)
+        inc = np.ones(c, dtype=np.float64) if self.vertex_mode else degf
+        v_loc = self._v0.copy()
+        e_loc = self._e0.copy()
+        used = np.zeros(k, dtype=np.float64)
+        wave = self.wave
+        csrc, cdst = prep.corr_src, prep.corr_dst
+        for g0 in range(0, c, wave):
+            g1 = min(g0 + wave, c)
+            g = g1 - g0
+            rows_i = np.arange(g)
+            hb = hist[g0:g1]
+            mul, add = scorer.affine_arrays(v_loc, e_loc)
+            sc = hb + add if mul is None else hb * mul + add
+            incw = inc[g0:g1]
+            fits = used + incw[:, None] <= room
+            cur = None
+            if old is not None:
+                # pull each candidate out of its current partition in its
+                # own row's view: staying put is always allowed, and cur's
+                # penalty reflects the vertex's removal (sequential rule)
+                cur = old[g0:g1]
+                fits[rows_i, cur] = True
+                smul, sadd = scorer.affine_arrays(
+                    v_loc[cur] - 1.0, e_loc[cur] - degf[g0:g1]
+                )
+                own = hb[rows_i, cur]
+                sc[rows_i, cur] = own + sadd if smul is None else own * smul + sadd
+            masked = np.where(fits, sc, -np.inf)
+            choice = masked.argmax(axis=1).astype(np.int64)
+            best = masked[rows_i, choice]
+            fallback = ~(best > -np.inf)  # -inf (or nan): headroom exhausted
+            if fallback.any():
+                loads_loc = v_loc if self.vertex_mode else e_loc
+                choice[fallback] = int(loads_loc.argmin())
+            add_w = np.bincount(choice, weights=incw, minlength=k)
+            proj = used + add_w
+            if cur is not None:
+                proj = proj - np.bincount(cur, weights=incw, minlength=k)
+            repaired = False
+            if (proj > room).any():
+                nf = np.flatnonzero(~fallback)
+                # fallback-only overshoot mirrors the sequential fallback
+                # (capacity is advisory there); real picks must not overshoot
+                if nf.size and (proj > room)[choice[nf]].any():
+                    repaired = True
+                    self._repair_wave(
+                        g0, g1, sc, incw, degf, room, used, v_loc, e_loc,
+                        choice, cur,
+                    )
+            if not repaired:
+                used += add_w
+                v_loc += np.bincount(choice, minlength=k).astype(np.float64)
+                e_loc += np.bincount(choice, weights=degf[g0:g1], minlength=k)
+                if cur is not None:
+                    used -= np.bincount(cur, weights=incw, minlength=k)
+                    v_loc -= np.bincount(cur, minlength=k).astype(np.float64)
+                    e_loc -= np.bincount(cur, weights=degf[g0:g1], minlength=k)
+            out[g0:g1] = choice
+            if csrc.size:
+                lo = np.searchsorted(csrc, g0)
+                hi = np.searchsorted(csrc, g1)
+                if hi > lo:
+                    d_ = cdst[lo:hi]
+                    later = d_ >= g1
+                    if later.any():
+                        d_ = d_[later]
+                        s_ = csrc[lo:hi][later] - g0
+                        np.add.at(hist, (d_, choice[s_]), 1.0)
+                        if cur is not None:
+                            np.add.at(hist, (d_, cur[s_]), -1.0)
+
+    def _repair_wave(
+        self, g0, g1, sc, incw, degf, room, used, v_loc, e_loc, choice, cur
+    ):
+        """Scalar replay of one wave against live shard-local loads (frozen
+        wave scores): only runs when the vectorised projection would
+        overshoot, so the balance invariant is exactly the sequential one."""
+        vertex_mode = self.vertex_mode
+        for i in range(g1 - g0):
+            inc_i = incw[i]
+            f_i = used + inc_i <= room
+            if cur is not None:
+                f_i[cur[i]] = True
+            m = np.where(f_i, sc[i], -np.inf)
+            b = m.max()
+            if b > -np.inf:
+                p = int(m.argmax())
+            else:
+                p = int((v_loc if vertex_mode else e_loc).argmin())
+            choice[i] = p
+            d = degf[g0 + i]
+            used[p] += inc_i
+            v_loc[p] += 1.0
+            e_loc[p] += d
+            if cur is not None:
+                q = cur[i]
+                used[q] -= inc_i
+                v_loc[q] -= 1.0
+                e_loc[q] -= d
+
+    # ----------------------------------------------------------- superstep
+    def run_superstep(
+        self,
+        batches: list[np.ndarray],
+        preps: list[_ShardPrep | None] | None = None,
+    ) -> np.ndarray | None:
+        """Score + place all shards' candidates concurrently, commit at the
+        boundary via a vectorised reduction.
+
+        Returns the flat neighbour-id array of everything placed when
+        ``need_cols`` (the buffered policy notifies every shard buffer with
+        it), else the placed vertex ids; None when the superstep had no
+        candidates (and then it launches nothing).
+        """
+        eng = self.eng
+        state = eng.state
+        self.step += 1
+        counts = [int(b.shape[0]) for b in batches]
+        total = sum(counts)
+        if total == 0:
+            return None
+        if preps is None:
+            preps = self.wait_preps(self.prepare_async(batches))
+        eng.telemetry["kernel_calls"] += 1
+        k = self.k
+        v_counts, e_counts = state.v_counts, state.e_counts
+        loads0 = v_counts if self.vertex_mode else e_counts
+        # remaining per-partition capacity split evenly across the shards
+        # that actually place this superstep (empty batches - e.g. drained
+        # cursors - must not starve the active ones)
+        active = sum(1 for c in counts if c)
+        room = np.maximum(self.cap - loads0, 0.0) / active
+        self._v0 = v_counts.copy()
+        self._e0 = e_counts.copy()
+        bounds = np.cumsum(np.asarray(counts, dtype=np.int64))
+        starts = bounds - np.asarray(counts, dtype=np.int64)
+        live = [p for p in preps if p is not None]
+        big = np.concatenate([p.batch for p in live])
+        assigned_flat = np.empty(total, dtype=np.int64)
+        # one kernel call for every shard, on the main thread, before the
+        # shard tasks fan out
+        t_k = time.perf_counter()
+        hist_all, big_dev = self._histograms(big, counts)
+        score_s = time.perf_counter() - t_k
+        # fan out: one task per non-empty shard, each writing its disjoint
+        # slice of assigned_flat (and mutating only its own hist rows)
+        t_par = time.perf_counter()
+        futs = []
+        for s, prep in enumerate(preps):
+            if prep is None:
+                continue
+            futs.append(
+                self.pool.submit(
+                    self._shard_task, prep, hist_all[starts[s] : bounds[s]],
+                    assigned_flat[starts[s] : bounds[s]], room,
+                )
+            )
+        place_s = 0.0
+        olds = []
+        for f in futs:
+            h_s, p_s, old = f.result()
+            score_s += h_s
+            place_s += p_s
+            if old is not None:
+                olds.append(old)
+        parallel_wall = time.perf_counter() - t_par
+        # ------------------------------------------------ boundary exchange
+        t_x = time.perf_counter()
+        degf = np.concatenate([p.degs for p in live]).astype(np.float64)
+        if self.reassign:
+            old_flat = np.concatenate(olds)
+            v_counts -= np.bincount(old_flat, minlength=k).astype(np.float64)
+            e_counts -= np.bincount(old_flat, weights=degf, minlength=k)
+        state.part_of[big] = assigned_flat
+        # the device mirror, before the next superstep's launch: one copy and
+        # one index write
+        state.part_of_dev[big_dev] = torch.from_numpy(
+            assigned_flat.astype(np.int32)
+        ).to(eng.device)
+        v_counts += np.bincount(assigned_flat, minlength=k).astype(np.float64)
+        e_counts += np.bincount(assigned_flat, weights=degf, minlength=k)
+        self.sync_rounds += 1
+        self.step_mark[big] = self.step
+        conflicts = 0
+        for s, prep in enumerate(preps):
+            if prep is None or prep.cols.size == 0:
+                continue
+            same_step = self.step_mark[prep.cols] == self.step
+            conflicts += int((same_step & (self.shard_of[prep.cols] != s)).sum())
+        # each conflicting edge appears once from either endpoint
+        self.boundary_conflicts += conflicts // 2
+        exchange_s = time.perf_counter() - t_x
+        # ----------------------------------- overlapped sub-partition merge
+        merge_s = 0.0
+        if eng.subp is not None:
+            t_m = time.perf_counter()
+            rows_g = np.concatenate(
+                [p.rows + starts[s] for s, p in enumerate(preps) if p is not None]
+            )
+            cols_g = np.concatenate([p.cols for p in live])
+            degs_g = np.concatenate([p.degs for p in live])
+            # FIFO-chained: superstep t's sub-placement may overlap t+1's
+            # scoring (placement never reads sub-partition state), but
+            # merges apply in superstep order and close() flushes the chain
+            # before phase 2 reads it
+            self._subp_chain = self.pool.submit_after(
+                self._subp_chain, eng.subp.assign_superstep,
+                big, assigned_flat, degs_g, rows_g, cols_g, self.wave,
+            )
+            merge_s = time.perf_counter() - t_m
+        self.profile.record(
+            score=score_s, place=place_s, exchange=exchange_s, merge=merge_s,
+            parallel_wall=parallel_wall,
+        )
+        if self.need_cols:
+            return np.concatenate([p.cols for p in live])
+        return big
+
+    def finalize_telemetry(self) -> None:
+        self.profile.add_queue_wait(self.pool.queue_wait_s)
+        self.eng.telemetry.update(
+            supersteps=self.step,
+            sync_rounds=self.sync_rounds,
+            boundary_conflicts=self.boundary_conflicts,
+            num_shards=self.sharded.num_shards,
+            max_workers=self.pool.workers,
+            profile=self.profile.to_dict(),
+        )
+
+
+class ShardedImmediatePolicy:
+    """S interleaved shard frontiers placed per bulk-synchronous superstep.
+
+    The FENNEL/LDG analogue of the paper's parallel CUTTANA: every superstep
+    each shard advances its cursor by ``config.chunk`` vertices, all shards'
+    chunks are scored in one sharded kernel call, and the shared state is
+    synchronized at the boundary. ``num_shards=1`` is *defined* as the
+    sequential engine (delegates to :class:`ImmediatePolicy`).
+
+    ``reassign=True`` is the restreaming mode (every vertex already holds an
+    assignment; each superstep pulls its candidates out of their current
+    partitions in the shard-local view and may move them).
+    """
+
+    def __init__(self, num_shards: int, reassign: bool = False):
+        self.num_shards = _check_num_shards(num_shards)
+        self.reassign = reassign
+
+    def run(self, eng: "StreamEngine") -> None:
+        if self.num_shards == 1:
+            ImmediatePolicy(reassign=self.reassign).run(eng)
+            eng.telemetry.update(
+                supersteps=0, sync_rounds=0, boundary_conflicts=0, num_shards=1
+            )
+            return
+        sharded = ShardedStream.from_ids(eng.ids, self.num_shards)
+        runner = _SuperstepRunner(eng, sharded, reassign=self.reassign)
+        try:
+            steps = list(sharded.superstep_batches(eng.config.chunk))
+            if not runner.prefetch_ahead:
+                # prefetch="off": the synchronous baseline - every superstep
+                # expands its own frontier before scoring
+                for batches in steps:
+                    runner.run_superstep(batches)
+            else:
+                prefetched = runner.prepare_async(steps[0]) if steps else None
+                for t, batches in enumerate(steps):
+                    preps = runner.wait_preps(prefetched)
+                    # overlap: expand superstep t+1's frontier while t scores,
+                    # places and merges (expansion reads only the immutable CSR)
+                    prefetched = (
+                        runner.prepare_async(steps[t + 1])
+                        if t + 1 < len(steps)
+                        else None
+                    )
+                    runner.run_superstep(batches, preps)
+        finally:
+            runner.close()
+        runner.finalize_telemetry()
+
+
+class ShardedBufferedPolicy:
+    """Parallel CUTTANA Algorithm 1: shard-local priority buffers around the
+    bulk-synchronous superstep core.
+
+    Each shard ingests ``config.chunk`` stream vertices per superstep into
+    its own :class:`PriorityBuffer` (D_max bypasses and already-complete
+    vertices become immediate candidates; overflow evicts the best-scored
+    ones), all shards' candidates are placed through ONE sharded kernel
+    call, and at the boundary every shard's buffer is notified with the
+    whole superstep's placements - cross-shard visibility arrives exactly
+    one superstep late (relaxed consistency). Complete vertices surfacing at
+    a boundary are placed in the next superstep; buffers drain
+    chunk-at-a-time once their cursor is exhausted. ``num_shards=1``
+    delegates to the sequential :class:`BufferedPolicy`.
+    """
+
+    def __init__(
+        self,
+        num_shards: int,
+        max_qsize: int,
+        d_max: int,
+        theta: float = 1.0,
+        strategy: str = "eq6",
+    ):
+        self.num_shards = _check_num_shards(num_shards)
+        self.max_qsize = int(max_qsize)
+        prio = make_priority(strategy, d_max, theta)  # validates the name
+        self.strategy = prio.name
+        self.d_max = prio.d_max
+        self.theta = prio.theta
+
+    def run(self, eng: "StreamEngine") -> None:
+        if self.num_shards == 1:
+            BufferedPolicy(self.max_qsize, self.d_max, self.theta, self.strategy).run(eng)
+            eng.telemetry.update(
+                supersteps=0, sync_rounds=0, boundary_conflicts=0, num_shards=1
+            )
+            return
+        num_shards = self.num_shards
+        graph = eng.graph
+        indptr, indices = graph.indptr, graph.indices
+        part_of = eng.state.part_of
+        sharded = ShardedStream.from_ids(eng.ids, num_shards)
+        runner = _SuperstepRunner(eng, sharded, need_cols=True)
+        chunk = max(int(eng.config.chunk), 1)
+        bufs = [
+            PriorityBuffer(
+                self.max_qsize, graph, make_priority(self.strategy, self.d_max, self.theta)
+            )
+            for _ in range(num_shards)
+        ]
+        pending: list[list[int]] = [[] for _ in range(num_shards)]
+        cursors = [0] * num_shards
+        d_max = self.d_max
+
+        def ingest(s: int):
+            """One shard's superstep ingest: admission scan + buffer churn.
+            Touches only shard s's buffer/pending/cursor slots and reads the
+            boundary-stable ``part_of``, so all S ingests run concurrently;
+            per-shard counters come back for a deterministic main-thread sum.
+            """
+            cand = pending[s]
+            pending[s] = []
+            buf = bufs[s]
+            take = sharded.shards[s][cursors[s] : cursors[s] + chunk]
+            cursors[s] += take.shape[0]
+            evicted = drained_n = bypass_n = 0
+            if take.shape[0]:
+                tdegs = (indptr[take + 1] - indptr[take]).astype(np.int64)
+                trows, tcols = _expand_csr_batch(indptr, indices, take, tdegs)
+                asg = np.bincount(
+                    trows[part_of[tcols] != -1], minlength=take.shape[0]
+                )
+                byp = tdegs >= d_max
+                comp = (~byp) & (asg == tdegs) & (tdegs > 0)
+                tl = take.tolist()
+                al = asg.tolist()
+                bypl = byp.tolist()
+                compl = comp.tolist()
+                for i in range(len(tl)):
+                    if bypl[i]:
+                        bypass_n += 1
+                        cand.append(tl[i])
+                    elif compl[i]:
+                        cand.append(tl[i])
+                    else:
+                        buf.push(tl[i], al[i])
+                while buf.full:
+                    u, _ = buf.pop_best()
+                    evicted += 1
+                    cand.append(u)
+            elif len(buf):
+                # cursor exhausted: drain the buffer in score order,
+                # chunk candidates per superstep
+                for _ in range(max(chunk - len(cand), 0)):
+                    if not len(buf):
+                        break
+                    u, _ = buf.pop_best()
+                    drained_n += 1
+                    cand.append(u)
+            return (
+                np.asarray(cand, dtype=np.int64),
+                evicted, drained_n, bypass_n, len(buf),
+            )
+
+        def notify(s: int, placed_cols: np.ndarray):
+            """Boundary: shard s's buffer learns about ALL placements.
+            Mutates only shard s's buffer and pending slot."""
+            buf = bufs[s]
+            if not len(buf):
+                return
+            for w in buf.notify_many(placed_cols):
+                buf.remove(w)
+                pending[s].append(w)
+
+        bstats = BufferStats()
+        try:
+            while True:
+                t0 = time.perf_counter()
+                results = [
+                    f.result()
+                    for f in [
+                        runner.pool.submit(ingest, s) for s in range(num_shards)
+                    ]
+                ]
+                runner.profile.add("prep", time.perf_counter() - t0)
+                batches = [r[0] for r in results]
+                for _, ev, dr, by, blen in results:
+                    bstats.evictions += ev
+                    bstats.drained += dr
+                    bstats.bypass += by
+                    bstats.observe_len(blen)
+                if all(b.shape[0] == 0 for b in batches):
+                    exhausted = all(
+                        cursors[s] >= sharded.shards[s].shape[0]
+                        for s in range(num_shards)
+                    )
+                    if exhausted and not any(len(b) for b in bufs):
+                        break
+                    # everything ingested got buffered - still a superstep,
+                    # no sync and no launch
+                    runner.step += 1
+                    continue
+                cols = runner.run_superstep(batches)
+                if cols is not None and cols.size:
+                    t1 = time.perf_counter()
+                    for f in [
+                        runner.pool.submit(notify, s, cols)
+                        for s in range(num_shards)
+                    ]:
+                        f.result()
+                    runner.profile.add("merge", time.perf_counter() - t1)
+        finally:
+            runner.close()
+        eng.telemetry.update(bstats.to_telemetry(self.strategy))
+        runner.finalize_telemetry()
+
+
 # ------------------------------------------------------------------- engine
 class StreamEngine:
     """Drives one streaming pass: ``scorer.begin`` then ``policy.run``.
@@ -382,7 +1101,9 @@ class StreamEngine:
     ``ids`` overrides the stream order (otherwise computed from
     ``order``/``seed``); ``subpartitioner`` hooks CUTTANA's Def. 2
     sub-placement into every commit. The engine runs on the device of
-    ``state.part_of_dev``."""
+    ``state.part_of_dev``. ``prefetch_ahead`` is whether the sharded
+    policies expand superstep t+1's frontier while t runs (``prefetch``
+    ``"auto"``; ``"off"`` turns it off)."""
 
     def __init__(
         self,
@@ -408,6 +1129,7 @@ class StreamEngine:
         # counts chunk-histogram calls, single_place_calls the host-scored
         # placements (buffered policy); policies add their own
         self.telemetry: dict = {"kernel_calls": 0, "single_place_calls": 0}
+        self.prefetch_ahead = self.config.prefetch != "off"
         self.device = state.device
         self._dgraph = graph.to(self.device)
         self._ids_dev = torch.from_numpy(

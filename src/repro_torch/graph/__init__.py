@@ -9,7 +9,7 @@ from repro_torch.graph.generators import (
     road_graph,
 )
 from repro_torch.graph.metrics import quality_report
-from repro_torch.graph.stream import stream_order
+from repro_torch.graph.stream import ShardedStream, stream_order
 
 __all__ = [
     "CSRGraph",
@@ -21,5 +21,6 @@ __all__ = [
     "rmat_graph",
     "road_graph",
     "quality_report",
+    "ShardedStream",
     "stream_order",
 ]

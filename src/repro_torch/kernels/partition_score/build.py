@@ -68,5 +68,9 @@ def library() -> ctypes.CDLL:
         lib.partition_score_gather.restype = i
         lib.partition_score_dense.argtypes = [p, i, i, p, i, f, f, p, p]
         lib.partition_score_dense.restype = i
+        lib.partition_score_sharded_gather.argtypes = [p, p, p, p, p, i, i, p, i, f, f, p, p]
+        lib.partition_score_sharded_gather.restype = i
+        lib.partition_score_sharded_dense.argtypes = [p, i, i, i, p, i, f, f, p, p]
+        lib.partition_score_sharded_dense.restype = i
         _lib = lib
     return _lib

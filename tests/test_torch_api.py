@@ -67,8 +67,8 @@ def test_spec_json_round_trips_with_reference(algo):
 
 
 def test_unported_and_invalid_requests_raise():
-    with pytest.raises(ValueError, match="slice 2"):
-        tapi.PartitionSpec(algo="cuttana-parallel", k=4)
+    with pytest.raises(ValueError, match="slice 3"):
+        tapi.PartitionSpec(algo="cuttana-incremental", k=4)
     with pytest.raises(ValueError, match="slice 3"):
         tapi.PartitionSpec(algo="hdrf", k=4)
     with pytest.raises(ValueError, match="Did you mean 'fennel'"):
@@ -91,3 +91,17 @@ def test_unported_and_invalid_requests_raise():
         tapi.partition(None, "fennel", k=2, device="cpu")
     with pytest.raises(ValueError, match="unknown PartitionSpec fields"):
         tapi.PartitionSpec.from_dict({"algo": "fennel", "k": 2, "shards": 4})
+
+
+@pytest.mark.parametrize("name", sorted(rapi.REGISTRY))
+def test_every_reference_algorithm_is_ported_or_names_its_slice(name):
+    """Slice 2 registers fennel-parallel, cuttana-parallel and
+    cuttana-restream; every other name of the reference still raises and
+    names the slice that brings it."""
+    slice2 = {"fennel-parallel", "cuttana-parallel", "cuttana-restream"}
+    if name in {"fennel", "ldg", "cuttana"} | slice2:
+        assert tapi.get_info(name).name == name
+        assert name in tapi.list_algorithms()
+    else:
+        with pytest.raises(ValueError, match=r"arrives with slice 3 .*ported now: "):
+            tapi.get_info(name)

@@ -1,7 +1,7 @@
-"""The partition-score kernel of the PyTorch port: its plain version against
-the reference Pallas kernel (interpret mode) and host histograms, the
-engine's chunk histograms against the reference engine's, and the
-wrapper's argument checks. The CUDA kernel itself is held against the plain
+"""The partition-score kernel of the PyTorch port: its plain versions
+(sequential and sharded) against the reference Pallas kernels (interpret
+mode), the jnp references and host histograms, the engine's chunk histograms
+against the reference engine's, and the wrappers' argument checks. The CUDA kernel itself is held against the plain
 version in ``test_torch_gpu.py``."""
 import numpy as np
 import pytest
@@ -15,6 +15,12 @@ from repro.core.engine import FennelScorer as RefScorer
 from repro.core.engine import ImmediatePolicy as RefPolicy
 from repro.graph.generators import rmat_graph
 from repro.kernels.partition_score.ops import fennel_scores as ref_fennel_scores
+from repro.kernels.partition_score.ops import (
+    fennel_scores_sharded as ref_fennel_scores_sharded,
+)
+from repro.kernels.partition_score.ref import (
+    fennel_scores_sharded_ref as ref_fennel_scores_sharded_ref,
+)
 from repro.kernels.partition_score.ops import neighbor_histograms_host
 from repro_torch.convert import graph_from_arrays, state_from_arrays
 from repro_torch.core.engine import FennelScorer, ImmediatePolicy, StreamEngine
@@ -182,3 +188,127 @@ def test_wrapper_rejects_bad_arguments():
     before = ops.launches
     ops.fennel_scores(torch.zeros((2, 3), dtype=torch.int32), torch.zeros(2), 0.0)
     assert ops.launches == before
+
+
+# ------------------------------------------------------------ sharded entries
+def _sharded_inputs(s=4, c=33, d=17, k=6, seed=0):
+    rng = np.random.default_rng(seed)
+    nbr = rng.integers(-1, k, size=(s, c, d)).astype(np.int32)
+    sizes = (rng.random((s, k)) * 9).astype(np.float32)
+    return nbr, sizes
+
+
+@pytest.mark.parametrize("alpha", [0.0, 0.5])
+@pytest.mark.parametrize("oracle", ["jnp_ref", "pallas_interpret"])
+def test_sharded_dense_matches_reference(alpha, oracle):
+    """S,C,D,K = 4,33,17,6 with random per-shard size rows: the sharded
+    plain version against the reference's ``fennel_scores_sharded_ref`` and
+    the Pallas kernel in interpret mode - within 1e-5 with a penalty (float32
+    arithmetic in another order), exactly at alpha=0 (integer counts)."""
+    nbr, sizes = _sharded_inputs()
+    if oracle == "jnp_ref":
+        want = np.asarray(ref_fennel_scores_sharded_ref(nbr, sizes, alpha, 1.5))
+    else:
+        want = np.asarray(
+            ref_fennel_scores_sharded(nbr, sizes, alpha, 1.5, interpret=True)
+        )
+    got = ops.fennel_scores_sharded(
+        torch.from_numpy(nbr), torch.from_numpy(sizes), alpha, 1.5
+    )
+    assert got.dtype == torch.float32 and got.shape == (4, 33, 6)
+    if alpha == 0.0:
+        np.testing.assert_array_equal(got.numpy(), want)
+    else:
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+
+
+def test_sharded_dense_is_the_flat_entry_per_shard():
+    nbr, sizes = _sharded_inputs(seed=1)
+    got = ops.fennel_scores_sharded(torch.from_numpy(nbr), torch.from_numpy(sizes), 0.5)
+    for i in range(nbr.shape[0]):
+        flat = ops.fennel_scores(torch.from_numpy(nbr[i]), torch.from_numpy(sizes[i]), 0.5)
+        np.testing.assert_array_equal(got[i].numpy(), flat.numpy())
+
+
+@pytest.mark.parametrize(
+    "counts", [(40, 40, 40, 40), (0, 17, 0, 5), (30, 0, 0, 0), (0, 0, 0, 9), (1, 2, 3, 250)]
+)
+@pytest.mark.parametrize("alpha", [0.0, 0.37])
+def test_sharded_gather_matches_dense_on_packed_rows(hub_graph, counts, alpha):
+    """The engine's gather entry against the dense entry on the same rows
+    packed as [S, cmax, max degree], including empty shards (a repeated
+    bound in shard_start) and the hub row."""
+    g = hub_graph
+    k = 8
+    rng = np.random.default_rng(sum(counts))
+    part_of = rng.integers(-1, k, size=g.num_vertices).astype(np.int32)
+    order = rng.permutation(g.num_vertices)
+    order = np.concatenate([[int(g.degrees.argmax())], order[order != g.degrees.argmax()]])
+    s = len(counts)
+    shard_start = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+    batch = order[: shard_start[-1]].astype(np.int64)
+    sizes = (rng.random((s, k)) * 50).astype(np.float32)
+    cmax = max(max(counts), 1)
+    degs = g.indptr[batch + 1] - g.indptr[batch]
+    nbr = np.full((s, cmax, max(int(degs.max()), 1)), -1, np.int32)
+    for sh in range(s):
+        for i, v in enumerate(batch[shard_start[sh] : shard_start[sh + 1]]):
+            nb = g.indices[g.indptr[v] : g.indptr[v + 1]]
+            nbr[sh, i, : nb.size] = part_of[nb]
+    dense = ops.fennel_scores_sharded(torch.from_numpy(nbr), torch.from_numpy(sizes), alpha)
+    want = np.concatenate(
+        [dense[sh, : counts[sh]].numpy() for sh in range(s)]
+    ).reshape(-1, k)
+    tg = graph_from_arrays(g.indptr, g.indices, CPU).to(CPU)
+    got = ops.fennel_scores_sharded_gather(
+        tg.indptr, tg.indices, torch.from_numpy(part_of), torch.from_numpy(batch),
+        torch.from_numpy(shard_start), torch.from_numpy(sizes), alpha, 1.5,
+    )
+    assert got.shape == (int(shard_start[-1]), k)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _sharded_gather_args(**over):
+    args = dict(_gather_args(), shard_start=torch.tensor([0, 2, 2, 3], dtype=torch.int64),
+                sizes=torch.zeros((3, 2), dtype=torch.float32))
+    args.update(over)
+    return args
+
+
+def test_sharded_wrappers_reject_bad_arguments():
+    got = ops.fennel_scores_sharded_gather(**_sharded_gather_args(), alpha=0.0, gamma=1.5)
+    np.testing.assert_array_equal(got.numpy(), [[0, 1], [1, 0], [0, 0]])
+    # a penalty picks each row's shard: rows 0-1 shard 0, row 2 shard 2
+    sizes = torch.tensor([[4.0, 0.0], [100.0, 100.0], [0.0, 9.0]])
+    got = ops.fennel_scores_sharded_gather(
+        **_sharded_gather_args(sizes=sizes), alpha=1.0, gamma=2.0
+    )
+    np.testing.assert_allclose(got.numpy(), [[-8, 1], [-7, 0], [0, -18]])
+    bad = [
+        (TypeError, dict(shard_start=torch.tensor([0, 2, 2, 3], dtype=torch.int32))),
+        (ValueError, dict(shard_start=torch.tensor([0, 3], dtype=torch.int64))),
+        (ValueError, dict(shard_start=torch.tensor([0, 2, 1, 3], dtype=torch.int64))),
+        (ValueError, dict(shard_start=torch.tensor([1, 2, 2, 3], dtype=torch.int64))),
+        (ValueError, dict(shard_start=torch.tensor([0, 2, 2, 4], dtype=torch.int64))),
+        (ValueError, dict(sizes=torch.zeros(2, dtype=torch.float32))),
+        (ValueError, dict(sizes=torch.zeros((3, 0), dtype=torch.float32))),
+        (ValueError, dict(sizes=torch.zeros((3, ops.MAX_K + 1), dtype=torch.float32))),
+        (TypeError, dict(sizes=torch.zeros((3, 2), dtype=torch.float64))),
+        (ValueError, dict(part_of=torch.zeros(2, dtype=torch.int32))),
+        (ValueError, dict(batch=torch.zeros(3, dtype=torch.int64, device="meta"))),
+    ]
+    for exc, over in bad:
+        with pytest.raises(exc):
+            ops.fennel_scores_sharded_gather(**_sharded_gather_args(**over), alpha=0.0, gamma=1.5)
+    nbr = torch.zeros((2, 3, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="size rows"):
+        ops.fennel_scores_sharded(nbr, torch.zeros((3, 2)), 0.0)
+    with pytest.raises(ValueError, match="3-D"):
+        ops.fennel_scores_sharded(nbr[0], torch.zeros((2, 2)), 0.0)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.fennel_scores_sharded(nbr.to("meta"), torch.zeros((2, 2), device="meta"), 0.0)
+    # CPU calls take the plain version and launch nothing
+    before = (ops.launches, ops.sharded_launches)
+    ops.fennel_scores_sharded(nbr, torch.zeros((2, 2)), 0.0)
+    ops.fennel_scores_sharded_gather(**_sharded_gather_args(), alpha=0.0, gamma=1.5)
+    assert (ops.launches, ops.sharded_launches) == before
