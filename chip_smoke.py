@@ -37,13 +37,33 @@ Phases:
      ``fennel``/``cuttana``; ``cuttana-parallel`` on social-m at S=4 gives
      the reference's edge-cut;
   8. ``fennel-parallel`` on social-m at S=4 under ``torch.profiler``: the
-     card's busy time and idle share, beside phase 4's sequential stream.
+     card's busy time and idle share, beside phase 4's sequential stream;
+  9. the ``ell_spmv`` gather/reduce kernel against its plain version on the
+     card, on both row loaders: the analytics engine's segment entry at the
+     shape of phase 2's partition (all k=8 devices' CSR rows of the 2^22
+     graph in one launch) and on a 32-row batch holding the hub row; the
+     ELL entry at ``tests/test_kernels.py``'s shapes and on a padded ELL
+     batch holding the hub row. Min exact, sum within rtol 1e-6, the engine
+     launch the same bits twice; timed like phase 1, ``library_ms`` being
+     ``x.gather`` + ``scatter_reduce_`` (two calls; ``x[cols]`` + ``sum`` /
+     ``amin`` for the ELL entry);
+ 10. the analytics path: ``result.analytics(program, iters,
+     mode="simulated")`` on phase 2's ``fennel`` assignment for pagerank
+     (30 iterations), cc and sssp (20): one kernel launch per iteration,
+     values equal to the port's device="cpu" run (cc/sssp exactly,
+     pagerank within rtol 1e-5, atol 1e-9), a second pagerank run on the
+     card bit-identical, ``halo_messages_per_iter`` equal to
+     ``comm_volume * k * |V|``; web-s values against the float64 oracles;
+ 11. pagerank on social-m (phase 3's ``cuttana`` partition) under
+     ``torch.profiler``: the card's busy time and idle share, beside
+     phases 4 and 8.
 
 Kernel times: ``ms`` is device time per launch (launches captured in a CUDA
 graph and replayed, so the host's cost of a call is out); ``call_ms``,
 ``plain_ms`` and ``library_ms`` are per call back to back on the stream, host
-cost included (the plain version and ``torch.bincount`` synchronise, so they
-cannot be captured).
+cost included (the plain versions and ``torch.bincount`` synchronise, so they
+cannot be captured). ``bound_ms`` is the larger of the bytes the function
+must move over 3.35 TB/s and its operations over the card's peak rate.
 
 The last lines are the ``{"kernels": [...]}`` summary, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -53,17 +73,24 @@ the script exits 2 and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 KERNEL_SOURCE = "src/repro_torch/kernels/partition_score/csrc/partition_score.cu"
 TPU_KERNEL = "src/repro/kernels/partition_score/partition_score.py:105"
 TPU_KERNEL_SHARDED = "src/repro/kernels/partition_score/partition_score.py:68"
+SPMV_SOURCE = "src/repro_torch/kernels/ell_spmv/csrc/ell_spmv.cu"
+TPU_KERNEL_SPMV = "src/repro/kernels/ell_spmv/ell_spmv.py:33"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
+FP64_OPS_PER_S = 34e12  # H100 SXM float64 outside the tensor cores (data sheet)
+FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+ANALYTICS_ITERS = {"pagerank": 30, "cc": 20, "sssp": 20}  # benchmarks/analytics.py
 CHUNK = 512
 NUM_SHARDS = 4
 # the reference's values for these specs (repro.api.partition, k=8, edge
@@ -232,7 +259,6 @@ def profile_stream(torch, tapi, graph, device, algo="fennel", params=None) -> di
     """Phases 4 and 8: ``algo`` on ``graph`` under ``torch.profiler``: how
     much of the run the card is busy, and with what. Device events are summed
     by name (one stream, so they do not overlap)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     on_card = device.type == "cuda"
@@ -245,27 +271,67 @@ def profile_stream(torch, tapi, graph, device, algo="fennel", params=None) -> di
         if on_card:
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    by_name: dict[str, list] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            slot = by_name.setdefault(e.name, [0.0, 0])
-            slot[0] += e.time_range.elapsed_us()
-            slot[1] += 1
-    busy_us = sum(us for us, _ in by_name.values())
-    kernel = [v for k, v in by_name.items() if "score_kernel" in k]
-    kernel_us = sum(us for us, _ in kernel)
-    kernel_n = sum(n for _, n in kernel)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
     return {
         "algo": algo, "params": params, "num_vertices": graph.num_vertices,
         "kernel_calls": res.telemetry["kernel_calls"],
         "profiled_wall_s": wall, "stream_seconds": res.timings["stream_seconds"],
+        **device_time(prof, wall, on_card, "score_kernel"),
+    }
+
+
+def device_time(prof, wall: float, on_card: bool, kernel_name: str) -> dict:
+    """The card's busy time and idle share over a profiled window of
+    ``wall`` seconds, and the device time of the kernels whose name holds
+    ``kernel_name``. Device events are summed by name (one stream, so they
+    do not overlap); user annotations such as a schedule's ``ProfilerStep#``
+    span the window on the device's timeline and are no device work."""
+    from torch.autograd import DeviceType
+
+    by_name: dict[str, list] = {}
+    for e in prof.events():
+        annotation = getattr(e, "is_user_annotation", False) or e.name.startswith("ProfilerStep")
+        if e.device_type == DeviceType.CUDA and not annotation:
+            slot = by_name.setdefault(e.name, [0.0, 0])
+            slot[0] += e.time_range.elapsed_us()
+            slot[1] += 1
+    busy_us = sum(us for us, _ in by_name.values())
+    kernel = [v for k, v in by_name.items() if kernel_name in k]
+    kernel_us = sum(us for us, _ in kernel)
+    kernel_n = sum(n for _, n in kernel)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    return {
         "device_busy_s": busy_us / 1e6 if on_card else None,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall if on_card else None,
         "kernel_events": kernel_n if on_card else None,
         "kernel_device_ms_total": kernel_us / 1e3 if on_card else None,
         "kernel_device_ms_per_launch": kernel_us / 1e3 / kernel_n if kernel_n else None,
         "top_device_events_ms": [[k[:80], us / 1e3, n] for k, (us, n) in top],
+    }
+
+
+def profile_analytics(torch, res, spmv, device, iters: int = 30) -> dict:
+    """Phase 11: ``res.analytics("pagerank", iters)`` under
+    ``torch.profiler``: how much of the run the card is busy. The run is
+    about 10 ms, and a window that short loses the device events of its
+    first milliseconds, so one run warms the profiler up and the next one
+    is recorded."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    on_card = device.type == "cuda"
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
+    with profile(activities=acts, schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            spmv.launches = 0
+            t0 = time.perf_counter()
+            out = res.analytics("pagerank", iters, mode="simulated")
+            if on_card:
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            prof.step()
+    return {
+        "program": "pagerank", "iters": iters, "num_vertices": res.graph.num_vertices,
+        "algo": res.spec.algo, "profiled_wall_s": wall, "seconds": out["seconds"],
+        "launches": spmv.launches, **device_time(prof, wall, on_card, "spmv_kernel"),
     }
 
 
@@ -359,6 +425,126 @@ def sharded_kernel_checks(torch, np, ops, ref, dgraph, graph, device, timer):
     return rows_out
 
 
+def spmv_row(torch, timer, name, entry, reduce, got, want, call, plain, library,
+             nbytes: int, ops: int, reps: int = 200, **extra) -> dict:
+    """One phase-9 row: the kernel against its plain version (min exactly,
+    sum within rtol 1e-6), its times, and its bound."""
+    diff = (got.double() - want.double()).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    rel = float((diff / want.double().abs().clamp(min=1e-30)).max()) if diff.numel() else 0.0
+    if reduce == "min":
+        check(torch.equal(got, want), f"{name}: min kernel differs from plain version ({err})")
+    else:
+        check(bool((diff <= 1e-6 * want.double().abs()).all()),
+              f"{name}: sum kernel differs from plain version beyond rtol 1e-6 ({rel})")
+    rate = FP64_OPS_PER_S if reduce == "sum" else FP32_OPS_PER_S
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
+    return {
+        "shape": name, "entry": entry, "reduce": reduce, **extra,
+        "max_abs_err": err, "max_rel_err": rel,
+        "ms": timer.device_ms(call),
+        "call_ms": timer(call, reps=reps),
+        "plain_ms": timer(plain, reps=reps),
+        "library_ms": timer(library, reps=reps),
+        "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+    }
+
+
+def spmv_kernel_checks(torch, np, spmv, spmv_ref, lg, device, timer):
+    """Phase 9: the gather/reduce kernel vs its plain version on both row
+    loaders, at the analytics engine's shape for phase 2's partition."""
+    rng = np.random.default_rng(9)
+    dev = lg.to(device)
+    k, v_max, state_len, e_max = lg.k, lg.v_max, lg.state_len, lg.e_max
+    rows_out = []
+    x_np = rng.random((k, state_len)).astype(np.float32)
+    rows64 = torch.from_numpy(lg.rows.astype(np.int64)).to(device)
+    cols64 = dev.cols.long()
+    ent_rows, ent_pos = spmv_ref.segment_entries(dev.row_ptr, e_max)
+    nnz = int(ent_rows.shape[0])
+    # distinct source values the real entries read: the x bytes the function needs
+    x_read = int(torch.unique((ent_pos // e_max) * state_len + dev.cols.reshape(-1)[ent_pos]).shape[0])
+    del ent_rows, ent_pos
+    degs = (dev.row_ptr[:, 1:] - dev.row_ptr[:, :-1])
+    p_hub, r_hub = divmod(int(degs.reshape(-1).argmax()), v_max)
+    hub_deg = int(degs[p_hub, r_hub])
+    for reduce, ident in (("sum", 0.0), ("min", 3e38)):
+        x_np[:, -1] = ident
+        x = torch.from_numpy(x_np).to(device)
+        args = (x, dev.row_ptr, dev.cols, reduce)
+        got = spmv.ell_spmv_segments(*args)
+        again = spmv.ell_spmv_segments(*args)
+        want = spmv_ref.ell_spmv_segments_ref(*args)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        check(torch.equal(got, again), f"engine {reduce}: two launches gave different bits")
+        red = "sum" if reduce == "sum" else "amin"
+        rows_out.append(spmv_row(
+            torch, timer, f"engine_k{k}_{reduce}", "segments", reduce, got, want,
+            lambda: spmv.ell_spmv_segments(*args),
+            lambda: spmv_ref.ell_spmv_segments_ref(*args),
+            lambda: torch.full((k, v_max + 1), ident, device=device).scatter_reduce_(
+                1, rows64, x.gather(1, cols64), red, include_self=True),
+            nbytes=k * (v_max + 1) * 8 + nnz * 4 + x_read * 4 + k * v_max * 4, ops=nnz,
+            reps=10, rows=k * v_max, nnz=nnz, hub_degree=hub_deg, deterministic=True,
+        ))
+        # a 32-row batch of the hub's device holding the hub row: one warp
+        # walks the hub's whole degree, the tail of the engine's launch
+        r0 = max(0, min(r_hub, v_max - 32))
+        rp = (dev.row_ptr[p_hub, r0 : r0 + 33] - dev.row_ptr[p_hub, r0]).reshape(1, -1).contiguous()
+        lo, hi = int(dev.row_ptr[p_hub, r0]), int(dev.row_ptr[p_hub, r0 + rp.shape[1] - 1])
+        hcols = dev.cols[p_hub, lo:hi].reshape(1, -1).contiguous()
+        hx = x[p_hub : p_hub + 1].contiguous()
+        hargs = (hx, rp, hcols, reduce)
+        hrows = torch.arange(rp.shape[1] - 1, device=device).repeat_interleave(rp[0, 1:] - rp[0, :-1])
+        rows_out.append(spmv_row(
+            torch, timer, f"hub_batch32_{reduce}", "segments", reduce,
+            spmv.ell_spmv_segments(*hargs), spmv_ref.ell_spmv_segments_ref(*hargs),
+            lambda: spmv.ell_spmv_segments(*hargs),
+            lambda: spmv_ref.ell_spmv_segments_ref(*hargs),
+            lambda: torch.full((rp.shape[1] - 1,), ident, device=device).scatter_reduce_(
+                0, hrows, hx[0][hcols[0].long()], red, include_self=True),
+            nbytes=rp.numel() * 8 + hcols.numel() * 4
+            + int(torch.unique(hcols).shape[0]) * 4 + (rp.shape[1] - 1) * 4,
+            ops=hcols.numel(), rows=rp.shape[1] - 1, nnz=hcols.numel(), hub_degree=hub_deg,
+        ))
+        # the same batch as the dense ELL matrix the TPU kernel needs: every
+        # row padded to the hub's degree with the identity slot
+        ell = torch.full((rp.shape[1] - 1, hub_deg), state_len - 1, dtype=torch.int32, device=device)
+        for r in range(rp.shape[1] - 1):
+            a, b = int(rp[0, r]), int(rp[0, r + 1])
+            ell[r, : b - a] = hcols[0, a:b]
+        xe = hx[0]
+        rows_out.append(spmv_row(
+            torch, timer, f"hub_ell32x{hub_deg}_{reduce}", "ell", reduce,
+            spmv.ell_spmv(xe, ell, reduce), spmv_ref.ell_spmv_ref(xe, ell, reduce),
+            lambda: spmv.ell_spmv(xe, ell, reduce),
+            lambda: spmv_ref.ell_spmv_ref(xe, ell, reduce),
+            lambda: (torch.sum if reduce == "sum" else torch.amin)(xe[ell.long()], 1),
+            nbytes=ell.numel() * 4 + int(torch.unique(ell).shape[0]) * 4 + ell.shape[0] * 4,
+            ops=ell.numel(), rows=ell.shape[0], nnz=ell.numel(), hub_degree=hub_deg,
+        ))
+        # tests/test_kernels.py's ELL shapes and inputs
+        for r, d, v in ((16, 8, 64), (128, 32, 300), (333, 17, 1000)):
+            trng = np.random.default_rng(r + d)
+            xt = np.concatenate([trng.random(v).astype(np.float32), [ident]]).astype(np.float32)
+            ct = trng.integers(0, v + 1, size=(r, d)).astype(np.int32)
+            xt, ct = torch.from_numpy(xt).to(device), torch.from_numpy(ct).to(device)
+            rows_out.append(spmv_row(
+                torch, timer, f"ell{r}x{d}_v{v}_{reduce}", "ell", reduce,
+                spmv.ell_spmv(xt, ct, reduce), spmv_ref.ell_spmv_ref(xt, ct, reduce),
+                lambda: spmv.ell_spmv(xt, ct, reduce),
+                lambda: spmv_ref.ell_spmv_ref(xt, ct, reduce),
+                lambda: (torch.sum if reduce == "sum" else torch.amin)(xt[ct.long()], 1),
+                nbytes=r * d * 4 + int(torch.unique(ct).shape[0]) * 4 + r * 4,
+                ops=r * d, rows=r, nnz=r * d,
+            ))
+    del rows64, cols64
+    for row in rows_out:
+        log(json.dumps({"phase": 9, **row}))
+    return rows_out
+
+
 def check_quality(np, graph, part, q, k: int, what: str) -> None:
     """The device quality scan against a host recomputation."""
     check(part.shape == (graph.num_vertices,) and part.min() >= 0 and part.max() < k,
@@ -372,9 +558,10 @@ def check_quality(np, graph, part, q, k: int, what: str) -> None:
           f"{what}: edge imbalance differs from host")
 
 
-def reset_counts(ops) -> None:
+def reset_counts(ops, spmv) -> None:
     ops.launches = 0
     ops.sharded_launches = 0
+    spmv.launches = 0
 
 
 def profile_totals(profile: dict) -> dict:
@@ -403,6 +590,10 @@ def main() -> int:
     import repro_torch.api as tapi
     from repro_torch.graph.generators import rmat_graph
     from repro_torch.graph.stream import ShardedStream
+    from repro_torch.analytics import programs
+    from repro_torch.kernels.ell_spmv import build as spmv_build
+    from repro_torch.kernels.ell_spmv import ops as spmv
+    from repro_torch.kernels.ell_spmv import ref as spmv_ref
     from repro_torch.kernels.partition_score import build, ops, ref
 
     device = torch.device("cpu" if args.tiny else "cuda")
@@ -412,14 +603,17 @@ def main() -> int:
     ident = "cpu rehearsal" if args.tiny else gpu_identity()
     log(f"phase 0: {ident} | torch {torch.__version__} | cuda {torch.version.cuda}")
     if not args.tiny:
+        # one nvcc per kernel source, all started together
+        libraries = [build.LIBRARY, spmv_build.LIBRARY]
         t0 = time.perf_counter()
-        build.build()
-        build.library()
-        log(f"phase 0: kernel built in {time.perf_counter() - t0:.3f} s "
-            f"(nvcc {build.build_seconds:.3f} s)")
-        for line in build.build_log.splitlines():
-            if "registers" in line or "Compiling entry" in line:
-                log(f"phase 0: ptxas: {line.strip()}")
+        with ThreadPoolExecutor(len(libraries)) as pool:
+            list(pool.map(lambda lib: lib.load(), libraries))
+        log(f"phase 0: kernels built in {time.perf_counter() - t0:.3f} s")
+        for lib in libraries:
+            log(f"phase 0: {lib.path.name}: nvcc {lib.build_seconds:.3f} s")
+            for line in lib.build_log.splitlines():
+                if "registers" in line or "Compiling entry" in line:
+                    log(f"phase 0: ptxas: {line.strip()}")
 
     # ------------------------------------------------------------ phase 1
     scale = 14 if args.tiny else 22
@@ -437,7 +631,7 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
     spec = tapi.PartitionSpec(algo="fennel", k=8, epsilon=0.05, balance_mode="edge",
                               order="random", seed=0)
-    reset_counts(ops)
+    reset_counts(ops, spmv)
     res = tapi.partition(graph, spec, device=device)
     if device.type == "cuda":
         torch.cuda.synchronize()
@@ -461,7 +655,7 @@ def main() -> int:
         "kernel_calls": res.telemetry["kernel_calls"], "launches": main_launches,
         "max_memory_allocated": peak, "device": ident,
     }))
-    del res
+    main_res = res  # phase 10 runs the analytics on this assignment
 
     # ------------------------------------------------------------ phase 3
     from repro_torch.graph.generators import load_dataset
@@ -506,8 +700,8 @@ def main() -> int:
     }))
 
     # ------------------------------------------------------------ phase 4
+    social_res = res  # phase 11 profiles pagerank on this partition
     social = res.graph
-    del res
     log(json.dumps({"phase": 4, "dataset": dataset, **profile_stream(torch, tapi, social, device)}))
 
     # ------------------------------------------------------------ phase 5
@@ -520,7 +714,7 @@ def main() -> int:
     spec = tapi.PartitionSpec(algo="fennel-parallel", k=8, epsilon=0.05, balance_mode="edge",
                               order="random", seed=0,
                               params={"num_shards": NUM_SHARDS, "max_workers": 0})
-    reset_counts(ops)
+    reset_counts(ops, spmv)
     res = tapi.partition(graph, spec, device=device)
     if device.type == "cuda":
         torch.cuda.synchronize()
@@ -555,13 +749,13 @@ def main() -> int:
         "workers1_stream_seconds": one.timings["stream_seconds"],
         "workers1_profile": profile_totals(one.profile), "device": ident,
     }))
-    del graph, dgraph, res, one
+    del dgraph, res, one
 
     # ------------------------------------------------------------ phase 7
     for algo in ("fennel-parallel", "cuttana-parallel", "cuttana-restream"):
         spec = tapi.PartitionSpec(algo=algo, k=8, balance_mode="edge", order="random", seed=0,
                                   params={"num_shards": NUM_SHARDS})
-        reset_counts(ops)
+        reset_counts(ops, spmv)
         on_dev = tapi.partition(web, spec, device=device)
         dev_launches = ops.sharded_launches
         check(ops.launches == 0, f"web-s {algo}: the sequential kernel launched")
@@ -593,7 +787,7 @@ def main() -> int:
                         "identical_to": seq_algo, "edge_cut": one.quality()["edge_cut"]}))
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    reset_counts(ops)
+    reset_counts(ops, spmv)
     res = tapi.partition(social, tapi.PartitionSpec(
         algo="cuttana-parallel", k=8, balance_mode="edge", order="random", seed=0,
         params={"num_shards": NUM_SHARDS}), device=device)
@@ -624,14 +818,96 @@ def main() -> int:
     log(json.dumps({"phase": 8, "dataset": dataset, **profile_stream(
         torch, tapi, social, device, "fennel-parallel", {"num_shards": NUM_SHARDS})}))
 
+    # ------------------------------------------------------------ phase 9
+    lg = main_res.localized()
+    t0 = time.perf_counter()
+    lg.to(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    to_device_s = time.perf_counter() - t0
+    log(json.dumps({
+        "phase": 9, "layout": f"rmat 2^{scale} fennel k=8", "localize_seconds":
+        main_res.timings["localize_seconds"], "layout_to_device_seconds": to_device_s,
+        "k": lg.k, "v_max": lg.v_max, "h_max": lg.h_max, "e_max": lg.e_max,
+        "state_len": lg.state_len, "max_local_edges": lg.max_local_edges(),
+    }))
+    spmv_shapes = spmv_kernel_checks(torch, np, spmv, spmv_ref, lg, device, timer)
+
+    # ----------------------------------------------------------- phase 10
+    q = main_res.quality()
+    n = graph.num_vertices
+    on_cpu = dataclasses.replace(main_res, device=torch.device("cpu"))  # shares the layout
+    spmv_launches = 0
+    for prog, iters in ANALYTICS_ITERS.items():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        reset_counts(ops, spmv)
+        out = main_res.analytics(prog, iters, mode="simulated")
+        launches = spmv.launches
+        check(ops.launches == 0 and ops.sharded_launches == 0,
+              f"analytics {prog}: a partition-score kernel launched")
+        expect = iters if device.type == "cuda" else 0
+        check(launches == expect, f"analytics {prog}: {launches} launches, expected {expect}")
+        spmv_launches += launches
+        peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
+        got = out["values"]
+        check(got.shape == (n,) and got.dtype == np.float32 and np.isfinite(got).all(),
+              f"analytics {prog}: values have the wrong shape, type or non-finite entries")
+        want = on_cpu.analytics(prog, iters, mode="simulated")
+        if prog == "pagerank":
+            check(np.allclose(got, want["values"], rtol=1e-5, atol=1e-9),
+                  f"analytics pagerank: {device.type} and cpu values differ beyond rtol 1e-5")
+            check((got > 0).all() and got.sum() <= 1.0 + 1e-3, "analytics pagerank: not a distribution")
+            again = main_res.analytics(prog, iters, mode="simulated")
+            check(np.array_equal(again["values"], got), "analytics pagerank: two runs differ")
+        else:
+            check(np.array_equal(got, want["values"]),
+                  f"analytics {prog}: {device.type} and cpu values differ")
+        check(abs(out["halo_messages_per_iter"] - q["comm_volume"] * lg.k * n) < 1e-3,
+              f"analytics {prog}: halo messages {out['halo_messages_per_iter']} != "
+              f"comm_volume * k * |V| = {q['comm_volume'] * lg.k * n}")
+        log(json.dumps({
+            "phase": 10, "program": prog, "iters": iters, "launches": launches,
+            "seconds": out["seconds"], "cpu_seconds": want["seconds"],
+            "localize_seconds": main_res.timings["localize_seconds"],
+            "halo_messages_per_iter": out["halo_messages_per_iter"],
+            "padded_halo_elements_per_iter": out["padded_halo_elements_per_iter"],
+            "max_local_edges": out["max_local_edges"], "mean_local_edges": out["mean_local_edges"],
+            "identical_to_cpu": bool(np.array_equal(got, want["values"])),
+            "max_rel_diff_to_cpu": float(np.max(np.abs(got - want["values"])
+                                                / np.maximum(np.abs(want["values"]), 1e-30))),
+            "second_run_seconds": again["seconds"] if prog == "pagerank" else None,
+            "max_memory_allocated": peak, "device": ident,
+        }))
+    # a small input against the float64 dense oracles (tests/test_analytics.py's tolerances)
+    web_res = tapi.partition(web, tapi.PartitionSpec(algo="fennel", k=8, balance_mode="edge",
+                                                     order="random", seed=0), device=device)
+    pr = web_res.analytics("pagerank", 30, mode="simulated")["values"]
+    check(np.allclose(pr, programs.reference_pagerank(web, 30), rtol=2e-4, atol=1e-9),
+          "web-s pagerank differs from the float64 oracle")
+    cc = web_res.analytics("cc", 20, mode="simulated")["values"]
+    check(np.array_equal(cc, programs.reference_cc(web, 20)), "web-s cc differs from the oracle")
+    sp = web_res.analytics("sssp", 20, mode="simulated")["values"]
+    want = programs.reference_sssp(web, 20)
+    finite = np.isfinite(want)
+    check(np.array_equal(sp[finite], want[finite]) and (sp[~finite] > 1e30).all(),
+          "web-s sssp differs from the oracle")
+    log(json.dumps({"phase": 10, "dataset": "web-s", "oracles_agree": True}))
+
+    # ----------------------------------------------------------- phase 11
+    social_res.localized().to(device)  # layout built and placed outside the profile
+    log(json.dumps({"phase": 11, "dataset": dataset, **profile_analytics(
+        torch, social_res, spmv, device)}))
+
     # ------------------------------------------------------------ summary
-    def summary(name, shapes_, launches, replaces):
+    def summary(name, shapes_, launches, replaces, source=KERNEL_SOURCE):
         main_shape = shapes_[0]
+        err = max(r.get("max_abs_err", max(r.get("max_abs_err_alpha0", 0.0),
+                                           r.get("max_abs_err_penalty", 0.0))) for r in shapes_)
         return {
-            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": replaces, "launches": launches,
-            "max_abs_err": max(max(r["max_abs_err_alpha0"], r["max_abs_err_penalty"])
-                               for r in shapes_),
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": main_shape["ms"], "call_ms": main_shape["call_ms"],
             "plain_ms": main_shape["plain_ms"],
             "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
@@ -641,6 +917,7 @@ def main() -> int:
     log(json.dumps({"kernels": [
         summary("partition_score", shapes, main_launches, TPU_KERNEL),
         summary("partition_score_sharded", sharded_shapes, sharded_launches, TPU_KERNEL_SHARDED),
+        summary("ell_spmv", spmv_shapes, spmv_launches, TPU_KERNEL_SPMV, SPMV_SOURCE),
     ]}))
     if args.tiny:
         log("tiny rehearsal finished on the CPU: every phase ran; no device result")

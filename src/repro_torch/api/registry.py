@@ -172,7 +172,7 @@ _LATER = dict.fromkeys(
         "hash", "chunked", "cuttana-legacy", "cuttana-batched-legacy",
         "fennel-legacy", "ldg-legacy", "heistream-legacy", "hdrf", "ginger",
     ),
-    "slice 3 (the rest of the partitioner zoo)",
+    "slice 4 (the rest of the partitioner zoo)",
 )
 
 

@@ -1,15 +1,21 @@
 """``PartitionResult``: the result of a spec run (port of
-``repro.api.result``, limited to :meth:`PartitionResult.quality` and the
-parallel engine's :attr:`PartitionResult.profile`)."""
+``repro.api.result``: :meth:`PartitionResult.quality`, the parallel engine's
+:attr:`PartitionResult.profile`, and the analytics study
+:meth:`PartitionResult.analytics`)."""
 from __future__ import annotations
 
 import dataclasses
+import time
+from typing import TYPE_CHECKING
 
 import numpy as np
 import torch
 
 from repro_torch.api.spec import PartitionSpec
 from repro_torch.graph.csr import CSRGraph
+
+if TYPE_CHECKING:
+    from repro_torch.analytics.localize import LocalizedGraph
 
 __all__ = ["PartitionResult"]
 
@@ -27,6 +33,7 @@ class PartitionResult:
     timings: dict = dataclasses.field(default_factory=dict)
     telemetry: dict = dataclasses.field(default_factory=dict)
     _quality: dict | None = dataclasses.field(default=None, repr=False)
+    _localized: LocalizedGraph | None = dataclasses.field(default=None, repr=False)
 
     @property
     def k(self) -> int:
@@ -51,3 +58,67 @@ class PartitionResult:
                 **quality_report(self.graph, self.assignment, self.k, self.device),
             }
         return self._quality
+
+    # ------------------------------------------------------------- analytics
+    def localized(self) -> LocalizedGraph:
+        """The per-device layout of this partition for the analytics engine
+        (:func:`repro_torch.analytics.localize`, host numpy), built on first
+        call and kept; its host time goes to ``timings["localize_seconds"]``."""
+        if self._localized is None:
+            from repro_torch.analytics import localize
+
+            t0 = time.perf_counter()
+            self._localized = localize(self.graph, self.assignment, self.k)
+            self.timings["localize_seconds"] = time.perf_counter() - t0
+        return self._localized
+
+    def analytics(
+        self,
+        program: str = "pagerank",
+        iters: int = 30,
+        mode: str = "model",
+    ) -> dict:
+        """Run the paper's analytics study on this partition.
+
+        ``mode="model"``: the reference's cost model, with the reference's
+        parameters; its times are modelled, not measured on any device.
+        ``mode="simulated"``: run the vertex-program engine on ``device``
+        (the K devices on the leading axis of one card's arrays) and report
+        its halo traffic; ``seconds`` is the wall time of the run, the card
+        synchronised before the clock stops. ``values`` is float32[|V|].
+        """
+        if mode == "model":
+            from repro_torch.analytics import workload_cost
+
+            return {
+                "mode": "model",
+                "program": program,
+                **workload_cost(self.graph, self.assignment, self.k, iters),
+            }
+        if mode != "simulated":
+            raise ValueError(f"unknown analytics mode {mode!r}")
+        from repro_torch.analytics import PROGRAMS, GraphEngine
+
+        if program not in PROGRAMS:
+            raise ValueError(
+                f"unknown program {program!r}; expected one of "
+                f"{sorted(PROGRAMS)}"
+            )
+        eng = GraphEngine(self.localized(), PROGRAMS[program](), device=self.device)
+        t0 = time.perf_counter()
+        values = eng.run_simulated(iters)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        seconds = time.perf_counter() - t0
+        st = eng.stats(iters)
+        return {
+            "mode": "simulated",
+            "program": program,
+            "iters": iters,
+            "seconds": seconds,
+            "values": values,
+            "halo_messages_per_iter": st.true_halo_messages_per_iter,
+            "padded_halo_elements_per_iter": st.padded_halo_elements_per_iter,
+            "max_local_edges": st.max_local_edges,
+            "mean_local_edges": st.mean_local_edges,
+        }

@@ -10,11 +10,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.analytics.localize import LocalizedGraph
 from repro_torch.core.base import PartitionState
 from repro_torch.device import resolve_device
 from repro_torch.graph.csr import CSRGraph
 
-__all__ = ["graph_from_arrays", "state_from_arrays"]
+__all__ = ["graph_from_arrays", "localized_from_arrays", "state_from_arrays"]
 
 
 def graph_from_arrays(
@@ -68,3 +69,61 @@ def state_from_arrays(
         seed=seed,
         device=resolve_device(device),
     )
+
+
+def localized_from_arrays(
+    *,
+    k: int,
+    v_max: int,
+    h_max: int,
+    e_max: int,
+    num_vertices: int,
+    num_edges: int,
+    local_to_global: np.ndarray,
+    local_count: np.ndarray,
+    rows: np.ndarray,
+    cols: np.ndarray,
+    send_gather: np.ndarray,
+    send_count: np.ndarray,
+    degrees_full: np.ndarray,
+    local_degrees: np.ndarray,
+    part: np.ndarray,
+    global_to_local: np.ndarray,
+) -> LocalizedGraph:
+    """A :class:`LocalizedGraph` over copies of a layout's arrays (the fields
+    of the reference's ``LocalizedGraph``, e.g. ``**dataclasses.asdict(lg)``),
+    so both engines can run on one layout. Checks the shapes, the index
+    ranges the engine relies on, and that each device's ``rows`` are in CSR
+    order."""
+    k, v_max, h_max, e_max = int(k), int(v_max), int(h_max), int(e_max)
+    state_len = v_max + k * h_max + 1
+    arrays = {
+        "local_to_global": (local_to_global, np.int32, (k, v_max)),
+        "local_count": (local_count, np.int32, (k,)),
+        "rows": (rows, np.int32, (k, e_max)),
+        "cols": (cols, np.int32, (k, e_max)),
+        "send_gather": (send_gather, np.int32, (k, k, h_max)),
+        "send_count": (send_count, np.int32, (k, k)),
+        "degrees_full": (degrees_full, np.float32, (k, state_len)),
+        "local_degrees": (local_degrees, np.float32, (k, v_max)),
+        "part": (part, np.int32, (int(num_vertices),)),
+        "global_to_local": (global_to_local, np.int32, (int(num_vertices),)),
+    }
+    out = {}
+    for name, (arr, dtype, shape) in arrays.items():
+        arr = np.array(arr, dtype=dtype)
+        if arr.shape != shape:
+            raise ValueError(f"{name} has shape {arr.shape}, expected {shape}")
+        out[name] = arr
+    if out["cols"].size and (out["cols"].min() < 0 or out["cols"].max() >= state_len):
+        raise ValueError(f"cols must index the state vector [0, {state_len})")
+    if out["send_gather"].size and (
+        out["send_gather"].min() < 0 or out["send_gather"].max() >= v_max
+    ):
+        raise ValueError(f"send_gather must hold local indices in [0, {v_max})")
+    lg = LocalizedGraph(
+        k=k, v_max=v_max, h_max=h_max, e_max=e_max,
+        num_vertices=int(num_vertices), num_edges=int(num_edges), **out,
+    )
+    lg.row_ptr()  # raises unless rows are in CSR order
+    return lg

@@ -241,7 +241,7 @@ class EngineConfig:
         if self.prefetch == "on":
             raise ValueError(
                 'prefetch="on" decodes an out-of-core graph ahead of the stream; '
-                "out-of-core graphs arrive with slice 4 of the port"
+                "out-of-core graphs arrive with slice 5 of the port"
             )
         if self.chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {self.chunk}")

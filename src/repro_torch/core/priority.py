@@ -1,7 +1,7 @@
 """Buffer-eviction priority for CUTTANA's buffered streaming (paper Eq. 6).
 
 Port of ``repro.core.priority`` limited to the paper's ``eq6`` strategy;
-``completeness`` and ``gain`` (``cuttana-buffcut``) arrive with slice 3 of
+``completeness`` and ``gain`` (``cuttana-buffcut``) arrive with slice 4 of
 the port. The scoring expressions are literally the reference's, so the
 eviction order is bit-identical.
 """
@@ -43,7 +43,7 @@ def make_priority(name: str, d_max: int, theta: float = 1.0) -> Eq6Priority:
     if name in BUFFER_STRATEGIES:
         raise ValueError(
             f"buffer strategy {name!r} is not ported yet: it arrives with "
-            "slice 3 of the port (cuttana-buffcut); only 'eq6' runs now"
+            "slice 4 of the port (cuttana-buffcut); only 'eq6' runs now"
         )
     raise ValueError(
         f"unknown buffer strategy {name!r}; expected one of {BUFFER_STRATEGIES}"

@@ -13,6 +13,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class DeviceCSR:
@@ -75,7 +77,7 @@ class CSRGraph:
         """The graph's arrays on ``device``, copied there on first use and
         kept for the graph's lifetime. On the CPU the tensors share memory
         with the numpy arrays."""
-        device = torch.device(device)
+        device = resolve_device(device)  # "cuda" and "cuda:0" share one copy
         key = str(device)
         dev = self._on_device.get(key)
         if dev is None:

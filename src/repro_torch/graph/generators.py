@@ -208,7 +208,7 @@ def _parse_source(source: str):
         return "dataset", name
     raise ValueError(
         f"source {source!r} names a graph file; on-disk graphs arrive with "
-        "slice 4 of the port (use rmat:<n>[:<avg_degree>] or dataset:<name>)"
+        "slice 5 of the port (use rmat:<n>[:<avg_degree>] or dataset:<name>)"
     )
 
 

@@ -1,1 +1,20 @@
 """Hand-written Hopper kernels, each beside its plain PyTorch version."""
+from __future__ import annotations
+
+import torch
+
+
+def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
+                 device: torch.device) -> None:
+    """Raise unless ``t`` is a contiguous ``ndim``-D ``dtype`` tensor on
+    ``device``: what a wrapper checks before handing a pointer to a kernel."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must be {ndim}-D, got shape {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

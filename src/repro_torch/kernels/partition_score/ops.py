@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import check_tensor as _check
 from repro_torch.kernels.partition_score import build
 from repro_torch.kernels.partition_score.ref import (
     fennel_scores_gather_ref,
@@ -37,20 +38,6 @@ MAX_K = 12288
 _MAX_ROWS = 2**31 - 1
 launches = 0
 sharded_launches = 0
-
-
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
-           device: torch.device) -> None:
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if t.dim() != ndim:
-        raise ValueError(f"{name} must be {ndim}-D, got shape {tuple(t.shape)}")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def _check_k(sizes: torch.Tensor) -> int:

@@ -1,6 +1,7 @@
-"""The partition-score CUDA kernel (sequential and sharded entries) against
-its plain PyTorch versions on the card, and the partitioners on the card
-against the same runs on the CPU. A CUDA kernel has no CPU mode, so these
+"""The partition-score CUDA kernel (sequential and sharded entries) and the
+gather/reduce CUDA kernel (segment and ELL entries) against their plain
+PyTorch versions on the card, and the partitioners and the analytics engine
+on the card against the same runs on the CPU. A CUDA kernel has no CPU mode, so these
 tests are marked ``gpu`` and skip without a card. The file imports only the port, so it also runs on a
 machine without JAX:
 
@@ -164,3 +165,83 @@ def test_parallel_on_card_matches_cpu_and_launches_per_superstep(cuda_device, al
     on_cpu = tapi.partition(web, spec, device="cpu")
     np.testing.assert_array_equal(on_card.assignment, on_cpu.assignment)
     assert on_card.quality()["edge_cut"] == on_cpu.quality()["edge_cut"]
+
+
+# ------------------------------------------------------------------ ell_spmv
+@pytest.mark.gpu
+@pytest.mark.parametrize("reduce", ["sum", "min"])
+@pytest.mark.parametrize("r,d,v", [(16, 8, 64), (128, 32, 300), (333, 17, 1000), (64, 30_000, 5000)])
+def test_ell_kernel_matches_plain_version(cuda_device, reduce, r, d, v):
+    from repro_torch.kernels.ell_spmv import ops as spmv
+    from repro_torch.kernels.ell_spmv.ref import ell_spmv_ref
+
+    rng = np.random.default_rng(r + d)
+    x = np.concatenate([rng.random(v), [0.0 if reduce == "sum" else 3e38]]).astype(np.float32)
+    cols = rng.integers(0, v + 1, size=(r, d)).astype(np.int32)
+    x_dev, c_dev = torch.from_numpy(x).to(cuda_device), torch.from_numpy(cols).to(cuda_device)
+    before = spmv.launches
+    got = spmv.ell_spmv(x_dev, c_dev, reduce)
+    torch.cuda.synchronize()
+    assert spmv.launches == before + 1
+    want = ell_spmv_ref(x_dev, c_dev, reduce)
+    if reduce == "min":
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("reduce", ["sum", "min"])
+def test_segments_kernel_matches_plain_version(cuda_device, hub_graph, reduce):
+    """The engine's layout of an R-MAT with a hub row, plus empty rows and
+    an edgeless device."""
+    from repro_torch.analytics import localize
+    from repro_torch.kernels.ell_spmv import ops as spmv
+    from repro_torch.kernels.ell_spmv.ref import ell_spmv_segments_ref
+
+    g = hub_graph
+    part = np.random.default_rng(0).integers(0, 7, size=g.num_vertices)  # device 7 is empty
+    lg = localize(g, part, 8)
+    dev = lg.to(cuda_device)
+    assert lg.to("cuda") is dev and lg.to(torch.device("cuda", 0)) is dev  # one copy
+    rng = np.random.default_rng(1)
+    x = rng.random((8, lg.state_len)).astype(np.float32)
+    x[:, -1] = 0.0 if reduce == "sum" else 3e38
+    x_dev = torch.from_numpy(x).to(cuda_device)
+    before = spmv.launches
+    got = spmv.ell_spmv_segments(x_dev, dev.row_ptr, dev.cols, reduce)
+    torch.cuda.synchronize()
+    assert spmv.launches == before + 1
+    want = ell_spmv_segments_ref(x_dev, dev.row_ptr, dev.cols, reduce)
+    if reduce == "min":
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+    again = spmv.ell_spmv_segments(x_dev, dev.row_ptr, dev.cols, reduce)
+    assert torch.equal(got, again)  # no atomics: the same bits every launch
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prog,iters", [("pagerank", 30), ("cc", 20), ("sssp", 20)])
+def test_analytics_on_card_matches_cpu_and_launches_per_iteration(cuda_device, prog, iters):
+    import repro_torch.api as tapi
+    from repro_torch.graph.generators import load_dataset
+    from repro_torch.kernels.ell_spmv import ops as spmv
+
+    web = load_dataset("web-s", seed=0)
+    spec = tapi.PartitionSpec(algo="fennel", k=8, balance_mode="edge", order="random", seed=0)
+    on_card = tapi.partition(web, spec, device=cuda_device)
+    before = spmv.launches
+    got = on_card.analytics(prog, iters, mode="simulated")
+    assert spmv.launches - before == iters
+    on_cpu = tapi.partition(web, spec, device="cpu")
+    want = on_cpu.analytics(prog, iters, mode="simulated")
+    if prog == "pagerank":
+        np.testing.assert_allclose(got["values"], want["values"], rtol=1e-5, atol=1e-9)
+        again = on_card.analytics(prog, iters, mode="simulated")
+        np.testing.assert_array_equal(again["values"], got["values"])  # run to run
+    else:
+        np.testing.assert_array_equal(got["values"], want["values"])
+    for key in ("halo_messages_per_iter", "padded_halo_elements_per_iter", "max_local_edges",
+                "mean_local_edges"):
+        assert got[key] == want[key]

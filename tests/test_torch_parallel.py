@@ -273,7 +273,7 @@ def test_restream_reassign_preserves_load_accounting(small_graph):
 
 def test_restream_unported_base_names_its_slice(small_graph):
     _, tg = small_graph
-    with pytest.raises(ValueError, match="slice 3"):
+    with pytest.raises(ValueError, match="slice 4"):
         restream.partition_restream(tg, 4, base="hdrf", device=CPU)
     with pytest.raises(ValueError, match="unknown partitioner"):
         restream.partition_restream(tg, 4, base="nope", device=CPU)
@@ -305,8 +305,8 @@ def test_parallel_num_shards_validation(graph):
         ("cuttana-parallel", {"chunk": -1}, "chunk"),
         # chunk=0 ("auto") is reserved to the parallel algos
         ("cuttana-restream", {"chunk": 0}, "chunk"),
-        ("cuttana-parallel", {"prefetch": "on"}, "slice 4"),
-        ("cuttana-parallel", {"strategy": "completeness"}, "slice 3"),
+        ("cuttana-parallel", {"prefetch": "on"}, "slice 5"),
+        ("cuttana-parallel", {"strategy": "completeness"}, "slice 4"),
     ]
     for algo, params, match in bad_specs:
         with pytest.raises(ValueError, match=match):
