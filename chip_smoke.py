@@ -56,7 +56,29 @@ Phases:
      ``comm_volume * k * |V|``; web-s values against the float64 oracles;
  11. pagerank on social-m (phase 3's ``cuttana`` partition) under
      ``torch.profiler``: the card's busy time and idle share, beside
-     phases 4 and 8.
+     phases 4 and 8;
+ 12. the flash-attention kernel against its plain version on the card:
+     ``tests/test_kernels.py``'s shapes in float32 and bf16 and its
+     decode-offset sweep (2e-5 / 2e-2), one qwen3-8b layer at prefill (B=1,
+     Hq=32, Hkv=8, T=8192, Dh=128, bf16, causal) and one at a 32k decode step
+     (B=32, Tq=1, Tk=32768, q_offset=32767; B cut from ``decode_32k``'s 128
+     so the plain version's float32 K/V fit), ``library_ms`` being
+     ``F.scaled_dot_product_attention``;
+ 13. the selective-scan kernel against its plain version on the card:
+     ``tests/test_kernels.py``'s shapes in float32 and bf16 (1e-4 / 3e-2) and
+     one falcon-mamba-7b layer at prefill (B=1, T=8192, D=8192, N=16,
+     float32; ``SCAN_LAYER_TOL``); no single PyTorch call computes the scan;
+ 14. qwen3-8b at full width and depth with seeded random weights:
+     ``make_prefill_step`` at B=1, T=8192 (36 flash launches), then
+     ``launch.serve.serve`` at B=8, prompt 128, 32 generated tokens (36
+     launches a decode step: 36 x 159), prefill logits against the decode
+     path's on a 16-token prompt, and one decode step under
+     ``torch.profiler``;
+ 15. falcon-mamba-7b the same way: prefill with 64 scan launches, serve
+     with none (decode is the plain recurrence, as in the reference), and
+     one prefill under ``torch.profiler``;
+ 16. both reduced configs in float32 with the same weights on the card and
+     on the CPU: logits within 1e-4 and equal greedy tokens.
 
 Kernel times: ``ms`` is device time per launch (launches captured in a CUDA
 graph and replayed, so the host's cost of a call is out); ``call_ms``,
@@ -68,7 +90,8 @@ must move over 3.35 TB/s and its operations over the card's peak rate.
 The last lines are the ``{"kernels": [...]}`` summary, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero before that line. Without a CUDA device (and without ``--tiny``)
-the script exits 2 and prints no result.
+the script exits 2 and prints no result. ``--tiny`` runs phases 12-16 at
+the reduced configs and small kernel shapes.
 """
 from __future__ import annotations
 
@@ -87,10 +110,35 @@ TPU_KERNEL = "src/repro/kernels/partition_score/partition_score.py:105"
 TPU_KERNEL_SHARDED = "src/repro/kernels/partition_score/partition_score.py:68"
 SPMV_SOURCE = "src/repro_torch/kernels/ell_spmv/csrc/ell_spmv.cu"
 TPU_KERNEL_SPMV = "src/repro/kernels/ell_spmv/ell_spmv.py:33"
+FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+TPU_KERNEL_FLASH = "src/repro/kernels/flash_attention/flash_attention.py:89"
+SCAN_SOURCE = "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu"
+TPU_KERNEL_SCAN = "src/repro/kernels/mamba_scan/mamba_scan.py:46"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
 FP64_OPS_PER_S = 34e12  # H100 SXM float64 outside the tensor cores (data sheet)
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+# exponentials on the special-function units: 16 per clock per SM at compute
+# capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
+# throughput), 132 SMs at the 1.98 GHz boost clock behind the 67 TFLOP/s
+EXP_PER_S = 132 * 16 * 1.98e9
 ANALYTICS_ITERS = {"pagerank": 30, "cc": 20, "sssp": 20}  # benchmarks/analytics.py
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py's
+# an attention output row is a softmax average over up to 32768 keys, so its
+# entries are ~sqrt(e / keys) in size, at or below the bf16 allowance above;
+# every (batch, head, query) row is also held to a relative L2 error scaled to
+# its own data. Kernel and plain version both compute in float32 and round
+# once to the output dtype, which is <= 2^-8 relative per entry. A fault such
+# as skipping the last 64-key tile at the 32k decode shape keeps every entry
+# within the elementwise rule but not its rows within this one.
+FLASH_ROW_RTOL = 1e-2
+SCAN_TOL = {"float32": 1e-4, "bfloat16": 3e-2}  # tests/test_kernels.py's
+# one falcon-mamba-7b layer at T=8192 in float32: the kernel rounds in
+# another order (fused multiply-adds, a shuffle tree for h.C), and the state
+# carries each rounding over its decay horizon, about 1/(dt*|A|) <= 100 steps
+# at dt >= 0.01 and |A| >= 1; the test shapes' 1e-4 covers 8-32 steps
+SCAN_LAYER_TOL = 1e-3
+LM_ARCHS = ("qwen3-8b", "falcon-mamba-7b")
 CHUNK = 512
 NUM_SHARDS = 4
 # the reference's values for these specs (repro.api.partition, k=8, edge
@@ -156,7 +204,7 @@ class Timer:
         CPU it is the host time of a call."""
         torch = self.torch
         if self.device.type != "cuda":
-            return self(fn)
+            return self(fn, reps=reps)
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
@@ -558,15 +606,342 @@ def check_quality(np, graph, part, q, k: int, what: str) -> None:
           f"{what}: edge imbalance differs from host")
 
 
-def reset_counts(ops, spmv) -> None:
-    ops.launches = 0
-    ops.sharded_launches = 0
-    spmv.launches = 0
+def reset_counts(*modules) -> None:
+    """Zero the launch counts of every kernel wrapper module."""
+    for mod in modules:
+        mod.reset()
 
 
 def profile_totals(profile: dict) -> dict:
     """The parallel engine's profile without its per-superstep rows."""
     return {k: v for k, v in profile.items() if k != "per_superstep"}
+
+
+def sync(torch, device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def attention_pairs(np, tq: int, tk: int, causal: bool, window, q_offset: int) -> int:
+    """The (query, key) pairs the masks keep: the work the data needs."""
+    qpos = np.arange(tq, dtype=np.int64) + q_offset
+    hi = np.minimum(qpos, tk - 1) if causal else np.full(tq, tk - 1, np.int64)
+    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(tq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def within(got, want, tol: float) -> tuple[bool, float]:
+    """``assert_allclose(rtol=tol, atol=tol)``'s rule, and the max abs error."""
+    diff = (got.float() - want.float()).abs()
+    ok = bool((diff <= tol + tol * want.float().abs()).all())
+    return ok, float(diff.max()) if diff.numel() else 0.0
+
+
+def worst_row_rel_l2(got, want) -> float:
+    """The largest ``|got - want| / |want|`` (L2 over the last axis) of any row."""
+    want = want.float()
+    diff = (got.float() - want).norm(dim=-1)
+    return float((diff / want.norm(dim=-1).clamp_min(1e-30)).max())
+
+
+def flash_row(torch, np, F, fa, fa_ref, timer, name, b, hq, hkv, tq, tk, dh, dtype,
+              causal=True, window=None, q_offset=0, library_causal=None, reps=(100, 5)):
+    """Phase 12: one shape of the attention kernel against its plain version
+    (``tests/test_kernels.py``'s tolerances), its device time and its bound;
+    with ``library_causal`` set (the main shapes) also the per-call, plain
+    and ``scaled_dot_product_attention`` times."""
+    device = timer.device
+    gen = torch.Generator(device=device).manual_seed(tq * 7 + tk + dh)
+    q, k, v = (torch.randn(s, generator=gen, device=device, dtype=torch.float32).to(dtype)
+               for s in ((b, hq, tq, dh), (b, hkv, tk, dh), (b, hkv, tk, dh)))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    got = fa.flash_attention(q, k, v, **kw)
+    want = fa_ref.flash_attention_ref(q, k, v, **kw)
+    sync(torch, device)
+    tname = str(dtype).split(".")[1]
+    ok, err = within(got, want, FLASH_TOL[tname])
+    check(ok, f"flash {name}: kernel differs from plain version beyond {FLASH_TOL[tname]} ({err})")
+    row_err = worst_row_rel_l2(got, want)
+    check(row_err <= FLASH_ROW_RTOL,
+          f"flash {name}: a row differs from the plain version by {row_err} relative L2 "
+          f"(> {FLASH_ROW_RTOL})")
+    del want
+    call = lambda: fa.flash_attention(q, k, v, **kw)  # noqa: E731
+    pairs = attention_pairs(np, tq, tk, causal, window, q_offset) * b * hq
+    flops = 4 * pairs * dh
+    nbytes = (2 * b * hq * tq * dh + 2 * b * hkv * tk * dh) * q.element_size()
+    rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = max(flops / rate, pairs / EXP_PER_S) * 1e3  # the products, or one exp a pair
+    row = {
+        "shape": name, "b": b, "hq": hq, "hkv": hkv, "tq": tq, "tk": tk, "dh": dh,
+        "dtype": tname, "causal": causal, "window": window, "q_offset": q_offset,
+        "max_abs_err": err, "max_row_rel_l2": row_err,
+        "ms": timer.device_ms(call, reps=reps[0], replays=reps[1]),
+        "flops": flops, "exps": pairs, "bytes": nbytes,
+        "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+    }
+    if library_causal is not None:
+        n = max(2, reps[0] // 2)
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, is_causal=library_causal, enable_gqa=True)
+        _, lib_err = within(lib(), got, FLASH_TOL[tname])
+        row.update({
+            "call_ms": timer(call, reps=n, warmup=1),
+            "plain_ms": timer(lambda: fa_ref.flash_attention_ref(q, k, v, **kw), reps=2, warmup=1),
+            "library_ms": timer(lib, reps=n, warmup=1), "library_max_abs_diff": lib_err,
+        })
+    return row
+
+
+def flash_kernel_checks(torch, np, F, fa, fa_ref, timer, tiny: bool):
+    """Phase 12: the attention kernel at the test shapes, the decode-offset
+    sweep, and one qwen3-8b layer at prefill and at a 32k decode step."""
+    rows = []
+    if tiny:  # the reduced qwen3 layer (Hq=4, Hkv=2, Dh=32)
+        rows.append(flash_row(torch, np, F, fa, fa_ref, timer, "prefill_reduced", 1, 4, 2,
+                              256, 256, 32, torch.bfloat16, library_causal=True, reps=(3, 1)))
+        rows.append(flash_row(torch, np, F, fa, fa_ref, timer, "decode_reduced", 2, 4, 2, 1,
+                              512, 32, torch.bfloat16, q_offset=511, library_causal=False,
+                              reps=(3, 1)))
+    else:
+        rows.append(flash_row(torch, np, F, fa, fa_ref, timer, "qwen3_prefill_t8192", 1, 32, 8,
+                              8192, 8192, 128, torch.bfloat16, library_causal=True, reps=(3, 2)))
+        rows.append(flash_row(torch, np, F, fa, fa_ref, timer, "qwen3_decode_tk32768_b32", 32,
+                              32, 8, 1, 32768, 128, torch.bfloat16, q_offset=32767,
+                              library_causal=False, reps=(5, 2)))
+    if timer.device.type == "cuda":
+        torch.cuda.empty_cache()  # the plain version's scores at the prefill shape
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, hq, hkv, tq, tk, dh, causal, window in (
+            (1, 2, 2, 128, 128, 64, True, None), (2, 4, 2, 128, 128, 64, True, None),
+            (1, 2, 1, 256, 256, 32, False, None), (1, 2, 2, 128, 128, 64, True, 32),
+            (2, 2, 2, 64, 64, 128, True, None),
+        ):
+            rows.append(flash_row(torch, np, F, fa, fa_ref, timer, "test_kernels", b, hq, hkv,
+                                  tq, tk, dh, dtype, causal, window, reps=(20, 2)))
+    for q_offset in (0, 1, 127, 128, 200):
+        for tq in (1, 4):
+            rows.append(flash_row(torch, np, F, fa, fa_ref, timer, "decode_offset_sweep", 2, 4,
+                                  4, tq, 256, 64, torch.float32, q_offset=q_offset, reps=(20, 2)))
+    for row in rows:
+        log(json.dumps({"phase": 12, **row}))
+    return rows
+
+
+def scan_row(torch, scan, scan_ref, timer, name, bsz, t, d, n, dtype, tol, model_a=False,
+             main=False):
+    """Phase 13: one shape of the selective-scan kernel against its plain
+    version (y and h_T), its device time and its bound."""
+    device = timer.device
+    gen = torch.Generator(device=device).manual_seed(d + t)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=device)  # noqa: E731
+    x = rnd(bsz, t, d).to(dtype)
+    dt = (rnd(bsz, t, d).abs() * 0.1 + 0.01).to(dtype)
+    if model_a:  # the model's A = -exp(a_log) = -(1..N) on every channel
+        a = -torch.arange(1, n + 1, dtype=torch.float32, device=device).expand(d, n).contiguous()
+    else:
+        a = -(rnd(d, n).abs() + 0.1)
+    b, c = rnd(bsz, t, n).to(dtype), rnd(bsz, t, n).to(dtype)
+    d_skip = rnd(d)
+    args = (x, dt, a, b, c, d_skip)
+    y, h = scan.selective_scan(*args)
+    y_want, h_want = scan_ref.selective_scan_ref(*args)
+    sync(torch, device)
+    ok_y, err_y = within(y, y_want, tol)
+    ok_h, err_h = within(h, h_want, tol)
+    check(ok_y and ok_h, f"scan {name}: kernel differs from plain version beyond {tol} "
+                         f"(y {err_y}, h_T {err_h})")
+    call = lambda: scan.selective_scan(*args)  # noqa: E731
+    item = x.element_size()
+    nbytes = 3 * bsz * t * d * item + 2 * bsz * t * n * item + d * n * 4 + d * 4 + bsz * d * n * 4
+    ops = 7 * bsz * t * d * n  # per (t, d, n): dt*A, exp, *h, *B, +, *C, the sum over N
+    exps = bsz * t * d * n  # the exp of each (t, d, n) on the special-function units
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = max(ops / FP32_OPS_PER_S, exps / EXP_PER_S) * 1e3
+    row = {
+        "shape": name, "b": bsz, "t": t, "d": d, "n": n, "dtype": str(dtype).split(".")[1],
+        "tol": tol, "max_abs_err": max(err_y, err_h), "max_abs_err_y": err_y,
+        "max_abs_err_h": err_h, "ms": timer.device_ms(call, reps=10 if main else 20, replays=2),
+        "bytes": nbytes, "ops": ops, "exps": exps,
+        "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+    }
+    if main:
+        row.update({
+            "call_ms": timer(call, reps=10, warmup=1),
+            "plain_ms": timer(lambda: scan_ref.selective_scan_ref(*args), reps=1, warmup=1),
+            "library_ms": None,  # no single PyTorch call computes the scan
+        })
+    return row
+
+
+def scan_kernel_checks(torch, scan, scan_ref, timer, tiny: bool):
+    """Phase 13: the scan kernel at one falcon-mamba-7b layer and at the
+    test shapes."""
+    t, d = (256, 256) if tiny else (8192, 8192)
+    rows = [scan_row(torch, scan, scan_ref, timer, f"falcon_layer_t{t}_d{d}", 1, t, d, 16,
+                     torch.float32, SCAN_LAYER_TOL, model_a=True, main=True)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for bsz, t, d, n in ((1, 16, 64, 8), (2, 32, 128, 16), (2, 8, 512, 16)):
+            rows.append(scan_row(torch, scan, scan_ref, timer, "test_kernels", bsz, t, d, n,
+                                 dtype, SCAN_TOL[str(dtype).split(".")[1]]))
+    for row in rows:
+        log(json.dumps({"phase": 13, **row}))
+    return rows
+
+
+def tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def tree_numel(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_numel(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(tree_numel(v) for v in tree)
+    return tree.numel()
+
+
+def profile_lm(torch, fn, device, kernel_name: str) -> dict:
+    """One call of ``fn`` under ``torch.profiler`` after a profiled warm-up
+    call (a short window loses its first device events otherwise)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    on_card = device.type == "cuda"
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
+    with profile(activities=acts, schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            fn()
+            sync(torch, device)
+            wall = time.perf_counter() - t0
+            prof.step()
+    return {"profiled_wall_s": wall, **device_time(prof, wall, on_card, kernel_name)}
+
+
+def lm_phase(torch, np, counters, device, arch: str, tiny: bool, ident: str) -> dict:
+    """Phases 14-15: ``arch`` at full width and depth (reduced with
+    ``--tiny``): prefill through ``make_prefill_step``, then the serve loop,
+    with the launches of both kernels checked on each path."""
+    from repro_torch.configs import get_model_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.mamba_scan import ops as scan
+    from repro_torch.launch.serve import prefill_into_cache, serve
+    from repro_torch.models import Model
+    from repro_torch.serve.lm import make_prefill_step
+
+    cfg = get_model_config(("reduced:" if tiny else "") + arch)
+    model = Model(cfg, device)
+    on_card = device.type == "cuda"
+    n_attn = sum(s.mixer == "attn" for s in cfg.layers())
+    n_mamba = sum(s.mixer == "mamba" for s in cfg.layers())
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=model.device).manual_seed(0))
+    sync(torch, device)
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    seq = 64 if tiny else 8192
+    tokens = torch.as_tensor(rng.integers(2, cfg.vocab_size, (1, seq)), device=model.device)
+    prefill = make_prefill_step(model)
+    reset_counts(*counters)
+    t0 = time.perf_counter()
+    logits = prefill(params, {"tokens": tokens})
+    sync(torch, device)
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = {"flash_attention": fa.launches, "selective_scan": scan.launches}
+    expect = {"flash_attention": n_attn, "selective_scan": n_mamba} if on_card else \
+        {"flash_attention": 0, "selective_scan": 0}
+    check(prefill_launches == expect,
+          f"{arch} prefill launched {prefill_launches}, expected {expect}")
+    check(all(m.launches == 0 for m in counters if m not in (fa, scan)),
+          f"{arch} prefill launched a partitioning or analytics kernel")
+    check(tuple(logits.shape) == (1, 1, cfg.vocab_size) and bool(logits.isfinite().all()),
+          f"{arch} prefill logits have the wrong shape or non-finite entries")
+    prefill_peak = torch.cuda.max_memory_allocated() if on_card else None
+    del logits
+    # the full-sequence path (prefill kernel mode) against the decode path
+    # (one token a step) on a short prompt at full width
+    short = tokens[:, :16]
+    lp = prefill(params, {"tokens": short}).float()
+    ld, _ = prefill_into_cache(model, params, model.init_cache(1, 16), short)
+    rel = float((lp - ld.float()).norm() / lp.norm())
+    check(rel < 0.1, f"{arch}: prefill and decode-path logits differ by {rel} (relative L2)")
+    # the serve loop
+    b, plen, gen = (2, 8, 4) if tiny else (8, 128, 32)
+    prompts = torch.as_tensor(rng.integers(2, cfg.vocab_size, (b, plen)), device=model.device)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts(*counters)
+    out, timings = serve(model, params, prompts, gen)
+    serve_launches = {"flash_attention": fa.launches, "selective_scan": scan.launches}
+    expect = {"flash_attention": n_attn * (plen + gen - 1), "selective_scan": 0} if on_card \
+        else {"flash_attention": 0, "selective_scan": 0}
+    check(serve_launches == expect, f"{arch} serve launched {serve_launches}, expected {expect}")
+    check(tuple(out.shape) == (b, gen) and int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size,
+          f"{arch} serve produced ids of the wrong shape or range")
+    serve_peak = torch.cuda.max_memory_allocated() if on_card else None
+    # profiled: one qwen3 decode step, one falcon prefill
+    if n_attn:
+        cache = model.init_cache(b, plen + gen)
+        tok = prompts[:, :1]
+        prof = profile_lm(torch, lambda: model.decode_step(params, cache, tok, plen), device,
+                          "attn_kernel")
+        profiled = f"decode_step b={b} pos={plen}"
+    else:
+        prof = profile_lm(torch, lambda: prefill(params, {"tokens": tokens}), device,
+                          "scan_kernel")
+        profiled = f"prefill b=1 t={seq}"
+    record = {
+        "arch": cfg.name, "params": tree_numel(params), "param_count": cfg.param_count(),
+        "layers": cfg.num_layers, "dtype": cfg.dtype, "init_s": init_s,
+        "prefill": {"batch": 1, "seq": seq, "seconds": prefill_s, "launches": prefill_launches,
+                    "tokens_per_s": seq / prefill_s, "max_memory_allocated": prefill_peak},
+        "prefill_vs_decode_path_rel_l2": rel,
+        "serve": {"batch": b, "prompt_len": plen, "gen": gen, **timings,
+                  "launches": serve_launches, "max_memory_allocated": serve_peak,
+                  "first_ids": out[0, :8].tolist()},
+        "profile": {"what": profiled, **prof}, "device": ident,
+    }
+    del params, model
+    if on_card:
+        torch.cuda.empty_cache()
+    return record
+
+
+def reduced_parity(torch, np, device) -> list:
+    """Phase 16: each reduced config in float32 with the same weights on the
+    card and on the CPU."""
+    from repro_torch.configs import get_model_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import Model
+
+    rows = []
+    for arch in LM_ARCHS:
+        cfg = dataclasses.replace(get_model_config(f"reduced:{arch}"), dtype="float32")
+        cpu = Model(cfg, "cpu")
+        params = cpu.init(torch.Generator().manual_seed(0))
+        card = Model(cfg, device)
+        dparams = tree_to(params, card.device)
+        toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 24)))
+        got, _ = card.forward(dparams, {"tokens": toks.to(card.device)})
+        want, _ = cpu.forward(params, {"tokens": toks})
+        ok, err = within(got.cpu(), want, 1e-4)
+        check(ok, f"reduced {arch}: {device.type} and cpu logits differ beyond 1e-4 ({err})")
+        g_card, _ = serve(card, dparams, toks[:, :8].to(card.device), 8)
+        g_cpu, _ = serve(cpu, params, toks[:, :8], 8)
+        check(torch.equal(g_card.cpu(), g_cpu), f"reduced {arch}: greedy tokens differ")
+        rows.append({"arch": f"reduced:{arch}", "dtype": "float32", "max_abs_err": err,
+                     "greedy_tokens_equal": True})
+    for row in rows:
+        log(json.dumps({"phase": 16, **row}))
+    return rows
 
 
 def main() -> int:
@@ -595,16 +970,23 @@ def main() -> int:
     from repro_torch.kernels.ell_spmv import ops as spmv
     from repro_torch.kernels.ell_spmv import ref as spmv_ref
     from repro_torch.kernels.partition_score import build, ops, ref
+    from repro_torch.kernels.flash_attention import build as fa_build
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.mamba_scan import build as scan_build
+    from repro_torch.kernels.mamba_scan import ops as scan
+    from repro_torch.kernels.mamba_scan import ref as scan_ref
 
     device = torch.device("cpu" if args.tiny else "cuda")
     timer = Timer(torch, device)
+    counters = (ops, spmv, fa, scan)  # every kernel wrapper's launch count
 
     # ------------------------------------------------------------ phase 0
     ident = "cpu rehearsal" if args.tiny else gpu_identity()
     log(f"phase 0: {ident} | torch {torch.__version__} | cuda {torch.version.cuda}")
     if not args.tiny:
         # one nvcc per kernel source, all started together
-        libraries = [build.LIBRARY, spmv_build.LIBRARY]
+        libraries = [build.LIBRARY, spmv_build.LIBRARY, fa_build.LIBRARY, scan_build.LIBRARY]
         t0 = time.perf_counter()
         with ThreadPoolExecutor(len(libraries)) as pool:
             list(pool.map(lambda lib: lib.load(), libraries))
@@ -631,7 +1013,7 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
     spec = tapi.PartitionSpec(algo="fennel", k=8, epsilon=0.05, balance_mode="edge",
                               order="random", seed=0)
-    reset_counts(ops, spmv)
+    reset_counts(*counters)
     res = tapi.partition(graph, spec, device=device)
     if device.type == "cuda":
         torch.cuda.synchronize()
@@ -663,7 +1045,7 @@ def main() -> int:
     web = load_dataset("web-s", seed=0)
     for algo in ("fennel", "cuttana"):
         spec = tapi.PartitionSpec(algo=algo, k=8, balance_mode="edge", order="random", seed=0)
-        ops.launches = 0
+        reset_counts(*counters)
         on_dev = tapi.partition(web, spec, device=device)
         dev_launches = ops.launches
         on_cpu = tapi.partition(web, spec, device="cpu")
@@ -714,7 +1096,7 @@ def main() -> int:
     spec = tapi.PartitionSpec(algo="fennel-parallel", k=8, epsilon=0.05, balance_mode="edge",
                               order="random", seed=0,
                               params={"num_shards": NUM_SHARDS, "max_workers": 0})
-    reset_counts(ops, spmv)
+    reset_counts(*counters)
     res = tapi.partition(graph, spec, device=device)
     if device.type == "cuda":
         torch.cuda.synchronize()
@@ -755,7 +1137,7 @@ def main() -> int:
     for algo in ("fennel-parallel", "cuttana-parallel", "cuttana-restream"):
         spec = tapi.PartitionSpec(algo=algo, k=8, balance_mode="edge", order="random", seed=0,
                                   params={"num_shards": NUM_SHARDS})
-        reset_counts(ops, spmv)
+        reset_counts(*counters)
         on_dev = tapi.partition(web, spec, device=device)
         dev_launches = ops.sharded_launches
         check(ops.launches == 0, f"web-s {algo}: the sequential kernel launched")
@@ -787,7 +1169,7 @@ def main() -> int:
                         "identical_to": seq_algo, "edge_cut": one.quality()["edge_cut"]}))
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    reset_counts(ops, spmv)
+    reset_counts(*counters)
     res = tapi.partition(social, tapi.PartitionSpec(
         algo="cuttana-parallel", k=8, balance_mode="edge", order="random", seed=0,
         params={"num_shards": NUM_SHARDS}), device=device)
@@ -842,7 +1224,7 @@ def main() -> int:
         if device.type == "cuda":
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-        reset_counts(ops, spmv)
+        reset_counts(*counters)
         out = main_res.analytics(prog, iters, mode="simulated")
         launches = spmv.launches
         check(ops.launches == 0 and ops.sharded_launches == 0,
@@ -900,6 +1282,31 @@ def main() -> int:
     log(json.dumps({"phase": 11, "dataset": dataset, **profile_analytics(
         torch, social_res, spmv, device)}))
 
+    # ----------------------------------------------------------- phase 12
+    del graph, main_res, social_res, social, lg, web_res, on_cpu
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    import torch.nn.functional as F
+
+    flash_shapes = flash_kernel_checks(torch, np, F, fa, fa_ref, timer, args.tiny)
+
+    # ----------------------------------------------------------- phase 13
+    scan_shapes = scan_kernel_checks(torch, scan, scan_ref, timer, args.tiny)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # ------------------------------------------------------ phases 14, 15
+    lm_launches = {"flash_attention": 0, "selective_scan": 0}
+    for phase, arch in zip((14, 15), LM_ARCHS):
+        rec = lm_phase(torch, np, counters, device, arch, args.tiny, ident)
+        for path in ("prefill", "serve"):
+            for name, n in rec[path]["launches"].items():
+                lm_launches[name] += n
+        log(json.dumps({"phase": phase, **rec}))
+
+    # ----------------------------------------------------------- phase 16
+    reduced_parity(torch, np, device)
+
     # ------------------------------------------------------------ summary
     def summary(name, shapes_, launches, replaces, source=KERNEL_SOURCE):
         main_shape = shapes_[0]
@@ -918,6 +1325,10 @@ def main() -> int:
         summary("partition_score", shapes, main_launches, TPU_KERNEL),
         summary("partition_score_sharded", sharded_shapes, sharded_launches, TPU_KERNEL_SHARDED),
         summary("ell_spmv", spmv_shapes, spmv_launches, TPU_KERNEL_SPMV, SPMV_SOURCE),
+        summary("flash_attention", flash_shapes, lm_launches["flash_attention"],
+                TPU_KERNEL_FLASH, FLASH_SOURCE),
+        summary("selective_scan", scan_shapes, lm_launches["selective_scan"],
+                TPU_KERNEL_SCAN, SCAN_SOURCE),
     ]}))
     if args.tiny:
         log("tiny rehearsal finished on the CPU: every phase ran; no device result")

@@ -1,0 +1,86 @@
+"""Architecture registry of the port: ``get_config(arch)``, the reduced
+smoke-test variants and ``get_model_config`` (the launchers' name parser).
+
+The port serves qwen3-8b (dense GQA with qk-norm) and falcon-mamba-7b
+(attention-free Mamba-1). The reference's other eight architectures need
+mixers the port does not have yet (sliding-window ring caches, MLA, MoE,
+cross-attention, frame inputs); asking for one raises
+``NotImplementedError`` naming the ROADMAP item that brings it.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+
+from repro_torch.models.config import LATER_ITEM, LayerSpec, ModelConfig
+
+ARCHS = ["qwen3_8b", "falcon_mamba_7b"]
+
+# canonical ids, as the reference names them
+ALIASES = {
+    "qwen3-8b": "qwen3_8b",
+    "falcon-mamba-7b": "falcon_mamba_7b",
+}
+
+# the reference's other architectures (by its canonical ids) and what they
+# wait for
+LATER = {
+    "deepseek-v2-236b": "MLA and MoE",
+    "arctic-480b": "MoE",
+    "deepseek-coder-33b": "its dense stack (no kernel of its own)",
+    "minitron-8b": "its dense stack (no kernel of its own)",
+    "gemma3-12b": "the sliding-window ring cache",
+    "hubert-xlarge": "frame inputs (encoder-only)",
+    "llama-3.2-vision-90b": "cross-attention",
+    "jamba-v0.1-52b": "MoE",
+}
+
+
+def _module(arch: str):
+    if arch in LATER:
+        raise NotImplementedError(
+            f"{arch}: the port does not run it yet ({LATER[arch]}); {LATER_ITEM}")
+    name = ALIASES.get(arch, arch).replace("-", "_")
+    if name not in ARCHS:
+        raise ValueError(f"unknown architecture {arch!r}; the port has {sorted(ALIASES)}")
+    return importlib.import_module(f"repro_torch.configs.{name}")
+
+
+def get_config(arch: str) -> ModelConfig:
+    return _module(arch).config()
+
+
+def get_reduced_config(arch: str) -> ModelConfig:
+    """Tiny same-family config for CPU smoke tests (the reference's)."""
+    return shrink(_module(arch).config())
+
+
+def get_model_config(name: str) -> ModelConfig:
+    """``"reduced:<arch>"`` or ``"<arch>"``, as the reference's launchers
+    parse ``--arch``."""
+    if name.startswith("reduced:"):
+        return get_reduced_config(name.split(":", 1)[1])
+    return get_config(name)
+
+
+def shrink(cfg: ModelConfig) -> ModelConfig:
+    """Generic reduction: small width/depth/vocab/experts, same structure."""
+
+    def small_spec(s: LayerSpec) -> LayerSpec:
+        return dataclasses.replace(s, window=min(s.window, 16) if s.window else None)
+
+    changes = dict(
+        d_model=128,
+        d_ff=256 if cfg.d_ff else 0,
+        d_ff_expert=128 if cfg.d_ff_expert else 0,
+        vocab_size=512,
+        n_blocks=2,
+        prefix=tuple(small_spec(s) for s in cfg.prefix),
+        block=tuple(small_spec(s) for s in cfg.block),
+        n_heads=4 if cfg.n_heads else 0,
+        n_kv_heads=min(cfg.n_kv_heads, 2) if cfg.n_kv_heads else 0,
+        d_head=32 if cfg.d_head else None,
+        n_experts=8 if cfg.n_experts else 0,
+        n_shared_experts=min(cfg.n_shared_experts, 1),
+    )
+    return dataclasses.replace(cfg, **changes)

@@ -1,9 +1,9 @@
 """Carry state from plain arrays into the port.
 
-The reference package's graphs and partition states are numpy arrays; these
-functions build the port's counterparts from such arrays, so a caller can
-run both packages on the same data without the port importing the
-reference.
+The reference package's graphs, partition states and model parameters are
+(or convert to) numpy arrays; these functions build the port's counterparts
+from such arrays, so a caller can run both packages on the same data without
+the port importing the reference.
 """
 from __future__ import annotations
 
@@ -14,8 +14,14 @@ from repro_torch.analytics.localize import LocalizedGraph
 from repro_torch.core.base import PartitionState
 from repro_torch.device import resolve_device
 from repro_torch.graph.csr import CSRGraph
+from repro_torch.models.config import LATER_ITEM
 
-__all__ = ["graph_from_arrays", "localized_from_arrays", "state_from_arrays"]
+__all__ = [
+    "graph_from_arrays",
+    "lm_params_from_arrays",
+    "localized_from_arrays",
+    "state_from_arrays",
+]
 
 
 def graph_from_arrays(
@@ -127,3 +133,45 @@ def localized_from_arrays(
     )
     lg.row_ptr()  # raises unless rows are in CSR order
     return lg
+
+
+def _tensor(arr, device: torch.device) -> torch.Tensor:
+    """A tensor copy of a numpy array; bfloat16 arrays (the reference's
+    ``ml_dtypes`` type) keep their bits."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(arr)).to(device)
+
+
+def _tree(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _tree(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def lm_params_from_arrays(cfg, params: dict, device: str | torch.device | None = None) -> dict:
+    """The port's parameter dict (``Model.init``'s layout) from the
+    reference's parameter pytree as numpy arrays (``jax.tree.map(np.asarray,
+    params)``): ``blocks``, whose leaves carry a leading ``n_blocks`` axis,
+    is unstacked into one dict per layer in ``cfg.layers()`` order, so both
+    packages compute with the same weights."""
+    device = resolve_device(device)
+    if cfg.prefix or params.get("prefix"):
+        raise NotImplementedError(f"prefix layers are not ported yet; {LATER_ITEM}")
+    blocks = params["blocks"]
+    if len(blocks) != len(cfg.block):
+        raise ValueError(f"params hold {len(blocks)} block layers, cfg has {len(cfg.block)}")
+    layers = [
+        _tree(blocks[j], lambda a, i=i: _tensor(np.asarray(a)[i], device))
+        for i in range(cfg.n_blocks)
+        for j in range(len(cfg.block))
+    ]
+    out = {
+        "embed": _tensor(params["embed"], device),
+        "layers": layers,
+        "final_norm": _tree(params["final_norm"], lambda a: _tensor(a, device)),
+    }
+    if "unembed" in params:
+        out["unembed"] = _tensor(params["unembed"], device)
+    return out

@@ -14,10 +14,16 @@ from repro_torch.kernels import check_tensor as _check
 from repro_torch.kernels.ell_spmv import build
 from repro_torch.kernels.ell_spmv.ref import ell_spmv_ref, ell_spmv_segments_ref
 
-__all__ = ["REDUCES", "ell_spmv", "ell_spmv_segments", "launches"]
+__all__ = ["REDUCES", "ell_spmv", "ell_spmv_segments", "launches", "reset"]
 
 REDUCES = {"sum": 0, "min": 1}
 launches = 0
+
+
+def reset() -> None:
+    """Zero the launch count."""
+    global launches
+    launches = 0
 
 
 def _check_reduce(reduce: str) -> int:

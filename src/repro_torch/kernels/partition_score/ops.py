@@ -29,6 +29,7 @@ __all__ = [
     "fennel_scores_sharded",
     "fennel_scores_sharded_gather",
     "launches",
+    "reset",
     "sharded_launches",
 ]
 
@@ -38,6 +39,13 @@ MAX_K = 12288
 _MAX_ROWS = 2**31 - 1
 launches = 0
 sharded_launches = 0
+
+
+def reset() -> None:
+    """Zero the launch counts."""
+    global launches, sharded_launches
+    launches = 0
+    sharded_launches = 0
 
 
 def _check_k(sizes: torch.Tensor) -> int:

@@ -1,0 +1,220 @@
+"""Model assembly: embed -> layers -> final norm -> head, for one card.
+
+The reference stacks its layers' parameters on a leading ``n_blocks`` axis
+and walks them with ``lax.scan``; the port keeps one parameter dict per layer
+(``params["layers"]``, in ``cfg.layers()`` order, each with the reference's
+key names) and walks them with a loop. ``repro_torch.convert.
+lm_params_from_arrays`` unstacks the reference's pytree into this layout.
+
+The decode cache is a list with one dict per layer; ``decode_step`` writes
+it in place (the reference returns a new pytree) and returns it.
+
+Supported: token inputs, GQA self-attention (qk-norm, full attention and
+sliding windows at prefill), Mamba-1 mixers, dense FFNs. MoE, MLA,
+cross-attention, frame inputs, ``prefix`` layers and the sliding-window ring
+cache raise ``NotImplementedError`` naming the ROADMAP item that brings them.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from repro_torch.device import resolve_device
+from repro_torch.models.attention import gqa_flash_decode, gqa_forward
+from repro_torch.models.config import LATER_ITEM, LayerSpec, ModelConfig
+from repro_torch.models.layers import apply_rope, dense_ffn, qk_head_norm, rms_norm
+from repro_torch.models.mamba import mamba_decode_step, mamba_forward
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    def later(what: str):
+        raise NotImplementedError(f"{cfg.name}: {what} is not ported yet; {LATER_ITEM}")
+
+    if cfg.frontend != "tokens":
+        later(f"the {cfg.frontend!r} frontend")
+    if cfg.prefix:
+        later("a prefix layer stack")
+    if cfg.use_mla:
+        later("MLA")
+    for spec in cfg.layers():
+        if spec.mixer not in ("attn", "mamba"):
+            later(f"the {spec.mixer!r} mixer")
+        if spec.ffn not in ("dense", "none"):
+            later(f"the {spec.ffn!r} FFN")
+
+
+class Model(nn.Module):
+    """The LM of ``cfg`` on ``device`` (default ``"cuda"``; without a card
+    only ``device="cpu"`` runs, on the kernels' plain versions). Parameters
+    live in the dict ``init`` returns and are passed to every call, as in the
+    reference."""
+
+    def __init__(self, cfg: ModelConfig, device: str | torch.device | None = None):
+        super().__init__()
+        _check_supported(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = getattr(torch, cfg.dtype)
+
+    # ------------------------------------------------------------------ init
+    def init(self, generator: torch.Generator) -> dict:
+        """Seeded random parameters on the model's device, at the
+        reference's shapes and scales (``generator`` lives on that device).
+        The numbers differ from the reference's ``jax.random`` ones; carry
+        those over with ``lm_params_from_arrays`` to compare the packages."""
+        cfg, dev, dt = self.cfg, self.device, self.dtype
+        d = cfg.d_model
+
+        def normal(shape, scale, dtype=dt):
+            return torch.randn(shape, generator=generator, device=dev, dtype=dtype).mul_(scale)
+
+        def ones(n, dtype=dt):
+            return torch.ones(n, dtype=dtype, device=dev)
+
+        def zeros(n, dtype=dt):
+            return torch.zeros(n, dtype=dtype, device=dev)
+
+        def layer(spec: LayerSpec) -> dict:
+            p: dict = {"norm1": {"scale": ones(d)}}
+            if spec.mixer == "attn":
+                h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+                s = d**-0.5
+                p["attn"] = {
+                    "wq": normal((d, h * dh), s),
+                    "wk": normal((d, hkv * dh), s),
+                    "wv": normal((d, hkv * dh), s),
+                    "wo": normal((h * dh, d), (h * dh) ** -0.5),
+                }
+                if cfg.qk_norm:
+                    p["attn"]["q_scale"] = ones(dh)
+                    p["attn"]["k_scale"] = ones(dh)
+            else:  # mamba
+                di, n = cfg.mamba_expand * d, cfg.ssm_state
+                dt_rank = max(d // 16, 1)
+                p["mamba"] = {
+                    "in_proj": normal((d, 2 * di), d**-0.5),
+                    "conv_w": normal((cfg.d_conv, di), 0.1),
+                    "conv_b": zeros(di),
+                    "x_proj": normal((di, dt_rank + 2 * n), di**-0.5),
+                    "dt_proj": normal((dt_rank, di), dt_rank**-0.5),
+                    "dt_bias": zeros(di, torch.float32),
+                    "a_log": torch.log(torch.arange(1, n + 1, dtype=torch.float32, device=dev))
+                    .expand(di, n).contiguous(),
+                    "d_skip": ones(di, torch.float32),
+                    "out_proj": normal((di, d), di**-0.5),
+                }
+            if spec.ffn == "dense":
+                f = cfg.d_ff
+                p["norm2"] = {"scale": ones(d)}
+                p["ffn"] = {"w_in": normal((d, f), d**-0.5), "w_out": normal((f, d), f**-0.5)}
+                if cfg.activation == "swiglu":
+                    p["ffn"]["w_gate"] = normal((d, f), d**-0.5)
+            return p
+
+        params: dict = {"embed": normal((cfg.vocab_size, d), 0.02)}
+        params["layers"] = [layer(spec) for spec in cfg.layers()]
+        params["final_norm"] = {"scale": ones(d)}
+        if not cfg.tie_embeddings:
+            params["unembed"] = normal((d, cfg.vocab_size), d**-0.5)
+        return params
+
+    # --------------------------------------------------------------- forward
+    def _embed(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+        x = params["embed"][tokens]
+        if self.cfg.embed_scale:
+            x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype, device=x.device)
+        return x
+
+    def _head(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+        x = rms_norm(x, params["final_norm"])
+        if self.cfg.tie_embeddings:
+            return x @ params["embed"].T
+        return x @ params["unembed"]
+
+    def forward(self, params: dict, inputs: dict):
+        """Full-sequence forward. inputs: ``{"tokens": [B, S]}``. Returns
+        ``(logits [B, S, V], aux_loss)``; ``aux_loss`` is the MoE router
+        loss of the reference's signature, zero while no MoE is ported."""
+        cfg = self.cfg
+        x = self._embed(params, inputs["tokens"])
+        for spec, p in zip(cfg.layers(), params["layers"]):
+            h = rms_norm(x, p["norm1"])
+            if spec.mixer == "attn":
+                y, _ = gqa_forward(h, p["attn"], cfg, window=spec.window)
+            else:
+                y, _ = mamba_forward(h, p["mamba"], cfg)
+            x = x + y
+            if spec.ffn == "dense":
+                x = x + dense_ffn(rms_norm(x, p["norm2"]), p["ffn"], cfg.activation)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return self._head(params, x), aux
+
+    # ----------------------------------------------------------------- cache
+    def init_cache(self, batch: int, seq: int, dtype: torch.dtype | None = None) -> list:
+        """One dict per layer: ``{"k", "v"}`` ``[B, seq, Hkv, Dh]`` for
+        attention, ``{"conv" [B, d_conv-1, di], "ssm" [B, di, N] float32}``
+        for Mamba."""
+        cfg, dev = self.cfg, self.device
+        dt = dtype or self.dtype
+        di = cfg.mamba_expand * cfg.d_model
+        cache = []
+        for spec in cfg.layers():
+            if spec.mixer == "attn":
+                if spec.window is not None and seq >= spec.window:
+                    raise NotImplementedError(
+                        f"{cfg.name}: the sliding-window ring cache is not ported yet; "
+                        f"{LATER_ITEM}")
+                shape = (batch, seq, cfg.n_kv_heads, cfg.head_dim)
+                cache.append({"k": torch.zeros(shape, dtype=dt, device=dev),
+                              "v": torch.zeros(shape, dtype=dt, device=dev)})
+            else:
+                cache.append({
+                    "conv": torch.zeros((batch, cfg.d_conv - 1, di), dtype=dt, device=dev),
+                    "ssm": torch.zeros((batch, di, cfg.ssm_state), dtype=torch.float32,
+                                       device=dev),
+                })
+        return cache
+
+    # ---------------------------------------------------------------- decode
+    def _decode_gqa(self, x, h, p, cache: dict, pos: int, spec: LayerSpec):
+        cfg = self.cfg
+        b = x.shape[0]
+        hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        q = (h @ p["wq"]).reshape(b, 1, hq, dh)
+        k = (h @ p["wk"]).reshape(b, 1, hkv, dh)
+        v = (h @ p["wv"]).reshape(b, 1, hkv, dh)
+        if cfg.qk_norm:
+            q = qk_head_norm(q, p["q_scale"])
+            k = qk_head_norm(k, p["k_scale"])
+        posv = torch.full((b, 1), pos, device=x.device)
+        q = apply_rope(q, posv, cfg.rope_theta)
+        k = apply_rope(k, posv, cfg.rope_theta)
+        # the slot is written before attending, as in the reference
+        cache["k"][:, pos] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][:, pos] = v[:, 0].to(cache["v"].dtype)
+        out = gqa_flash_decode(q[:, 0], cache["k"], cache["v"], pos, spec.window)  # [B, H, Dh]
+        return x + out.reshape(b, 1, hq * dh) @ p["wo"]
+
+    def _decode_layer(self, x, p, spec: LayerSpec, cache: dict, pos: int):
+        """One-token step for one layer. x: [B, 1, D]; ``cache`` is updated."""
+        h = rms_norm(x, p["norm1"])
+        if spec.mixer == "attn":
+            x = self._decode_gqa(x, h, p["attn"], cache, pos, spec)
+        else:
+            y, (cache["conv"], cache["ssm"]) = mamba_decode_step(
+                h, p["mamba"], self.cfg, cache["conv"], cache["ssm"])
+            x = x + y
+        if spec.ffn == "dense":
+            x = x + dense_ffn(rms_norm(x, p["norm2"]), p["ffn"], self.cfg.activation)
+        return x
+
+    def decode_step(self, params: dict, cache: list, tokens: torch.Tensor, pos: int):
+        """One decode step. tokens: [B, 1]; ``pos`` the position being
+        written. Returns ``(logits [B, 1, V], cache)``, the cache updated in
+        place."""
+        x = self._embed(params, tokens)
+        for spec, p, c in zip(self.cfg.layers(), params["layers"], cache):
+            x = self._decode_layer(x, p, spec, c, pos)
+        return self._head(params, x), cache

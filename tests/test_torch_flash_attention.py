@@ -1,0 +1,159 @@
+"""The attention kernel's plain version (``repro_torch.kernels.flash_attention``)
+against the reference on the CPU: ``attention_ref`` at every shape of
+``tests/test_kernels.py`` and its decode-offset sweep, and the model code's
+``_sdpa`` and ``_chunked_sdpa`` in the model's ``[B, T, H, Dh]`` layout.
+
+Inputs are made with numpy from a seed and handed to both packages; bf16
+inputs are rounded from the same float32 values by both. Tolerances are
+``tests/test_kernels.py``'s: 2e-5 in float32 (sums in another order), 2e-2
+in bf16 (one bf16 rounding of the output). The reference's own Pallas path
+does not run on the installed jax (``pl.load`` is gone), so its oracle is
+``attention_ref``. The CUDA kernel itself is held against this plain version
+on the card (``tests/test_torch_gpu.py``, ``chip_smoke.py``).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.ref import attention_ref
+from repro.models.attention import _chunked_sdpa, _sdpa
+from repro_torch.kernels.flash_attention import ops
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+KERNEL_SHAPES = [  # tests/test_kernels.py: b, hq, hkv, tq, tk, dh, causal, window
+    (1, 2, 2, 128, 128, 64, True, None),
+    (2, 4, 2, 128, 128, 64, True, None),   # GQA
+    (1, 2, 1, 256, 256, 32, False, None),  # bidirectional
+    (1, 2, 2, 128, 128, 64, True, 32),     # sliding window
+    (2, 2, 2, 64, 64, 128, True, None),    # small seq
+]
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _inputs(rng, b, hq, hkv, tq, tk, dh):
+    return (rng.standard_normal((b, hq, tq, dh)).astype(np.float32),
+            rng.standard_normal((b, hkv, tk, dh)).astype(np.float32),
+            rng.standard_normal((b, hkv, tk, dh)).astype(np.float32))
+
+
+def _both(arrays, dtype: str):
+    """The same values as jax arrays and torch tensors of ``dtype``."""
+    jx = [jnp.asarray(a, getattr(jnp, dtype)) for a in arrays]
+    tt = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrays]
+    return jx, tt
+
+
+def _assert_close(got: torch.Tensor, want, tol: float):
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,hq,hkv,tq,tk,dh,causal,window", KERNEL_SHAPES)
+def test_plain_version_matches_attention_ref(b, hq, hkv, tq, tk, dh, causal, window, dtype):
+    rng = np.random.default_rng(tq + dh)
+    (jq, jk, jv), (q, k, v) = _both(_inputs(rng, b, hq, hkv, tq, tk, dh), dtype)
+    want = attention_ref(jq, jk, jv, causal=causal, window=window)
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert got.dtype == q.dtype and got.shape == (b, hq, tq, dh)
+    _assert_close(got, want, TOL[dtype])
+
+
+def test_decode_offset():
+    """One-token decode against a long KV cache (q_offset = Tk-1)."""
+    rng = np.random.default_rng(0)
+    (jq, jk, jv), (q, k, v) = _both(_inputs(rng, 2, 4, 4, 1, 256, 64), "float32")
+    want = attention_ref(jq, jk, jv, causal=True, q_offset=255)
+    _assert_close(ops.flash_attention(q, k, v, causal=True, q_offset=255), want, 2e-5)
+
+
+# the sweep of tests/test_kernels.py around the reference's kv-block boundary
+@pytest.mark.parametrize("q_offset", [0, 1, 127, 128, 200])
+@pytest.mark.parametrize("tq", [1, 4])
+def test_decode_offset_sweep(q_offset, tq):
+    rng = np.random.default_rng(q_offset * 7 + tq)
+    (jq, jk, jv), (q, k, v) = _both(_inputs(rng, 2, 4, 4, tq, 256, 64), "float32")
+    want = attention_ref(jq, jk, jv, causal=True, q_offset=q_offset)
+    _assert_close(ops.flash_attention(q, k, v, causal=True, q_offset=q_offset), want, 2e-5)
+
+
+# ragged Tk (not a multiple of the kernel's 64-row tiles) with every mask
+@pytest.mark.parametrize("tq,tk,causal,window,q_offset", [
+    (4, 200, True, None, 196),
+    (16, 77, False, None, 0),
+    (33, 130, True, 50, 97),
+    (1, 1, True, None, 0),
+    (70, 70, True, 1, 0),
+])
+def test_ragged_and_windowed(tq, tk, causal, window, q_offset):
+    rng = np.random.default_rng(tq * 1000 + tk)
+    (jq, jk, jv), (q, k, v) = _both(_inputs(rng, 1, 4, 2, tq, tk, 32), "float32")
+    want = attention_ref(jq, jk, jv, causal=causal, window=window, q_offset=q_offset)
+    got = ops.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    _assert_close(got, want, 2e-5)
+
+
+def _model_layout(rng, b, t, s, h, hkv, dh):
+    return (rng.standard_normal((b, t, h, dh)).astype(np.float32),
+            rng.standard_normal((b, s, hkv, dh)).astype(np.float32),
+            rng.standard_normal((b, s, hkv, dh)).astype(np.float32))
+
+
+def _port_in_model_layout(q, k, v, **kw) -> torch.Tensor:
+    """The port's attention on [B, T, H, Dh] tensors, as the model calls it:
+    transposed views, no copy."""
+    out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), **kw)
+    return out.transpose(1, 2)
+
+
+@pytest.mark.parametrize("b,t,h,hkv,dh,causal,window", [
+    (2, 16, 4, 2, 32, True, None),
+    (1, 48, 4, 1, 64, True, 16),
+    (2, 20, 2, 2, 32, False, None),
+    (1, 32, 8, 2, 128, True, None),
+])
+def test_matches_model_sdpa(b, t, h, hkv, dh, causal, window):
+    rng = np.random.default_rng(b * 100 + t)
+    arrays = _model_layout(rng, b, t, t, h, hkv, dh)
+    (jq, jk, jv), (q, k, v) = _both(arrays, "float32")
+    want = _sdpa(jq, jk, jv, causal, window)
+    _assert_close(_port_in_model_layout(q, k, v, causal=causal, window=window), want, 2e-5)
+
+
+@pytest.mark.parametrize("t,h,hkv,causal,window", [
+    (64, 4, 2, True, None),
+    (48, 4, 4, True, 20),
+    (32, 2, 1, False, None),
+])
+def test_matches_model_chunked_sdpa(t, h, hkv, causal, window):
+    rng = np.random.default_rng(t + h)
+    arrays = _model_layout(rng, 2, t, t, h, hkv, 32)
+    (jq, jk, jv), (q, k, v) = _both(arrays, "float32")
+    want = _chunked_sdpa(jq, jk, jv, causal, window, chunk=16)
+    _assert_close(_port_in_model_layout(q, k, v, causal=causal, window=window), want, 2e-5)
+
+
+def test_strided_views_equal_contiguous_inputs():
+    rng = np.random.default_rng(5)
+    _, (q, k, v) = _both(_model_layout(rng, 2, 24, 24, 4, 2, 32), "float32")
+    views = [t.transpose(1, 2) for t in (q, k, v)]
+    dense = [t.contiguous() for t in views]
+    assert not views[0].is_contiguous()
+    assert torch.equal(ops.flash_attention(*views), flash_attention_ref(*dense))
+
+
+def test_wrapper_checks_and_counts_no_cpu_launch():
+    q = torch.zeros(1, 4, 8, 32)
+    k = torch.zeros(1, 2, 8, 32)
+    before = ops.launches
+    assert ops.flash_attention(q, k, k).shape == (1, 4, 8, 32)
+    assert ops.launches == before  # the plain version on the CPU is no launch
+    with pytest.raises(ValueError, match="multiple of Hkv"):
+        ops.flash_attention(q, torch.zeros(1, 3, 8, 32), torch.zeros(1, 3, 8, 32))
+    with pytest.raises(ValueError, match="window"):
+        ops.flash_attention(q, k, k, window=0)
+    with pytest.raises(ValueError, match="share dtype"):
+        ops.flash_attention(q, k, k.double())
+    with pytest.raises(ValueError, match="must be"):
+        ops.flash_attention(q, k[..., :16], k[..., :16])

@@ -1,7 +1,8 @@
-"""The partition-score CUDA kernel (sequential and sharded entries) and the
-gather/reduce CUDA kernel (segment and ELL entries) against their plain
-PyTorch versions on the card, and the partitioners and the analytics engine
-on the card against the same runs on the CPU. A CUDA kernel has no CPU mode, so these
+"""The partition-score CUDA kernel (sequential and sharded entries), the
+gather/reduce CUDA kernel (segment and ELL entries), the flash-attention and
+the selective-scan kernels against their plain PyTorch versions on the card,
+and the partitioners, the analytics engine and the reduced LMs on the card
+against the same runs on the CPU. A CUDA kernel has no CPU mode, so these
 tests are marked ``gpu`` and skip without a card. The file imports only the port, so it also runs on a
 machine without JAX:
 
@@ -245,3 +246,171 @@ def test_analytics_on_card_matches_cpu_and_launches_per_iteration(cuda_device, p
     for key in ("halo_messages_per_iter", "padded_halo_elements_per_iter", "max_local_edges",
                 "mean_local_edges"):
         assert got[key] == want[key]
+
+
+# ------------------------------------------------------------ flash attention
+FLASH_SHAPES = [  # tests/test_kernels.py: b, hq, hkv, tq, tk, dh, causal, window
+    (1, 2, 2, 128, 128, 64, True, None),
+    (2, 4, 2, 128, 128, 64, True, None),
+    (1, 2, 1, 256, 256, 32, False, None),
+    (1, 2, 2, 128, 128, 64, True, 32),
+    (2, 2, 2, 64, 64, 128, True, None),
+]
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py's
+
+
+def _flash_case(cuda_device, dtype, b, hq, hkv, tq, tk, dh, seed, **kw):
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda_device, dtype)
+               for s in ((b, hq, tq, dh), (b, hkv, tk, dh), (b, hkv, tk, dh)))
+    before = fa.launches
+    got = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    want = flash_attention_ref(q, k, v, **kw)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,tq,tk,dh,causal,window", FLASH_SHAPES)
+def test_flash_kernel_matches_plain_version(cuda_device, b, hq, hkv, tq, tk, dh, causal, window,
+                                            dtype):
+    _flash_case(cuda_device, dtype, b, hq, hkv, tq, tk, dh, tq + dh, causal=causal,
+                window=window)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_offset", [0, 1, 127, 128, 200])
+@pytest.mark.parametrize("tq", [1, 4])
+def test_flash_kernel_decode_offset_sweep(cuda_device, q_offset, tq):
+    _flash_case(cuda_device, torch.float32, 2, 4, 4, tq, 256, 64, q_offset * 7 + tq,
+                causal=True, q_offset=q_offset)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tq,tk,causal,window,q_offset", [
+    (4, 200, True, None, 196), (16, 77, False, None, 0), (33, 130, True, 50, 97),
+    (1, 1, True, None, 0), (70, 70, True, 1, 0), (17, 300, True, 64, 283),
+])
+def test_flash_kernel_ragged_and_windowed(cuda_device, tq, tk, causal, window, q_offset):
+    _flash_case(cuda_device, torch.float32, 1, 4, 2, tq, tk, 32, tq * 1000 + tk,
+                causal=causal, window=window, q_offset=q_offset)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hq,hkv,tq,q_offset", [
+    (8, 2, 1, 99), (8, 2, 3, 64), (8, 2, 4, 0), (8, 2, 5, 130), (16, 2, 2, 63), (32, 8, 1, 300),
+])
+def test_flash_kernel_gqa_decode_rows(cuda_device, hq, hkv, tq, q_offset):
+    """Short query tiles of GQA heads: g * Tq <= 16 packs a KV head's g query
+    heads into one block, larger products take a block per head."""
+    for dtype in (torch.float32, torch.bfloat16):
+        _flash_case(cuda_device, dtype, 2, hq, hkv, tq, 320, 128, hq * 100 + tq, causal=True,
+                    q_offset=q_offset)
+
+
+@pytest.mark.gpu
+def test_flash_kernel_unaligned_rows(cuda_device):
+    """Key/value rows whose stride is no multiple of 16 bytes take the
+    element-wise loads."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    rng = np.random.default_rng(12)
+    q = torch.from_numpy(rng.standard_normal((1, 4, 9, 64)).astype(np.float32)).to(cuda_device)
+    kv = torch.from_numpy(rng.standard_normal((2, 1, 2, 100, 65)).astype(np.float32))
+    k, v = (t[..., :64] for t in kv.to(cuda_device))
+    assert k.stride(2) == 65
+    got = fa.flash_attention(q, k, v, causal=True, q_offset=91)
+    want = flash_attention_ref(q, k.contiguous(), v.contiguous(), causal=True, q_offset=91)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.gpu
+def test_flash_kernel_reads_model_layout_in_place(cuda_device):
+    """[B, T, H, Dh] tensors handed over as transposed views (no copy)."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    rng = np.random.default_rng(11)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda_device)
+               for s in ((2, 40, 8, 128), (2, 40, 2, 128), (2, 40, 2, 128)))
+    views = [t.transpose(1, 2) for t in (q, k, v)]
+    got = fa.flash_attention(*views)
+    assert got.transpose(1, 2).is_contiguous()  # the output is in the model's layout too
+    want = flash_attention_ref(*(t.contiguous() for t in views))
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+# --------------------------------------------------------------- mamba scan
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bsz,t,d,n", [(1, 16, 64, 8), (2, 32, 128, 16), (2, 8, 512, 16),
+                                       (1, 200, 1000, 16), (3, 1, 24, 8)])
+def test_scan_kernel_matches_plain_version(cuda_device, bsz, t, d, n, dtype):
+    from repro_torch.kernels.mamba_scan import ops as scan
+    from repro_torch.kernels.mamba_scan.ref import selective_scan_ref
+
+    rng = np.random.default_rng(d + t)
+    f32 = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda_device)  # noqa: E731
+    x = f32(rng.standard_normal((bsz, t, d))).to(dtype)
+    dt = f32(np.abs(rng.standard_normal((bsz, t, d))) * 0.1 + 0.01).to(dtype)
+    a = f32(-np.abs(rng.standard_normal((d, n))) - 0.1)
+    b = f32(rng.standard_normal((bsz, t, n))).to(dtype)
+    c = f32(rng.standard_normal((bsz, t, n))).to(dtype)
+    d_skip = f32(rng.standard_normal(d))
+    before = scan.launches
+    y, h = scan.selective_scan(x, dt, a, b, c, d_skip)
+    torch.cuda.synchronize()
+    assert scan.launches == before + 1
+    y_want, h_want = selective_scan_ref(x, dt, a, b, c, d_skip)
+    tol = 1e-4 if dtype == torch.float32 else 3e-2  # tests/test_kernels.py's
+    torch.testing.assert_close(y.float(), y_want.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(h, h_want, rtol=tol, atol=tol)
+
+
+# ------------------------------------------------------------------ models
+def _params_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _params_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_params_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-8b", "falcon-mamba-7b"])
+def test_reduced_model_on_card_matches_cpu(cuda_device, arch):
+    """float32, the same weights on both devices: prefill logits within
+    1e-4, decode logits within 1e-4, greedy tokens equal; each forward
+    launches one kernel per mixer layer."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.mamba_scan import ops as scan
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(get_reduced_config(arch), dtype="float32")
+    cpu = Model(cfg, "cpu")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    card = Model(cfg, cuda_device)
+    dparams = _params_to(params, card.device)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 24)))
+    counts = fa.launches, scan.launches
+    got, _ = card.forward(dparams, {"tokens": toks.to(card.device)})
+    torch.cuda.synchronize()
+    launched = fa.launches - counts[0], scan.launches - counts[1]
+    assert launched == ((cfg.num_layers, 0) if arch == "qwen3-8b" else (0, cfg.num_layers))
+    want, _ = cpu.forward(params, {"tokens": toks})
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    prompts = toks[:, :8]
+    g_card, _ = serve(card, dparams, prompts.to(card.device), 6)
+    g_cpu, _ = serve(cpu, params, prompts, 6)
+    assert torch.equal(g_card.cpu(), g_cpu)
