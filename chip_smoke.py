@@ -60,20 +60,24 @@ Phases:
  12. the flash-attention kernel against its plain version on the card:
      ``tests/test_kernels.py``'s shapes in float32 and bf16 and its
      decode-offset sweep (2e-5 / 2e-2), one qwen3-8b layer at prefill (B=1,
-     Hq=32, Hkv=8, T=8192, Dh=128, bf16, causal) and one at a 32k decode step
-     (B=32, Tq=1, Tk=32768, q_offset=32767; B cut from ``decode_32k``'s 128
-     so the plain version's float32 K/V fit), ``library_ms`` being
-     ``F.scaled_dot_product_attention``;
+     Hq=32, Hkv=8, T=8192, Dh=128, bf16, causal; achieved TFLOP/s) and one
+     at a 32k decode step (B=32, Tq=1, Tk=32768, q_offset=32767; B cut from
+     ``decode_32k``'s 128 so the plain version's float32 K/V fit), and
+     65,536 (batch, head) blocks, past grid y's 65,535, on the grouped FMA
+     and the tensor-core variants; ``library_ms`` being
+     ``F.scaled_dot_product_attention``; each row names the variant that
+     ran;
  13. the selective-scan kernel against its plain version on the card:
-     ``tests/test_kernels.py``'s shapes in float32 and bf16 (1e-4 / 3e-2) and
+     ``tests/test_kernels.py``'s shapes in float32 and bf16 (1e-4 / 3e-2),
      one falcon-mamba-7b layer at prefill (B=1, T=8192, D=8192, N=16,
-     float32; ``SCAN_LAYER_TOL``); no single PyTorch call computes the scan;
+     float32; ``SCAN_LAYER_TOL``) and batch 65,536 (past grid y's cap); no
+     single PyTorch call computes the scan;
  14. qwen3-8b at full width and depth with seeded random weights:
-     ``make_prefill_step`` at B=1, T=8192 (36 flash launches), then
-     ``launch.serve.serve`` at B=8, prompt 128, 32 generated tokens (36
-     launches a decode step: 36 x 159), prefill logits against the decode
-     path's on a 16-token prompt, and one decode step under
-     ``torch.profiler``;
+     ``make_prefill_step`` at B=1, T=8192 (36 flash launches, all on the
+     tensor-core variant), then ``launch.serve.serve`` at B=8, prompt 128,
+     32 generated tokens (36 launches a decode step: 36 x 159, on the
+     grouped FMA variant), prefill logits against the decode path's on a
+     16-token prompt, and one decode step under ``torch.profiler``;
  15. falcon-mamba-7b the same way: prefill with 64 scan launches, serve
      with none (decode is the plain recurrence, as in the reference), and
      one prefill under ``torch.profiler``;
@@ -127,8 +131,11 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py's
 # an attention output row is a softmax average over up to 32768 keys, so its
 # entries are ~sqrt(e / keys) in size, at or below the bf16 allowance above;
 # every (batch, head, query) row is also held to a relative L2 error scaled to
-# its own data. Kernel and plain version both compute in float32 and round
-# once to the output dtype, which is <= 2^-8 relative per entry. A fault such
+# its own data. Kernel and plain version both keep float32 statistics and
+# round the output once to its dtype, <= 2^-8 relative per entry; the bf16
+# tensor-core variant also rounds each key weight P to bf16 before P V, one
+# more <= 2^-9 relative error per weight that averages down over a row (its
+# worst row at the qwen3 prefill layer is 4.4e-3 on an H100). A fault such
 # as skipping the last 64-key tile at the 32k decode shape keeps every entry
 # within the elementwise rule but not its rows within this one.
 FLASH_ROW_RTOL = 1e-2
@@ -655,9 +662,14 @@ def flash_row(torch, np, F, fa, fa_ref, timer, name, b, hq, hkv, tq, tk, dh, dty
     q, k, v = (torch.randn(s, generator=gen, device=device, dtype=torch.float32).to(dtype)
                for s in ((b, hq, tq, dh), (b, hkv, tk, dh), (b, hkv, tk, dh)))
     kw = dict(causal=causal, window=window, q_offset=q_offset)
+    variant = fa.kernel_variant(dtype, tq, hq // hkv, dh, fa.is_aligned(q, k, v))
+    before = dict(fa.variant_launches)
     got = fa.flash_attention(q, k, v, **kw)
     want = fa_ref.flash_attention_ref(q, k, v, **kw)
     sync(torch, device)
+    ran = {n: fa.variant_launches[n] - before[n] for n in fa.VARIANTS}
+    check(ran == {n: int(n == variant and device.type == "cuda") for n in fa.VARIANTS},
+          f"flash {name}: expected one launch of {variant}, the variants ran {ran}")
     tname = str(dtype).split(".")[1]
     ok, err = within(got, want, FLASH_TOL[tname])
     check(ok, f"flash {name}: kernel differs from plain version beyond {FLASH_TOL[tname]} ({err})")
@@ -673,12 +685,12 @@ def flash_row(torch, np, F, fa, fa_ref, timer, name, b, hq, hkv, tq, tk, dh, dty
     rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = max(flops / rate, pairs / EXP_PER_S) * 1e3  # the products, or one exp a pair
+    ms = timer.device_ms(call, reps=reps[0], replays=reps[1])
     row = {
-        "shape": name, "b": b, "hq": hq, "hkv": hkv, "tq": tq, "tk": tk, "dh": dh,
-        "dtype": tname, "causal": causal, "window": window, "q_offset": q_offset,
-        "max_abs_err": err, "max_row_rel_l2": row_err,
-        "ms": timer.device_ms(call, reps=reps[0], replays=reps[1]),
-        "flops": flops, "exps": pairs, "bytes": nbytes,
+        "shape": name, "variant": variant, "b": b, "hq": hq, "hkv": hkv, "tq": tq, "tk": tk,
+        "dh": dh, "dtype": tname, "causal": causal, "window": window, "q_offset": q_offset,
+        "max_abs_err": err, "max_row_rel_l2": row_err, "ms": ms,
+        "tflops": flops / ms / 1e9, "flops": flops, "exps": pairs, "bytes": nbytes,
         "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
     }
     if library_causal is not None:
@@ -724,6 +736,12 @@ def flash_kernel_checks(torch, np, F, fa, fa_ref, timer, tiny: bool):
         for tq in (1, 4):
             rows.append(flash_row(torch, np, F, fa, fa_ref, timer, "decode_offset_sweep", 2, 4,
                                   4, tq, 256, 64, torch.float32, q_offset=q_offset, reps=(20, 2)))
+    # 65,536 (batch, head) blocks: one more than grid y holds
+    for dtype in (torch.float32, torch.bfloat16):
+        rows.append(flash_row(torch, np, F, fa, fa_ref, timer, "grid_cap_b65536_decode", 65536,
+                              1, 1, 1, 1, 32, dtype, reps=(5, 1)))
+    rows.append(flash_row(torch, np, F, fa, fa_ref, timer, "grid_cap_b65536_tq17", 65536, 1, 1,
+                          17, 17, 32, torch.bfloat16, reps=(5, 1)))
     for row in rows:
         log(json.dumps({"phase": 12, **row}))
     return rows
@@ -785,6 +803,9 @@ def scan_kernel_checks(torch, scan, scan_ref, timer, tiny: bool):
         for bsz, t, d, n in ((1, 16, 64, 8), (2, 32, 128, 16), (2, 8, 512, 16)):
             rows.append(scan_row(torch, scan, scan_ref, timer, "test_kernels", bsz, t, d, n,
                                  dtype, SCAN_TOL[str(dtype).split(".")[1]]))
+    # batch 65,536, one more row than grid y holds, at the smallest width
+    rows.append(scan_row(torch, scan, scan_ref, timer, "grid_cap_b65536", 65536, 3, 1, 8,
+                         torch.float32, SCAN_TOL["float32"]))
     for row in rows:
         log(json.dumps({"phase": 13, **row}))
     return rows
@@ -860,6 +881,11 @@ def lm_phase(torch, np, counters, device, arch: str, tiny: bool, ident: str) -> 
         {"flash_attention": 0, "selective_scan": 0}
     check(prefill_launches == expect,
           f"{arch} prefill launched {prefill_launches}, expected {expect}")
+    # a bf16 prefill of T=8192 runs every attention layer on the tensor cores
+    prefill_variants = dict(fa.variant_launches)
+    expect = {n: n_attn * (n == "wgmma_bf16") * on_card for n in fa.VARIANTS}
+    check(prefill_variants == expect,
+          f"{arch} prefill ran the attention variants {prefill_variants}, expected {expect}")
     check(all(m.launches == 0 for m in counters if m not in (fa, scan)),
           f"{arch} prefill launched a partitioning or analytics kernel")
     check(tuple(logits.shape) == (1, 1, cfg.vocab_size) and bool(logits.isfinite().all()),
@@ -884,6 +910,10 @@ def lm_phase(torch, np, counters, device, arch: str, tiny: bool, ident: str) -> 
     expect = {"flash_attention": n_attn * (plen + gen - 1), "selective_scan": 0} if on_card \
         else {"flash_attention": 0, "selective_scan": 0}
     check(serve_launches == expect, f"{arch} serve launched {serve_launches}, expected {expect}")
+    serve_variants = dict(fa.variant_launches)  # a decode step: g * Tq = 4 <= 16
+    expect = {n: serve_launches["flash_attention"] * (n == "fma_grouped") for n in fa.VARIANTS}
+    check(serve_variants == expect,
+          f"{arch} serve ran the attention variants {serve_variants}, expected {expect}")
     check(tuple(out.shape) == (b, gen) and int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size,
           f"{arch} serve produced ids of the wrong shape or range")
     serve_peak = torch.cuda.max_memory_allocated() if on_card else None
@@ -902,10 +932,12 @@ def lm_phase(torch, np, counters, device, arch: str, tiny: bool, ident: str) -> 
         "arch": cfg.name, "params": tree_numel(params), "param_count": cfg.param_count(),
         "layers": cfg.num_layers, "dtype": cfg.dtype, "init_s": init_s,
         "prefill": {"batch": 1, "seq": seq, "seconds": prefill_s, "launches": prefill_launches,
-                    "tokens_per_s": seq / prefill_s, "max_memory_allocated": prefill_peak},
+                    "flash_variants": prefill_variants, "tokens_per_s": seq / prefill_s,
+                    "max_memory_allocated": prefill_peak},
         "prefill_vs_decode_path_rel_l2": rel,
         "serve": {"batch": b, "prompt_len": plen, "gen": gen, **timings,
-                  "launches": serve_launches, "max_memory_allocated": serve_peak,
+                  "launches": serve_launches, "flash_variants": serve_variants,
+                  "max_memory_allocated": serve_peak,
                   "first_ids": out[0, :8].tolist()},
         "profile": {"what": profiled, **prof}, "device": ident,
     }
@@ -1297,18 +1329,21 @@ def main() -> int:
 
     # ------------------------------------------------------ phases 14, 15
     lm_launches = {"flash_attention": 0, "selective_scan": 0}
+    flash_variants = dict.fromkeys(fa.VARIANTS, 0)
     for phase, arch in zip((14, 15), LM_ARCHS):
         rec = lm_phase(torch, np, counters, device, arch, args.tiny, ident)
         for path in ("prefill", "serve"):
             for name, n in rec[path]["launches"].items():
                 lm_launches[name] += n
+            for name, n in rec[path]["flash_variants"].items():
+                flash_variants[name] += n
         log(json.dumps({"phase": phase, **rec}))
 
     # ----------------------------------------------------------- phase 16
     reduced_parity(torch, np, device)
 
     # ------------------------------------------------------------ summary
-    def summary(name, shapes_, launches, replaces, source=KERNEL_SOURCE):
+    def summary(name, shapes_, launches, replaces, source=KERNEL_SOURCE, **extra):
         main_shape = shapes_[0]
         err = max(r.get("max_abs_err", max(r.get("max_abs_err_alpha0", 0.0),
                                            r.get("max_abs_err_penalty", 0.0))) for r in shapes_)
@@ -1318,7 +1353,7 @@ def main() -> int:
             "ms": main_shape["ms"], "call_ms": main_shape["call_ms"],
             "plain_ms": main_shape["plain_ms"],
             "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
-            "library_ms": main_shape["library_ms"],
+            "library_ms": main_shape["library_ms"], **extra,
         }
 
     log(json.dumps({"kernels": [
@@ -1326,7 +1361,8 @@ def main() -> int:
         summary("partition_score_sharded", sharded_shapes, sharded_launches, TPU_KERNEL_SHARDED),
         summary("ell_spmv", spmv_shapes, spmv_launches, TPU_KERNEL_SPMV, SPMV_SOURCE),
         summary("flash_attention", flash_shapes, lm_launches["flash_attention"],
-                TPU_KERNEL_FLASH, FLASH_SOURCE),
+                TPU_KERNEL_FLASH, FLASH_SOURCE, variant=flash_shapes[0]["variant"],
+                tflops=flash_shapes[0]["tflops"], variant_launches=flash_variants),
         summary("selective_scan", scan_shapes, lm_launches["selective_scan"],
                 TPU_KERNEL_SCAN, SCAN_SOURCE),
     ]}))

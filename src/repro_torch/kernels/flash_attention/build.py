@@ -14,8 +14,8 @@ LIBRARY = KernelLibrary(
     Path(__file__).resolve().parent / "csrc" / "flash_attention.cu",
     "flash_attention",
     {
-        "flash_attention_fwd": [_i, _i, _p, _p, _p, _p, _p, _l, _l, _l, _l, _l, _i, _l, _l,
-                                _f, _p],
+        "flash_attention_fwd": [_i, _i, _i, _p, _p, _p, _p, _p, _l, _l, _l, _l, _l, _i, _l,
+                                _l, _f, _p],
     },
 )
 library = LIBRARY.load

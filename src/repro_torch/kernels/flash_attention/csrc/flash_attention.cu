@@ -4,7 +4,9 @@
 //
 // over the keys j that the masks keep: j < Tk; j <= q_offset + i when causal;
 // j > q_offset + i - window with a sliding window. g = Hq / Hkv query heads
-// share one key/value head (GQA).
+// share one key/value head (GQA). Masked scores take the finite -1e30, as the
+// Pallas kernel does, so a row whose first visited tile is fully masked gets
+// exp(0) weights that the first real score wipes out (alpha = 0), never NaN.
 //
 // Replaces: repro/kernels/flash_attention/flash_attention.py::
 //           flash_attention_pallas (_attn_kernel), and with it the model's
@@ -12,31 +14,61 @@
 //           gqa_flash_decode (one decode step, Tq = 1, q_offset = pos).
 //
 // Bound. Prefill of one qwen3-8b layer (B=1, Hq=32, Hkv=8, T=8192, Dh=128,
-// bf16, causal): the two products take 4 * Hq * Dh * T^2 / 2 = 550 GFLOP,
-// 0.56 ms at the tensor cores' 989 TFLOP/s; its bytes (q, k, v, o: 100 MB)
-// take 0.03 ms, so operations bound it. One decode step at 32k context
-// (B=32, Tq=1, Tk=32768): the K/V reads (4.3 GB) take 1.28 ms and bound it.
+// bf16, causal): the two products over the pairs the mask keeps take
+// 4 * Hq * Dh * T (T + 1) / 2 = 550 GFLOP, 0.556 ms at the tensor cores'
+// 989 TFLOP/s; its bytes (q, k, v, o: 100 MB) take 0.03 ms, so operations
+// bound it. One decode step at 32k context (B=32, Tq=1, Tk=32768): the K/V
+// reads (4.3 GB) take 1.28 ms and bound it.
 //
-// Design, a first version that is right before it is fast. One block of 256
-// threads owns BQ query rows of one (batch, query head); it reads its key
-// and value head h / g directly (no repeat of K/V, no padding of Tq) through
-// element strides, so the model's [B, T, H, Dh] tensors and its [B, S, Hkv,
-// Dh] cache are read in place. When g * Tq <= 16 (a decode step: qwen3's
-// g = 4, Tq = 1), one block owns the Tq rows of all g query heads of a
-// key/value head instead, so the cache is read once per KV head and 4 of the
-// block's 16 rows do work rather than 1. Key/value tiles of 64 rows are
-// staged in shared memory as float32 (16-byte loads where the strides allow
-// them); the block visits only the tiles between the
-// Pallas kernel's bounds (lo from the window, hi from the causal limit), so
-// masked tiles are skipped, not computed. Running max, denominator and the
-// [BQ, Dh] accumulator stay in float32 (the accumulator in registers). Both
-// products run on the CUDA cores in float32 FMA, not the tensor cores: the
-// float32 path must meet a 2e-5 tolerance, which TF32 cannot, and wgmma/TMA
-// tiles are later work. Masked scores take the finite -1e30, as the Pallas
-// kernel does, so a row whose first visited tile is fully masked gets
-// exp(0) weights that the first real score wipes out (alpha = 0), never NaN.
-// A block holds BQ = 64 query rows, or 16 when Tq <= 16, so a decode step
-// does not drag 63 idle rows through the products.
+// Two kernels. The wrapper (ops.py kernel_variant) picks one before launch
+// from the dtype, Tq, g, Dh and the 16-byte alignment of the pointers and
+// strides alone, never from a failed build or launch.
+//
+// attn_wgmma_kernel, bf16 prefill (Tq > 16 and g * Tq > 16), on the tensor
+// cores with wgmma (bf16 operands, float32 accumulators). A block is two
+// consumer warpgroups of 64 query rows each (128 rows of one (batch, query
+// head)) and one producer warp. The producer has the tensor memory
+// accelerator (TMA) copy the Q tile once and then K/V tiles of 64 keys, as
+// bf16, into a ring of 4 stages, each stage guarded by a pair of mbarriers
+// (full: the bytes landed; empty: every consumer warp is done with it), so
+// loads run ahead of the products; TMA writes the tiles in the swizzled
+// layout wgmma reads, reads the model's strided [B, T, H, Dh] views in place
+// and zero-fills rows past Tq and Tk. Each consumer warpgroup takes S = Q K^T
+// with both operands from shared memory, keeps the row max, row sum and
+// rescale in float32 registers (base-2 exponent, the scale folded in; trees,
+// not chains, for the maxima and sums; the O rescale skipped while no row of
+// a thread sees a new maximum), rounds P to bf16 and feeds it straight from
+// the S registers as wgmma's register A operand of P V, with V read N-major
+// (transposed) from shared memory; O stays in float32 registers and is
+// rounded once on store. Each step issues S of the next tile together with
+// P V of the current one and takes the softmax of the next tile while P V
+// runs, so the tensor cores work during the softmax. Only the key tiles
+// between the Pallas kernel's bounds are visited (lo from the window, hi from
+// the causal limit); only tiles that cross the diagonal, the window edge or
+// Tk apply the mask, and a warpgroup skips the tiles past its own diagonal.
+// Query tiles are handed out last first, so the heaviest causal tiles start
+// first. The softmax, not the products, still sets the pace (PERF.md);
+// tiles of 128 keys would halve its per-tile costs but need more registers
+// than the launch bound leaves (with a producer warpgroup and setmaxnreg,
+// ptxas still held 168 registers a thread and spilled).
+//
+// attn_kernel, float32 and decode: both products in float32 FMA on the CUDA
+// cores. The float32 path must meet the 2e-5 tolerance of the reference's
+// tests, which neither TF32 nor bf16 operands can; decode (g * Tq <= 16, or
+// Tq <= 16) has too few query rows to fill a 64-row wgmma tile and is bound
+// by its K/V bytes, not its products. A block of 256 threads owns BQ query
+// rows of one (batch, query head) (BQ = 64, or 16 when Tq <= 16); when
+// g * Tq <= 16 (a decode step: qwen3's g = 4, Tq = 1) it owns the Tq rows of
+// all g query heads of a key/value head instead, so the cache is read once
+// per KV head. K/V tiles of 64 rows are staged as float32 (16-byte loads
+// where the strides allow them), with the same tile bounds.
+//
+// Both kernels read q, k, v and write o through element strides, so the
+// model's [B, T, H, Dh] tensors and its [B, S, Hkv, Dh] cache are read in
+// place and the output is written in the model's layout. The (batch, head)
+// blocks go on grid x (up to 2^31 - 1), the query tiles on grid y; past
+// 65,535 query tiles a block loops over them.
+#include <cuda.h>  // CUtensorMap; the encoder comes from the runtime's driver entry point
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -45,10 +77,14 @@
 namespace {
 
 constexpr int kThreads = 256;  // a 16 x 16 grid of (ty, tx)
-constexpr int kBK = 64;        // key/value rows per tile
+constexpr int kBK = 64;        // key/value rows per tile, in both kernels
 constexpr int kPS = kBK + 1;   // padded row of the probability tile
 constexpr float kNegInf = -1.0e30f;
 constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int64_t kMaxGridY = 65535;
+
+// the variants of ops.py's VARIANTS, in order
+enum Variant : int { kFma = 0, kFmaShort = 1, kFmaGrouped = 2, kWgmmaBf16 = 3 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -66,6 +102,26 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
 struct Strides {
   int64_t b, h, t;
 };
+
+// the key tiles [lo, hi) that query rows [q_start, q_start + rows) can see:
+// the Pallas kernel's loop bounds
+__device__ __forceinline__ void tile_bounds(int64_t q_start, int64_t rows, int64_t tk,
+                                            int causal, int64_t window, int64_t& lo,
+                                            int64_t& hi) {
+  const int64_t n_tiles = (tk + kBK - 1) / kBK;
+  hi = n_tiles;
+  if (causal) {
+    const int64_t last = (q_start + rows + kBK - 1) / kBK;
+    hi = last < n_tiles ? last : n_tiles;
+  }
+  lo = 0;
+  if (window > 0) {
+    const int64_t first = q_start - window + 1;  // floor division; negative clamps to 0
+    lo = first > 0 ? first / kBK : 0;
+  }
+}
+
+// ------------------------------------------------------------------ FMA kernel
 
 // eight bf16 or four float32 values from one 16-byte load, as float32
 __device__ __forceinline__ void load_vec(const float* p, float* out) {
@@ -120,13 +176,12 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
   // block row r < used_rows is query row row0 + r % rows_per_head of query
   // head h0 + r / rows_per_head; all of the block's heads share KV head kvh
   const int64_t head_blocks = hq / heads_per_block;
-  const int64_t bi = blockIdx.y / head_blocks;
-  const int64_t h0 = (blockIdx.y % head_blocks) * heads_per_block;
+  const int64_t bi = blockIdx.x / head_blocks;
+  const int64_t h0 = (blockIdx.x % head_blocks) * heads_per_block;
   const int64_t kvh = h0 / group;
   const int rph = static_cast<int>(rows_per_head);
   const int used_rows = static_cast<int>(heads_per_block) * rph;
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * rph;
-  const int64_t q_start = row0 + q_offset;  // absolute position of row offset 0
+  const int64_t q_tiles = (tq + rph - 1) / rph;
 
   const T* kp = k + bi * sk.b + kvh * sk.h;
   const T* vp = v + bi * sv.b + kvh * sv.h;
@@ -134,236 +189,805 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
   const bool vec_kv =
       ((reinterpret_cast<uintptr_t>(kp) | reinterpret_cast<uintptr_t>(vp)) % 16 == 0) &&
       sk.t % kVec == 0 && sv.t % kVec == 0;
-
-  for (int idx = tid; idx < BQ * DH; idx += kThreads) {
-    const int r = idx / DH, d = idx % DH;
-    float val = 0.0f;
-    if (r < used_rows) {
-      const int64_t row = row0 + r % rph;
-      const int64_t head = h0 + r / rph;
-      if (row < tq) val = to_float(q[bi * sq.b + head * sq.h + row * sq.t + d]) * sm_scale;
-    }
-    qs[r * S::kQS + d] = val;
-  }
   int rel[RM];  // this thread's rows' offsets from q_start
 #pragma unroll
   for (int i = 0; i < RM; ++i) rel[i] = (ty + 16 * i) % rph;
-  for (int r = tid; r < BQ; r += kThreads) {
-    m_s[r] = kNegInf;
-    l_s[r] = 0.0f;
-  }
 
-  // the key tiles this query tile can see (the Pallas kernel's loop bounds)
-  const int64_t n_tiles = (tk + kBK - 1) / kBK;
-  int64_t hi = n_tiles;
-  if (causal) {
-    const int64_t last = (q_start + rph + kBK - 1) / kBK;
-    hi = last < n_tiles ? last : n_tiles;
-  }
-  int64_t lo = 0;
-  if (window > 0) {
-    const int64_t first = q_start - window + 1;  // floor division; negative clamps to 0
-    lo = first > 0 ? first / kBK : 0;
-  }
+  for (int64_t qt = blockIdx.y; qt < q_tiles; qt += gridDim.y) {
+    const int64_t row0 = qt * rph;
+    const int64_t q_start = row0 + q_offset;  // absolute position of row offset 0
+    __syncthreads();  // the previous query tile's epilogue has read l_s
 
-  float acc[RM][DN];
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < DN; ++j) acc[i][j] = 0.0f;
-
-  for (int64_t tile = lo; tile < hi; ++tile) {
-    const int64_t kbase = tile * kBK;
-    __syncthreads();  // the previous tile's probabilities and values are consumed
-    if (vec_kv) {
-      constexpr int kPerRow = DH / kVec;
-      for (int idx = tid; idx < kBK * kPerRow; idx += kThreads) {
-        const int c = idx / kPerRow, d = (idx % kPerRow) * kVec;
-        const int64_t kpos = kbase + c;
-        float kv[kVec], vv[kVec];
-        if (kpos < tk) {
-          load_vec(kp + kpos * sk.t + d, kv);
-          load_vec(vp + kpos * sv.t + d, vv);
-        } else {
-#pragma unroll
-          for (int e = 0; e < kVec; ++e) kv[e] = vv[e] = 0.0f;
-        }
-#pragma unroll
-        for (int e = 0; e < kVec; ++e) {
-          ks[c * S::kKS + d + e] = kv[e];
-          vs[c * DH + d + e] = vv[e];
-        }
+    for (int idx = tid; idx < BQ * DH; idx += kThreads) {
+      const int r = idx / DH, d = idx % DH;
+      float val = 0.0f;
+      if (r < used_rows) {
+        const int64_t row = row0 + r % rph;
+        const int64_t head = h0 + r / rph;
+        if (row < tq) val = to_float(q[bi * sq.b + head * sq.h + row * sq.t + d]) * sm_scale;
       }
-    } else {
-      for (int idx = tid; idx < kBK * DH; idx += kThreads) {
-        const int c = idx / DH, d = idx % DH;
-        const int64_t kpos = kbase + c;
-        float kv = 0.0f, vv = 0.0f;
-        if (kpos < tk) {
-          kv = to_float(kp[kpos * sk.t + d]);
-          vv = to_float(vp[kpos * sv.t + d]);
-        }
-        ks[c * S::kKS + d] = kv;
-        vs[c * DH + d] = vv;
-      }
+      qs[r * S::kQS + d] = val;
     }
-    __syncthreads();
+    for (int r = tid; r < BQ; r += kThreads) {
+      m_s[r] = kNegInf;
+      l_s[r] = 0.0f;
+    }
+    int64_t lo, hi;
+    tile_bounds(q_start, rph, tk, causal, window, lo, hi);
 
-    // scores of rows ty + 16 i against keys tx + 16 j
-    float s[RM][CN];
+    float acc[RM][DN];
 #pragma unroll
     for (int i = 0; i < RM; ++i)
 #pragma unroll
-      for (int j = 0; j < CN; ++j) s[i][j] = 0.0f;
-#pragma unroll 8
-    for (int d = 0; d < DH; ++d) {
-      float qv[RM], kv[CN];
+      for (int j = 0; j < DN; ++j) acc[i][j] = 0.0f;
+
+    for (int64_t tile = lo; tile < hi; ++tile) {
+      const int64_t kbase = tile * kBK;
+      __syncthreads();  // the previous tile's probabilities and values are consumed
+      if (vec_kv) {
+        constexpr int kPerRow = DH / kVec;
+        for (int idx = tid; idx < kBK * kPerRow; idx += kThreads) {
+          const int c = idx / kPerRow, d = (idx % kPerRow) * kVec;
+          const int64_t kpos = kbase + c;
+          float kv[kVec], vv[kVec];
+          if (kpos < tk) {
+            load_vec(kp + kpos * sk.t + d, kv);
+            load_vec(vp + kpos * sv.t + d, vv);
+          } else {
 #pragma unroll
-      for (int i = 0; i < RM; ++i) qv[i] = qs[(ty + 16 * i) * S::kQS + d];
+            for (int e = 0; e < kVec; ++e) kv[e] = vv[e] = 0.0f;
+          }
 #pragma unroll
-      for (int j = 0; j < CN; ++j) kv[j] = ks[(tx + 16 * j) * S::kKS + d];
+          for (int e = 0; e < kVec; ++e) {
+            ks[c * S::kKS + d + e] = kv[e];
+            vs[c * DH + d + e] = vv[e];
+          }
+        }
+      } else {
+        for (int idx = tid; idx < kBK * DH; idx += kThreads) {
+          const int c = idx / DH, d = idx % DH;
+          const int64_t kpos = kbase + c;
+          float kv = 0.0f, vv = 0.0f;
+          if (kpos < tk) {
+            kv = to_float(kp[kpos * sk.t + d]);
+            vv = to_float(vp[kpos * sv.t + d]);
+          }
+          ks[c * S::kKS + d] = kv;
+          vs[c * DH + d] = vv;
+        }
+      }
+      __syncthreads();
+
+      // scores of rows ty + 16 i against keys tx + 16 j
+      float s[RM][CN];
 #pragma unroll
       for (int i = 0; i < RM; ++i)
 #pragma unroll
-        for (int j = 0; j < CN; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+        for (int j = 0; j < CN; ++j) s[i][j] = 0.0f;
+#pragma unroll 8
+      for (int d = 0; d < DH; ++d) {
+        float qv[RM], kv[CN];
+#pragma unroll
+        for (int i = 0; i < RM; ++i) qv[i] = qs[(ty + 16 * i) * S::kQS + d];
+#pragma unroll
+        for (int j = 0; j < CN; ++j) kv[j] = ks[(tx + 16 * j) * S::kKS + d];
+#pragma unroll
+        for (int i = 0; i < RM; ++i)
+#pragma unroll
+          for (int j = 0; j < CN; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+      }
+      __syncthreads();  // every thread is done with the keys: ps may overwrite them
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        const int r = ty + 16 * i;
+        const int64_t qpos = q_start + rel[i];
+#pragma unroll
+        for (int j = 0; j < CN; ++j) {
+          const int c = tx + 16 * j;
+          const int64_t kpos = kbase + c;
+          bool keep = kpos < tk;
+          if (causal) keep = keep && kpos <= qpos;
+          if (window > 0) keep = keep && kpos > qpos - window;
+          ps[r * kPS + c] = keep ? s[i][j] : kNegInf;
+        }
+      }
+      __syncthreads();
+
+      // online softmax, one warp per row: the tile's max, the rescale of what
+      // came before, the probabilities and their sum
+      for (int r = warp; r < BQ; r += kThreads / 32) {
+        float* row = ps + r * kPS;
+        const float s0 = row[lane], s1 = row[lane + 32];
+        float mt = fmaxf(s0, s1);
+#pragma unroll
+        for (int off = 16; off > 0; off /= 2) mt = fmaxf(mt, __shfl_xor_sync(kFullMask, mt, off));
+        const float m_prev = m_s[r];
+        const float m_cur = fmaxf(m_prev, mt);
+        const float p0 = expf(s0 - m_cur), p1 = expf(s1 - m_cur);
+        row[lane] = p0;
+        row[lane + 32] = p1;
+        float sum = p0 + p1;
+#pragma unroll
+        for (int off = 16; off > 0; off /= 2) sum += __shfl_xor_sync(kFullMask, sum, off);
+        if (lane == 0) {
+          const float alpha = expf(m_prev - m_cur);
+          m_s[r] = m_cur;
+          l_s[r] = l_s[r] * alpha + sum;
+          a_s[r] = alpha;
+        }
+      }
+      __syncthreads();
+
+      // acc = acc * alpha + p @ v, rows ty + 16 i, columns tx + 16 j
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        const float alpha = a_s[ty + 16 * i];
+#pragma unroll
+        for (int j = 0; j < DN; ++j) acc[i][j] *= alpha;
+      }
+#pragma unroll 4
+      for (int c = 0; c < kBK; ++c) {
+        float pv[RM], vv[DN];
+#pragma unroll
+        for (int i = 0; i < RM; ++i) pv[i] = ps[(ty + 16 * i) * kPS + c];
+#pragma unroll
+        for (int j = 0; j < DN; ++j) vv[j] = vs[c * DH + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < RM; ++i)
+#pragma unroll
+          for (int j = 0; j < DN; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+      }
     }
-    __syncthreads();  // every thread is done with the keys: ps may overwrite them
+    __syncthreads();  // l_s holds the last tile's denominators
+
 #pragma unroll
     for (int i = 0; i < RM; ++i) {
       const int r = ty + 16 * i;
-      const int64_t qpos = q_start + rel[i];
+      const int64_t row = row0 + rel[i];
+      if (r >= used_rows || row >= tq) continue;
+      T* op = o + bi * so.b + (h0 + r / rph) * so.h + row * so.t;
+      const float denom = fmaxf(l_s[r], 1e-30f);
 #pragma unroll
-      for (int j = 0; j < CN; ++j) {
-        const int c = tx + 16 * j;
-        const int64_t kpos = kbase + c;
-        bool keep = kpos < tk;
-        if (causal) keep = keep && kpos <= qpos;
-        if (window > 0) keep = keep && kpos > qpos - window;
-        ps[r * kPS + c] = keep ? s[i][j] : kNegInf;
-      }
+      for (int j = 0; j < DN; ++j) op[tx + 16 * j] = from_float<T>(acc[i][j] / denom);
     }
-    __syncthreads();
+  }
+}
 
-    // online softmax, one warp per row: the tile's max, the rescale of what
-    // came before, the probabilities and their sum
-    for (int r = warp; r < BQ; r += kThreads / 32) {
-      float* row = ps + r * kPS;
-      const float s0 = row[lane], s1 = row[lane + 32];
-      float mt = fmaxf(s0, s1);
+// ----------------------------------------------------------- tensor-core kernel
+
+using bf16 = __nv_bfloat16;
+constexpr int kWgConsumers = 2;                      // consumer warpgroups, 64 query rows each
+constexpr int kWgBQ = 64 * kWgConsumers;             // query rows a block
+constexpr int kWgStages = 4;                         // K/V tiles in the ring
+constexpr int kWgThreads = 128 * kWgConsumers + 32;  // + one producer warp
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory of a block: the Q tile of kWgBQ rows, kWgStages K tiles and
+// kWgStages V tiles of kBK rows, then the barriers. A tile is stored as
+// wgmma's swizzled descriptors read it and the tensor memory accelerator
+// writes it: rows of kRB bytes (128, or 64 at Dh = 32), the Dh columns in
+// blocks of kRB bytes one after another ([block][rows][kRB]), and inside each
+// 8-row atom the 16-byte chunk c of row r at c ^ (r % 8) (128-byte swizzle)
+// or c ^ (r / 2 % 4) (64-byte swizzle), which keeps the copies and wgmma's
+// reads free of bank conflicts. Atoms start on 1024 bytes.
+template <int DH>
+struct WgSmem {
+  static constexpr int kRB = DH * 2 < 128 ? DH * 2 : 128;
+  static constexpr uint64_t kLayout = kRB == 128 ? 1 : 2;  // descriptor: 128B / 64B swizzle
+  static constexpr int kQBytes = kWgBQ * DH * 2;
+  static constexpr int kTileBytes = kBK * DH * 2;
+  static constexpr int kBarBytes = 8 * (2 * kWgStages + 1);
+  static constexpr size_t kBytes = kQBytes + 2 * kWgStages * kTileBytes + kBarBytes + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 2^x on the special-function unit (relative error about 2^-22; 0 for -1e30)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// two float32 rounded to bf16 in one register, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// a wgmma shared-memory descriptor: start address, leading and stride byte
+// offsets (in 16-byte units) and the swizzle mode
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                            uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3ffff) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3ffff) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3ffff) >> 4) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N committed wgmma groups are still running
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keep the compiler from moving reads or writes of r across an asynchronous wgmma
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
-      for (int off = 16; off > 0; off /= 2) mt = fmaxf(mt, __shfl_xor_sync(kFullMask, mt, off));
-      const float m_prev = m_s[r];
-      const float m_cur = fmaxf(m_prev, mt);
-      const float p0 = expf(s0 - m_cur), p1 = expf(s1 - m_cur);
-      row[lane] = p0;
-      row[lane + 32] = p1;
-      float sum = p0 + p1;
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int M>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[M][4]) {
 #pragma unroll
-      for (int off = 16; off > 0; off /= 2) sum += __shfl_xor_sync(kFullMask, sum, off);
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// d (64 x 64, float32) (+)= a (64 x 16, shared) b (16 x 64, shared): bf16, K-major
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 32, float32) (+)= a (64 x 16, registers) b (16 x 32, shared): bf16, b N-major
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 64, float32) (+)= a (64 x 16, registers) b (16 x 64, shared): bf16, b N-major
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 128, float32) (+)= a (64 x 16, registers) b (16 x 128, shared): bf16, b N-major
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// mbarriers in shared memory: a phase completes when its arrivals (and any
+// expected bytes of asynchronous copies) are in; waits name the phase parity
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// the barrier's current phase also waits for `bytes` of asynchronous copies
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+// one box of a 4-D tensor map (coordinates innermost first) into shared memory,
+// counted on `bar` when it lands
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// Register fragments (lane = 4 grp + tig of warp w of a warpgroup): an
+// accumulator of N columns holds, for each 8-column group j, rows 16 w + grp
+// (elements 4 j, 4 j + 1) and 16 w + grp + 8 (4 j + 2, 4 j + 3) at columns
+// 8 j + 2 tig, + 1. Two adjacent 8-key groups of S in that layout are
+// exactly wgmma's register A operand for 16 keys of P V.
+template <int DH>
+__global__ void __launch_bounds__(kWgThreads, 1)
+attn_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                  const __grid_constant__ CUtensorMap k_map,
+                  const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ o, Strides so,
+                  int64_t hq, int64_t group, int64_t tq, int64_t tk, int causal,
+                  int64_t window, int64_t q_offset, float scale_log2) {
+  using S = WgSmem<DH>;
+  constexpr int KT = kBK / 8;  // 8-key column tiles of S
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const uint32_t qs_a = smem_addr(base);                       // [kWgBQ rows]
+  const uint32_t ks_a = qs_a + S::kQBytes;                     // [kWgStages][kBK rows]
+  const uint32_t vs_a = ks_a + kWgStages * S::kTileBytes;      // [kWgStages][kBK rows]
+  const uint32_t bar_a = vs_a + kWgStages * S::kTileBytes;     // full[S], empty[S], q_full
+  auto full = [&](int s) { return bar_a + 8 * s; };
+  auto empty = [&](int s) { return bar_a + 8 * (kWgStages + s); };
+  const uint32_t q_full = bar_a + 8 * 2 * kWgStages;
+
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+  const bool producer = wg == kWgConsumers;
+  const int grp = lane / 4, tig = lane % 4;
+  const int64_t bi = blockIdx.x / hq, h = blockIdx.x % hq, kvh = h / group;
+  bf16* op = o + bi * so.b + h * so.h;
+  const int64_t q_tiles = (tq + kWgBQ - 1) / kWgBQ;
+
+  if (tid == 0) {
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(full(s), 1);                  // the producer's expect-tx arrival
+      mbar_init(empty(s), 4 * kWgConsumers);  // one arrival a consumer warp
+    }
+    mbar_init(q_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  int stage = 0;
+  uint32_t phase = 0;  // parity of the ring's current lap
+  uint32_t q_phase = 0;
+
+  for (int64_t it = blockIdx.y; it < q_tiles; it += gridDim.y) {
+    const int64_t qt = q_tiles - 1 - it;  // the heaviest causal tiles first
+    const int64_t row0 = qt * kWgBQ;
+    const int64_t rows = tq - row0 < kWgBQ ? tq - row0 : kWgBQ;
+    const int64_t q_start = row0 + q_offset;  // absolute position of the tile's row 0
+    int64_t lo, hi;
+    tile_bounds(q_start, rows, tk, causal, window, lo, hi);
+    __syncthreads();  // barriers initialised; the previous query tile is done with Q
+
+    if (producer) {
+      // one thread: Q once, then K/V tiles into the ring as fast as consumers
+      // free stages; the tensor memory accelerator writes them swizzled and
+      // zero-fills rows past Tq / Tk
       if (lane == 0) {
-        const float alpha = expf(m_prev - m_cur);
-        m_s[r] = m_cur;
-        l_s[r] = l_s[r] * alpha + sum;
-        a_s[r] = alpha;
+        constexpr int kBoxes = DH * 2 / S::kRB;  // column blocks of a row
+        constexpr uint32_t kQBoxBytes = 64 * S::kRB;  // a warpgroup's rows
+        constexpr uint32_t kBoxBytes = kBK * S::kRB;
+        mbar_expect_tx(q_full, kWgConsumers * kBoxes * kQBoxBytes);
+        for (int g = 0; g < kWgConsumers; ++g) {
+          for (int cb = 0; cb < kBoxes; ++cb) {
+            tma_load_4d(qs_a + cb * kWgBQ * S::kRB + g * kQBoxBytes, &q_map, q_full,
+                        cb * (S::kRB / 2), static_cast<int>(row0 + g * 64),
+                        static_cast<int>(h), static_cast<int>(bi));
+          }
+        }
+        for (int64_t tile = lo; tile < hi; ++tile) {
+          mbar_wait(empty(stage), phase ^ 1);  // a fresh ring passes the first lap
+          mbar_expect_tx(full(stage), 2 * kBoxes * kBoxBytes);
+          const uint32_t kd = ks_a + stage * S::kTileBytes, vd = vs_a + stage * S::kTileBytes;
+          for (int cb = 0; cb < kBoxes; ++cb) {
+            const int row = static_cast<int>(tile * kBK);
+            tma_load_4d(kd + cb * kBoxBytes, &k_map, full(stage), cb * (S::kRB / 2), row,
+                        static_cast<int>(kvh), static_cast<int>(bi));
+            tma_load_4d(vd + cb * kBoxBytes, &v_map, full(stage), cb * (S::kRB / 2), row,
+                        static_cast<int>(kvh), static_cast<int>(bi));
+          }
+          if (++stage == kWgStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+      __syncwarp();  // the warp converges before the next __syncthreads
+    } else {
+      const int64_t wg_start = q_start + wg * 64;  // absolute position of its row 0
+      // the tiles this warpgroup works on; it releases the rest of [lo, hi) unread
+      int64_t wlo, whi;
+      tile_bounds(wg_start, 64, tk, causal, window, wlo, whi);
+      wlo = wlo < lo ? lo : (wlo > hi ? hi : wlo);
+      whi = whi < wlo ? wlo : (whi > hi ? hi : whi);
+      float acc[DH / 2];  // O, 64 x DH a warpgroup: rows grp (+8) of each warp's 16
+      float s[KT * 4];    // S of one tile, then its probabilities
+      uint32_t p[kBK / 16][4];  // P in bf16 as wgmma A fragments
+#pragma unroll
+      for (int i = 0; i < DH / 2; ++i) acc[i] = 0.0f;
+#pragma unroll
+      for (int i = 0; i < KT * 4; ++i) s[i] = 0.0f;
+      float m_row[2] = {kNegInf, kNegInf};  // running max of rows grp, grp + 8 (raw scores)
+      float l_row[2] = {0.0f, 0.0f};        // this thread's part of the running sums
+      float alpha[2];
+      const int64_t qpos0 = wg_start + warp * 16 + grp;
+      const int64_t qpos1 = qpos0 + 8;
+
+      auto issue_qk = [&](int st) {  // S = Q K^T, 16 columns of DH a step
+        const uint32_t kt = ks_a + st * S::kTileBytes;
+#pragma unroll
+        for (int kk = 0; kk < DH / 16; ++kk) {
+          const uint32_t col = (kk * 32) / S::kRB, within = (kk * 32) % S::kRB;
+          const uint64_t da = wg_desc(qs_a + col * kWgBQ * S::kRB + wg * 64 * S::kRB + within,
+                                      16, 8 * S::kRB, S::kLayout);
+          const uint64_t db = wg_desc(kt + col * kBK * S::kRB + within, 16, 8 * S::kRB,
+                                      S::kLayout);
+          wgmma_ss(s, da, db, kk > 0);
+        }
+        wgmma_commit();
+      };
+      auto issue_pv = [&](int st) {  // O += P V, 16 keys a step, V read N-major
+        const uint32_t vt = vs_a + st * S::kTileBytes;
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk) {
+          const uint64_t db = wg_desc(vt + kk * 16 * S::kRB, kBK * S::kRB, 8 * S::kRB,
+                                      S::kLayout);
+          wgmma_rs(acc, p[kk], db, 1);
+        }
+        wgmma_commit();
+      };
+      // S of tile `tile` -> its probabilities in s, the rescale of what came before
+      // in alpha. Scores stay in their own units (masked ones at -1e30); the
+      // maxima and sums are trees, not chains
+      auto softmax = [&](int64_t tile) {
+        const int64_t kbase = tile * kBK;
+        const bool edge = kbase + kBK > tk ||
+                          (causal && kbase + kBK - 1 > wg_start) ||
+                          (window > 0 && kbase <= wg_start + 63 - window);
+        if (edge) {
+#pragma unroll
+          for (int i = 0; i < KT * 4; ++i) {
+            const int64_t kpos = kbase + (i / 4) * 8 + 2 * tig + (i & 1);
+            const int64_t qpos = (i & 2) ? qpos1 : qpos0;
+            bool keep = kpos < tk;
+            if (causal) keep = keep && kpos <= qpos;
+            if (window > 0) keep = keep && kpos > qpos - window;
+            if (!keep) s[i] = kNegInf;
+          }
+        }
+        float mx[2][KT];  // row maxima, a tree over the tile's columns
+#pragma unroll
+        for (int j = 0; j < KT; ++j) {
+          mx[0][j] = fmaxf(s[4 * j], s[4 * j + 1]);
+          mx[1][j] = fmaxf(s[4 * j + 2], s[4 * j + 3]);
+        }
+#pragma unroll
+        for (int w = KT / 2; w > 0; w /= 2)
+#pragma unroll
+          for (int j = 0; j < w; ++j) {
+            mx[0][j] = fmaxf(mx[0][j], mx[0][j + w]);
+            mx[1][j] = fmaxf(mx[1][j], mx[1][j + w]);
+          }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float m = fmaxf(m_row[r], mx[r][0]);
+          m = fmaxf(m, __shfl_xor_sync(kFullMask, m, 1));
+          m = fmaxf(m, __shfl_xor_sync(kFullMask, m, 2));
+          alpha[r] = fast_exp2((m_row[r] - m) * scale_log2);
+          m_row[r] = m;
+        }
+        // (s - m) before the scale: a masked score against a masked maximum
+        // gives exactly 0, so exp2 gives 1 as in the Pallas kernel
+        float sm[2][KT];
+#pragma unroll
+        for (int j = 0; j < KT; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[4 * j + e] = fast_exp2((s[4 * j + e] - m_row[e >> 1]) * scale_log2);
+          }
+          sm[0][j] = s[4 * j] + s[4 * j + 1];
+          sm[1][j] = s[4 * j + 2] + s[4 * j + 3];
+        }
+#pragma unroll
+        for (int w = KT / 2; w > 0; w /= 2)
+#pragma unroll
+          for (int j = 0; j < w; ++j) {
+            sm[0][j] += sm[0][j + w];
+            sm[1][j] += sm[1][j + w];
+          }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) l_row[r] = l_row[r] * alpha[r] + sm[r][0];
+      };
+      // after the last P V that read p has finished: O *= alpha (skipped while
+      // no row of this thread saw a new maximum), P rounded to bf16
+      auto rescale_and_pack = [&]() {
+        fence_regs(acc);
+        fence_regs(p);
+        if (alpha[0] != 1.0f || alpha[1] != 1.0f) {
+#pragma unroll
+          for (int i = 0; i < DH / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+        }
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk) {
+          p[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+          p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+          p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+          p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+        }
+      };
+      auto advance = [&]() {
+        if (++stage == kWgStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      };
+      auto release = [&](int st) {  // this warp is done with stage st
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty(st));
+      };
+
+      mbar_wait(q_full, q_phase);
+      for (int64_t tile = lo; tile < wlo; ++tile) {  // before the window: released unread
+        mbar_wait(full(stage), phase);
+        release(stage);
+        advance();
+      }
+      if (whi > wlo) {
+        // tile wlo alone, then each step issues S of the next tile and P V of
+        // this one together, and takes the softmax of the next tile while P V
+        // runs: the tensor cores work while this warpgroup does the softmax
+        mbar_wait(full(stage), phase);
+        wgmma_fence();
+        issue_qk(stage);
+        wgmma_wait<0>();
+        fence_regs(s);
+        softmax(wlo);
+        rescale_and_pack();
+        int prev = stage;
+        advance();
+        for (int64_t tile = wlo + 1; tile < whi; ++tile) {
+          mbar_wait(full(stage), phase);
+          wgmma_fence();
+          issue_qk(stage);
+          issue_pv(prev);
+          wgmma_wait<1>();  // S of this tile is in; P V of the previous may still run
+          fence_regs(s);
+          softmax(tile);
+          wgmma_wait<0>();
+          release(prev);
+          rescale_and_pack();
+          prev = stage;
+          advance();
+        }
+        wgmma_fence();
+        issue_pv(prev);
+        wgmma_wait<0>();
+        fence_regs(acc);
+        release(prev);
+      }
+      for (int64_t tile = whi; tile < hi; ++tile) {  // past the diagonal: released unread
+        mbar_wait(full(stage), phase);
+        release(stage);
+        advance();
+      }
+
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float l = l_row[r];
+        l += __shfl_xor_sync(kFullMask, l, 1);
+        l += __shfl_xor_sync(kFullMask, l, 2);
+        const float denom = fmaxf(l, 1e-30f);
+        const int64_t row = wg * 64 + warp * 16 + grp + 8 * r;
+        if (row >= rows) continue;
+        bf16* orow = op + (row0 + row) * so.t;
+#pragma unroll
+        for (int j = 0; j < DH / 8; ++j) {
+          *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + 2 * tig) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * r] / denom, acc[4 * j + 2 * r + 1] / denom);
+        }
       }
     }
-    __syncthreads();
-
-    // acc = acc * alpha + p @ v, rows ty + 16 i, columns tx + 16 j
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const float alpha = a_s[ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < DN; ++j) acc[i][j] *= alpha;
-    }
-#pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
-      float pv[RM], vv[DN];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) pv[i] = ps[(ty + 16 * i) * kPS + c];
-#pragma unroll
-      for (int j = 0; j < DN; ++j) vv[j] = vs[c * DH + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < DN; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
-    }
+    q_phase ^= 1;
   }
-  __syncthreads();  // l_s holds the last tile's denominators
+}
 
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int r = ty + 16 * i;
-    const int64_t row = row0 + rel[i];
-    if (r >= used_rows || row >= tq) continue;
-    T* op = o + bi * so.b + (h0 + r / rph) * so.h + row * so.t;
-    const float denom = fmaxf(l_s[r], 1e-30f);
-#pragma unroll
-    for (int j = 0; j < DN; ++j) op[tx + 16 * j] = from_float<T>(acc[i][j] / denom);
-  }
+// ---------------------------------------------------------------- launchers
+
+dim3 grid_of(int64_t head_blocks, int64_t q_tiles) {
+  const int64_t y = q_tiles < kMaxGridY ? q_tiles : kMaxGridY;  // a block loops past 65,535
+  return dim3(static_cast<unsigned>(head_blocks), static_cast<unsigned>(y));
 }
 
 // heads_per_block query heads (1, or all g of a KV head) of rows_per_head
 // query rows each make one block
 template <class T, int DH, int BQ>
-int launch(const void* q, const void* k, const void* v, void* o, const int64_t* st,
-           int64_t batch, int64_t hq, int64_t hkv, int64_t heads_per_block,
-           int64_t rows_per_head, int64_t tq, int64_t tk, int causal, int64_t window,
-           int64_t q_offset, float sm_scale, cudaStream_t stream) {
+int launch_fma(const void* q, const void* k, const void* v, void* o, const int64_t* st,
+               int64_t batch, int64_t hq, int64_t hkv, int64_t heads_per_block,
+               int64_t rows_per_head, int64_t tq, int64_t tk, int causal, int64_t window,
+               int64_t q_offset, float sm_scale, cudaStream_t stream) {
   using S = Smem<DH, BQ>;
   auto kernel = attn_kernel<T, DH, BQ>;
   // set once, before any launch (and so before any CUDA-graph capture)
   static const cudaError_t configured = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(S::kBytes));
   if (configured != cudaSuccess) return static_cast<int>(configured);
-  const int64_t q_tiles = (tq + rows_per_head - 1) / rows_per_head;
   const int64_t head_blocks = batch * (hq / heads_per_block);
-  if (head_blocks > 65535 || q_tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>(q_tiles), static_cast<unsigned>(head_blocks));
-  kernel<<<grid, kThreads, S::kBytes, stream>>>(
+  if (head_blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t q_tiles = (tq + rows_per_head - 1) / rows_per_head;
+  kernel<<<grid_of(head_blocks, q_tiles), kThreads, S::kBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
       Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]}, hq, hq / hkv,
       heads_per_block, rows_per_head, tq, tk, causal, window, q_offset, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-template <class T, int DH>
-int launch_bq(const void* q, const void* k, const void* v, void* o, const int64_t* st,
-              int64_t batch, int64_t hq, int64_t hkv, int64_t tq, int64_t tk, int causal,
-              int64_t window, int64_t q_offset, float sm_scale, cudaStream_t stream) {
-  const int64_t group = hq / hkv;
-  if (group * tq <= 16) {  // decode: the g heads of a KV head in one block
-    return launch<T, DH, 16>(q, k, v, o, st, batch, hq, hkv, group, tq, tq, tk, causal, window,
-                             q_offset, sm_scale, stream);
-  }
-  if (tq <= 16) {
-    return launch<T, DH, 16>(q, k, v, o, st, batch, hq, hkv, 1, 16, tq, tk, causal, window,
-                             q_offset, sm_scale, stream);
-  }
-  return launch<T, DH, 64>(q, k, v, o, st, batch, hq, hkv, 1, 64, tq, tk, causal, window,
-                           q_offset, sm_scale, stream);
+EncodeTiled tensor_map_encoder() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess) {
+      return static_cast<EncodeTiled>(nullptr);
+    }
+    return reinterpret_cast<EncodeTiled>(f);
+  }();
+  return fn;
 }
 
-template <class T>
-int launch_dh(int dh, const void* q, const void* k, const void* v, void* o, const int64_t* st,
+// a [B, H, T, DH] bf16 view (element strides st[0..2]: batch, head, row) as a
+// 4-D tensor map of boxes of box_rows rows x min(DH, 64) columns, swizzled like WgSmem
+template <int DH>
+bool make_map(CUtensorMap* map, const void* ptr, const int64_t* st, int64_t batch,
+              int64_t heads, int64_t rows, uint32_t box_rows) {
+  using S = WgSmem<DH>;
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {DH, static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[2]) * 2,
+                                 static_cast<cuuint64_t>(st[1]) * 2,
+                                 static_cast<cuuint64_t>(st[0]) * 2};
+  const cuuint32_t box[4] = {S::kRB / 2, box_rows, 1, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                S::kRB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DH>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, const int64_t* st,
               int64_t batch, int64_t hq, int64_t hkv, int64_t tq, int64_t tk, int causal,
               int64_t window, int64_t q_offset, float sm_scale, cudaStream_t stream) {
-  switch (dh) {
-    case 32:
-      return launch_bq<T, 32>(q, k, v, o, st, batch, hq, hkv, tq, tk, causal, window, q_offset,
-                              sm_scale, stream);
-    case 64:
-      return launch_bq<T, 64>(q, k, v, o, st, batch, hq, hkv, tq, tk, causal, window, q_offset,
-                              sm_scale, stream);
-    case 128:
-      return launch_bq<T, 128>(q, k, v, o, st, batch, hq, hkv, tq, tk, causal, window, q_offset,
-                               sm_scale, stream);
+  using S = WgSmem<DH>;
+  auto kernel = attn_wgmma_kernel<DH>;
+  static const cudaError_t configured = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(S::kBytes));
+  if (configured != cudaSuccess) return static_cast<int>(configured);
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
+  int64_t strides = 0;
+  for (int i = 0; i < 12; ++i) strides |= st[i];
+  if (bases % 16 != 0 || strides % 8 != 0) return static_cast<int>(cudaErrorMisalignedAddress);
+  const int64_t head_blocks = batch * hq;
+  if (head_blocks > 0x7fffffff || tq > 0x7fffffff || tk > 0x7fffffff) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  CUtensorMap q_map, k_map, v_map;
+  const int64_t kv_rows = tk > 0 ? tk : 1;  // no tile is read when Tk = 0
+  if (!make_map<DH>(&q_map, q, st, batch, hq, tq, 64) ||
+      !make_map<DH>(&k_map, k, st + 3, batch, hkv, kv_rows, kBK) ||
+      !make_map<DH>(&v_map, v, st + 6, batch, hkv, kv_rows, kBK)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t q_tiles = (tq + kWgBQ - 1) / kWgBQ;
+  kernel<<<grid_of(head_blocks, q_tiles), kWgThreads, S::kBytes, stream>>>(
+      q_map, k_map, v_map, static_cast<bf16*>(o), Strides{st[9], st[10], st[11]}, hq, hq / hkv,
+      tq, tk, causal, window, q_offset, sm_scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+template <class T, int DH>
+int launch_variant(int variant, const void* q, const void* k, const void* v, void* o,
+                   const int64_t* st, int64_t batch, int64_t hq, int64_t hkv, int64_t tq,
+                   int64_t tk, int causal, int64_t window, int64_t q_offset, float sm_scale,
+                   cudaStream_t stream) {
+  const int64_t group = hq / hkv;
+  switch (variant) {
+    case kFmaGrouped:  // decode: the g heads of a KV head in one block
+      return launch_fma<T, DH, 16>(q, k, v, o, st, batch, hq, hkv, group, tq, tq, tk, causal,
+                                   window, q_offset, sm_scale, stream);
+    case kFmaShort:
+      return launch_fma<T, DH, 16>(q, k, v, o, st, batch, hq, hkv, 1, 16, tq, tk, causal,
+                                   window, q_offset, sm_scale, stream);
+    case kFma:
+      return launch_fma<T, DH, 64>(q, k, v, o, st, batch, hq, hkv, 1, 64, tq, tk, causal,
+                                   window, q_offset, sm_scale, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+template <class T>
+int launch_dh(int variant, int dh, const void* q, const void* k, const void* v, void* o,
+              const int64_t* st, int64_t batch, int64_t hq, int64_t hkv, int64_t tq, int64_t tk,
+              int causal, int64_t window, int64_t q_offset, float sm_scale,
+              cudaStream_t stream) {
+  switch (dh) {
+    case 32:
+      return launch_variant<T, 32>(variant, q, k, v, o, st, batch, hq, hkv, tq, tk, causal,
+                                   window, q_offset, sm_scale, stream);
+    case 64:
+      return launch_variant<T, 64>(variant, q, k, v, o, st, batch, hq, hkv, tq, tk, causal,
+                                   window, q_offset, sm_scale, stream);
+    case 128:
+      return launch_variant<T, 128>(variant, q, k, v, o, st, batch, hq, hkv, tq, tk, causal,
+                                    window, q_offset, sm_scale, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
 }  // namespace
 
 extern "C" {
@@ -371,23 +995,45 @@ extern "C" {
 // o[B, Hq, Tq, Dh] from q[B, Hq, Tq, Dh], k and v[B, Hkv, Tk, Dh], all given
 // by base pointer and element strides (strides[0..11]: the batch, head and
 // row strides of q, k, v, o, in that order; the last dimension contiguous).
-// dtype 0 = float32, 1 = bfloat16; dh in {32, 64, 128}; Hq a multiple of
-// Hkv; window <= 0 means none. Returns the CUDA error code of the launch.
-int flash_attention_fwd(int dtype, int dh, const void* q, const void* k, const void* v, void* o,
-                        const int64_t* strides, int64_t batch, int64_t hq, int64_t hkv,
-                        int64_t tq, int64_t tk, int causal, int64_t window, int64_t q_offset,
-                        float sm_scale, void* stream) {
+// variant: 0 = FMA, 64-row tiles; 1 = FMA, 16-row tiles; 2 = FMA, the g heads
+// of a KV head in one block (needs g * Tq <= 16); 3 = tensor cores (bf16
+// only, 16-byte aligned bases and strides). dtype 0 = float32, 1 = bfloat16;
+// dh in {32, 64, 128}; Hq a multiple of Hkv; window <= 0 means none. Returns
+// the CUDA error code of the launch.
+int flash_attention_fwd(int variant, int dtype, int dh, const void* q, const void* k,
+                        const void* v, void* o, const int64_t* strides, int64_t batch,
+                        int64_t hq, int64_t hkv, int64_t tq, int64_t tk, int causal,
+                        int64_t window, int64_t q_offset, float sm_scale, void* stream) {
   if (batch <= 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0 || tq <= 0 || tk < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (variant == kFmaGrouped && (hq / hkv) * tq > 16) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (variant == kWgmmaBf16) {
+    if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+    switch (dh) {
+      case 32:
+        return launch_wgmma<32>(q, k, v, o, strides, batch, hq, hkv, tq, tk, causal, window,
+                                q_offset, sm_scale, s);
+      case 64:
+        return launch_wgmma<64>(q, k, v, o, strides, batch, hq, hkv, tq, tk, causal, window,
+                                q_offset, sm_scale, s);
+      case 128:
+        return launch_wgmma<128>(q, k, v, o, strides, batch, hq, hkv, tq, tk, causal, window,
+                                 q_offset, sm_scale, s);
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   if (dtype == 0) {
-    return launch_dh<float>(dh, q, k, v, o, strides, batch, hq, hkv, tq, tk, causal, window,
-                            q_offset, sm_scale, s);
+    return launch_dh<float>(variant, dh, q, k, v, o, strides, batch, hq, hkv, tq, tk, causal,
+                            window, q_offset, sm_scale, s);
   }
   if (dtype == 1) {
-    return launch_dh<__nv_bfloat16>(dh, q, k, v, o, strides, batch, hq, hkv, tq, tk, causal,
-                                    window, q_offset, sm_scale, s);
+    return launch_dh<__nv_bfloat16>(variant, dh, q, k, v, o, strides, batch, hq, hkv, tq, tk,
+                                    causal, window, q_offset, sm_scale, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -15,15 +15,18 @@
 // float32): the function must read x and dt and write y (3 * T * D * 4 =
 // 805 MB) and do 7 float32 operations per (t, d, n) (dt*A, the exp counted
 // as one, *h, *B, +, *C and the sum over N; 7.5 GFLOP): 0.24 ms of bytes at
-// 3.35 TB/s against 0.11 ms of operations at 67 TFLOP/s, so bytes bound it.
+// 3.35 TB/s and 0.11 ms of operations at 67 TFLOP/s, but its 1.07e9 exps
+// take 0.257 ms on the special-function units (16 a clock an SM), so the
+// exps bound it.
 //
 // Design. The state never leaves the registers: [T, D, N] never reaches
 // device memory, which is the fusion the Pallas kernel made. The TPU kernel
 // kept a [block_d, N] state in VMEM and walked time with a fori_loop; here
 // one thread owns one (channel, state) pair, so N = 16 neighbouring lanes
 // hold one channel and a shuffle tree over them takes h_t . C_t. A block of
-// 256 threads covers 256 / N channels of one batch row. One thread per
-// channel, with N states in its registers, would give only B * D threads
+// 256 threads covers 256 / N channels of one batch row; the (batch row,
+// channel block) pairs are flattened onto grid x, so any batch fits. One
+// thread per channel, with N states in its registers, would give only B * D threads
 // (8,192 at B=1, D=8192: a sixteenth of what the card keeps in flight); one
 // per (channel, state) gives B * D * N = 131,072 and keeps the recurrence's
 // dependent chain per thread to one FMA a step. Time is streamed in chunks
@@ -68,8 +71,10 @@ scan_kernel(const T* __restrict__ x, const T* __restrict__ dt, const float* __re
   const int tid = threadIdx.x;
   const int n = tid % N;   // this thread's state
   const int ch = tid / N;  // its channel within the block
-  const int64_t bi = blockIdx.y;
-  const int64_t d0 = static_cast<int64_t>(blockIdx.x) * CH;
+  // grid x is (batch row, channel block) flattened: up to 2^31 - 1 blocks
+  const int64_t blocks_per_row = (d + CH - 1) / CH;
+  const int64_t bi = blockIdx.x / blocks_per_row;
+  const int64_t d0 = (blockIdx.x % blocks_per_row) * CH;
   const int64_t chan = d0 + ch;
   const bool valid = chan < d;
   const float an = valid ? a[chan * N + n] : 0.0f;
@@ -131,10 +136,9 @@ int launch(const void* x, const void* dt, const float* a, const void* b, const v
            const float* d_skip, void* y, float* h_last, int64_t batch, int64_t t_len,
            int64_t d, cudaStream_t stream) {
   constexpr int CH = kThreads / N;
-  const int64_t blocks = (d + CH - 1) / CH;
-  if (blocks > 0x7fffffff || batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(batch));
-  scan_kernel<T, N><<<grid, kThreads, 0, stream>>>(
+  const int64_t blocks = batch * ((d + CH - 1) / CH);
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  scan_kernel<T, N><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(dt), a, static_cast<const T*>(b),
       static_cast<const T*>(c), d_skip, static_cast<T*>(y), h_last, t_len, d);
   return static_cast<int>(cudaGetLastError());

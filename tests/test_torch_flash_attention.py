@@ -10,7 +10,14 @@ in bf16 (one bf16 rounding of the output). The reference's own Pallas path
 does not run on the installed jax (``pl.load`` is gone), so its oracle is
 ``attention_ref``. The CUDA kernel itself is held against this plain version
 on the card (``tests/test_torch_gpu.py``, ``chip_smoke.py``).
+
+The tensor-core variant's rounding is modelled here tile by tile
+(``_tensor_core_model``) and held against the references at both bf16
+tolerances before the card sees it; the wrapper's variant dispatch is a pure
+function of the inputs' dtype, shape and alignment and is tested here too.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -157,3 +164,120 @@ def test_wrapper_checks_and_counts_no_cpu_launch():
         ops.flash_attention(q, k, k.double())
     with pytest.raises(ValueError, match="must be"):
         ops.flash_attention(q, k[..., :16], k[..., :16])
+
+
+# --------------------------------------------------------- variant dispatch
+@pytest.mark.parametrize("dtype,tq,group,dh,aligned,variant", [
+    (torch.bfloat16, 8192, 4, 128, True, "wgmma_bf16"),  # qwen3-8b prefill
+    (torch.bfloat16, 17, 1, 32, True, "wgmma_bf16"),     # the shortest tensor-core prefill
+    (torch.bfloat16, 64, 2, 64, True, "wgmma_bf16"),
+    (torch.float32, 8192, 4, 128, True, "fma"),        # float32 stays on FMA (2e-5)
+    (torch.float32, 64, 1, 32, True, "fma"),
+    (torch.bfloat16, 1, 4, 128, True, "fma_grouped"),  # a decode step
+    (torch.bfloat16, 4, 4, 128, True, "fma_grouped"),  # g * Tq = 16
+    (torch.bfloat16, 16, 1, 64, True, "fma_grouped"),
+    (torch.float32, 1, 8, 32, True, "fma_grouped"),
+    (torch.bfloat16, 5, 4, 128, True, "fma_short"),    # Tq <= 16, g * Tq > 16
+    (torch.bfloat16, 16, 2, 64, True, "fma_short"),
+    (torch.bfloat16, 8192, 4, 128, False, "fma"),      # unaligned rows
+    (torch.bfloat16, 100, 1, 32, False, "fma"),
+])
+def test_kernel_variant_dispatch(dtype, tq, group, dh, aligned, variant):
+    assert ops.kernel_variant(dtype, tq, group, dh, aligned) == variant
+    assert variant in ops.VARIANTS
+
+
+def test_alignment_of_views():
+    """Model-layout views are aligned; rows of 65 elements, a base one element
+    in, or a head stride of 260 elements are not."""
+    x = torch.zeros(2, 40, 8, 128, dtype=torch.bfloat16)
+    assert ops.is_aligned(x.transpose(1, 2), x[:, :8].transpose(1, 2))
+    wide = torch.zeros(1, 2, 100, 65, dtype=torch.bfloat16)
+    assert not ops.is_aligned(wide[..., :64])
+    flat = torch.zeros(8192, dtype=torch.bfloat16)
+    assert ops.is_aligned(flat.as_strided((1, 2, 8, 32), (1024, 256, 32, 1)))
+    assert not ops.is_aligned(flat[1:1 + 2 * 64 * 32].view(1, 2, 64, 32))
+    assert not ops.is_aligned(flat.as_strided((1, 2, 8, 32), (1024, 260, 32, 1)))
+
+
+def test_variant_counts_reset_and_stay_still_on_the_cpu():
+    q = torch.zeros(1, 4, 64, 32, dtype=torch.bfloat16)
+    k = torch.zeros(1, 2, 64, 32, dtype=torch.bfloat16)
+    ops.variant_launches["wgmma_bf16"] += 3
+    ops.reset()
+    assert ops.launches == 0 and set(ops.variant_launches.values()) == {0}
+    ops.flash_attention(q, k, k)
+    assert set(ops.variant_launches.values()) == {0}  # the plain version is no launch
+
+
+# ------------------------------------------- the tensor-core variant's arithmetic
+def _tensor_core_model(q, k, v, causal=True, window=None, q_offset=0, block_k=64):
+    """A plain-torch model of the tensor-core kernel's rounding: bf16 Q, K, V
+    (exact in float32), S = Q K^T in float32, the online max/sum/rescale in
+    float32 once per 64-key tile with the exponent taken in base 2 as
+    ``exp2((s - max) * scale * log2(e))``, P rounded to bf16 before P V (its
+    row sum taken from the float32 P), O in float32, rounded once."""
+    b, hq, tq, dh = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    qf = q.float().reshape(b, hkv, hq // hkv, tq, dh)
+    kf, vf = k.float()[:, :, None], v.float()[:, :, None]
+    scale = dh**-0.5 * math.log2(math.e)
+    qpos = torch.arange(tq)[:, None] + q_offset
+    m = torch.full((b, hkv, hq // hkv, tq, 1), -1e30)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qf)
+    for kbase in range(0, tk, block_k):
+        kt, vt = kf[..., kbase:kbase + block_k, :], vf[..., kbase:kbase + block_k, :]
+        kpos = torch.arange(kbase, kbase + kt.shape[-2])[None, :]
+        s = qf @ kt.transpose(-1, -2)
+        keep = torch.ones(tq, kt.shape[-2], dtype=torch.bool)
+        if causal:
+            keep &= kpos <= qpos
+        if window is not None:
+            keep &= kpos > qpos - window
+        s = s.masked_fill(~keep, -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2((m - m_new) * scale)
+        p = torch.exp2((s - m_new) * scale)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p.bfloat16().float() @ vt
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).reshape(b, hq, tq, dh).bfloat16()
+
+
+def _worst_row_rel_l2(got, want) -> float:
+    got, want = torch.as_tensor(np.asarray(got, np.float32)), torch.as_tensor(
+        np.asarray(want, np.float32))
+    return float(((got - want).norm(dim=-1) / want.norm(dim=-1).clamp_min(1e-30)).max())
+
+
+def _assert_bf16_gates(got: torch.Tensor, want):
+    """chip_smoke.py's bf16 gates: 2e-2 elementwise, every row within 1e-2
+    relative L2."""
+    _assert_close(got, want, TOL["bfloat16"])
+    assert _worst_row_rel_l2(got.float().numpy(), want) <= 1e-2
+
+
+TENSOR_CORE_SHAPES = [s + (0,) for s in KERNEL_SHAPES] + [
+    (2, 4, 2, 256, 256, 32, True, None, 0),   # the reduced qwen3-8b layer
+    (1, 4, 2, 100, 333, 32, True, 50, 233),   # ragged chunked prefill under a window
+    (1, 8, 2, 70, 70, 64, True, 1, 0),        # g = 4; each row sees itself only
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,tq,tk,dh,causal,window,q_offset", TENSOR_CORE_SHAPES)
+def test_tensor_core_rounding_within_the_bf16_gates(b, hq, hkv, tq, tk, dh, causal, window,
+                                                    q_offset):
+    """The model against the plain version, the reference's ``attention_ref``
+    and the model code's ``_sdpa`` (in ``[B, T, H, Dh]``), each at both bf16
+    gates."""
+    rng = np.random.default_rng(tq + dh + q_offset)
+    (jq, jk, jv), (q, k, v) = _both(_inputs(rng, b, hq, hkv, tq, tk, dh), "bfloat16")
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    got = _tensor_core_model(q, k, v, **kw)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    _assert_bf16_gates(got, flash_attention_ref(q, k, v, **kw).float().numpy())
+    _assert_bf16_gates(got, attention_ref(jq, jk, jv, **kw))
+    to_model = lambda t: jnp.swapaxes(t, 1, 2)  # noqa: E731
+    want = _sdpa(to_model(jq), to_model(jk), to_model(jv), causal, window, q_offset)
+    _assert_bf16_gates(got, to_model(want))

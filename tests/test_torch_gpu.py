@@ -347,6 +347,116 @@ def test_flash_kernel_reads_model_layout_in_place(cuda_device):
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
 
 
+def _row_rel_l2(got, want) -> float:
+    """The largest relative L2 error of any (batch, head, query) row."""
+    want = want.float()
+    return float(((got.float() - want).norm(dim=-1) / want.norm(dim=-1).clamp_min(1e-30)).max())
+
+
+def _tensor_core_case(cuda_device, b, hq, hkv, tq, tk, dh, seed, model_layout=False, **kw):
+    """bf16 prefill on the tensor-core variant against the plain version:
+    2e-2 elementwise and every row within 1e-2 relative L2 (chip_smoke.py's
+    FLASH_ROW_RTOL)."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    rng = np.random.default_rng(seed)
+    shapes = ((b, tq, hq, dh), (b, tk, hkv, dh), (b, tk, hkv, dh)) if model_layout else \
+        ((b, hq, tq, dh), (b, hkv, tk, dh), (b, hkv, tk, dh))
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda_device,
+                                                                           torch.bfloat16)
+               for s in shapes)
+    if model_layout:  # [B, T, H, Dh] handed over as transposed views, no copy
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    assert fa.kernel_variant(q.dtype, tq, hq // hkv, dh, fa.is_aligned(q, k, v)) == "wgmma_bf16"
+    before = fa.launches, fa.variant_launches["wgmma_bf16"]
+    got = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.variant_launches["wgmma_bf16"]) == (before[0] + 1, before[1] + 1)
+    want = flash_attention_ref(*(t.contiguous() for t in (q, k, v)), **kw)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+    assert _row_rel_l2(got, want) <= 1e-2
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,hq,hkv,tq,tk,dh,causal,window", FLASH_SHAPES)
+def test_tensor_core_kernel_matches_plain_version(cuda_device, b, hq, hkv, tq, tk, dh, causal,
+                                                  window):
+    _tensor_core_case(cuda_device, b, hq, hkv, tq, tk, dh, tq + dh, causal=causal, window=window)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh,tq,tk,causal,window,q_offset", [
+    (32, 100, 100, True, None, 0),     # ragged Tq = Tk
+    (64, 65, 129, True, None, 64),     # one row past a tile
+    (128, 200, 333, True, None, 133),  # chunked prefill: q_offset > 0, Tq > 16
+    (32, 17, 90, False, None, 0),      # the shortest prefill, bidirectional
+    (64, 129, 129, True, 40, 0),       # a window
+    (128, 300, 300, True, 100, 0),
+    (32, 70, 70, True, 1, 0),          # each row sees itself only
+    (64, 33, 500, True, 64, 467),      # chunked prefill under a window
+    (128, 50, 1000, True, None, 950),
+    (64, 40, 30, True, None, 10),      # rows past Tk see every key
+])
+def test_tensor_core_kernel_head_dims_ragged_and_masked(cuda_device, dh, tq, tk, causal, window,
+                                                        q_offset):
+    _tensor_core_case(cuda_device, 1, 4, 2, tq, tk, dh, dh * 1000 + tq + tk, causal=causal,
+                      window=window, q_offset=q_offset)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [32, 64, 128])
+def test_tensor_core_kernel_gqa_in_model_layout(cuda_device, dh):
+    """g = 4 query heads a KV head, [B, T, H, Dh] read in place, the output
+    written in the model's layout."""
+    got = _tensor_core_case(cuda_device, 2, 8, 2, 96, 96, dh, dh, model_layout=True)
+    assert got.transpose(1, 2).is_contiguous()
+
+
+@pytest.mark.gpu
+def test_flash_variant_counts_follow_the_dispatch(cuda_device):
+    """Each variant's count moves only when the dispatch picks it: float32
+    prefill, a bf16 decode step, a short bf16 tile and unaligned bf16 rows
+    stay on the FMA kernel."""
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    def run(q, k, v, **kw):
+        before = dict(fa.variant_launches)
+        fa.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        return [n for n in fa.VARIANTS if fa.variant_launches[n] != before[n]]
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, device=cuda_device).to(dtype)
+
+    assert run(rnd(1, 4, 64, 64), rnd(1, 2, 64, 64), rnd(1, 2, 64, 64)) == ["wgmma_bf16"]
+    f32 = torch.float32
+    assert run(rnd(1, 4, 64, 64, dtype=f32), rnd(1, 2, 64, 64, dtype=f32),
+               rnd(1, 2, 64, 64, dtype=f32)) == ["fma"]
+    assert run(rnd(2, 8, 1, 128), rnd(2, 2, 300, 128), rnd(2, 2, 300, 128),
+               q_offset=299) == ["fma_grouped"]
+    assert run(rnd(1, 4, 16, 32), rnd(1, 2, 64, 32), rnd(1, 2, 64, 32)) == ["fma_short"]
+    kv = rnd(2, 1, 2, 100, 68)
+    k, v = kv[0, ..., :64], kv[1, ..., :64]  # rows of 136 bytes
+    assert not fa.is_aligned(k)
+    assert run(rnd(1, 4, 40, 64), k, v) == ["fma"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_past_the_grid_y_cap(cuda_device, dtype):
+    """65,536 (batch, head) blocks, one more than grid y holds: q, k, v
+    [65536, 1, 1, 32] with g = 1, so no packing (the grouped decode tiling)."""
+    _flash_case(cuda_device, dtype, 65536, 1, 1, 1, 1, 32, 65536, causal=True)
+
+
+@pytest.mark.gpu
+def test_tensor_core_kernel_past_the_grid_y_cap(cuda_device):
+    """65,536 (batch, head) blocks on the tensor-core variant (Tq = 17)."""
+    _tensor_core_case(cuda_device, 65536, 1, 1, 17, 17, 32, 17)
+
+
 # --------------------------------------------------------------- mamba scan
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -372,6 +482,30 @@ def test_scan_kernel_matches_plain_version(cuda_device, bsz, t, d, n, dtype):
     tol = 1e-4 if dtype == torch.float32 else 3e-2  # tests/test_kernels.py's
     torch.testing.assert_close(y.float(), y_want.float(), rtol=tol, atol=tol)
     torch.testing.assert_close(h, h_want, rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_scan_kernel_past_the_grid_y_cap(cuda_device):
+    """Batch 65,536, one more row than grid y holds, at the smallest width
+    (D = 1, N = 8)."""
+    from repro_torch.kernels.mamba_scan import ops as scan
+    from repro_torch.kernels.mamba_scan.ref import selective_scan_ref
+
+    bsz, t, d, n = 65536, 3, 1, 8
+    rng = np.random.default_rng(65536)
+    f32 = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda_device)  # noqa: E731
+    args = (f32(rng.standard_normal((bsz, t, d))),
+            f32(np.abs(rng.standard_normal((bsz, t, d))) * 0.1 + 0.01),
+            f32(-np.abs(rng.standard_normal((d, n))) - 0.1),
+            f32(rng.standard_normal((bsz, t, n))), f32(rng.standard_normal((bsz, t, n))),
+            f32(rng.standard_normal(d)))
+    before = scan.launches
+    y, h = scan.selective_scan(*args)
+    torch.cuda.synchronize()
+    assert scan.launches == before + 1
+    y_want, h_want = selective_scan_ref(*args)
+    torch.testing.assert_close(y, y_want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(h, h_want, rtol=1e-4, atol=1e-4)
 
 
 # ------------------------------------------------------------------ models
