@@ -61,12 +61,12 @@ Phases:
      ``tests/test_kernels.py``'s shapes in float32 and bf16 and its
      decode-offset sweep (2e-5 / 2e-2), one qwen3-8b layer at prefill (B=1,
      Hq=32, Hkv=8, T=8192, Dh=128, bf16, causal; achieved TFLOP/s) and one
-     at a 32k decode step (B=32, Tq=1, Tk=32768, q_offset=32767; B cut from
-     ``decode_32k``'s 128 so the plain version's float32 K/V fit), and
-     65,536 (batch, head) blocks, past grid y's 65,535, on the grouped FMA
-     and the tensor-core variants; ``library_ms`` being
-     ``F.scaled_dot_product_attention``; each row names the variant that
-     ran;
+     at a 32k decode step (B=32 and B=8, Tq=1, Tk=32768, q_offset=32767; B
+     cut from ``decode_32k``'s 128 so the plain version's float32 K/V fit)
+     on the split-KV decode variant, and 65,536 (batch, head) blocks, past
+     grid y's 65,535, on the decode and the tensor-core variants;
+     ``library_ms`` being ``F.scaled_dot_product_attention``; each row names
+     the variant that ran, and decode rows their split count;
  13. the selective-scan kernel against its plain version on the card:
      ``tests/test_kernels.py``'s shapes in float32 and bf16 (1e-4 / 3e-2),
      one falcon-mamba-7b layer at prefill (B=1, T=8192, D=8192, N=16,
@@ -76,13 +76,22 @@ Phases:
      ``make_prefill_step`` at B=1, T=8192 (36 flash launches, all on the
      tensor-core variant), then ``launch.serve.serve`` at B=8, prompt 128,
      32 generated tokens (36 launches a decode step: 36 x 159, on the
-     grouped FMA variant), prefill logits against the decode path's on a
-     16-token prompt, and one decode step under ``torch.profiler``;
+     split-KV decode variant with one split), prefill logits against the
+     decode path's on a 16-token prompt, and one decode step under
+     ``torch.profiler``;
  15. falcon-mamba-7b the same way: prefill with 64 scan launches, serve
      with none (decode is the plain recurrence, as in the reference), and
      one prefill under ``torch.profiler``;
  16. both reduced configs in float32 with the same weights on the card and
-     on the CPU: logits within 1e-4 and equal greedy tokens.
+     on the CPU: logits within 1e-4 and equal greedy tokens; for qwen3 also
+     one decode step over a seeded 8,192-long cache, where the decode
+     kernel splits the cache;
+ 17. qwen3-8b long-context decode at full width and depth, with phase 14's
+     weights: B=8, a 32,768-position bf16 cache filled from a seeded
+     generator, 8 ``decode_step``s from position 32,760 (36 launches a step,
+     all on the split-KV decode variant), one layer's attention over that
+     cache against the plain version, and one step under ``torch.profiler``
+     (device busy time, idle share, attention device ms).
 
 Kernel times: ``ms`` is device time per launch (launches captured in a CUDA
 graph and replayed, so the host's cost of a call is out); ``call_ms``,
@@ -94,7 +103,7 @@ must move over 3.35 TB/s and its operations over the card's peak rate.
 The last lines are the ``{"kernels": [...]}`` summary, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero before that line. Without a CUDA device (and without ``--tiny``)
-the script exits 2 and prints no result. ``--tiny`` runs phases 12-16 at
+the script exits 2 and prints no result. ``--tiny`` runs phases 12-17 at
 the reduced configs and small kernel shapes.
 """
 from __future__ import annotations
@@ -663,13 +672,16 @@ def flash_row(torch, np, F, fa, fa_ref, timer, name, b, hq, hkv, tq, tk, dh, dty
                for s in ((b, hq, tq, dh), (b, hkv, tk, dh), (b, hkv, tk, dh)))
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     variant = fa.kernel_variant(dtype, tq, hq // hkv, dh, fa.is_aligned(q, k, v))
-    before = dict(fa.variant_launches)
+    before, splits_before = dict(fa.variant_launches), dict(fa.split_launches)
     got = fa.flash_attention(q, k, v, **kw)
     want = fa_ref.flash_attention_ref(q, k, v, **kw)
     sync(torch, device)
     ran = {n: fa.variant_launches[n] - before[n] for n in fa.VARIANTS}
     check(ran == {n: int(n == variant and device.type == "cuda") for n in fa.VARIANTS},
           f"flash {name}: expected one launch of {variant}, the variants ran {ran}")
+    # the decode variant's shares of the cache, as the launch recorded them
+    n_split = next((n for n, c in fa.split_launches.items() if c != splits_before.get(n, 0)),
+                   None)
     tname = str(dtype).split(".")[1]
     ok, err = within(got, want, FLASH_TOL[tname])
     check(ok, f"flash {name}: kernel differs from plain version beyond {FLASH_TOL[tname]} ({err})")
@@ -687,8 +699,9 @@ def flash_row(torch, np, F, fa, fa_ref, timer, name, b, hq, hkv, tq, tk, dh, dty
     ops_ms = max(flops / rate, pairs / EXP_PER_S) * 1e3  # the products, or one exp a pair
     ms = timer.device_ms(call, reps=reps[0], replays=reps[1])
     row = {
-        "shape": name, "variant": variant, "b": b, "hq": hq, "hkv": hkv, "tq": tq, "tk": tk,
-        "dh": dh, "dtype": tname, "causal": causal, "window": window, "q_offset": q_offset,
+        "shape": name, "variant": variant, "n_split": n_split, "b": b, "hq": hq, "hkv": hkv,
+        "tq": tq, "tk": tk, "dh": dh, "dtype": tname, "causal": causal, "window": window,
+        "q_offset": q_offset,
         "max_abs_err": err, "max_row_rel_l2": row_err, "ms": ms,
         "tflops": flops / ms / 1e9, "flops": flops, "exps": pairs, "bytes": nbytes,
         "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -708,7 +721,8 @@ def flash_row(torch, np, F, fa, fa_ref, timer, name, b, hq, hkv, tq, tk, dh, dty
 
 def flash_kernel_checks(torch, np, F, fa, fa_ref, timer, tiny: bool):
     """Phase 12: the attention kernel at the test shapes, the decode-offset
-    sweep, and one qwen3-8b layer at prefill and at a 32k decode step."""
+    sweep, and one qwen3-8b layer at prefill and at a 32k decode step (B=8,
+    phase 17's batch, then B=32)."""
     rows = []
     if tiny:  # the reduced qwen3 layer (Hq=4, Hkv=2, Dh=32)
         rows.append(flash_row(torch, np, F, fa, fa_ref, timer, "prefill_reduced", 1, 4, 2,
@@ -719,9 +733,10 @@ def flash_kernel_checks(torch, np, F, fa, fa_ref, timer, tiny: bool):
     else:
         rows.append(flash_row(torch, np, F, fa, fa_ref, timer, "qwen3_prefill_t8192", 1, 32, 8,
                               8192, 8192, 128, torch.bfloat16, library_causal=True, reps=(3, 2)))
-        rows.append(flash_row(torch, np, F, fa, fa_ref, timer, "qwen3_decode_tk32768_b32", 32,
-                              32, 8, 1, 32768, 128, torch.bfloat16, q_offset=32767,
-                              library_causal=False, reps=(5, 2)))
+        for b in (8, 32):
+            rows.append(flash_row(torch, np, F, fa, fa_ref, timer, f"qwen3_decode_tk32768_b{b}",
+                                  b, 32, 8, 1, 32768, 128, torch.bfloat16, q_offset=32767,
+                                  library_causal=False, reps=(5, 2)))
     if timer.device.type == "cuda":
         torch.cuda.empty_cache()  # the plain version's scores at the prefill shape
     for dtype in (torch.float32, torch.bfloat16):
@@ -736,12 +751,14 @@ def flash_kernel_checks(torch, np, F, fa, fa_ref, timer, tiny: bool):
         for tq in (1, 4):
             rows.append(flash_row(torch, np, F, fa, fa_ref, timer, "decode_offset_sweep", 2, 4,
                                   4, tq, 256, 64, torch.float32, q_offset=q_offset, reps=(20, 2)))
-    # 65,536 (batch, head) blocks: one more than grid y holds
+    # 65,536 batches: one more than grid y holds, on every variant
     for dtype in (torch.float32, torch.bfloat16):
         rows.append(flash_row(torch, np, F, fa, fa_ref, timer, "grid_cap_b65536_decode", 65536,
                               1, 1, 1, 1, 32, dtype, reps=(5, 1)))
-    rows.append(flash_row(torch, np, F, fa, fa_ref, timer, "grid_cap_b65536_tq17", 65536, 1, 1,
-                          17, 17, 32, torch.bfloat16, reps=(5, 1)))
+        rows.append(flash_row(torch, np, F, fa, fa_ref, timer, "grid_cap_b65536_tq17", 65536,
+                              1, 1, 17, 17, 32, dtype, reps=(5, 1)))  # fma, wgmma_bf16
+        rows.append(flash_row(torch, np, F, fa, fa_ref, timer, "grid_cap_b65536_hq2_tq16",
+                              65536, 2, 1, 16, 16, 32, dtype, reps=(5, 1)))  # fma_short
     for row in rows:
         log(json.dumps({"phase": 12, **row}))
     return rows
@@ -844,10 +861,11 @@ def profile_lm(torch, fn, device, kernel_name: str) -> dict:
     return {"profiled_wall_s": wall, **device_time(prof, wall, on_card, kernel_name)}
 
 
-def lm_phase(torch, np, counters, device, arch: str, tiny: bool, ident: str) -> dict:
+def lm_phase(torch, np, counters, device, arch: str, tiny: bool, ident: str) -> tuple:
     """Phases 14-15: ``arch`` at full width and depth (reduced with
     ``--tiny``): prefill through ``make_prefill_step``, then the serve loop,
-    with the launches of both kernels checked on each path."""
+    with the launches of both kernels checked on each path. Returns the
+    record, the model and its weights (phase 17 decodes with qwen3's)."""
     from repro_torch.configs import get_model_config
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.mamba_scan import ops as scan
@@ -911,9 +929,14 @@ def lm_phase(torch, np, counters, device, arch: str, tiny: bool, ident: str) -> 
         else {"flash_attention": 0, "selective_scan": 0}
     check(serve_launches == expect, f"{arch} serve launched {serve_launches}, expected {expect}")
     serve_variants = dict(fa.variant_launches)  # a decode step: g * Tq = 4 <= 16
-    expect = {n: serve_launches["flash_attention"] * (n == "fma_grouped") for n in fa.VARIANTS}
+    expect = {n: serve_launches["flash_attention"] * (n == "decode_split") for n in fa.VARIANTS}
     check(serve_variants == expect,
           f"{arch} serve ran the attention variants {serve_variants}, expected {expect}")
+    # the serve loop's short cache is one share: one kernel a call, no merge
+    serve_splits = dict(fa.split_launches)
+    expect = {1: serve_launches["flash_attention"]} if on_card and n_attn else {}
+    check(serve_splits == expect, f"{arch} serve split its cache as {serve_splits} "
+                                  f"(n_split: launches), expected {expect}")
     check(tuple(out.shape) == (b, gen) and int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size,
           f"{arch} serve produced ids of the wrong shape or range")
     serve_peak = torch.cuda.max_memory_allocated() if on_card else None
@@ -922,7 +945,7 @@ def lm_phase(torch, np, counters, device, arch: str, tiny: bool, ident: str) -> 
         cache = model.init_cache(b, plen + gen)
         tok = prompts[:, :1]
         prof = profile_lm(torch, lambda: model.decode_step(params, cache, tok, plen), device,
-                          "attn_kernel")
+                          "attn_")
         profiled = f"decode_step b={b} pos={plen}"
     else:
         prof = profile_lm(torch, lambda: prefill(params, {"tokens": tokens}), device,
@@ -937,14 +960,136 @@ def lm_phase(torch, np, counters, device, arch: str, tiny: bool, ident: str) -> 
         "prefill_vs_decode_path_rel_l2": rel,
         "serve": {"batch": b, "prompt_len": plen, "gen": gen, **timings,
                   "launches": serve_launches, "flash_variants": serve_variants,
-                  "max_memory_allocated": serve_peak,
+                  "split_launches": serve_splits, "max_memory_allocated": serve_peak,
                   "first_ids": out[0, :8].tolist()},
         "profile": {"what": profiled, **prof}, "device": ident,
     }
-    del params, model
+    return record, model, params
+
+
+def fill_cache(torch, cache: list, generator) -> None:
+    """Every tensor of a decode cache drawn from ``generator`` (N(0, 1)), in
+    place: keys and values of the magnitude qk-norm and RoPE give."""
+    for layer in cache:
+        for t in layer.values():
+            t.normal_(generator=generator)
+
+
+def long_decode_phase(torch, np, counters, device, model, params, tiny: bool, ident: str) -> dict:
+    """Phase 17: qwen3-8b decoding over a long cache at full width and depth
+    (the reduced config and a 2,048 cache with ``--tiny``), with phase 14's
+    weights: one layer's attention over the cache against the plain version,
+    then ``decode_step``s from near the cache's end with their launches
+    counted, then one step under ``torch.profiler``."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.mamba_scan import ops as scan
+    from repro_torch.models.attention import gqa_flash_decode
+
+    cfg = model.cfg
+    on_card = device.type == "cuda"
+    n_attn = sum(s.mixer == "attn" for s in cfg.layers())
+    b, seq, steps = (8, 2048, 4) if tiny else (8, 32768, 8)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()  # phase 14's activations and serve cache are gone
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cache = model.init_cache(b, seq)
+    fill_cache(torch, cache, torch.Generator(device=model.device).manual_seed(17))
+    sync(torch, device)
+    fill_s = time.perf_counter() - t0
+    # one layer's attention over the filled cache against the plain version
+    gen = torch.Generator(device=model.device).manual_seed(18)
+    q = torch.randn((b, cfg.n_heads, cfg.head_dim), generator=gen, device=model.device,
+                    dtype=torch.float32).to(model.dtype)
+    pos = seq - 1
+    got = gqa_flash_decode(q, cache[0]["k"], cache[0]["v"], pos, None)
+    want = fa_ref.flash_attention_ref(q[:, :, None], cache[0]["k"].transpose(1, 2),
+                                      cache[0]["v"].transpose(1, 2), causal=True,
+                                      q_offset=pos)[:, :, 0]
+    tname = str(model.dtype).split(".")[1]
+    ok, err = within(got, want, FLASH_TOL[tname])
+    check(ok, f"long decode: layer attention differs from the plain version ({err})")
+    row_err = worst_row_rel_l2(got, want)
+    check(row_err <= FLASH_ROW_RTOL, f"long decode: a row differs by {row_err} relative L2")
+    del q, got, want
+    # the main path: decode steps from near the end of the cache
+    rng = np.random.default_rng(17)
+    tok = torch.as_tensor(rng.integers(2, cfg.vocab_size, (b, 1)), device=model.device)
+    start = seq - steps
+    sync(torch, device)
+    reset_counts(*counters)
+    step_s = []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        logits, cache = model.decode_step(params, cache, tok, start + i)
+        tok = logits[:, -1].argmax(-1)[:, None]
+        sync(torch, device)
+        step_s.append(time.perf_counter() - t0)
+    launches = {"flash_attention": fa.launches, "selective_scan": scan.launches}
+    variants = dict(fa.variant_launches)
+    splits = dict(fa.split_launches)
+    expect = {"flash_attention": n_attn * steps * on_card, "selective_scan": 0}
+    check(launches == expect, f"long decode launched {launches}, expected {expect}")
+    # every launch split the long cache, all with one count
+    n_split = next(iter(splits)) if len(splits) == 1 else None
+    check(not on_card or (n_split is not None and n_split > 1),
+          f"a {seq}-long cache at B={b} was not split into one count > 1: {splits}")
+    expect = {n: n_attn * steps * on_card * (n == "decode_split") for n in fa.VARIANTS}
+    check(variants == expect, f"long decode ran the attention variants {variants}, "
+                              f"expected {expect}")
+    check(all(m.launches == 0 for m in counters if m not in (fa, scan)),
+          "long decode launched a partitioning or analytics kernel")
+    check(tuple(logits.shape) == (b, 1, cfg.vocab_size) and bool(logits.isfinite().all()),
+          "long decode logits have the wrong shape or non-finite entries")
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    per_step = sum(step_s[1:]) / (steps - 1)  # the first step warms the caches up
+    prof = profile_lm(torch, lambda: model.decode_step(params, cache, tok, pos), device, "attn_")
+    del cache, logits
     if on_card:
         torch.cuda.empty_cache()
-    return record
+    kv_bytes = 2 * n_attn * b * seq * cfg.n_kv_heads * cfg.head_dim * \
+        torch.finfo(model.dtype).bits // 8
+    return {
+        "arch": cfg.name, "layers": cfg.num_layers, "dtype": cfg.dtype, "batch": b,
+        "cache_len": seq, "first_pos": start, "steps": steps, "n_split": n_split,
+        "blocks_per_sm": fa.decode_blocks_per_sm(device, model.dtype, cfg.head_dim,
+                                                 cfg.n_heads // cfg.n_kv_heads)
+        if on_card else None,
+        "cache_fill_s": fill_s, "kv_cache_bytes": kv_bytes,
+        "attention_bound_ms_per_step": kv_bytes / HBM_BYTES_PER_S * 1e3,
+        "layer_check": {"max_abs_err": err, "max_row_rel_l2": row_err},
+        "step_seconds": step_s, "seconds_per_step": per_step, "tokens_per_s": b / per_step,
+        "launches": launches, "flash_variants": variants, "max_memory_allocated": peak,
+        "first_ids": tok[:, 0].tolist(),
+        "profile": {"what": f"decode_step b={b} pos={pos}", **prof}, "device": ident,
+    }
+
+
+def long_cache_step(torch, cpu, params, card, dparams, toks) -> dict:
+    """Phase 16: one decode step at the end of a seeded 8,192-long cache on
+    the card and on the CPU; on the card the decode kernel splits it."""
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    b, seq = toks.shape[0], 8192
+    cache = cpu.init_cache(b, seq)
+    fill_cache(torch, cache, torch.Generator().manual_seed(16))
+    dcache = tree_to(cache, card.device)
+    before = dict(fa.split_launches)
+    got, _ = card.decode_step(dparams, dcache, toks[:, :1].to(card.device), seq - 1)
+    sync(torch, card.device)
+    ran = {n: c - before.get(n, 0) for n, c in fa.split_launches.items()
+           if c != before.get(n, 0)}
+    n_split = next(iter(ran)) if len(ran) == 1 else None
+    check(card.device.type != "cuda" or (n_split is not None and n_split > 1),
+          f"reduced decode at {seq}: the cache was not split into one count > 1 ({ran})")
+    want, _ = cpu.decode_step(params, cache, toks[:, :1], seq - 1)
+    ok, err = within(got.cpu(), want, 1e-4)
+    check(ok, f"reduced decode at a {seq} cache: card and cpu logits differ beyond 1e-4 ({err})")
+    check(torch.equal(got.argmax(-1).cpu(), want.argmax(-1)),
+          f"reduced decode at a {seq} cache: greedy tokens differ")
+    return {"cache_len": seq, "n_split": n_split, "max_abs_err": err, "greedy_tokens_equal": True}
 
 
 def reduced_parity(torch, np, device) -> list:
@@ -969,8 +1114,11 @@ def reduced_parity(torch, np, device) -> list:
         g_card, _ = serve(card, dparams, toks[:, :8].to(card.device), 8)
         g_cpu, _ = serve(cpu, params, toks[:, :8], 8)
         check(torch.equal(g_card.cpu(), g_cpu), f"reduced {arch}: greedy tokens differ")
-        rows.append({"arch": f"reduced:{arch}", "dtype": "float32", "max_abs_err": err,
-                     "greedy_tokens_equal": True})
+        row = {"arch": f"reduced:{arch}", "dtype": "float32", "max_abs_err": err,
+               "greedy_tokens_equal": True}
+        if any(s.mixer == "attn" for s in cfg.layers()):
+            row["long_cache_decode"] = long_cache_step(torch, cpu, params, card, dparams, toks)
+        rows.append(row)
     for row in rows:
         log(json.dumps({"phase": 16, **row}))
     return rows
@@ -1321,6 +1469,7 @@ def main() -> int:
     import torch.nn.functional as F
 
     flash_shapes = flash_kernel_checks(torch, np, F, fa, fa_ref, timer, args.tiny)
+    decode_shapes = [r for r in flash_shapes if r["variant"] == "decode_split"]
 
     # ----------------------------------------------------------- phase 13
     scan_shapes = scan_kernel_checks(torch, scan, scan_ref, timer, args.tiny)
@@ -1331,13 +1480,21 @@ def main() -> int:
     lm_launches = {"flash_attention": 0, "selective_scan": 0}
     flash_variants = dict.fromkeys(fa.VARIANTS, 0)
     for phase, arch in zip((14, 15), LM_ARCHS):
-        rec = lm_phase(torch, np, counters, device, arch, args.tiny, ident)
+        rec, model, params = lm_phase(torch, np, counters, device, arch, args.tiny, ident)
         for path in ("prefill", "serve"):
             for name, n in rec[path]["launches"].items():
                 lm_launches[name] += n
             for name, n in rec[path]["flash_variants"].items():
                 flash_variants[name] += n
         log(json.dumps({"phase": phase, **rec}))
+        if arch == "qwen3-8b":
+            # ------------------------------------------------------- phase 17
+            long_rec = long_decode_phase(torch, np, counters, device, model, params, args.tiny,
+                                         ident)
+            log(json.dumps({"phase": 17, **long_rec}))
+        del model, params
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
 
     # ----------------------------------------------------------- phase 16
     reduced_parity(torch, np, device)
@@ -1363,6 +1520,15 @@ def main() -> int:
         summary("flash_attention", flash_shapes, lm_launches["flash_attention"],
                 TPU_KERNEL_FLASH, FLASH_SOURCE, variant=flash_shapes[0]["variant"],
                 tflops=flash_shapes[0]["tflops"], variant_launches=flash_variants),
+        # the decode variant on its own: phase 17's long-context decode is its main
+        # path, and its timed shape is phase 12's layer at phase 17's batch (B=8)
+        summary("flash_attention_decode_split", decode_shapes,
+                long_rec["flash_variants"]["decode_split"], TPU_KERNEL_FLASH, FLASH_SOURCE,
+                variant="decode_split", shape=decode_shapes[0]["shape"],
+                n_split=decode_shapes[0]["n_split"], main_path_n_split=long_rec["n_split"],
+                tb_per_s=decode_shapes[0]["bytes"] / decode_shapes[0]["ms"] / 1e9,
+                second_shape={key: decode_shapes[1].get(key) for key in (
+                    "shape", "n_split", "ms", "bound_ms", "library_ms", "plain_ms")}),
         summary("selective_scan", scan_shapes, lm_launches["selective_scan"],
                 TPU_KERNEL_SCAN, SCAN_SOURCE),
     ]}))

@@ -1,20 +1,28 @@
 #!/usr/bin/env python3
-"""Where the tensor-core attention kernel spends its time, on one CUDA card.
+"""Where the attention kernel spends its time, on one CUDA card.
 
 Builds ``src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu``
-as it is and with parts of the bf16 prefill kernel's main loop taken out,
-and times each at one qwen3-8b prefill layer (B=1, Hq=32, Hkv=8, T=8192,
-Dh=128, bf16, causal) beside ``F.scaled_dot_product_attention``:
+as it is and with parts of a kernel's main loop taken out. The prefill
+part times the tensor-core kernel at one qwen3-8b prefill layer (B=1,
+Hq=32, Hkv=8, T=8192, Dh=128, bf16, causal):
 
     full           the kernel
     no_products    the softmax, the loads and the barriers; no wgmma
     no_softmax     the products, the loads and the barriers; no softmax
     loads_only     the loads and the barriers alone
 
-The cut versions compute garbage; only their times mean anything. Run from
-the repository root on a machine with the card and the CUDA toolkit:
+The decode part times the split-KV decode kernel at one qwen3-8b layer of a
+decode step over a 32k cache (Tq=1, Tk=32768, bf16) at B=32 and B=8, at
+the split count the wrapper picks and at others (``n_split``), and cut:
 
-    python3 scripts/flash_attention_ablation.py
+    decode_full        the kernel and, with n_split > 1, the merge
+    decode_loads_only  the ring's copies and barriers alone, at the same split
+
+Each part is timed beside ``F.scaled_dot_product_attention``. The cut
+versions compute garbage; only their times mean anything. Run from the
+repository root on a machine with the card and the CUDA toolkit:
+
+    python3 scripts/flash_attention_ablation.py [--part prefill|decode|both]
 """
 from __future__ import annotations
 
@@ -38,6 +46,8 @@ PV = [("\n          issue_pv(prev);\n", "\n"),
 SOFTMAX = [("\n        softmax(wlo);\n", "\n"), ("\n          softmax(tile);\n", "\n")]
 CUTS = {"full": [], "no_products": QK + PV, "no_softmax": SOFTMAX,
         "loads_only": QK + PV + SOFTMAX}
+DECODE_CUTS = {"decode_loads_only": [("\n    consume(st, s_lo + j);\n", "\n")]}
+DECODE_SPLITS = (1, 2, 3, 4, 6, 8, 12, 16, 32)
 
 
 def cut(text: str, edits) -> str:
@@ -61,24 +71,20 @@ def build(name: str, text: str) -> Path:
     return lib
 
 
-def main() -> int:
-    import torch
-    import torch.nn.functional as F
+def timed(torch, fn, reps=20) -> float:
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
-    if not torch.cuda.is_available():
-        print("ablation: no CUDA device", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels.flash_attention import build as fa_build
-    from repro_torch.kernels.flash_attention import ops as fa
 
-    OUT.mkdir(parents=True, exist_ok=True)
-    text = SOURCE.read_text()
-    with ThreadPoolExecutor(len(CUTS)) as pool:
-        libs = dict(zip(CUTS, pool.map(lambda kv: build(kv[0], cut(text, kv[1])), CUTS.items())))
-    ident = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
+def prefill_rows(torch, F, fa, fa_build, libs, ident):
     b, hq, hkv, t, dh = 1, 32, 8, 8192, 128
     gen = torch.Generator(device="cuda").manual_seed(0)
     q, k, v = (torch.randn(b, t, h, dh, generator=gen, device="cuda").bfloat16().transpose(1, 2)
@@ -88,18 +94,6 @@ def main() -> int:
     variant = fa.VARIANTS.index(fa.kernel_variant(q.dtype, t, hq // hkv, dh, True))
     flops = 4 * b * hq * dh * t * (t + 1) // 2
 
-    def timed(fn, reps=20) -> float:
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
-
     rows = {}
     for name, path in libs.items():
         lib = ctypes.CDLL(str(path))
@@ -108,18 +102,96 @@ def main() -> int:
         def call(lib=lib):
             err = lib.flash_attention_fwd(
                 variant, 1, dh, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                strides, b, hq, hkv, t, t, 1, 0, 0, dh**-0.5,
+                strides, b, hq, hkv, t, t, 1, 0, 0, dh**-0.5, None, 1,
                 torch.cuda.current_stream().cuda_stream)
             if err:
                 raise SystemExit(f"ablation: {name} launch failed: CUDA error {err}")
 
-        rows[name] = timed(call)
+        rows[name] = timed(torch, call)
     qc, kc, vc = (x.contiguous() for x in (q, k, v))
-    rows["sdpa"] = timed(lambda: F.scaled_dot_product_attention(qc, kc, vc, is_causal=True,
-                                                                enable_gqa=True))
+    rows["sdpa"] = timed(torch, lambda: F.scaled_dot_product_attention(
+        qc, kc, vc, is_causal=True, enable_gqa=True))
     for name, ms in rows.items():
         print(json.dumps({"ablation": name, "ms": ms, "tflops": flops / ms / 1e9,
                           "shape": [b, hq, hkv, t, dh], "device": ident}), flush=True)
+
+
+def decode_rows(torch, F, fa, fa_build, libs, ident):
+    hq, hkv, tk, dh = 32, 8, 32768, 128
+    device = torch.device("cuda", torch.cuda.current_device())
+    sms = fa.sm_count(device)
+    per_sm = fa.decode_blocks_per_sm(device, torch.bfloat16, dh, hq // hkv)
+    variant = fa.VARIANTS.index("decode_split")
+    for b in (32, 8):
+        gen = torch.Generator(device="cuda").manual_seed(b)
+        q = torch.randn(b, 1, hq, dh, generator=gen, device="cuda").bfloat16().transpose(1, 2)
+        k, v = (torch.randn(b, tk, hkv, dh, generator=gen, device="cuda").bfloat16()
+                .transpose(1, 2) for _ in range(2))
+        out = torch.empty((b, 1, hq, dh), dtype=torch.bfloat16, device="cuda").transpose(1, 2)
+        strides = (ctypes.c_int64 * 12)(*(s for x in (q, k, v, out) for s in x.stride()[:3]))
+        nbytes = 2 * b * hkv * tk * dh * 2 + 2 * b * hq * dh * 2
+        bound_ms = nbytes / 3.35e12 * 1e3
+        chosen = fa.decode_splits(b, hkv, tk, sms, per_sm)
+
+        def call(lib, n_split):
+            ws = torch.empty(b * hq * n_split * (dh + 2), dtype=torch.float32, device="cuda")
+            err = lib.flash_attention_fwd(
+                variant, 1, dh, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                strides, b, hq, hkv, 1, tk, 1, 0, tk - 1, dh**-0.5, ws.data_ptr(), n_split,
+                torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise SystemExit(f"ablation: decode launch failed (n_split {n_split}): "
+                                 f"CUDA error {err}")
+
+        rows = []
+        for name, path in libs.items():
+            lib = ctypes.CDLL(str(path))
+            lib.flash_attention_fwd.argtypes = fa_build.LIBRARY.signatures["flash_attention_fwd"]
+            splits = DECODE_SPLITS if name == "decode_full" else (chosen,)
+            for n_split in splits:
+                rows.append((name, n_split, timed(torch, lambda: call(lib, n_split))))
+        qc, kc, vc = (x.contiguous() for x in (q, k, v))
+        rows.append(("sdpa", None, timed(torch, lambda: F.scaled_dot_product_attention(
+            qc, kc, vc, enable_gqa=True))))
+        for name, n_split, ms in rows:
+            print(json.dumps({"ablation": name, "n_split": n_split, "chosen": n_split == chosen,
+                              "ms": ms, "bound_ms": bound_ms, "tb_per_s": nbytes / ms / 1e9,
+                              "shape": [b, hq, hkv, 1, tk, dh], "device": ident}), flush=True)
+
+
+def main() -> int:
+    import argparse
+
+    import torch
+    import torch.nn.functional as F
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--part", choices=("prefill", "decode", "both"), default="both")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("ablation: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels.flash_attention import build as fa_build
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    OUT.mkdir(parents=True, exist_ok=True)
+    text = SOURCE.read_text()
+    cuts = {}
+    if args.part in ("prefill", "both"):
+        cuts.update(CUTS)
+    if args.part in ("decode", "both"):
+        cuts.update({"decode_full": [], **DECODE_CUTS})
+    with ThreadPoolExecutor(len(cuts)) as pool:
+        libs = dict(zip(cuts, pool.map(lambda kv: build(kv[0], cut(text, kv[1])), cuts.items())))
+    ident = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    if args.part in ("prefill", "both"):
+        prefill_rows(torch, F, fa, fa_build, {n: libs[n] for n in CUTS}, ident)
+    if args.part in ("decode", "both"):
+        decode_rows(torch, F, fa, fa_build,
+                    {n: libs[n] for n in ("decode_full", *DECODE_CUTS)}, ident)
     print(ident)
     return 0
 

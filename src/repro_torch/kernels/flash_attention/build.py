@@ -15,7 +15,8 @@ LIBRARY = KernelLibrary(
     "flash_attention",
     {
         "flash_attention_fwd": [_i, _i, _i, _p, _p, _p, _p, _p, _l, _l, _l, _l, _l, _i, _l,
-                                _l, _f, _p],
+                                _l, _f, _p, _i, _p],
+        "flash_decode_blocks_per_sm": [_i, _i, _l, ctypes.POINTER(_i)],
     },
 )
 library = LIBRARY.load

@@ -20,9 +20,29 @@
 // bound it. One decode step at 32k context (B=32, Tq=1, Tk=32768): the K/V
 // reads (4.3 GB) take 1.28 ms and bound it.
 //
-// Two kernels. The wrapper (ops.py kernel_variant) picks one before launch
+// Three kernels. The wrapper (ops.py kernel_variant) picks one before launch
 // from the dtype, Tq, g, Dh and the 16-byte alignment of the pointers and
 // strides alone, never from a failed build or launch.
+//
+// attn_decode_kernel, decode (g * Tq <= 16, float32 and bf16): split-KV
+// over the cache, bound by the K/V bytes. A block owns all g * Tq query rows
+// of one (batch, KV head) and one contiguous share ("split") of the key tiles
+// between the Pallas bounds, so the cache is read once per KV head and
+// B * Hkv * n_split blocks fill the card even at small batch (ops.py
+// decode_splits picks n_split from the shapes and from the blocks an SM
+// holds, which flash_decode_blocks_per_sm reads). K/V stay in their
+// stored dtype in a shared-memory ring of >= 3 stages of 64 keys, filled by
+// 16-byte cp.async copies (element loads for rows that are not 16-byte
+// aligned) and guarded by full/empty mbarriers, so the next tiles' bytes are
+// in flight while a tile is consumed and no __syncthreads sits in the loop.
+// Each warp takes 16 keys of every tile, a group of 4-32 lanes a key: a lane
+// holds its slice of every scaled query row in registers, the dot products are reduced
+// by shuffles inside the key's lane group, and the warp keeps its own running
+// max, sum and output (float32, base-2 exponent). The warps merge once at the
+// end of the block; with n_split > 1 each split writes its float32 (m, l,
+// unnormalised o) to a workspace and attn_merge_kernel, a second launch on
+// the same stream, combines them by the reference's gqa_flash_decode rule
+// (m = max m_s, l = sum exp(m_s - m) l_s, o = sum exp(m_s - m) o_s / l).
 //
 // attn_wgmma_kernel, bf16 prefill (Tq > 16 and g * Tq > 16), on the tensor
 // cores with wgmma (bf16 operands, float32 accumulators). A block is two
@@ -52,26 +72,25 @@
 // than the launch bound leaves (with a producer warpgroup and setmaxnreg,
 // ptxas still held 168 registers a thread and spilled).
 //
-// attn_kernel, float32 and decode: both products in float32 FMA on the CUDA
-// cores. The float32 path must meet the 2e-5 tolerance of the reference's
-// tests, which neither TF32 nor bf16 operands can; decode (g * Tq <= 16, or
-// Tq <= 16) has too few query rows to fill a 64-row wgmma tile and is bound
-// by its K/V bytes, not its products. A block of 256 threads owns BQ query
-// rows of one (batch, query head) (BQ = 64, or 16 when Tq <= 16); when
-// g * Tq <= 16 (a decode step: qwen3's g = 4, Tq = 1) it owns the Tq rows of
-// all g query heads of a key/value head instead, so the cache is read once
-// per KV head. K/V tiles of 64 rows are staged as float32 (16-byte loads
-// where the strides allow them), with the same tile bounds.
+// attn_kernel, the rest (g * Tq > 16): float32 inputs, and bf16 inputs with
+// Tq <= 16 or rows that are not 16-byte aligned. Both products in float32
+// FMA on the CUDA cores. The float32 path must meet the 2e-5
+// tolerance of the reference's tests, which neither TF32 nor bf16 operands
+// can. A block of 256 threads owns BQ query rows of one (batch, query head)
+// (BQ = 64, or 16 when Tq <= 16); K/V tiles of 64 rows are staged as float32
+// (16-byte loads where the strides allow them), with the same tile bounds.
 //
-// Both kernels read q, k, v and write o through element strides, so the
+// All kernels read q, k, v and write o through element strides, so the
 // model's [B, T, H, Dh] tensors and its [B, S, Hkv, Dh] cache are read in
 // place and the output is written in the model's layout. The (batch, head)
-// blocks go on grid x (up to 2^31 - 1), the query tiles on grid y; past
-// 65,535 query tiles a block loops over them.
+// blocks, and the decode kernel's (batch, KV head, split) blocks, go on grid
+// x (up to 2^31 - 1), the query tiles on grid y; past 65,535 query tiles a
+// block loops over them.
 #include <cuda.h>  // CUtensorMap; the encoder comes from the runtime's driver entry point
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cmath>  // INFINITY
 #include <cstdint>
 
 namespace {
@@ -84,7 +103,7 @@ constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int64_t kMaxGridY = 65535;
 
 // the variants of ops.py's VARIANTS, in order
-enum Variant : int { kFma = 0, kFmaShort = 1, kFmaGrouped = 2, kWgmmaBf16 = 3 };
+enum Variant : int { kFma = 0, kFmaShort = 1, kDecodeSplit = 2, kWgmmaBf16 = 3 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -155,8 +174,8 @@ template <class T, int DH, int BQ>
 __global__ void __launch_bounds__(kThreads, 2)  // <= 128 registers: two blocks an SM
 attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
             T* __restrict__ o, Strides sq, Strides sk, Strides sv, Strides so, int64_t hq,
-            int64_t group, int64_t heads_per_block, int64_t rows_per_head, int64_t tq,
-            int64_t tk, int causal, int64_t window, int64_t q_offset, float sm_scale) {
+            int64_t group, int64_t tq, int64_t tk, int causal, int64_t window, int64_t q_offset,
+            float sm_scale) {
   using S = Smem<DH, BQ>;
   constexpr int RM = BQ / 16;   // rows per thread
   constexpr int CN = kBK / 16;  // score columns per thread
@@ -173,15 +192,11 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;
   const int warp = tid / 32, lane = tid % 32;
-  // block row r < used_rows is query row row0 + r % rows_per_head of query
-  // head h0 + r / rows_per_head; all of the block's heads share KV head kvh
-  const int64_t head_blocks = hq / heads_per_block;
-  const int64_t bi = blockIdx.x / head_blocks;
-  const int64_t h0 = (blockIdx.x % head_blocks) * heads_per_block;
-  const int64_t kvh = h0 / group;
-  const int rph = static_cast<int>(rows_per_head);
-  const int used_rows = static_cast<int>(heads_per_block) * rph;
-  const int64_t q_tiles = (tq + rph - 1) / rph;
+  // block row r is query row row0 + r of query head h
+  const int64_t bi = blockIdx.x / hq;
+  const int64_t h = blockIdx.x % hq;
+  const int64_t kvh = h / group;
+  const int64_t q_tiles = (tq + BQ - 1) / BQ;
 
   const T* kp = k + bi * sk.b + kvh * sk.h;
   const T* vp = v + bi * sv.b + kvh * sv.h;
@@ -189,31 +204,24 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
   const bool vec_kv =
       ((reinterpret_cast<uintptr_t>(kp) | reinterpret_cast<uintptr_t>(vp)) % 16 == 0) &&
       sk.t % kVec == 0 && sv.t % kVec == 0;
-  int rel[RM];  // this thread's rows' offsets from q_start
-#pragma unroll
-  for (int i = 0; i < RM; ++i) rel[i] = (ty + 16 * i) % rph;
 
   for (int64_t qt = blockIdx.y; qt < q_tiles; qt += gridDim.y) {
-    const int64_t row0 = qt * rph;
+    const int64_t row0 = qt * BQ;
     const int64_t q_start = row0 + q_offset;  // absolute position of row offset 0
     __syncthreads();  // the previous query tile's epilogue has read l_s
 
     for (int idx = tid; idx < BQ * DH; idx += kThreads) {
       const int r = idx / DH, d = idx % DH;
-      float val = 0.0f;
-      if (r < used_rows) {
-        const int64_t row = row0 + r % rph;
-        const int64_t head = h0 + r / rph;
-        if (row < tq) val = to_float(q[bi * sq.b + head * sq.h + row * sq.t + d]) * sm_scale;
-      }
-      qs[r * S::kQS + d] = val;
+      const int64_t row = row0 + r;
+      qs[r * S::kQS + d] =
+          row < tq ? to_float(q[bi * sq.b + h * sq.h + row * sq.t + d]) * sm_scale : 0.0f;
     }
     for (int r = tid; r < BQ; r += kThreads) {
       m_s[r] = kNegInf;
       l_s[r] = 0.0f;
     }
     int64_t lo, hi;
-    tile_bounds(q_start, rph, tk, causal, window, lo, hi);
+    tile_bounds(q_start, BQ, tk, causal, window, lo, hi);
 
     float acc[RM][DN];
 #pragma unroll
@@ -280,7 +288,7 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
 #pragma unroll
       for (int i = 0; i < RM; ++i) {
         const int r = ty + 16 * i;
-        const int64_t qpos = q_start + rel[i];
+        const int64_t qpos = q_start + r;
 #pragma unroll
         for (int j = 0; j < CN; ++j) {
           const int c = tx + 16 * j;
@@ -343,9 +351,9 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
 #pragma unroll
     for (int i = 0; i < RM; ++i) {
       const int r = ty + 16 * i;
-      const int64_t row = row0 + rel[i];
-      if (r >= used_rows || row >= tq) continue;
-      T* op = o + bi * so.b + (h0 + r / rph) * so.h + row * so.t;
+      const int64_t row = row0 + r;
+      if (row >= tq) continue;
+      T* op = o + bi * so.b + h * so.h + row * so.t;
       const float denom = fmaxf(l_s[r], 1e-30f);
 #pragma unroll
       for (int j = 0; j < DN; ++j) op[tx + 16 * j] = from_float<T>(acc[i][j] / denom);
@@ -846,6 +854,401 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
+// ------------------------------------------------------- split-KV decode kernel
+
+constexpr int kDecWarps = 4;
+constexpr int kDecThreads = 32 * kDecWarps;
+constexpr int kDecKeysPerWarp = kBK / kDecWarps;  // each warp's keys of a tile
+constexpr int kDecRingBytes = 96 * 1024;          // the ring's size to aim for
+constexpr int kMergeWarps = 4;                    // merge kernel: warps a block
+
+constexpr int clamp_int(int x, int lo, int hi) { return x < lo ? lo : (x > hi ? hi : x); }
+
+// The decode kernel's layout for R query rows (a power of two, >= g * Tq) at
+// head dim DH. A key is taken by a group of kG lanes; lane gl of the group
+// holds elements (c * kG + gl) * kVW + [0, kVW) of a row for c < kNC (one
+// shared-memory load each), so a group reads a row as contiguous kCB-byte
+// pieces. K and V rows sit kRS bytes apart in the ring: when one load
+// instruction of a warp spans several rows (kG * kCB < 128 bytes a group),
+// the rows are padded so that their pieces fall on distinct banks.
+template <class T, int DH, int R>
+struct Dec {
+  static constexpr int kSize = static_cast<int>(sizeof(T));
+  static constexpr int kG = clamp_int(R * DH / 32, 4, 32);  // R x kE <= 32 where it can
+  static constexpr int kKW = 32 / kG;                       // keys a warp takes at once
+  static constexpr int kSteps = kDecKeysPerWarp / kKW;      // such steps a tile
+  static constexpr int kE = DH / kG;                        // elements a lane holds of a row
+  static constexpr int kVW = kE * kSize < 16 ? kE : 16 / kSize;
+  static constexpr int kNC = kE / kVW;
+  static constexpr int kCB = kVW * kSize;
+  static constexpr int kRB = DH * kSize;
+  static constexpr int kPad = kG * kCB >= 128 ? 0 : ((kG * kCB - kRB % 128) % 128 + 128) % 128;
+  static constexpr int kRS = kRB + kPad;
+  // steps whose scores are held at once: at most 32 registers of them
+  static constexpr int kChunk = clamp_int(32 / R, 1, kSteps);
+  static constexpr int kTileBytes = kBK * kRS;
+  static constexpr int kStages = clamp_int(kDecRingBytes / (2 * kTileBytes), 3, 8);
+  static constexpr int kRing = kStages * 2 * kTileBytes;
+  static constexpr int kMerge = kDecWarps * R * (DH + 2) * 4;  // the warps' partials
+  static constexpr int kBarOffset = kRing > kMerge ? kRing : kMerge;
+  static constexpr size_t kBytes = kBarOffset + 16 * kStages;  // + full/empty barriers
+};
+
+// N elements of T at p (shared memory, N * sizeof(T) <= 16 bytes, aligned to
+// that size) as float32
+template <class T, int N>
+__device__ __forceinline__ void lds(const unsigned char* p, float* out) {
+  if constexpr (sizeof(T) == 4) {
+    if constexpr (N == 4) {
+      const float4 x = *reinterpret_cast<const float4*>(p);
+      out[0] = x.x, out[1] = x.y, out[2] = x.z, out[3] = x.w;
+    } else {
+      static_assert(N == 2, "float32 pieces are 8 or 16 bytes");
+      const float2 x = *reinterpret_cast<const float2*>(p);
+      out[0] = x.x, out[1] = x.y;
+    }
+  } else {
+    unsigned w[N / 2];
+    if constexpr (N == 8) {
+      const uint4 x = *reinterpret_cast<const uint4*>(p);
+      w[0] = x.x, w[1] = x.y, w[2] = x.z, w[3] = x.w;
+    } else if constexpr (N == 4) {
+      const uint2 x = *reinterpret_cast<const uint2*>(p);
+      w[0] = x.x, w[1] = x.y;
+    } else {
+      static_assert(N == 2, "bf16 pieces are 4, 8 or 16 bytes");
+      w[0] = *reinterpret_cast<const unsigned*>(p);
+    }
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {  // a bf16 is the high half of a float32
+      out[2 * i] = __uint_as_float(w[i] << 16);
+      out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+}
+
+// 16 bytes from global to shared memory without passing registers; the
+// bytes past src_bytes (0 or 16) are zero-filled
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+// an arrival on `bar` once every cp.async this thread has issued has landed
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+// One block: query rows r < g * Tq (head kvh * g + r / Tq, query row r % Tq)
+// of one (batch, KV head) against key tiles [s_lo, s_hi), the split's share
+// of the Pallas bounds [lo, hi). Scores are in base-2 units (q carries
+// scale * log2(e)); masked scores are the finite -1e30, so a fully masked
+// tile weighs exp2(0) = 1 until a real score wipes it out (alpha = 0), as in
+// the Pallas kernel.
+// Two blocks of 128 threads an SM hold every register a thread can use, so
+// the bound asks for nothing more; the 96 KB ring of the qwen3 shape keeps
+// two blocks an SM resident.
+template <class T, int DH, int R>
+__global__ void __launch_bounds__(kDecThreads)
+attn_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                   T* __restrict__ o, float* __restrict__ ws, Strides sq, Strides sk,
+                   Strides sv, Strides so, int64_t hkv, int64_t group, int64_t tq, int64_t tk,
+                   int causal, int64_t window, int64_t q_offset, float scale_log2, int n_split,
+                   int vec) {
+  using D = Dec<T, DH, R>;
+  extern __shared__ __align__(16) unsigned char dsmem[];
+  const uint32_t ring_a = smem_addr(dsmem);
+  const uint32_t bar_a = ring_a + D::kBarOffset;  // full[kStages], empty[kStages]
+  auto full = [&](int st) { return bar_a + 8 * st; };
+  auto empty = [&](int st) { return bar_a + 8 * (D::kStages + st); };
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int grp = lane / D::kG, gl = lane % D::kG;  // the key group and the lane in it
+  const int64_t split = blockIdx.x % n_split;
+  const int64_t pair = blockIdx.x / n_split;
+  const int64_t bi = pair / hkv, kvh = pair % hkv;
+  const int rows = static_cast<int>(group * tq);
+  const int tqi = static_cast<int>(tq);
+
+  int64_t lo, hi;
+  tile_bounds(q_offset, tq, tk, causal, window, lo, hi);
+  const int64_t n_vis = hi > lo ? hi - lo : 0;
+  const int64_t s_lo = lo + n_vis * split / n_split;
+  const int64_t s_hi = lo + n_vis * (split + 1) / n_split;
+  const int64_t n = s_hi - s_lo;
+
+  const T* kp = k + bi * sk.b + kvh * sk.h;
+  const T* vp = v + bi * sv.b + kvh * sv.h;
+
+  // this lane's slice of every scaled query row
+  float qr[R][D::kE];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int64_t head = kvh * group + r / tqi, row = r % tqi;
+#pragma unroll
+    for (int c = 0; c < D::kNC; ++c)
+#pragma unroll
+      for (int e = 0; e < D::kVW; ++e) {
+        const int d = (c * D::kG + gl) * D::kVW + e;
+        qr[r][c * D::kVW + e] =
+            r < rows ? to_float(q[bi * sq.b + head * sq.h + row * sq.t + d]) * scale_log2 : 0.0f;
+      }
+  }
+
+  if (tid == 0) {
+    for (int st = 0; st < D::kStages; ++st) {
+      mbar_init(full(st), kDecThreads);  // every thread's copies of the stage
+      mbar_init(empty(st), kDecWarps);   // every warp is done with it
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // all threads copy tile `tile` into stage st and arrive on its full barrier
+  auto fill = [&](int st, int64_t tile) {
+    unsigned char* kd = dsmem + st * 2 * D::kTileBytes;
+    unsigned char* vd = kd + D::kTileBytes;
+    const int64_t kbase = tile * kBK;
+    if (vec) {
+      constexpr int kPieces = D::kRB / 16;  // 16-byte pieces of a row
+      constexpr int kElems = 16 / D::kSize;
+      for (int idx = tid; idx < kBK * kPieces; idx += kDecThreads) {
+        const int c = idx / kPieces, piece = idx % kPieces;
+        const int64_t kpos = kbase + c;
+        const bool in = kpos < tk;
+        const int64_t at = in ? kpos : 0;  // a valid address; nothing is read past Tk
+        cp_async16(smem_addr(kd + c * D::kRS + piece * 16), kp + at * sk.t + piece * kElems,
+                   in ? 16 : 0);
+        cp_async16(smem_addr(vd + c * D::kRS + piece * 16), vp + at * sv.t + piece * kElems,
+                   in ? 16 : 0);
+      }
+      cp_async_arrive(full(st));
+    } else {  // rows not 16-byte aligned: element loads
+      for (int idx = tid; idx < kBK * DH; idx += kDecThreads) {
+        const int c = idx / DH, d = idx % DH;
+        const int64_t kpos = kbase + c;
+        T kv = from_float<T>(0.0f), vv = from_float<T>(0.0f);
+        if (kpos < tk) {
+          kv = kp[kpos * sk.t + d];
+          vv = vp[kpos * sv.t + d];
+        }
+        reinterpret_cast<T*>(kd + c * D::kRS)[d] = kv;
+        reinterpret_cast<T*>(vd + c * D::kRS)[d] = vv;
+      }
+      mbar_arrive(full(st));
+    }
+  };
+
+  float m_run[R], l_run[R], acc[R][D::kE];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    m_run[r] = kNegInf;
+    l_run[r] = 0.0f;
+#pragma unroll
+    for (int e = 0; e < D::kE; ++e) acc[r][e] = 0.0f;
+  }
+
+  // this warp's keys of the tile in stage st: scores, the online softmax of
+  // each chunk of steps, P V
+  auto consume = [&](int st, int64_t tile) {
+    const unsigned char* kt = dsmem + st * 2 * D::kTileBytes;
+    const unsigned char* vt = kt + D::kTileBytes;
+    const int64_t kbase = tile * kBK;
+    const bool edge = kbase + kBK > tk || (causal && kbase + kBK - 1 > q_offset) ||
+                      (window > 0 && kbase <= q_offset + tq - 1 - window);
+#pragma unroll
+    for (int c0 = 0; c0 < D::kSteps; c0 += D::kChunk) {
+      float s[D::kChunk][R];
+#pragma unroll
+      for (int i = 0; i < D::kChunk; ++i) {
+        const int key = warp * kDecKeysPerWarp + (c0 + i) * D::kKW + grp;
+        float kf[D::kE];
+#pragma unroll
+        for (int c = 0; c < D::kNC; ++c) {
+          lds<T, D::kVW>(kt + key * D::kRS + (c * D::kG + gl) * D::kCB, kf + c * D::kVW);
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          float dot = 0.0f;
+#pragma unroll
+          for (int e = 0; e < D::kE; ++e) dot = fmaf(qr[r][e], kf[e], dot);
+          s[i][r] = dot;
+        }
+      }
+#pragma unroll
+      for (int off = D::kG / 2; off > 0; off /= 2)  // the sums over the key's lanes
+#pragma unroll
+        for (int i = 0; i < D::kChunk; ++i)
+#pragma unroll
+          for (int r = 0; r < R; ++r) s[i][r] += __shfl_xor_sync(kFullMask, s[i][r], off);
+      if (edge) {
+#pragma unroll
+        for (int i = 0; i < D::kChunk; ++i) {
+          const int64_t kpos = kbase + warp * kDecKeysPerWarp + (c0 + i) * D::kKW + grp;
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const int64_t qpos = q_offset + r % tqi;
+            bool keep = kpos < tk;
+            if (causal) keep = keep && kpos <= qpos;
+            if (window > 0) keep = keep && kpos > qpos - window;
+            if (!keep) s[i][r] = kNegInf;
+          }
+        }
+      }
+      // the chunk's row maxima over the warp's groups; the rescale
+      float alpha[R];
+      bool moved = false;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        float mx = s[0][r];
+#pragma unroll
+        for (int i = 1; i < D::kChunk; ++i) mx = fmaxf(mx, s[i][r]);
+#pragma unroll
+        for (int off = D::kG; off < 32; off *= 2) mx = fmaxf(mx, __shfl_xor_sync(kFullMask, mx, off));
+        const float m_new = fmaxf(m_run[r], mx);
+        alpha[r] = fast_exp2(m_run[r] - m_new);
+        moved = moved || m_new != m_run[r];
+        m_run[r] = m_new;
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        float sum = 0.0f;
+#pragma unroll
+        for (int i = 0; i < D::kChunk; ++i) {
+          s[i][r] = fast_exp2(s[i][r] - m_run[r]);
+          sum += s[i][r];
+        }
+        l_run[r] = l_run[r] * alpha[r] + sum;
+      }
+      if (moved) {  // warp-uniform: the maxima are the warp's
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int e = 0; e < D::kE; ++e) acc[r][e] *= alpha[r];
+      }
+#pragma unroll
+      for (int i = 0; i < D::kChunk; ++i) {
+        const int key = warp * kDecKeysPerWarp + (c0 + i) * D::kKW + grp;
+        float vf[D::kE];
+#pragma unroll
+        for (int c = 0; c < D::kNC; ++c) {
+          lds<T, D::kVW>(vt + key * D::kRS + (c * D::kG + gl) * D::kCB, vf + c * D::kVW);
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int e = 0; e < D::kE; ++e) acc[r][e] = fmaf(s[i][r], vf[e], acc[r][e]);
+      }
+    }
+  };
+
+  // the ring: kStages tiles in flight; a stage is refilled once every warp
+  // has consumed it
+  for (int st = 0; st < D::kStages && st < n; ++st) fill(st, s_lo + st);
+  for (int64_t j = 0; j < n; ++j) {
+    const int st = static_cast<int>(j % D::kStages);
+    const uint32_t parity = static_cast<uint32_t>(j / D::kStages) & 1;
+    mbar_wait(full(st), parity);
+    consume(st, s_lo + j);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(st));
+    if (j + D::kStages < n) {
+      mbar_wait(empty(st), parity);
+      fill(st, s_lo + j + D::kStages);
+    }
+  }
+
+  // the warp's partial sums over its groups, then the warps merged
+#pragma unroll
+  for (int off = D::kG; off < 32; off *= 2)
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      l_run[r] += __shfl_xor_sync(kFullMask, l_run[r], off);
+#pragma unroll
+      for (int e = 0; e < D::kE; ++e) acc[r][e] += __shfl_xor_sync(kFullMask, acc[r][e], off);
+    }
+  __syncthreads();  // every warp is past its last tile: the ring is free
+  float* red_o = reinterpret_cast<float*>(dsmem);  // [warp][R][DH]
+  float* red_m = red_o + kDecWarps * R * DH;       // [warp][R]
+  float* red_l = red_m + kDecWarps * R;
+  if (lane < D::kG) {
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int c = 0; c < D::kNC; ++c)
+#pragma unroll
+        for (int e = 0; e < D::kVW; ++e) {
+          red_o[(warp * R + r) * DH + (c * D::kG + gl) * D::kVW + e] = acc[r][c * D::kVW + e];
+        }
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      red_m[warp * R + r] = m_run[r];
+      red_l[warp * R + r] = l_run[r];
+    }
+  }
+  __syncthreads();
+  for (int idx = tid; idx < rows * DH; idx += kDecThreads) {
+    const int r = idx / DH, d = idx % DH;
+    float m = red_m[r];
+    for (int w = 1; w < kDecWarps; ++w) m = fmaxf(m, red_m[w * R + r]);
+    float l = 0.0f, acc_d = 0.0f;
+    for (int w = 0; w < kDecWarps; ++w) {
+      const float a = fast_exp2(red_m[w * R + r] - m);
+      l += a * red_l[w * R + r];
+      acc_d += a * red_o[(w * R + r) * DH + d];
+    }
+    if (n_split == 1) {
+      const int64_t head = kvh * group + r / tqi, row = r % tqi;
+      o[bi * so.b + head * so.h + row * so.t + d] = from_float<T>(acc_d / fmaxf(l, 1e-30f));
+    } else {  // the split's partial: [pair][row][split] (m, l) and [..][DH] o
+      const int64_t at = (pair * rows + r) * n_split + split;
+      const int64_t parts = static_cast<int64_t>(gridDim.x) * rows;  // (pair, row, split)s
+      ws[at * DH + d] = acc_d;
+      if (d == 0) {
+        ws[parts * DH + at] = n > 0 ? m : -INFINITY;  // an empty share: m = -inf, l = o = 0
+        ws[parts * (DH + 1) + at] = l;
+      }
+    }
+  }
+}
+
+// One warp a query row: the splits' partials merged by the reference's
+// gqa_flash_decode rule (pmax / psum), in base 2; splits with m = -inf (an
+// empty share) weigh 0.
+template <class T, int DH>
+__global__ void __launch_bounds__(32 * kMergeWarps)
+attn_merge_kernel(const float* __restrict__ ws, T* __restrict__ o, Strides so, int64_t hkv,
+                  int64_t group, int64_t tq, int64_t rows_total, int n_split) {
+  constexpr int kPer = DH / 32;  // output columns a lane
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * kMergeWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows_total) return;
+  const int64_t parts = rows_total * n_split;
+  const float* wo = ws + row * n_split * DH;
+  const float* wm = ws + parts * DH + row * n_split;
+  const float* wl = ws + parts * (DH + 1) + row * n_split;
+  float m = -INFINITY;
+  for (int s = 0; s < n_split; ++s) m = fmaxf(m, wm[s]);
+  float l = 0.0f, acc[kPer];
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) acc[j] = 0.0f;
+  for (int s = 0; s < n_split; ++s) {
+    const float a = wm[s] == -INFINITY ? 0.0f : exp2f(wm[s] - m);
+    l += a * wl[s];
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) acc[j] += a * wo[s * DH + lane + 32 * j];
+  }
+  const int64_t rows = group * tq;
+  const int64_t pair = row / rows, r = row % rows;
+  const int64_t bi = pair / hkv, head = (pair % hkv) * group + r / tq, t = r % tq;
+  T* op = o + bi * so.b + head * so.h + t * so.t;
+  const float denom = fmaxf(l, 1e-30f);
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) op[lane + 32 * j] = from_float<T>(acc[j] / denom);
+}
+
 // ---------------------------------------------------------------- launchers
 
 dim3 grid_of(int64_t head_blocks, int64_t q_tiles) {
@@ -853,29 +1256,131 @@ dim3 grid_of(int64_t head_blocks, int64_t q_tiles) {
   return dim3(static_cast<unsigned>(head_blocks), static_cast<unsigned>(y));
 }
 
-// heads_per_block query heads (1, or all g of a KV head) of rows_per_head
-// query rows each make one block
 template <class T, int DH, int BQ>
 int launch_fma(const void* q, const void* k, const void* v, void* o, const int64_t* st,
-               int64_t batch, int64_t hq, int64_t hkv, int64_t heads_per_block,
-               int64_t rows_per_head, int64_t tq, int64_t tk, int causal, int64_t window,
-               int64_t q_offset, float sm_scale, cudaStream_t stream) {
+               int64_t batch, int64_t hq, int64_t hkv, int64_t tq, int64_t tk, int causal,
+               int64_t window, int64_t q_offset, float sm_scale, cudaStream_t stream) {
   using S = Smem<DH, BQ>;
   auto kernel = attn_kernel<T, DH, BQ>;
   // set once, before any launch (and so before any CUDA-graph capture)
   static const cudaError_t configured = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(S::kBytes));
   if (configured != cudaSuccess) return static_cast<int>(configured);
-  const int64_t head_blocks = batch * (hq / heads_per_block);
+  const int64_t head_blocks = batch * hq;
   if (head_blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t q_tiles = (tq + rows_per_head - 1) / rows_per_head;
+  const int64_t q_tiles = (tq + BQ - 1) / BQ;
   kernel<<<grid_of(head_blocks, q_tiles), kThreads, S::kBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
-      Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]}, hq, hq / hkv,
-      heads_per_block, rows_per_head, tq, tk, causal, window, q_offset, sm_scale);
+      Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]}, hq, hq / hkv, tq, tk,
+      causal, window, q_offset, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
+
+// whether the K/V rows of every (batch, KV head) start on 16 bytes: what
+// the decode kernel's cp.async copies need (st: element strides of k then v)
+template <class T>
+bool rows_aligned(const void* k, const void* v, const int64_t* st) {
+  if ((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16 != 0) return false;
+  for (int i = 0; i < 6; ++i) {
+    if (st[i] * static_cast<int64_t>(sizeof(T)) % 16 != 0) return false;
+  }
+  return true;
+}
+
+// the decode kernel instance for R rows, its shared memory size set once
+template <class T, int DH, int R>
+cudaError_t configure_decode() {
+  static const cudaError_t configured =
+      cudaFuncSetAttribute(attn_decode_kernel<T, DH, R>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(Dec<T, DH, R>::kBytes));
+  return configured;
+}
+
+// blocks of the instance for R rows that one SM holds at once
+template <class T, int DH, int R>
+int decode_occupancy(int* blocks) {
+  const cudaError_t configured = configure_decode<T, DH, R>();
+  if (configured != cudaSuccess) return static_cast<int>(configured);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, attn_decode_kernel<T, DH, R>, kDecThreads, Dec<T, DH, R>::kBytes));
+}
+
+template <class T, int DH, int R>
+int launch_decode_rows(const void* q, const void* k, const void* v, void* o, const int64_t* st,
+                       int64_t batch, int64_t hq, int64_t hkv, int64_t tq, int64_t tk,
+                       int causal, int64_t window, int64_t q_offset, float sm_scale,
+                       float* workspace, int n_split, cudaStream_t stream) {
+  using D = Dec<T, DH, R>;
+  auto kernel = attn_decode_kernel<T, DH, R>;
+  const cudaError_t configured = configure_decode<T, DH, R>();
+  if (configured != cudaSuccess) return static_cast<int>(configured);
+  const int64_t blocks = batch * hkv * n_split;
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t group = hq / hkv;
+  const Strides so{st[9], st[10], st[11]};
+  kernel<<<static_cast<unsigned>(blocks), kDecThreads, D::kBytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), workspace, Strides{st[0], st[1], st[2]},
+      Strides{st[3], st[4], st[5]}, Strides{st[6], st[7], st[8]}, so, hkv, group, tq, tk,
+      causal, window, q_offset, sm_scale * kLog2e, n_split,
+      rows_aligned<T>(k, v, st + 3) ? 1 : 0);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);
+  const int64_t rows_total = batch * hkv * group * tq;  // one warp a query row
+  const int64_t merge_blocks = (rows_total + kMergeWarps - 1) / kMergeWarps;
+  if (merge_blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  attn_merge_kernel<T, DH><<<static_cast<unsigned>(merge_blocks), 32 * kMergeWarps, 0, stream>>>(
+      workspace, static_cast<T*>(o), so, hkv, group, tq, rows_total, n_split);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the decode kernel instance whose row capacity R (a power of two) is the
+// least that holds the g * Tq query rows of a KV head
+template <class T, int DH>
+int launch_decode(const void* q, const void* k, const void* v, void* o, const int64_t* st,
+                  int64_t batch, int64_t hq, int64_t hkv, int64_t tq, int64_t tk, int causal,
+                  int64_t window, int64_t q_offset, float sm_scale, float* workspace,
+                  int n_split, cudaStream_t stream) {
+  const int64_t rows = (hq / hkv) * tq;
+  auto go = [&](auto launcher) {
+    return launcher(q, k, v, o, st, batch, hq, hkv, tq, tk, causal, window, q_offset, sm_scale,
+                    workspace, n_split, stream);
+  };
+  if (rows <= 1) return go(launch_decode_rows<T, DH, 1>);
+  if (rows <= 2) return go(launch_decode_rows<T, DH, 2>);
+  if (rows <= 4) return go(launch_decode_rows<T, DH, 4>);
+  if (rows <= 8) return go(launch_decode_rows<T, DH, 8>);
+  if (rows <= 16) return go(launch_decode_rows<T, DH, 16>);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// decode_occupancy of the instance launch_decode picks for g * Tq = rows
+template <class T, int DH>
+int decode_occupancy_rows(int64_t rows, int* blocks) {
+  if (rows <= 1) return decode_occupancy<T, DH, 1>(blocks);
+  if (rows <= 2) return decode_occupancy<T, DH, 2>(blocks);
+  if (rows <= 4) return decode_occupancy<T, DH, 4>(blocks);
+  if (rows <= 8) return decode_occupancy<T, DH, 8>(blocks);
+  if (rows <= 16) return decode_occupancy<T, DH, 16>(blocks);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <class T>
+int decode_occupancy_dh(int dh, int64_t rows, int* blocks) {
+  switch (dh) {
+    case 32:
+      return decode_occupancy_rows<T, 32>(rows, blocks);
+    case 64:
+      return decode_occupancy_rows<T, 64>(rows, blocks);
+    case 128:
+      return decode_occupancy_rows<T, 128>(rows, blocks);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -952,18 +1457,17 @@ template <class T, int DH>
 int launch_variant(int variant, const void* q, const void* k, const void* v, void* o,
                    const int64_t* st, int64_t batch, int64_t hq, int64_t hkv, int64_t tq,
                    int64_t tk, int causal, int64_t window, int64_t q_offset, float sm_scale,
-                   cudaStream_t stream) {
-  const int64_t group = hq / hkv;
+                   float* workspace, int n_split, cudaStream_t stream) {
   switch (variant) {
-    case kFmaGrouped:  // decode: the g heads of a KV head in one block
-      return launch_fma<T, DH, 16>(q, k, v, o, st, batch, hq, hkv, group, tq, tq, tk, causal,
-                                   window, q_offset, sm_scale, stream);
+    case kDecodeSplit:
+      return launch_decode<T, DH>(q, k, v, o, st, batch, hq, hkv, tq, tk, causal, window,
+                                  q_offset, sm_scale, workspace, n_split, stream);
     case kFmaShort:
-      return launch_fma<T, DH, 16>(q, k, v, o, st, batch, hq, hkv, 1, 16, tq, tk, causal,
-                                   window, q_offset, sm_scale, stream);
+      return launch_fma<T, DH, 16>(q, k, v, o, st, batch, hq, hkv, tq, tk, causal, window,
+                                   q_offset, sm_scale, stream);
     case kFma:
-      return launch_fma<T, DH, 64>(q, k, v, o, st, batch, hq, hkv, 1, 64, tq, tk, causal,
-                                   window, q_offset, sm_scale, stream);
+      return launch_fma<T, DH, 64>(q, k, v, o, st, batch, hq, hkv, tq, tk, causal, window,
+                                   q_offset, sm_scale, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -972,18 +1476,18 @@ int launch_variant(int variant, const void* q, const void* k, const void* v, voi
 template <class T>
 int launch_dh(int variant, int dh, const void* q, const void* k, const void* v, void* o,
               const int64_t* st, int64_t batch, int64_t hq, int64_t hkv, int64_t tq, int64_t tk,
-              int causal, int64_t window, int64_t q_offset, float sm_scale,
-              cudaStream_t stream) {
+              int causal, int64_t window, int64_t q_offset, float sm_scale, float* workspace,
+              int n_split, cudaStream_t stream) {
   switch (dh) {
     case 32:
       return launch_variant<T, 32>(variant, q, k, v, o, st, batch, hq, hkv, tq, tk, causal,
-                                   window, q_offset, sm_scale, stream);
+                                   window, q_offset, sm_scale, workspace, n_split, stream);
     case 64:
       return launch_variant<T, 64>(variant, q, k, v, o, st, batch, hq, hkv, tq, tk, causal,
-                                   window, q_offset, sm_scale, stream);
+                                   window, q_offset, sm_scale, workspace, n_split, stream);
     case 128:
       return launch_variant<T, 128>(variant, q, k, v, o, st, batch, hq, hkv, tq, tk, causal,
-                                    window, q_offset, sm_scale, stream);
+                                    window, q_offset, sm_scale, workspace, n_split, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -995,22 +1499,27 @@ extern "C" {
 // o[B, Hq, Tq, Dh] from q[B, Hq, Tq, Dh], k and v[B, Hkv, Tk, Dh], all given
 // by base pointer and element strides (strides[0..11]: the batch, head and
 // row strides of q, k, v, o, in that order; the last dimension contiguous).
-// variant: 0 = FMA, 64-row tiles; 1 = FMA, 16-row tiles; 2 = FMA, the g heads
-// of a KV head in one block (needs g * Tq <= 16); 3 = tensor cores (bf16
-// only, 16-byte aligned bases and strides). dtype 0 = float32, 1 = bfloat16;
-// dh in {32, 64, 128}; Hq a multiple of Hkv; window <= 0 means none. Returns
-// the CUDA error code of the launch.
+// variant: 0 = FMA, 64-row tiles; 1 = FMA, 16-row tiles; 2 = split-KV decode
+// (needs g * Tq <= 16; n_split >= 1 contiguous shares of the key tiles, and
+// with n_split > 1 a float32 workspace of B * Hkv * g * Tq * n_split *
+// (Dh + 2) elements); 3 = tensor cores (bf16 only, 16-byte aligned bases and
+// strides). dtype 0 = float32, 1 = bfloat16; dh in {32, 64, 128}; Hq a
+// multiple of Hkv; window <= 0 means none. Returns the CUDA error code of the
+// launch (or of the first failed one).
 int flash_attention_fwd(int variant, int dtype, int dh, const void* q, const void* k,
                         const void* v, void* o, const int64_t* strides, int64_t batch,
                         int64_t hq, int64_t hkv, int64_t tq, int64_t tk, int causal,
-                        int64_t window, int64_t q_offset, float sm_scale, void* stream) {
+                        int64_t window, int64_t q_offset, float sm_scale, void* workspace,
+                        int n_split, void* stream) {
   if (batch <= 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0 || tq <= 0 || tk < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (variant == kFmaGrouped && (hq / hkv) * tq > 16) {
+  if (variant == kDecodeSplit &&
+      ((hq / hkv) * tq > 16 || n_split < 1 || (n_split > 1 && workspace == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* ws = static_cast<float*>(workspace);
   if (variant == kWgmmaBf16) {
     if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
     switch (dh) {
@@ -1029,12 +1538,22 @@ int flash_attention_fwd(int variant, int dtype, int dh, const void* q, const voi
   }
   if (dtype == 0) {
     return launch_dh<float>(variant, dh, q, k, v, o, strides, batch, hq, hkv, tq, tk, causal,
-                            window, q_offset, sm_scale, s);
+                            window, q_offset, sm_scale, ws, n_split, s);
   }
   if (dtype == 1) {
     return launch_dh<__nv_bfloat16>(variant, dh, q, k, v, o, strides, batch, hq, hkv, tq, tk,
-                                    causal, window, q_offset, sm_scale, s);
+                                    causal, window, q_offset, sm_scale, ws, n_split, s);
   }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// *blocks = the split-KV decode kernel's blocks that one SM of the current
+// device holds at once, for dtype (0 = float32, 1 = bfloat16), dh and
+// g * Tq = rows (<= 16): what its shared memory and registers allow. Returns
+// the CUDA error code.
+int flash_decode_blocks_per_sm(int dtype, int dh, int64_t rows, int* blocks) {
+  if (dtype == 0) return decode_occupancy_dh<float>(dh, rows, blocks);
+  if (dtype == 1) return decode_occupancy_dh<__nv_bfloat16>(dh, rows, blocks);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

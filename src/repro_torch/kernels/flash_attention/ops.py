@@ -7,10 +7,20 @@ other. ``launches`` counts the kernel's launches and ``variant_launches``
 splits them by the variant that ran; CPU calls do not count.
 
 The variant is picked before the launch by :func:`kernel_variant`, from the
-dtype, Tq, g, Dh and the alignment of the tensors alone: bf16 prefill goes
-to the tensor cores (``wgmma_bf16``), float32 and decode to the float32 FMA
-kernel in one of its three tilings. A launch error raises; it never sends
-the call to another variant.
+dtype, Tq, g, Dh and the alignment of the tensors alone: a decode step (g *
+Tq <= 16) goes to the split-KV decode kernel (``decode_split``), bf16
+prefill to the tensor cores (``wgmma_bf16``), the rest to the float32 FMA
+kernel in one of its two tilings. A launch error raises; it never sends the
+call to another variant.
+
+``decode_split`` cuts the visible key tiles into :func:`decode_splits`
+contiguous shares, one block each per (batch, KV head), so that short
+batches still fill the card; with more than one share a second, small
+kernel merges the shares' partial softmaxes from a float32 workspace that
+the wrapper allocates. The split count depends on the shapes alone (Tk, not
+the position), so the launch configuration stays the same from one decode
+step to the next. A wrapper call counts one launch whether or not the merge
+runs; ``split_launches`` counts the decode launches by their split count.
 
 The inputs may be any views whose last dimension is contiguous: the kernel
 reads them through their strides, so the model hands it ``[B, T, H, Dh]``
@@ -22,21 +32,27 @@ is free.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels.flash_attention import build
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-__all__ = ["DTYPES", "HEAD_DIMS", "VARIANTS", "flash_attention", "is_aligned", "kernel_variant",
-           "launches", "reset", "variant_launches"]
+__all__ = ["DTYPES", "HEAD_DIMS", "VARIANTS", "decode_blocks_per_sm", "decode_splits",
+           "flash_attention", "is_aligned", "kernel_variant", "launches", "reset", "sm_count",
+           "split_launches", "variant_launches"]
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
 # the kernel's variants, in the order of their codes in csrc/flash_attention.cu
-VARIANTS = ("fma", "fma_short", "fma_grouped", "wgmma_bf16")
+VARIANTS = ("fma", "fma_short", "decode_split", "wgmma_bf16")
+TILE_KEYS = 64  # keys a tile of every variant
+# decode_split: every share gets at least this many tiles
+DECODE_MIN_TILES_PER_SPLIT = 16
 launches = 0
 variant_launches = dict.fromkeys(VARIANTS, 0)
+split_launches: dict[int, int] = {}  # decode_split launches by their n_split
 
 
 def reset() -> None:
@@ -45,6 +61,7 @@ def reset() -> None:
     launches = 0
     for name in VARIANTS:
         variant_launches[name] = 0
+    split_launches.clear()
 
 
 def is_aligned(*tensors: torch.Tensor) -> bool:
@@ -54,14 +71,58 @@ def is_aligned(*tensors: torch.Tensor) -> bool:
                                               for s in t.stride()[:3]) for t in tensors)
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of a CUDA device, read once per device."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return _sm_count(index)
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_blocks_per_sm(index: int, dtype: torch.dtype, dh: int, rows: int) -> int:
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = build.library().flash_decode_blocks_per_sm(DTYPES[dtype], dh, rows,
+                                                         ctypes.byref(blocks))
+    if err != 0 or blocks.value < 1:
+        raise RuntimeError(f"decode_split occupancy query failed: CUDA error {err}, "
+                           f"{blocks.value} blocks an SM")
+    return blocks.value
+
+
+def decode_blocks_per_sm(device: torch.device, dtype: torch.dtype, dh: int, rows: int) -> int:
+    """The ``decode_split`` blocks that one SM of a CUDA device holds at once,
+    for ``g * Tq = rows`` query rows at this dtype and head dim: what the
+    instance's shared-memory ring and registers allow (the CUDA occupancy
+    query), read once per device and instance."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return _decode_blocks_per_sm(index, dtype, dh, rows)
+
+
+def decode_splits(batch: int, hkv: int, tk: int, sm_count: int, blocks_per_sm: int) -> int:
+    """How many contiguous shares of the key tiles ``decode_split`` gives a
+    (batch, KV head), from the shapes alone: as many as one round of
+    resident blocks (``sm_count * blocks_per_sm``) holds for ``batch * hkv``
+    of them, at least 1, and at most one share per
+    ``DECODE_MIN_TILES_PER_SPLIT`` tiles (so 1 for the serve loop's short
+    caches and where ``batch * hkv`` already fills the card)."""
+    most = -(-tk // TILE_KEYS) // DECODE_MIN_TILES_PER_SPLIT
+    return max(1, min(most, sm_count * blocks_per_sm // max(batch * hkv, 1)))
+
+
 def kernel_variant(dtype: torch.dtype, tq: int, group: int, dh: int, aligned: bool) -> str:
-    """The kernel variant for these inputs: ``fma_grouped`` when ``g * Tq <=
-    16`` (a decode step: the g query heads of a KV head in one block),
-    ``fma_short`` when ``Tq <= 16`` (16-row tiles), ``wgmma_bf16`` (tensor
-    cores) for bf16 with 16-byte aligned pointers and strides, else ``fma``
-    (float32 FMA, 64-row tiles)."""
+    """The kernel variant for these inputs: ``decode_split`` when ``g * Tq <=
+    16`` (a decode step: the g query heads of a KV head in one block, the
+    cache split over blocks), ``fma_short`` when ``Tq <= 16`` (16-row
+    tiles), ``wgmma_bf16`` (tensor cores) for bf16 with 16-byte aligned
+    pointers and strides, else ``fma`` (float32 FMA, 64-row tiles).
+    ``decode_split`` takes unaligned rows too, with element loads."""
     if group * tq <= 16:
-        return "fma_grouped"
+        return "decode_split"
     if tq <= 16:
         return "fma_short"
     if dtype == torch.bfloat16 and dh in HEAD_DIMS and aligned:
@@ -118,17 +179,27 @@ def flash_attention(
     out = torch.empty((b, tq, hq, dh), dtype=q.dtype, device=device).transpose(1, 2)
     if tq == 0:
         return out
-    hkv = k.shape[1]
+    hkv, tk = k.shape[1], k.shape[2]
     variant = kernel_variant(q.dtype, tq, hq // hkv, dh, is_aligned(q, k, v, out))
+    n_split, workspace = 1, None
+    if variant == "decode_split":
+        n_split = decode_splits(b, hkv, tk, sm_count(device),
+                                decode_blocks_per_sm(device, q.dtype, dh, hq // hkv * tq))
+        if n_split > 1:  # each share's (o, m, l) per query row, merged by a second kernel
+            workspace = torch.empty(b * hq * tq * n_split * (dh + 2), dtype=torch.float32,
+                                    device=device)
     strides = (ctypes.c_int64 * 12)(*(s for t in (q, k, v, out) for s in t.stride()[:3]))
     err = build.library().flash_attention_fwd(
         VARIANTS.index(variant), DTYPES[q.dtype], dh, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), strides,
-        b, hq, hkv, tq, k.shape[2], int(bool(causal)), window or 0, int(q_offset),
-        dh**-0.5, torch.cuda.current_stream(device).cuda_stream,
+        b, hq, hkv, tq, tk, int(bool(causal)), window or 0, int(q_offset),
+        dh**-0.5, None if workspace is None else workspace.data_ptr(), n_split,
+        torch.cuda.current_stream(device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"flash_attention kernel ({variant}) launch failed: CUDA error {err}")
     launches += 1
     variant_launches[variant] += 1
+    if variant == "decode_split":
+        split_launches[n_split] = split_launches.get(n_split, 0) + 1
     return out

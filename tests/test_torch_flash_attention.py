@@ -13,8 +13,12 @@ on the card (``tests/test_torch_gpu.py``, ``chip_smoke.py``).
 
 The tensor-core variant's rounding is modelled here tile by tile
 (``_tensor_core_model``) and held against the references at both bf16
-tolerances before the card sees it; the wrapper's variant dispatch is a pure
-function of the inputs' dtype, shape and alignment and is tested here too.
+tolerances before the card sees it; so is the split-KV decode kernel's
+arithmetic (``_split_decode_model``: contiguous shares of the key tiles,
+each share's float32 partial softmax, merged by the reference's
+``gqa_flash_decode`` rule). The wrapper's variant dispatch and the decode
+split count are pure functions of the inputs' dtype, shapes and alignment
+and are tested here too.
 """
 import math
 
@@ -173,10 +177,11 @@ def test_wrapper_checks_and_counts_no_cpu_launch():
     (torch.bfloat16, 64, 2, 64, True, "wgmma_bf16"),
     (torch.float32, 8192, 4, 128, True, "fma"),        # float32 stays on FMA (2e-5)
     (torch.float32, 64, 1, 32, True, "fma"),
-    (torch.bfloat16, 1, 4, 128, True, "fma_grouped"),  # a decode step
-    (torch.bfloat16, 4, 4, 128, True, "fma_grouped"),  # g * Tq = 16
-    (torch.bfloat16, 16, 1, 64, True, "fma_grouped"),
-    (torch.float32, 1, 8, 32, True, "fma_grouped"),
+    (torch.bfloat16, 1, 4, 128, True, "decode_split"),  # a decode step
+    (torch.bfloat16, 4, 4, 128, True, "decode_split"),  # g * Tq = 16
+    (torch.bfloat16, 16, 1, 64, True, "decode_split"),
+    (torch.float32, 1, 8, 32, True, "decode_split"),
+    (torch.bfloat16, 1, 4, 128, False, "decode_split"),  # unaligned rows: element loads
     (torch.bfloat16, 5, 4, 128, True, "fma_short"),    # Tq <= 16, g * Tq > 16
     (torch.bfloat16, 16, 2, 64, True, "fma_short"),
     (torch.bfloat16, 8192, 4, 128, False, "fma"),      # unaligned rows
@@ -204,10 +209,14 @@ def test_variant_counts_reset_and_stay_still_on_the_cpu():
     q = torch.zeros(1, 4, 64, 32, dtype=torch.bfloat16)
     k = torch.zeros(1, 2, 64, 32, dtype=torch.bfloat16)
     ops.variant_launches["wgmma_bf16"] += 3
+    ops.split_launches[4] = 2
     ops.reset()
     assert ops.launches == 0 and set(ops.variant_launches.values()) == {0}
+    assert ops.split_launches == {}
     ops.flash_attention(q, k, k)
+    ops.flash_attention(q[:, :, :1], k, k, q_offset=63)  # a decode step on the plain version
     assert set(ops.variant_launches.values()) == {0}  # the plain version is no launch
+    assert ops.split_launches == {}
 
 
 # ------------------------------------------- the tensor-core variant's arithmetic
@@ -281,3 +290,130 @@ def test_tensor_core_rounding_within_the_bf16_gates(b, hq, hkv, tq, tk, dh, caus
     to_model = lambda t: jnp.swapaxes(t, 1, 2)  # noqa: E731
     want = _sdpa(to_model(jq), to_model(jk), to_model(jv), causal, window, q_offset)
     _assert_bf16_gates(got, to_model(want))
+
+
+# ------------------------------------------- the split-KV decode kernel's arithmetic
+def _split_decode_model(q, k, v, causal=True, window=None, q_offset=0, n_split=1,
+                        block_k=64):
+    """A plain-torch model of the decode kernel: the key tiles [lo, hi) that
+    the Pallas loop bounds give the Tq rows are cut into ``n_split``
+    contiguous shares; each share takes its float32 (m, l, o) with masked
+    scores at -1e30 over its tiles (keys past Tk padded with zeros and
+    masked), an empty share (m, l, o) = (-inf, 0, 0); the shares merge by
+    the reference's pmax / psum rule: m = max m_s, l = sum exp(m_s - m) l_s,
+    o = sum exp(m_s - m) o_s / max(l, 1e-30)."""
+    b, hq, tq, dh = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    n_tiles = -(-tk // block_k)
+    hi = min(-(-(q_offset + tq) // block_k), n_tiles) if causal else n_tiles
+    lo = max((q_offset - window + 1) // block_k, 0) if window is not None else 0
+    n_vis = max(hi - lo, 0)
+    qf = q.float().reshape(b, hkv, hq // hkv, tq, dh) * dh**-0.5
+    pad = n_tiles * block_k - tk
+    kf = torch.nn.functional.pad(k.float(), (0, 0, 0, pad))[:, :, None]
+    vf = torch.nn.functional.pad(v.float(), (0, 0, 0, pad))[:, :, None]
+    qpos = torch.arange(tq)[:, None] + q_offset
+    ms, ls, os_ = [], [], []
+    for s in range(n_split):
+        s_lo, s_hi = lo + n_vis * s // n_split, lo + n_vis * (s + 1) // n_split
+        if s_hi <= s_lo:
+            ms.append(torch.full((b, hkv, hq // hkv, tq, 1), -math.inf))
+            ls.append(torch.zeros(b, hkv, hq // hkv, tq, 1))
+            os_.append(torch.zeros_like(qf))
+            continue
+        keys = slice(s_lo * block_k, s_hi * block_k)
+        kpos = torch.arange(keys.start, keys.stop)[None, :]
+        keep = kpos < tk
+        if causal:
+            keep = keep & (kpos <= qpos)
+        if window is not None:
+            keep = keep & (kpos > qpos - window)
+        scores = (qf @ kf[..., keys, :].transpose(-1, -2)).masked_fill(~keep, -1e30)
+        m = scores.amax(-1, keepdim=True)
+        p = torch.exp(scores - m)
+        ms.append(m)
+        ls.append(p.sum(-1, keepdim=True))
+        os_.append(p @ vf[..., keys, :])
+    m_all = torch.stack(ms)
+    m = m_all.amax(0)
+    w = torch.where(m_all == -math.inf, 0.0, torch.exp(m_all - m))
+    l = (w * torch.stack(ls)).sum(0)
+    out = (w * torch.stack(os_)).sum(0) / l.clamp_min(1e-30)
+    return out.reshape(b, hq, tq, dh).to(q.dtype)
+
+
+SPLIT_DECODE_CASES = [  # b, hq, hkv, tq, tk, dh, causal, window, q_offset, n_split
+    (2, 8, 2, 1, 1024, 64, True, None, 1023, 1),
+    (2, 8, 2, 1, 1024, 64, True, None, 1023, 2),
+    (2, 8, 2, 1, 1024, 64, True, None, 1023, 7),
+    (1, 4, 1, 1, 4096, 32, True, None, 4095, 64),
+    (2, 8, 2, 1, 1000, 32, True, None, 999, 7),     # Tk not a multiple of 64
+    (1, 8, 2, 1, 2048, 32, True, 40, 2047, 7),      # a window narrower than a tile
+    (1, 8, 2, 2, 2048, 32, True, 700, 1500, 7),     # a window across split boundaries
+    (1, 8, 2, 1, 4096, 32, True, None, 100, 64),    # q_offset far below Tk: empty splits
+    (1, 8, 2, 4, 1024, 32, True, None, 1500, 7),    # q_offset >= Tk
+    (1, 8, 2, 1, 1024, 32, False, None, 0, 7),      # bidirectional
+    (2, 8, 2, 1, 1, 32, True, None, 0, 2),          # Tk = 1: one share empty
+    (1, 16, 1, 1, 2048, 64, True, None, 2047, 7),   # g * Tq = 16
+    (1, 8, 2, 4, 2048, 32, True, 33, 2040, 2),      # g * Tq = 16 under a window
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,hq,hkv,tq,tk,dh,causal,window,q_offset,n_split", SPLIT_DECODE_CASES)
+def test_split_decode_arithmetic_matches_the_references(b, hq, hkv, tq, tk, dh, causal, window,
+                                                        q_offset, n_split, dtype):
+    """The model against ``attention_ref`` and the port's plain version: 2e-5
+    in float32, both bf16 gates in bf16."""
+    rng = np.random.default_rng(tk + n_split + q_offset)
+    (jq, jk, jv), (q, k, v) = _both(_inputs(rng, b, hq, hkv, tq, tk, dh), dtype)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    got = _split_decode_model(q, k, v, n_split=n_split, **kw)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    for want in (attention_ref(jq, jk, jv, **kw), flash_attention_ref(q, k, v, **kw).float()):
+        if dtype == "float32":
+            _assert_close(got, want, TOL["float32"])
+        else:
+            _assert_bf16_gates(got, np.asarray(want, np.float32))
+
+
+H100_SMS = 132
+QWEN3_BLOCKS_PER_SM = 2  # the bf16, Dh = 128, g = 4 instance: a 96 KB ring, two blocks an SM
+
+
+@pytest.mark.parametrize("batch,hkv,tk", [
+    (8, 8, 160),        # the serve loop's cache: 3 tiles
+    (1, 1, 1),
+    (1, 8, 1984),       # 31 tiles: under two shares of 16
+    (65536, 1, 32768),  # the grid-cap decode shape: B * Hkv fills the card
+    (32, 8, 32768),     # 256 blocks: 0.97 of a round of two blocks on 132 SMs
+])
+def test_decode_splits_one_share(batch, hkv, tk):
+    assert ops.decode_splits(batch, hkv, tk, H100_SMS, QWEN3_BLOCKS_PER_SM) == 1
+
+
+@pytest.mark.parametrize("batch,blocks_per_sm,want", [
+    (8, 2, 4), (16, 2, 2), (32, 2, 1), (2, 2, 16), (8, 1, 2)])
+def test_decode_splits_fill_the_card_at_32k(batch, blocks_per_sm, want):
+    """qwen3-8b (Hkv = 8) at a 32k cache: as many shares as one round of
+    resident blocks on 132 SMs holds (B=8 at two blocks an SM: 4 shares, 256
+    blocks of 264 slots; one block an SM, as the float32 Dh = 128 ring
+    allows: 2), each share at least the tile floor."""
+    n = ops.decode_splits(batch, 8, 32768, H100_SMS, blocks_per_sm)
+    assert n == want
+    slots = blocks_per_sm * H100_SMS
+    assert batch * 8 * n <= slots < batch * 8 * (n + 1)
+    assert 32768 // ops.TILE_KEYS // n >= ops.DECODE_MIN_TILES_PER_SPLIT
+
+
+@pytest.mark.parametrize("sms", [1, 66, 132])
+def test_decode_splits_never_exceed_the_tiles(sms):
+    for blocks_per_sm in (1, 2, 4):
+        for batch in (1, 2, 7, 64):
+            for hkv in (1, 8):
+                for tk in (1, 63, 64, 1000, 1024, 4095, 32768, 131072):
+                    n = ops.decode_splits(batch, hkv, tk, sms, blocks_per_sm)
+                    tiles = -(-tk // ops.TILE_KEYS)
+                    assert 1 <= n <= tiles
+                    assert n == 1 or tiles // n >= ops.DECODE_MIN_TILES_PER_SPLIT
+                    assert n == 1 or batch * hkv * n <= sms * blocks_per_sm

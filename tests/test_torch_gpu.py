@@ -307,8 +307,9 @@ def test_flash_kernel_ragged_and_windowed(cuda_device, tq, tk, causal, window, q
     (8, 2, 1, 99), (8, 2, 3, 64), (8, 2, 4, 0), (8, 2, 5, 130), (16, 2, 2, 63), (32, 8, 1, 300),
 ])
 def test_flash_kernel_gqa_decode_rows(cuda_device, hq, hkv, tq, q_offset):
-    """Short query tiles of GQA heads: g * Tq <= 16 packs a KV head's g query
-    heads into one block, larger products take a block per head."""
+    """Short query tiles of GQA heads: g * Tq <= 16 takes the split-KV decode
+    kernel (all g query heads of a KV head in one block), larger products
+    take a block per head on the FMA kernel."""
     for dtype in (torch.float32, torch.bfloat16):
         _flash_case(cuda_device, dtype, 2, hq, hkv, tq, 320, 128, hq * 100 + tq, causal=True,
                     q_offset=q_offset)
@@ -416,9 +417,9 @@ def test_tensor_core_kernel_gqa_in_model_layout(cuda_device, dh):
 
 @pytest.mark.gpu
 def test_flash_variant_counts_follow_the_dispatch(cuda_device):
-    """Each variant's count moves only when the dispatch picks it: float32
-    prefill, a bf16 decode step, a short bf16 tile and unaligned bf16 rows
-    stay on the FMA kernel."""
+    """Each variant's count moves only when the dispatch picks it: a bf16
+    decode step takes the split-KV decode kernel; float32 prefill, a short
+    bf16 tile and unaligned bf16 prefill rows stay on the FMA kernel."""
     from repro_torch.kernels.flash_attention import ops as fa
 
     def run(q, k, v, **kw):
@@ -435,7 +436,7 @@ def test_flash_variant_counts_follow_the_dispatch(cuda_device):
     assert run(rnd(1, 4, 64, 64, dtype=f32), rnd(1, 2, 64, 64, dtype=f32),
                rnd(1, 2, 64, 64, dtype=f32)) == ["fma"]
     assert run(rnd(2, 8, 1, 128), rnd(2, 2, 300, 128), rnd(2, 2, 300, 128),
-               q_offset=299) == ["fma_grouped"]
+               q_offset=299) == ["decode_split"]
     assert run(rnd(1, 4, 16, 32), rnd(1, 2, 64, 32), rnd(1, 2, 64, 32)) == ["fma_short"]
     kv = rnd(2, 1, 2, 100, 68)
     k, v = kv[0, ..., :64], kv[1, ..., :64]  # rows of 136 bytes
@@ -444,17 +445,153 @@ def test_flash_variant_counts_follow_the_dispatch(cuda_device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_kernel_past_the_grid_y_cap(cuda_device, dtype):
-    """65,536 (batch, head) blocks, one more than grid y holds: q, k, v
-    [65536, 1, 1, 32] with g = 1, so no packing (the grouped decode tiling)."""
-    _flash_case(cuda_device, dtype, 65536, 1, 1, 1, 1, 32, 65536, causal=True)
+@pytest.mark.parametrize("dtype,hq,tq,variant", [
+    (torch.float32, 1, 1, "decode_split"), (torch.bfloat16, 1, 1, "decode_split"),
+    (torch.float32, 1, 17, "fma"), (torch.float32, 2, 16, "fma_short"),
+    (torch.bfloat16, 2, 16, "fma_short")])
+def test_flash_kernel_past_the_grid_y_cap(cuda_device, dtype, hq, tq, variant):
+    """65,536 batches, one more than grid y holds, with Hkv = 1 and Tk = Tq:
+    q [65536, 1, 1, 32] on the decode kernel (one split a block), Tq = 17 on
+    the FMA kernel's 64-row tiling (65,536 head blocks on grid x) and Hq = 2
+    at Tq = 16 on its 16-row tiling (131,072)."""
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    assert fa.kernel_variant(dtype, tq, hq, 32, True) == variant
+    before = fa.variant_launches[variant]
+    _flash_case(cuda_device, dtype, 65536, hq, 1, tq, tq, 32, 65536 + tq, causal=True)
+    assert fa.variant_launches[variant] == before + 1
 
 
 @pytest.mark.gpu
 def test_tensor_core_kernel_past_the_grid_y_cap(cuda_device):
     """65,536 (batch, head) blocks on the tensor-core variant (Tq = 17)."""
     _tensor_core_case(cuda_device, 65536, 1, 1, 17, 17, 32, 17)
+
+
+# ------------------------------------------------- split-KV decode (decode_split)
+def _decode_case(cuda_device, dtype, b, hq, hkv, tq, tk, dh, seed, model_layout=False,
+                 unaligned=False, expect_split=None, **kw):
+    """One call of the decode kernel against its plain version: one wrapper
+    launch of ``decode_split``; float32 within 2e-5, bf16 within 2e-2
+    elementwise and every row within 1e-2 relative L2 (chip_smoke.py's
+    gates)."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    rng = np.random.default_rng(seed)
+    width = dh + 3 if unaligned else dh  # rows of dh + 3 elements: no 16-byte alignment
+
+    def make(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda_device,
+                                                                                  dtype)
+    q = make((b, hq, tq, dh))
+    if model_layout:  # the model's [B, S, Hkv, Dh] cache, transposed, no copy
+        k, v = (make((b, tk, hkv, width))[..., :dh].transpose(1, 2) for _ in range(2))
+    else:
+        k, v = (make((b, hkv, tk, width))[..., :dh] for _ in range(2))
+    assert fa.kernel_variant(dtype, tq, hq // hkv, dh, fa.is_aligned(q, k, v)) == "decode_split"
+    assert fa.is_aligned(k, v) != unaligned
+    before = fa.launches, fa.variant_launches["decode_split"], dict(fa.split_launches)
+    got = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.variant_launches["decode_split"]) == (before[0] + 1, before[1] + 1)
+    ran = [n for n, c in fa.split_launches.items() if c != before[2].get(n, 0)]
+    assert len(ran) == 1
+    n_split = ran[0]  # the split count the launch used
+    assert n_split == fa.decode_splits(
+        b, hkv, tk, fa.sm_count(q.device),
+        fa.decode_blocks_per_sm(q.device, dtype, dh, hq // hkv * tq))
+    if expect_split is not None:
+        assert expect_split(n_split), n_split
+    want = flash_attention_ref(q, k.contiguous(), v.contiguous(), **kw)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        assert _row_rel_l2(got, want) <= 1e-2
+    return n_split
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("b,hq,hkv,tq,tk", [
+    (2, 8, 2, 1, 4096),    # B * Hkv = 4: the cache splits
+    (2, 32, 8, 1, 32768),  # qwen3-8b's heads, B * Hkv = 16, 32k cache
+    (1, 16, 1, 1, 4096),   # g * Tq = 16 rows
+    (3, 6, 2, 1, 5000),    # g = 3 (a row capacity of 4, one row unused); ragged Tk
+])
+def test_decode_kernel_splits_long_caches(cuda_device, b, hq, hkv, tq, tk, dh, dtype):
+    _decode_case(cuda_device, dtype, b, hq, hkv, tq, tk, dh, b * tk + dh, causal=True,
+                 q_offset=tk - 1, expect_split=lambda n: n > 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("hq,hkv,tq", [(2, 2, 1), (4, 2, 1), (8, 2, 1), (8, 2, 2), (16, 1, 1)])
+def test_decode_kernel_every_row_capacity(cuda_device, hq, hkv, tq, dh, dtype):
+    """g * Tq = 1, 2, 4, 8 and 16 rows: each compiled instance of the decode
+    kernel (row capacity x Dh x dtype; float32 at Dh = 128 and one row has
+    the largest ring, 221 KB) over a ragged cache it splits."""
+    _decode_case(cuda_device, dtype, 2, hq, hkv, tq, 2100, dh, hq * tq + dh, causal=True,
+                 q_offset=2099, expect_split=lambda n: n > 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tq,tk,causal,window,q_offset", [
+    (1, 4000, True, None, 3999),   # Tk not a multiple of 64
+    (1, 4096, True, 40, 4095),     # a window narrower than a tile
+    (1, 4096, True, 1500, 4095),   # a window across split boundaries
+    (2, 4096, True, 700, 3000),    # rows in the middle of the cache
+    (1, 4096, True, None, 100),    # q_offset far below Tk: whole splits empty
+    (4, 4096, True, None, 5000),   # q_offset >= Tk: every key visible
+    (1, 4096, False, None, 0),     # bidirectional
+    (4, 2048, True, 33, 2040),     # g * Tq = 16 under a window
+    (1, 1, True, None, 0),         # Tk = 1
+])
+def test_decode_kernel_masks_and_offsets(cuda_device, tq, tk, causal, window, q_offset, dtype):
+    _decode_case(cuda_device, dtype, 2, 8, 2, tq, tk, 64, tq * 1000 + tk + q_offset,
+                 causal=causal, window=window, q_offset=q_offset)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [32, 64, 128])
+def test_decode_kernel_unaligned_rows(cuda_device, dh, dtype):
+    """K/V rows that are not 16-byte aligned take the same variant's element
+    loads, with and without a split."""
+    for tk in (300, 4096):
+        _decode_case(cuda_device, dtype, 2, 8, 2, 1, tk, dh, tk + dh, unaligned=True,
+                     causal=True, q_offset=tk - 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_reads_the_model_cache_in_place(cuda_device, dtype):
+    """The model's [B, S, Hkv, Dh] cache as a transposed view, a split cache."""
+    _decode_case(cuda_device, dtype, 2, 32, 8, 1, 8192, 128, 8192, model_layout=True,
+                 causal=True, q_offset=8000, expect_split=lambda n: n > 1)
+
+
+@pytest.mark.gpu
+def test_decode_split_counts_one_launch_per_call(cuda_device):
+    """The serve loop's short cache runs one share (no merge); a 32k cache at
+    B = 8 runs several and merges them; each wrapper call counts one launch
+    of decode_split and no other variant."""
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    for tk in (160, 32768):
+        q = torch.randn(8, 32, 1, 128, device=cuda_device).bfloat16()
+        k = torch.randn(8, 8, tk, 128, device=cuda_device).bfloat16()
+        fa.reset()
+        fa.flash_attention(q, k, k, causal=True, q_offset=tk - 1)
+        torch.cuda.synchronize()
+        assert fa.variant_launches == {n: int(n == "decode_split") for n in fa.VARIANTS}
+        assert fa.launches == 1
+        assert len(fa.split_launches) == 1 and sum(fa.split_launches.values()) == 1
+        n_split = next(iter(fa.split_launches))
+        assert n_split == 1 if tk == 160 else n_split > 1
 
 
 # --------------------------------------------------------------- mamba scan

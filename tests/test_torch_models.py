@@ -162,6 +162,27 @@ def test_gqa_forward_matches():
         np.testing.assert_allclose(g.numpy(), _np(w), rtol=TOL, atol=TOL)
 
 
+
+@pytest.mark.parametrize("window", [None, 300])
+def test_gqa_flash_decode_matches_the_reference_at_a_long_cache(window):
+    """One decode step's attention over a 4,096-long cache (where the card's
+    kernel splits the cache): the port's ``gqa_flash_decode`` against the
+    reference's sharded one on the 1 x 1 mesh, reduced qwen3-8b heads."""
+    jmodel, _, tmodel, _, mesh = _models("qwen3-8b")
+    cfg = tmodel.cfg
+    rng = np.random.default_rng(4096 + (window or 0))
+    b, s, pos = 2, 4096, 4000
+    q = rng.standard_normal((b, cfg.n_heads, cfg.head_dim)).astype(np.float32)
+    k, v = (rng.standard_normal((b, s, cfg.n_kv_heads, cfg.head_dim)).astype(np.float32)
+            for _ in range(2))
+    with use_mesh(mesh):
+        want = jattn.gqa_flash_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                      jnp.int32(pos), window, jmodel.ax, mesh)
+    got = tattn.gqa_flash_decode(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                                 pos, window)
+    assert got.shape == (b, cfg.n_heads, cfg.head_dim)
+    np.testing.assert_allclose(got.numpy(), _np(want), rtol=2e-5, atol=2e-5)
+
 def test_mamba_forward_and_decode_step_match():
     jmodel, jparams, tmodel, tparams, mesh = _models("falcon-mamba-7b")
     rng = np.random.default_rng(4)
