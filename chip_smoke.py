@@ -46,7 +46,8 @@ Phases:
      batch holding the hub row. Min exact, sum within rtol 1e-6, the engine
      launch the same bits twice; timed like phase 1, ``library_ms`` being
      ``x.gather`` + ``scatter_reduce_`` (two calls; ``x[cols]`` + ``sum`` /
-     ``amin`` for the ELL entry);
+     ``amin`` for the ELL entry); each row names the kernel's design
+     (``merge_path``) and its achieved GB/s over the bytes of ``bound_ms``;
  10. the analytics path: ``result.analytics(program, iters,
      mode="simulated")`` on phase 2's ``fennel`` assignment for pagerank
      (30 iterations), cc and sssp (20): one kernel launch per iteration,
@@ -71,7 +72,8 @@ Phases:
      ``tests/test_kernels.py``'s shapes in float32 and bf16 (1e-4 / 3e-2),
      one falcon-mamba-7b layer at prefill (B=1, T=8192, D=8192, N=16,
      float32; ``SCAN_LAYER_TOL``) and batch 65,536 (past grid y's cap); no
-     single PyTorch call computes the scan;
+     single PyTorch call computes the scan; each row names the states a
+     thread holds (``states4``) and its share of the exponentials' bound;
  14. qwen3-8b at full width and depth with seeded random weights:
      ``make_prefill_step`` at B=1, T=8192 (36 flash launches, all on the
      tensor-core variant), then ``launch.serve.serve`` at B=8, prompt 128,
@@ -123,6 +125,7 @@ TPU_KERNEL = "src/repro/kernels/partition_score/partition_score.py:105"
 TPU_KERNEL_SHARDED = "src/repro/kernels/partition_score/partition_score.py:68"
 SPMV_SOURCE = "src/repro_torch/kernels/ell_spmv/csrc/ell_spmv.cu"
 TPU_KERNEL_SPMV = "src/repro/kernels/ell_spmv/ell_spmv.py:33"
+SPMV_VARIANT = "merge_path"  # the design of csrc/ell_spmv.cu, named in phase 9's rows
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 TPU_KERNEL_FLASH = "src/repro/kernels/flash_attention/flash_attention.py:89"
 SCAN_SOURCE = "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu"
@@ -150,9 +153,11 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py's
 FLASH_ROW_RTOL = 1e-2
 SCAN_TOL = {"float32": 1e-4, "bfloat16": 3e-2}  # tests/test_kernels.py's
 # one falcon-mamba-7b layer at T=8192 in float32: the kernel rounds in
-# another order (fused multiply-adds, a shuffle tree for h.C), and the state
-# carries each rounding over its decay horizon, about 1/(dt*|A|) <= 100 steps
-# at dt >= 0.01 and |A| >= 1; the test shapes' 1e-4 covers 8-32 steps
+# another order (exp2 of dt * (A log2 e) by ex2.approx, within 2 ulp; fused
+# multiply-adds; h.C summed over a thread's states, then over the warps),
+# and the state carries each rounding over its decay horizon, about
+# 1/(dt*|A|) <= 100 steps at dt >= 0.01 and |A| >= 1; the test shapes' 1e-4
+# covers 8-32 steps
 SCAN_LAYER_TOL = 1e-3
 LM_ARCHS = ("qwen3-8b", "falcon-mamba-7b")
 CHUNK = 512
@@ -503,10 +508,11 @@ def spmv_row(torch, timer, name, entry, reduce, got, want, call, plain, library,
               f"{name}: sum kernel differs from plain version beyond rtol 1e-6 ({rel})")
     rate = FP64_OPS_PER_S if reduce == "sum" else FP32_OPS_PER_S
     bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
+    ms = timer.device_ms(call)
     return {
-        "shape": name, "entry": entry, "reduce": reduce, **extra,
+        "shape": name, "entry": entry, "reduce": reduce, "variant": SPMV_VARIANT, **extra,
         "max_abs_err": err, "max_rel_err": rel,
-        "ms": timer.device_ms(call),
+        "ms": ms, "gb_per_s": nbytes / ms / 1e6,
         "call_ms": timer(call, reps=reps),
         "plain_ms": timer(plain, reps=reps),
         "library_ms": timer(library, reps=reps),
@@ -794,10 +800,12 @@ def scan_row(torch, scan, scan_ref, timer, name, bsz, t, d, n, dtype, tol, model
     exps = bsz * t * d * n  # the exp of each (t, d, n) on the special-function units
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = max(ops / FP32_OPS_PER_S, exps / EXP_PER_S) * 1e3
+    ms = timer.device_ms(call, reps=10 if main else 20, replays=2)
     row = {
         "shape": name, "b": bsz, "t": t, "d": d, "n": n, "dtype": str(dtype).split(".")[1],
-        "tol": tol, "max_abs_err": max(err_y, err_h), "max_abs_err_y": err_y,
-        "max_abs_err_h": err_h, "ms": timer.device_ms(call, reps=10 if main else 20, replays=2),
+        "variant": f"states{min(scan.STATES_PER_THREAD, n)}", "tol": tol,
+        "max_abs_err": max(err_y, err_h), "max_abs_err_y": err_y, "max_abs_err_h": err_h,
+        "ms": ms, "exp_bound_share": exps / EXP_PER_S * 1e3 / ms,
         "bytes": nbytes, "ops": ops, "exps": exps,
         "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
     }
@@ -1516,7 +1524,8 @@ def main() -> int:
     log(json.dumps({"kernels": [
         summary("partition_score", shapes, main_launches, TPU_KERNEL),
         summary("partition_score_sharded", sharded_shapes, sharded_launches, TPU_KERNEL_SHARDED),
-        summary("ell_spmv", spmv_shapes, spmv_launches, TPU_KERNEL_SPMV, SPMV_SOURCE),
+        summary("ell_spmv", spmv_shapes, spmv_launches, TPU_KERNEL_SPMV, SPMV_SOURCE,
+                variant=SPMV_VARIANT, gb_per_s=spmv_shapes[0]["gb_per_s"]),
         summary("flash_attention", flash_shapes, lm_launches["flash_attention"],
                 TPU_KERNEL_FLASH, FLASH_SOURCE, variant=flash_shapes[0]["variant"],
                 tflops=flash_shapes[0]["tflops"], variant_launches=flash_variants),
@@ -1530,7 +1539,8 @@ def main() -> int:
                 second_shape={key: decode_shapes[1].get(key) for key in (
                     "shape", "n_split", "ms", "bound_ms", "library_ms", "plain_ms")}),
         summary("selective_scan", scan_shapes, lm_launches["selective_scan"],
-                TPU_KERNEL_SCAN, SCAN_SOURCE),
+                TPU_KERNEL_SCAN, SCAN_SOURCE, variant=scan_shapes[0]["variant"],
+                exp_bound_share=scan_shapes[0]["exp_bound_share"]),
     ]}))
     if args.tiny:
         log("tiny rehearsal finished on the CPU: every phase ran; no device result")

@@ -14,10 +14,27 @@ from repro_torch.kernels import check_tensor as _check
 from repro_torch.kernels.ell_spmv import build
 from repro_torch.kernels.ell_spmv.ref import ell_spmv_ref, ell_spmv_segments_ref
 
-__all__ = ["REDUCES", "ell_spmv", "ell_spmv_segments", "launches", "reset"]
+__all__ = ["ITEMS_PER_THREAD", "REDUCES", "THREADS", "TILE", "ell_spmv", "ell_spmv_segments",
+           "launches", "reset", "tiles"]
 
 REDUCES = {"sum": 0, "min": 1}
+# the kernel's merge-path tiling (csrc/ell_spmv.cu's kThreads and
+# kItemsPerThread): a block takes TILE items of a device's rows + entries
+THREADS = 256
+ITEMS_PER_THREAD = 8
+TILE = THREADS * ITEMS_PER_THREAD
 launches = 0
+
+
+def tiles(rows: int, entries: int) -> int:
+    """Blocks the kernel gives one device whose path holds ``rows`` row ends
+    and at most ``entries`` entries: one per ``TILE`` items. Raises where
+    the kernel's 32-bit offsets within a device would not hold."""
+    path = rows + entries
+    if path + TILE >= 2**31:
+        raise ValueError(f"{rows} rows and {entries} entries exceed the kernel's 32-bit "
+                         f"offsets (rows + entries must stay below {2**31 - TILE})")
+    return -(-path // TILE)
 
 
 def reset() -> None:
@@ -59,6 +76,7 @@ def ell_spmv(x: torch.Tensor, cols: torch.Tensor, reduce: str = "sum") -> torch.
         raise ValueError(f"unsupported device {device}")
     out = torch.empty(r, dtype=torch.float32, device=device)
     if r:
+        tiles(r, r * d)
         _launch(build.library().ell_spmv_ell, x.data_ptr(), cols.data_ptr(), r, d, code,
                 out.data_ptr())
     return out
@@ -94,6 +112,7 @@ def ell_spmv_segments(x: torch.Tensor, row_ptr: torch.Tensor, cols: torch.Tensor
         raise ValueError(f"unsupported device {device}")
     out = torch.empty((k, v_max), dtype=torch.float32, device=device)
     if k and v_max:
+        tiles(v_max, cols.shape[1])
         _launch(build.library().ell_spmv_segments, x.data_ptr(), row_ptr.data_ptr(),
                 cols.data_ptr(), k, v_max, state_len, cols.shape[1], code, out.data_ptr())
     return out

@@ -13,10 +13,13 @@ from repro_torch.kernels import check_tensor as _check
 from repro_torch.kernels.mamba_scan import build
 from repro_torch.kernels.mamba_scan.ref import selective_scan_ref
 
-__all__ = ["DTYPES", "STATE_SIZES", "launches", "reset", "selective_scan"]
+__all__ = ["DTYPES", "STATES_PER_THREAD", "STATE_SIZES", "launches", "reset", "selective_scan"]
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 STATE_SIZES = (8, 16)
+# the kernel's split of the work (csrc/mamba_scan.cu's kStates): a thread
+# holds min(STATES_PER_THREAD, N) states of one channel
+STATES_PER_THREAD = 4
 launches = 0
 
 

@@ -2,11 +2,13 @@
 ``localize`` gives the same arrays, the engine the same values on one
 layout, ``stats``/``workload_cost`` and ``PartitionResult.analytics`` the
 same reports, and the gather/reduce kernel's plain versions agree with the
-reference Pallas kernel (interpret mode) and the engine's segment reduce.
-The CUDA kernel itself is held against the plain versions in
-``test_torch_gpu.py``."""
+reference Pallas kernel (interpret mode) and the engine's segment reduce;
+``_merge_path_model``, a model of the CUDA kernel's merge-path split and of
+its float64 add order, agrees with the plain version. The CUDA kernel
+itself is held against the plain versions in ``test_torch_gpu.py``."""
 import dataclasses
 import functools
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -32,6 +34,7 @@ from repro_torch.analytics import programs
 from repro_torch.convert import graph_from_arrays, localized_from_arrays
 from repro_torch.kernels.ell_spmv import ops
 from repro_torch.kernels.ell_spmv.ref import ell_spmv_segments_ref, segment_entries
+from test_torch_gpu import _path_edge_degrees, _segments_from_degrees
 
 CPU = torch.device("cpu")
 GRAPHS = {
@@ -306,6 +309,193 @@ def test_engine_uses_segments_reduce_per_iteration(monkeypatch):
     GraphEngine(tlg, programs.cc_program(), device="cpu").run_simulated(6)
     assert calls == [((4, lg.state_len), (4, lg.v_max + 1), "min")] * 6
     assert tlg.to(CPU) is tlg.to("cpu")  # one copy per device, however it is named
+
+
+# ------------------------------------------ the kernel's merge-path model
+def _merge_path_model(x, row_ptr, cols, reduce, threads=ops.THREADS,
+                      items=ops.ITEMS_PER_THREAD, warp=32, min_init=None):
+    """A plain-Python model of ``csrc/ell_spmv.cu`` and of its order of adds:
+    device ``p``'s rows and entries merged into one path (a row's end item
+    after its last entry), cut into tiles of ``threads * items`` items. A
+    row belongs to the tile holding its end item.
+    - The tile's first row's entries before the tile: thread ``t`` sums
+      entries ``t, t + threads, ...``; lane ``l`` of the first warp joins
+      partials ``l, l + warp, ...``; then a shuffle-down tree to lane 0.
+    - Each thread walks ``items`` items of the tile's own rows and entries
+      and writes the rows it opens and closes.
+    - The carries (the row open at a thread's end, its partial) go through a
+      segmented inclusive scan over each warp's lanes (Hillis-Steele, equal
+      rows joined); the first row a thread closes takes the head partial,
+      then the tails of earlier warps that end in it, then the scanned
+      carry of the lane before, then its own partial.
+    Sums are Python floats (IEEE doubles), as the kernel's, rounded once to
+    float32; so the model gives the kernel's bits."""
+    import bisect
+
+    k, v_max, e_max = x.shape[0], row_ptr.shape[1] - 1, cols.shape[1]
+    tile, warps = threads * items, threads // warp
+    out = np.zeros((k, v_max), np.float32)
+    add = (lambda a, v: a + v) if reduce == "sum" else min
+    for p in range(k):
+        xs = x[p].astype(np.float64).tolist()
+        base = int(row_ptr[p, 0])
+        ends = (row_ptr[p, 1:] - base).tolist()
+        cp = cols[p, base: base + ends[-1]].tolist()
+        init = 0.0 if reduce == "sum" else float(x[p, -1] if min_init is None else min_init)
+        path_ends = [i + e for i, e in enumerate(ends)]  # each row's end item on the path
+        path = v_max + ends[-1]
+        for d0 in range(0, v_max + e_max, tile):  # the grid covers every device's longest path
+            if d0 >= path:
+                break
+            i0 = bisect.bisect_left(path_ends, d0)
+            i1 = bisect.bisect_left(path_ends, min(d0 + tile, path))
+            if i0 == i1:
+                continue
+            j0 = d0 - i0
+            head = 0 if i0 == 0 else ends[i0 - 1]
+            pre_n = j0 - head
+            vals = [xs[c] for c in cp[j0: ends[i1 - 1]]]
+            local = [ends[i0 + i] - j0 for i in range(i1 - i0)]
+            local_path = [i + e for i, e in enumerate(local)]
+            pre = [init] * threads
+            for e in range(pre_n):
+                pre[e % threads] = add(pre[e % threads], xs[cp[head + e]])
+            head_total = init
+            if pre_n > 0:
+                v = [pre[lane] for lane in range(warp)]
+                for w in range(1, warps):
+                    v = [add(v[lane], pre[lane + w * warp]) for lane in range(warp)]
+                off = warp // 2
+                while off > 0:
+                    v = [add(v[lane], v[lane + off] if lane + off < warp else v[lane])
+                         for lane in range(warp)]
+                    off //= 2
+                head_total = v[0]
+            n_items = len(local) + len(vals)
+            keys, carry, firsts = [], [], []
+            for t in range(threads):
+                t0 = min(t * items, n_items)
+                t1 = min(t0 + items, n_items)
+                r = bisect.bisect_left(local_path, t0)
+                j, acc, first = t0 - r, init, None
+                for _ in range(t0, t1):
+                    if j < local[r]:
+                        acc = add(acc, vals[j])
+                        j += 1
+                    else:
+                        if first is None:
+                            first = (r, acc)
+                        else:
+                            out[p, i0 + r] = acc
+                        acc = init
+                        r += 1
+                keys.append(r if t0 < t1 else len(local))
+                carry.append(acc)
+                firsts.append(first)
+            scanned = []
+            for w in range(warps):
+                kw, vw = keys[w * warp: (w + 1) * warp], carry[w * warp: (w + 1) * warp]
+                off = 1
+                while off < warp:
+                    vw = [add(vw[lane - off], vw[lane])
+                          if lane >= off and kw[lane - off] == kw[lane] else vw[lane]
+                          for lane in range(warp)]
+                    off *= 2
+                scanned += vw
+            for t, first in enumerate(firsts):
+                if first is None:
+                    continue
+                r, own = first
+                w, lane = divmod(t, warp)
+                total = head_total if r == 0 and pre_n > 0 else init
+                if lane == 0 or keys[w * warp] == r:
+                    for w2 in range(w):
+                        if keys[w2 * warp + warp - 1] == r:
+                            total = add(total, scanned[w2 * warp + warp - 1])
+                if lane > 0 and keys[t - 1] == r:
+                    total = add(total, scanned[t - 1])
+                out[p, i0 + r] = add(total, own)
+    return torch.from_numpy(out)
+
+
+def _hub_layout():
+    """The engine's layout of ``tests/test_torch_gpu.py``'s hub graph (an
+    R-MAT of 20,000 vertices with a row over 1,024 entries) on 8 devices,
+    the last one edgeless."""
+    g = rmat_graph(20_000, avg_degree=16, seed=3)
+    part = np.random.default_rng(0).integers(0, 7, size=g.num_vertices)
+    lg = localize(graph_from_arrays(g.indptr, g.indices, CPU), part, 8)
+    assert int(np.diff(lg.row_ptr(), axis=1).max()) > 1024
+    return lg.state_len, lg.row_ptr(), lg.cols
+
+
+def _assert_model_matches_plain(x, row_ptr, cols, reduce, **tiling):
+    got = _merge_path_model(x, row_ptr, cols, reduce, **tiling)
+    want = ell_spmv_segments_ref(torch.from_numpy(x), torch.from_numpy(row_ptr),
+                                 torch.from_numpy(cols), reduce)
+    if reduce == "min":
+        assert torch.equal(got, want)
+    else:  # both sum in float64 and round once: within one float32 rounding
+        ulp = np.spacing(np.abs(want.numpy()))
+        assert (np.abs(got.numpy() - want.numpy()) <= ulp).all()
+    return got
+
+
+@pytest.mark.parametrize("reduce", ["sum", "min"])
+@pytest.mark.parametrize("threads,items,warp", [(4, 2, 2), (8, 4, 4), (16, 2, 4),
+                                                (ops.THREADS, ops.ITEMS_PER_THREAD, 32)])
+def test_merge_path_model_edge_cases(reduce, threads, items, warp):
+    """Empty rows, degrees 1/31/32/33, a row over three or more tiles, rows
+    ending on a tile's boundary, a long first row, an edgeless device and
+    the e_max padding, at small tiles and at the kernel's."""
+    rng = np.random.default_rng(threads + items)
+    x, row_ptr, cols = _segments_from_degrees(_path_edge_degrees(threads * items, rng), 97, rng)
+    x[:, -1] = 0.0 if reduce == "sum" else 3e38
+    got = _assert_model_matches_plain(x, row_ptr, cols, reduce, threads=threads, items=items,
+                                      warp=warp)
+    empty = np.diff(row_ptr, axis=1) == 0
+    assert (got.numpy()[empty] == x[0, -1]).all()
+
+
+@pytest.mark.parametrize("reduce", ["sum", "min"])
+def test_merge_path_model_hub_layout(reduce):
+    state_len, row_ptr, cols = _hub_layout()
+    x = np.random.default_rng(1).random((8, state_len)).astype(np.float32)
+    x[:, -1] = 0.0 if reduce == "sum" else 3e38
+    _assert_model_matches_plain(x, row_ptr, cols, reduce)
+
+
+@pytest.mark.parametrize("reduce", ["sum", "min"])
+@pytest.mark.parametrize("r,d,v", KERNEL_SHAPES + [(64, 3000, 5000)])
+def test_merge_path_model_ell_rows(reduce, r, d, v):
+    """The ELL entry on the same design: row r ends at entry (r + 1) * D,
+    min starts from +inf."""
+    x, cols = _ell_inputs(r, d, v, reduce)
+    got = _merge_path_model(x[None], (np.arange(r + 1) * d)[None], cols.reshape(1, -1), reduce,
+                            min_init=np.inf)[0]
+    want = ops.ell_spmv(torch.from_numpy(x), torch.from_numpy(cols), reduce)
+    if reduce == "min":
+        assert torch.equal(got, want)
+    else:
+        ulp = np.spacing(np.abs(want.numpy()))
+        assert (np.abs(got.numpy() - want.numpy()) <= ulp).all()
+
+
+def test_tiles_rule():
+    """One block per TILE items of rows + entries; 32-bit offsets checked."""
+    assert ops.TILE == ops.THREADS * ops.ITEMS_PER_THREAD
+    assert ops.tiles(1, 0) == 1
+    assert ops.tiles(ops.TILE, 0) == 1 and ops.tiles(ops.TILE, 1) == 2
+    assert ops.tiles(524_288, 8_200_000) == -(-(524_288 + 8_200_000) // ops.TILE)
+    assert ops.tiles(2**31 - ops.TILE - 2, 1) > 0
+    with pytest.raises(ValueError, match="32-bit"):
+        ops.tiles(2**31 - ops.TILE - 1, 1)
+
+
+def test_tiling_constants_match_the_kernel_source():
+    src = (Path(ops.__file__).parent / "csrc" / "ell_spmv.cu").read_text()
+    assert f"constexpr int kThreads = {ops.THREADS};" in src
+    assert f"constexpr int kItemsPerThread = {ops.ITEMS_PER_THREAD};" in src
 
 
 def test_wrappers_check_arguments():

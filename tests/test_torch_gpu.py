@@ -222,6 +222,69 @@ def test_segments_kernel_matches_plain_version(cuda_device, hub_graph, reduce):
     assert torch.equal(got, again)  # no atomics: the same bits every launch
 
 
+def _segments_from_degrees(degrees, state_len, rng):
+    """x f32[k, state_len], row_ptr int64[k, v_max+1], cols int32[k, e_max]
+    for devices with the given row degrees (shorter lists padded with empty
+    rows), e_max three past the widest device (pads at the identity slot)."""
+    k, v_max = len(degrees), max(len(d) for d in degrees)
+    row_ptr = np.zeros((k, v_max + 1), np.int64)
+    for p, degs in enumerate(degrees):
+        row_ptr[p, 1 : len(degs) + 1] = np.cumsum(degs)
+        row_ptr[p, len(degs) + 1 :] = row_ptr[p, len(degs)]
+    e_max = int(row_ptr[:, -1].max()) + 3
+    cols = np.full((k, e_max), state_len - 1, np.int32)
+    for p in range(k):
+        n = int(row_ptr[p, -1])
+        cols[p, :n] = rng.integers(0, state_len - 1, size=n)
+    return rng.random((k, state_len)).astype(np.float32), row_ptr, cols
+
+
+def _path_edge_degrees(tile, rng):
+    """Row degrees that put the merge path's edge cases at ``tile`` items a
+    block: degrees 0/1/31/32/33, a row over three or more tiles, a row whose
+    end item is a tile's last item, an empty row then a row whose end item
+    is a tile's first, a device whose first row starts long, an edgeless
+    device, and random short rows."""
+    def end_at(degs, where):  # append a row whose end item sits at path position where
+        degs.append(where - len(degs) - sum(degs))
+
+    def next_tile(degs):
+        return ((len(degs) + sum(degs)) // tile + 1) * tile
+
+    first = [0, 1, 31, 32, 33, 0, 0, 2, 3 * tile + 5, 1]
+    end_at(first, next_tile(first) - 1)   # ends on the tile's last item
+    first.append(0)                        # an empty row: the next tile's first item
+    end_at(first, next_tile(first))        # its last entry is a tile's last item
+    first += rng.integers(0, 41, size=30).tolist()
+    long_head = [2 * tile + 1] + [1] * 40
+    return [first, [0] * 12, long_head, rng.integers(0, 41, size=200).tolist()]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("reduce", ["sum", "min"])
+def test_segments_kernel_path_edge_cases(cuda_device, reduce):
+    """The merge path's edge cases at the kernel's tile size against the
+    plain version; sum twice to the same bits."""
+    from repro_torch.kernels.ell_spmv import ops as spmv
+    from repro_torch.kernels.ell_spmv.ref import ell_spmv_segments_ref
+
+    rng = np.random.default_rng(7)
+    x, row_ptr, cols = _segments_from_degrees(_path_edge_degrees(spmv.TILE, rng), 97, rng)
+    x[:, -1] = 0.0 if reduce == "sum" else 3e38
+    args = [torch.from_numpy(a).to(cuda_device) for a in (x, row_ptr, cols)]
+    got = spmv.ell_spmv_segments(*args, reduce)
+    again = spmv.ell_spmv_segments(*args, reduce)
+    torch.cuda.synchronize()
+    want = ell_spmv_segments_ref(*args, reduce)
+    if reduce == "min":
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+    assert torch.equal(got, again)
+    empty = (args[1][:, 1:] - args[1][:, :-1]) == 0
+    assert bool((got[empty] == float(x[0, -1])).all())
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("prog,iters", [("pagerank", 30), ("cc", 20), ("sssp", 20)])
 def test_analytics_on_card_matches_cpu_and_launches_per_iteration(cuda_device, prog, iters):
@@ -617,6 +680,40 @@ def test_scan_kernel_matches_plain_version(cuda_device, bsz, t, d, n, dtype):
     assert scan.launches == before + 1
     y_want, h_want = selective_scan_ref(x, dt, a, b, c, d_skip)
     tol = 1e-4 if dtype == torch.float32 else 3e-2  # tests/test_kernels.py's
+    torch.testing.assert_close(y.float(), y_want.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(h, h_want, rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [8, 16])
+@pytest.mark.parametrize("t,d", [(1, 96), (200, 96), (200, 30), (8192, 64)])
+def test_scan_kernel_time_lengths(cuda_device, t, d, n, dtype):
+    """T = 1, T = 200 (not a multiple of the kernel's chunk) and T = 8192 at
+    a reduced width; D = 96 leaves a part-filled channel block and D = 30
+    rows that are not 16-byte aligned. T = 8192 runs the model's
+    A = -(1..N) at ``chip_smoke.py``'s SCAN_LAYER_TOL (1e-3 in float32: each
+    rounding is carried over the state's decay horizon); the rest random A
+    at ``tests/test_kernels.py``'s tolerances."""
+    from repro_torch.kernels.mamba_scan import ops as scan
+    from repro_torch.kernels.mamba_scan.ref import selective_scan_ref
+
+    rng = np.random.default_rng(t + d + n)
+    f32 = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda_device)  # noqa: E731
+    x = f32(rng.standard_normal((2, t, d))).to(dtype)
+    dt = f32(np.abs(rng.standard_normal((2, t, d))) * 0.1 + 0.01).to(dtype)
+    if t == 8192:
+        a = -torch.arange(1, n + 1, dtype=torch.float32, device=cuda_device).expand(d, n)
+        a = a.contiguous()
+    else:
+        a = f32(-np.abs(rng.standard_normal((d, n))) - 0.1)
+    b = f32(rng.standard_normal((2, t, n))).to(dtype)
+    c = f32(rng.standard_normal((2, t, n))).to(dtype)
+    d_skip = f32(rng.standard_normal(d))
+    y, h = scan.selective_scan(x, dt, a, b, c, d_skip)
+    torch.cuda.synchronize()
+    y_want, h_want = selective_scan_ref(x, dt, a, b, c, d_skip)
+    tol = (1e-3 if t == 8192 else 1e-4) if dtype == torch.float32 else 3e-2
     torch.testing.assert_close(y.float(), y_want.float(), rtol=tol, atol=tol)
     torch.testing.assert_close(h, h_want, rtol=tol, atol=tol)
 
