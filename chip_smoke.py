@@ -9,8 +9,15 @@ Phases:
   1. the partition-score kernel against its plain PyTorch version on the card
      at the main path's shapes (C=512 chunks of the phase-2 graph at K=8 and
      K=64, the chunk holding the highest-degree vertex, the dense entry),
-     exact at alpha=0 and within 1e-6 with a penalty, timed with CUDA events
-     beside the plain version and one ``torch.bincount`` (``library_ms``);
+     exact at alpha=0 and within 1e-6 with a penalty (the hub chunk also the
+     same bits twice), timed with CUDA events beside the plain version, one
+     ``torch.bincount`` of keys gathered beforehand (``library_ms``) and an
+     empty kernel at the same launch shape (``floor_ms``); then the stream
+     row ``stream8192_k8``: all 8,192 chunks of phase 2's random order, each
+     launch on its own slice of the device ids, captured in one CUDA graph
+     (total, mean a launch, the slowest launch), beside the empty kernel
+     captured the same way, every launch's scores equal to one plain call
+     over all the rows; each row names the design (``cluster_path``);
   2. the main path: ``fennel`` through ``repro_torch.api.partition`` on an
      R-MAT graph of 2^22 vertices and average degree 16 (the scale of SNAP's
      soc-LiveJournal1), k=8, edge balance, random order, seed 0; every chunk
@@ -25,7 +32,8 @@ Phases:
      card at the parallel path's shapes (a superstep of the 2^22 graph at
      S=4 and S=8, K=8; the superstep holding the highest-degree vertex;
      K=64; the dense [S,C,D] entry with random per-shard size rows), exact
-     at alpha=0 and within 1e-6 with a penalty, timed like phase 1;
+     at alpha=0 and within 1e-6 with a penalty, timed like phase 1, and the
+     stream row ``superstep_stream_s4_k8`` over all 2,048 supersteps;
   6. the parallel main path: ``fennel-parallel`` through
      ``repro_torch.api.partition`` on the 2^22 graph, S=4, max_workers=0,
      k=8, edge balance, random order, seed 0; the sharded kernel must launch
@@ -121,6 +129,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 KERNEL_SOURCE = "src/repro_torch/kernels/partition_score/csrc/partition_score.cu"
+# the design of csrc/partition_score.cu, named in phases 1-2, 4-6 and 8
+SCORE_VARIANT = "cluster_path"
 TPU_KERNEL = "src/repro/kernels/partition_score/partition_score.py:105"
 TPU_KERNEL_SHARDED = "src/repro/kernels/partition_score/partition_score.py:68"
 SPMV_SOURCE = "src/repro_torch/kernels/ell_spmv/csrc/ell_spmv.cu"
@@ -248,7 +258,24 @@ class Timer:
         return start.elapsed_time(end) / (replays * reps)
 
 
-def kernel_checks(torch, np, ops, ref, dgraph, graph, device, timer):
+def floor_ms(torch, timer, floor, num_rows: int, k: int, width=None):
+    """Device ms of the empty kernel at the kernel's launch shape for
+    ``num_rows`` rows at ``k`` (None on the CPU)."""
+    if floor is None:
+        return None
+    import kernel_ablation_partition_score as ablation
+
+    return timer.device_ms(ablation.floor_call(torch, floor, ablation.launch_shape(num_rows, k, width)))
+
+
+def split_stats(np, ops, degrees, k: int, width=None) -> dict:
+    """The kernel's split of one call (``ops.tile_plan``): its blocks and the
+    rows whose items lie in more than one block."""
+    plan = ops.tile_plan(np.asarray(degrees), k, width)
+    return {"blocks": plan["blocks"], "split_rows": int(plan["split"].sum())}
+
+
+def kernel_checks(torch, np, ops, ref, dgraph, graph, device, timer, floor):
     """Phase 1: kernel vs plain version at the main path's shapes."""
     rng = np.random.default_rng(0)
     n = graph.num_vertices
@@ -278,6 +305,9 @@ def kernel_checks(torch, np, ops, ref, dgraph, graph, device, timer):
         err1 = float((got1 - want1).abs().max())
         check(err0 == 0.0, f"{name}: kernel differs from plain version at alpha=0 ({err0})")
         check(err1 <= 1e-6, f"{name}: kernel differs from plain version with penalty ({err1})")
+        if "hub" in name:
+            check(torch.equal(got0, ops.fennel_scores_gather(*args, zeros, 0.0, 1.5)),
+                  f"{name}: two launches differ")
         rows, pos = ref.expand_rows(dgraph.indptr, b)
         parts = part_of[dgraph.indices[pos].long()]
         keep = parts >= 0
@@ -289,13 +319,15 @@ def kernel_checks(torch, np, ops, ref, dgraph, graph, device, timer):
         # entry, the size row; C*K float32 scores out
         nbytes = c * 8 + 2 * c * 8 + nnz * 4 + nnz * 4 + k * 4 + c * k * 4
         rows_out.append({
-            "shape": name, "rows": c, "k": k, "nnz": nnz,
+            "shape": name, "variant": SCORE_VARIANT, "rows": c, "k": k, "nnz": nnz,
+            **split_stats(np, ops, graph.degrees[batch], k),
             "max_abs_err_alpha0": err0, "max_abs_err_penalty": err1,
             "ms": timer.device_ms(lambda: ops.fennel_scores_gather(*args, zeros, 0.0, 1.5)),
             "call_ms": timer(lambda: ops.fennel_scores_gather(*args, zeros, 0.0, 1.5)),
             "plain_ms": timer(lambda: ref.fennel_scores_gather_ref(*args, zeros, 0.0, 1.5)),
             "library_ms": timer(lambda: torch.bincount(keys, minlength=c * k)),
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "floor_ms": floor_ms(torch, timer, floor, c, k),
         })
     # the dense entry (the JAX signature)
     bsz, d, k = 200, 100, 16
@@ -310,18 +342,120 @@ def kernel_checks(torch, np, ops, ref, dgraph, graph, device, timer):
     keep = flat >= 0
     keys = (torch.arange(bsz, device=device).repeat_interleave(d)[keep] * k + flat[keep])
     rows_out.append({
-        "shape": "dense200x100_k16", "rows": bsz, "k": k, "nnz": bsz * d,
+        "shape": "dense200x100_k16", "variant": SCORE_VARIANT, "rows": bsz, "k": k,
+        "nnz": bsz * d, **split_stats(np, ops, np.full(bsz, d), k, d),
         "max_abs_err_alpha0": err0, "max_abs_err_penalty": err1,
         "ms": timer.device_ms(lambda: ops.fennel_scores(nbr, sizes, 0.37, 1.5)),
         "call_ms": timer(lambda: ops.fennel_scores(nbr, sizes, 0.37, 1.5)),
         "plain_ms": timer(lambda: ref.fennel_scores_ref(nbr, sizes, 0.37, 1.5)),
         "library_ms": timer(lambda: torch.bincount(keys, minlength=bsz * k)),
         "bound_ms": (bsz * d * 4 + k * 4 + bsz * k * 4) / HBM_BYTES_PER_S * 1e3,
-        "bound_by": "bytes",
+        "bound_by": "bytes", "floor_ms": floor_ms(torch, timer, floor, bsz, k, d),
     })
+    rows_out.append(stream_checks(torch, np, ops, ref, dgraph, graph, device, timer, floor,
+                                  sharded=False))
     for row in rows_out:
         log(json.dumps({"phase": 1, **row}))
     return rows_out
+
+
+def stream_checks(torch, np, ops, ref, dgraph, graph, device, timer, floor, sharded: bool):
+    """The stream rows of phases 1 and 5: every chunk of phase 2's random
+    order (every superstep of phase 6's at S=4, shard after shard), each
+    launch on its own slice of one device tensor of row ids, at alpha=0 as
+    the engines score, captured in one CUDA graph (on the CPU: called in
+    turn): total, mean and slowest launch, beside the empty kernel at each
+    launch's shape captured the same way. L2 holds little of a launch's rows
+    here, unlike a replay of one chunk. All launches' scores together must
+    equal one plain call over all the rows (``plain_ms``)."""
+    import kernel_ablation_partition_score as ablation
+    from repro_torch.graph.stream import ShardedStream, stream_order
+
+    n, k = graph.num_vertices, 8
+    ids = stream_order(graph, "random", 0)
+    if sharded:
+        shards = ShardedStream.from_ids(ids, NUM_SHARDS)
+        steps = [[sh[t * CHUNK : (t + 1) * CHUNK] for sh in shards.shards]
+                 for t in range(shards.num_supersteps(CHUNK))]
+        flat = np.concatenate([np.concatenate(bs) for bs in steps])
+        counts = [[b.shape[0] for b in bs] for bs in steps]
+        bounds = np.cumsum([0] + [sum(c) for c in counts]).tolist()
+        starts = torch.from_numpy(np.array([np.concatenate([[0], np.cumsum(c)]) for c in counts],
+                                           dtype=np.int64)).to(device)
+        sizes = torch.zeros((NUM_SHARDS, k), dtype=torch.float32, device=device)
+        name = f"superstep_stream_s{NUM_SHARDS}_k{k}"
+    else:
+        flat = ids
+        bounds = list(range(0, n, CHUNK)) + [n]
+        sizes = torch.zeros(k, dtype=torch.float32, device=device)
+        name = f"stream{len(bounds) - 1}_k{k}"
+    launches = len(bounds) - 1
+    rng = np.random.default_rng(7)
+    part_np = rng.integers(0, k, size=n).astype(np.int32)
+    part_np[rng.random(n) < 0.3] = -1
+    part_of = torch.from_numpy(part_np).to(device)
+    b_dev = torch.from_numpy(flat.astype(np.int64)).to(device)
+    args = (dgraph.indptr, dgraph.indices, part_of)
+
+    def call(i):
+        b = b_dev[bounds[i] : bounds[i + 1]]
+        if sharded:
+            return ops.fennel_scores_sharded_gather(*args, b, starts[i], sizes, 0.0, 1.5)
+        return ops.fennel_scores_gather(*args, b, sizes, 0.0, 1.5)
+
+    calls = [lambda i=i: call(i) for i in range(launches)]
+    if device.type == "cuda":
+        times, outs = ablation.stream_times(torch, calls)
+        empty = ablation.stream_times(torch, [ablation.floor_call(
+            torch, floor, ablation.launch_shape(bounds[i + 1] - bounds[i], k))
+            for i in range(launches)])[0]
+    else:
+        t0 = time.perf_counter()
+        outs = [c() for c in calls]
+        total = (time.perf_counter() - t0) * 1e3
+        times = {"total_ms": total, "mean_ms": total / launches, "slowest_ms": None,
+                 "slowest": None}
+        empty = {"total_ms": None, "mean_ms": None}
+    got = torch.cat(outs)
+    zeros = torch.zeros(k, dtype=torch.float32, device=device)
+    want = ref.fennel_scores_gather_ref(*args, b_dev, zeros, 0.0, 1.5)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    check(err == 0.0, f"{name}: the stream's scores differ from the plain version ({err})")
+    del got, outs, want
+    degrees = graph.degrees[flat]
+    nnz = int(degrees.sum())
+    rows, pos = ref.expand_rows(dgraph.indptr, b_dev)
+    parts = part_of[dgraph.indices[pos].long()]
+    keep = parts >= 0
+    keys = rows[keep] * k + parts[keep].long()
+    del rows, pos, parts, keep
+    # each launch reads its ids, two indptr entries a row, its rows' indices,
+    # one part_of gather an entry, its size rows (and shard bounds), and
+    # writes its scores
+    nbytes = (24 * n + 8 * nnz + 4 * n * k
+              + launches * (k * 4 if not sharded else NUM_SHARDS * k * 4 + (NUM_SHARDS + 1) * 8))
+    slow = times["slowest"]
+    slow_deg = degrees[bounds[slow] : bounds[slow + 1]] if slow is not None else None
+    row = {
+        "shape": name, "variant": SCORE_VARIANT, "launches": launches, "rows": n, "k": k,
+        "nnz": nnz, "max_abs_err_alpha0": err, "ms": times["mean_ms"],
+        "total_ms": times["total_ms"], "slowest_ms": times["slowest_ms"], "slowest_launch": slow,
+        "slowest_launch_nnz": int(slow_deg.sum()) if slow is not None else None,
+        "slowest_launch_max_degree": int(slow_deg.max()) if slow is not None else None,
+        "floor_ms": empty["mean_ms"], "floor_total_ms": empty["total_ms"],
+        # one call each (the plain version takes seconds at this size; the
+        # check above has warmed it up)
+        "plain_ms": timer(lambda: ref.fennel_scores_gather_ref(*args, b_dev, zeros, 0.0, 1.5),
+                          reps=1, warmup=0),
+        "library_ms": timer(lambda: torch.bincount(keys, minlength=n * k), reps=1, warmup=1),
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+    }
+    del keys
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return row
 
 
 def profile_stream(torch, tapi, graph, device, algo="fennel", params=None) -> dict:
@@ -342,9 +476,9 @@ def profile_stream(torch, tapi, graph, device, algo="fennel", params=None) -> di
         wall = time.perf_counter() - t0
     return {
         "algo": algo, "params": params, "num_vertices": graph.num_vertices,
-        "kernel_calls": res.telemetry["kernel_calls"],
+        "kernel_calls": res.telemetry["kernel_calls"], "variant": SCORE_VARIANT,
         "profiled_wall_s": wall, "stream_seconds": res.timings["stream_seconds"],
-        **device_time(prof, wall, on_card, "score_kernel"),
+        **device_time(prof, wall, on_card, "score_path_kernel"),
     }
 
 
@@ -404,7 +538,7 @@ def profile_analytics(torch, res, spmv, device, iters: int = 30) -> dict:
     }
 
 
-def sharded_kernel_checks(torch, np, ops, ref, dgraph, graph, device, timer):
+def sharded_kernel_checks(torch, np, ops, ref, dgraph, graph, device, timer, floor):
     """Phase 5: the sharded kernel vs its plain version at the parallel
     path's shapes: superstep batches of the random stream order (seed 0),
     shard after shard, as ``_SuperstepRunner`` packs them."""
@@ -446,6 +580,9 @@ def sharded_kernel_checks(torch, np, ops, ref, dgraph, graph, device, timer):
         err1 = float((got1 - want1).abs().max())
         check(err0 == 0.0, f"{name}: sharded kernel differs from plain version at alpha=0 ({err0})")
         check(err1 <= 1e-6, f"{name}: sharded kernel differs from plain version with penalty ({err1})")
+        if "hub" in name:
+            check(torch.equal(got0, ops.fennel_scores_sharded_gather(*args, zeros, 0.0, 1.5)),
+                  f"{name}: two launches differ")
         rows, pos = ref.expand_rows(dgraph.indptr, b)
         parts = part_of[dgraph.indices[pos].long()]
         keep = parts >= 0
@@ -457,13 +594,15 @@ def sharded_kernel_checks(torch, np, ops, ref, dgraph, graph, device, timer):
         # entry, the shard bounds and size rows; C*K float32 scores out
         nbytes = c * 8 + 2 * c * 8 + nnz * 4 + nnz * 4 + (s + 1) * 8 + s * k * 4 + c * k * 4
         rows_out.append({
-            "shape": name, "shards": s, "superstep": step, "rows": c, "k": k, "nnz": nnz,
+            "shape": name, "variant": SCORE_VARIANT, "shards": s, "superstep": step, "rows": c,
+            "k": k, "nnz": nnz, **split_stats(np, ops, graph.degrees[np.concatenate(batches)], k),
             "max_abs_err_alpha0": err0, "max_abs_err_penalty": err1,
             "ms": timer.device_ms(lambda: ops.fennel_scores_sharded_gather(*args, zeros, 0.0, 1.5)),
             "call_ms": timer(lambda: ops.fennel_scores_sharded_gather(*args, zeros, 0.0, 1.5)),
             "plain_ms": timer(lambda: ref.fennel_scores_sharded_gather_ref(*args, zeros, 0.0, 1.5)),
             "library_ms": timer(lambda: torch.bincount(keys, minlength=c * k)),
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "floor_ms": floor_ms(torch, timer, floor, c, k),
         })
     # the dense entry (the JAX signature) with random per-shard size rows
     s, c, d, k = NUM_SHARDS, CHUNK, 64, 8
@@ -480,15 +619,18 @@ def sharded_kernel_checks(torch, np, ops, ref, dgraph, graph, device, timer):
     keep = flat >= 0
     keys = torch.arange(s * c, device=device).repeat_interleave(d)[keep] * k + flat[keep]
     rows_out.append({
-        "shape": f"dense{s}x{c}x{d}_k{k}", "shards": s, "rows": s * c, "k": k, "nnz": s * c * d,
+        "shape": f"dense{s}x{c}x{d}_k{k}", "variant": SCORE_VARIANT, "shards": s, "rows": s * c,
+        "k": k, "nnz": s * c * d, **split_stats(np, ops, np.full(s * c, d), k, d),
         "max_abs_err_alpha0": err0, "max_abs_err_penalty": err1,
         "ms": timer.device_ms(lambda: ops.fennel_scores_sharded(nbr, sizes, 0.37, 1.5)),
         "call_ms": timer(lambda: ops.fennel_scores_sharded(nbr, sizes, 0.37, 1.5)),
         "plain_ms": timer(lambda: ref.fennel_scores_sharded_ref(nbr, sizes, 0.37, 1.5)),
         "library_ms": timer(lambda: torch.bincount(keys, minlength=s * c * k)),
         "bound_ms": (s * c * d * 4 + s * k * 4 + s * c * k * 4) / HBM_BYTES_PER_S * 1e3,
-        "bound_by": "bytes",
+        "bound_by": "bytes", "floor_ms": floor_ms(torch, timer, floor, s * c, k, d),
     })
+    rows_out.append(stream_checks(torch, np, ops, ref, dgraph, graph, device, timer, floor,
+                                  sharded=True))
     for row in rows_out:
         log(json.dumps({"phase": 5, **row}))
     return rows_out
@@ -1150,6 +1292,8 @@ def main() -> int:
               "repository root", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import kernel_ablation_partition_score as score_ablation
     import repro_torch.api as tapi
     from repro_torch.graph.generators import rmat_graph
     from repro_torch.graph.stream import ShardedStream
@@ -1172,12 +1316,15 @@ def main() -> int:
     # ------------------------------------------------------------ phase 0
     ident = "cpu rehearsal" if args.tiny else gpu_identity()
     log(f"phase 0: {ident} | torch {torch.__version__} | cuda {torch.version.cuda}")
+    floor = None  # the empty kernel of phases 1 and 5's launch floors
     if not args.tiny:
         # one nvcc per kernel source, all started together
         libraries = [build.LIBRARY, spmv_build.LIBRARY, fa_build.LIBRARY, scan_build.LIBRARY]
         t0 = time.perf_counter()
-        with ThreadPoolExecutor(len(libraries)) as pool:
+        with ThreadPoolExecutor(len(libraries) + 1) as pool:
+            floor_job = pool.submit(score_ablation.floor_library)
             list(pool.map(lambda lib: lib.load(), libraries))
+            floor = floor_job.result()
         log(f"phase 0: kernels built in {time.perf_counter() - t0:.3f} s")
         for lib in libraries:
             log(f"phase 0: {lib.path.name}: nvcc {lib.build_seconds:.3f} s")
@@ -1193,7 +1340,7 @@ def main() -> int:
         f"{graph.num_vertices} vertices, {graph.num_edges} edges, "
         f"max degree {int(graph.degrees.max())}")
     dgraph = graph.to(device)
-    shapes = kernel_checks(torch, np, ops, ref, dgraph, graph, device, timer)
+    shapes = kernel_checks(torch, np, ops, ref, dgraph, graph, device, timer, floor)
 
     # ------------------------------------------------------------ phase 2
     if device.type == "cuda":
@@ -1223,7 +1370,7 @@ def main() -> int:
         "vertex_imbalance": q["vertex_imbalance"], "edge_imbalance": q["edge_imbalance"],
         "stream_seconds": res.timings["stream_seconds"], "total_s": res.timings["total_s"],
         "kernel_calls": res.telemetry["kernel_calls"], "launches": main_launches,
-        "max_memory_allocated": peak, "device": ident,
+        "variant": SCORE_VARIANT, "max_memory_allocated": peak, "device": ident,
     }))
     main_res = res  # phase 10 runs the analytics on this assignment
 
@@ -1275,7 +1422,7 @@ def main() -> int:
     log(json.dumps({"phase": 4, "dataset": dataset, **profile_stream(torch, tapi, social, device)}))
 
     # ------------------------------------------------------------ phase 5
-    sharded_shapes = sharded_kernel_checks(torch, np, ops, ref, dgraph, graph, device, timer)
+    sharded_shapes = sharded_kernel_checks(torch, np, ops, ref, dgraph, graph, device, timer, floor)
 
     # ------------------------------------------------------------ phase 6
     if device.type == "cuda":
@@ -1315,7 +1462,8 @@ def main() -> int:
         "stream_seconds": res.timings["stream_seconds"], "total_s": res.timings["total_s"],
         "supersteps": tel["supersteps"], "boundary_conflicts": tel["boundary_conflicts"],
         "kernel_calls": tel["kernel_calls"], "launches": sharded_launches,
-        "profile": profile_totals(res.profile), "max_memory_allocated": peak,
+        "variant": SCORE_VARIANT, "profile": profile_totals(res.profile),
+        "max_memory_allocated": peak,
         "workers1_stream_seconds": one.timings["stream_seconds"],
         "workers1_profile": profile_totals(one.profile), "device": ident,
     }))
@@ -1508,6 +1656,10 @@ def main() -> int:
     reduced_parity(torch, np, device)
 
     # ------------------------------------------------------------ summary
+    def stream_summary(row):
+        return {key: row[key] for key in ("shape", "launches", "total_ms", "ms", "slowest_ms",
+                                          "floor_ms", "bound_ms")}
+
     def summary(name, shapes_, launches, replaces, source=KERNEL_SOURCE, **extra):
         main_shape = shapes_[0]
         err = max(r.get("max_abs_err", max(r.get("max_abs_err_alpha0", 0.0),
@@ -1522,8 +1674,11 @@ def main() -> int:
         }
 
     log(json.dumps({"kernels": [
-        summary("partition_score", shapes, main_launches, TPU_KERNEL),
-        summary("partition_score_sharded", sharded_shapes, sharded_launches, TPU_KERNEL_SHARDED),
+        summary("partition_score", shapes, main_launches, TPU_KERNEL, variant=SCORE_VARIANT,
+                floor_ms=shapes[0]["floor_ms"], stream=stream_summary(shapes[-1])),
+        summary("partition_score_sharded", sharded_shapes, sharded_launches, TPU_KERNEL_SHARDED,
+                variant=SCORE_VARIANT, floor_ms=sharded_shapes[0]["floor_ms"],
+                stream=stream_summary(sharded_shapes[-1])),
         summary("ell_spmv", spmv_shapes, spmv_launches, TPU_KERNEL_SPMV, SPMV_SOURCE,
                 variant=SPMV_VARIANT, gb_per_s=spmv_shapes[0]["gb_per_s"]),
         summary("flash_attention", flash_shapes, lm_launches["flash_attention"],

@@ -8,9 +8,18 @@ other. ``launches`` counts the launches of the sequential entries
 ``fennel_scores_pallas``), ``sharded_launches`` those of the sharded entries
 (``fennel_scores_sharded``, ``fennel_scores_sharded_gather``; the port of
 ``fennel_scores_sharded_pallas``). CPU calls count in neither.
+
+The kernel splits a call by entries, not by rows (``csrc/partition_score.cu``):
+the rows are cut into groups, one cluster of ``CLUSTER_BLOCKS`` blocks each;
+a group's rows and entries form one path (a row's end item after its last
+entry), cut into one share a block; the block holding a row's end item
+writes its scores, and a block whose share ends inside a row adds its counts
+of that row to it. :func:`group_rows` and :func:`tile_plan` give that split
+from the shapes and the degrees on the host, for the tests.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import check_tensor as _check
@@ -23,20 +32,87 @@ from repro_torch.kernels.partition_score.ref import (
 )
 
 __all__ = [
+    "CLUSTER_BLOCKS",
+    "COUNT_INTS",
     "MAX_K",
+    "THREADS",
+    "UNROLL",
+    "WHOLE_ROW",
     "fennel_scores",
     "fennel_scores_gather",
     "fennel_scores_sharded",
     "fennel_scores_sharded_gather",
+    "group_rows",
     "launches",
     "reset",
     "sharded_launches",
+    "tile_plan",
 ]
 
-# K int32 counters live in 48 KB of shared memory (csrc kMaxK)
+# the kernel's split (csrc kThreads, kClusterBlocks, kUnroll, kWholeRow,
+# kCountInts): blocks of THREADS threads, CLUSTER_BLOCKS of them sharing one
+# group of at most THREADS rows, UNROLL path items a thread in flight, no row
+# of at most WHOLE_ROW items split between blocks, at most COUNT_INTS int32
+# counters (group rows x K) a block
+THREADS = 512
+CLUSTER_BLOCKS = 16
+UNROLL = 4
+WHOLE_ROW = 4096
+COUNT_INTS = 16384
+# one row of K counters must fit COUNT_INTS (csrc kMaxK)
 MAX_K = 12288
-# a launch's grid has one block per row; rows are indexed by a C int
+# rows are indexed by a C int, and the grid (CLUSTER_BLOCKS blocks a group)
+# must fit grid x
 _MAX_ROWS = 2**31 - 1
+
+
+def group_rows(num_rows: int, k: int, width: int | None = None) -> int:
+    """Rows of one cluster's group: one a thread in the block's scan, at most
+    ``COUNT_INTS // k`` (their counters), at most ``num_rows``; for rows of a
+    fixed ``width`` (the dense entries) no more than give each thread of the
+    cluster ``UNROLL`` items. The kernel's ``group_rows``."""
+    g = min(THREADS, COUNT_INTS // k)
+    if width is not None:
+        g = min(g, max(1, CLUSTER_BLOCKS * THREADS * UNROLL // (width + 1)))
+    return min(g, num_rows)
+
+
+def tile_plan(degrees: np.ndarray, k: int, width: int | None = None) -> dict:
+    """The kernel's split of one call whose rows have ``degrees`` (in row
+    order). A group's path is its rows' entries, each row followed by its
+    end item; block ``b`` of the group's cluster takes items ``bounds[g, b]
+    : bounds[g, b + 1]``, where ``path * b // CLUSTER_BLOCKS`` moves back to
+    the start of its row unless that row holds more than ``WHOLE_ROW``
+    items, so only such rows are split. Returns ``group_rows``; ``blocks`` in
+    the grid; ``bounds`` [groups, CLUSTER_BLOCKS + 1]; per row ``ends`` (its
+    end item's position in its group's path), ``first_block`` and ``owner``
+    (the blocks of its cluster holding its first item and its end item; the
+    owner writes its scores) and ``split`` (its items lie in more than one
+    block)."""
+    degrees = np.asarray(degrees, dtype=np.int64)
+    c = degrees.shape[0]
+    g = group_rows(c, k, width)
+    groups = -(-c // g)
+    ends = np.empty(c, np.int64)
+    bounds = np.empty((groups, CLUSTER_BLOCKS + 1), np.int64)
+    first = np.empty(c, np.int64)
+    owner = np.empty(c, np.int64)
+    for gi in range(groups):
+        sl = slice(gi * g, min(c, (gi + 1) * g))
+        e = np.cumsum(degrees[sl] + 1) - 1
+        starts = e - degrees[sl]
+        path = int(e[-1]) + 1
+        at = np.array([path * b // CLUSTER_BLOCKS for b in range(CLUSTER_BLOCKS)])
+        r = np.searchsorted(e, at, side="left")  # the row holding each nominal bound
+        short = e[r] - starts[r] < WHOLE_ROW
+        b = np.append(np.where(short, starts[r], at), path)
+        ends[sl], bounds[gi] = e, b
+        first[sl] = np.searchsorted(b, starts, side="right") - 1
+        owner[sl] = np.searchsorted(b, e, side="right") - 1
+    return {"group_rows": g, "blocks": groups * CLUSTER_BLOCKS, "ends": ends,
+            "bounds": bounds, "first_block": first, "owner": owner, "split": first != owner}
+
+
 launches = 0
 sharded_launches = 0
 

@@ -168,6 +168,124 @@ def test_parallel_on_card_matches_cpu_and_launches_per_superstep(cuda_device, al
     assert on_card.quality()["edge_cut"] == on_cpu.quality()["edge_cut"]
 
 
+def _hub_csr(rng, n=100_000, hub_degree=97_599):
+    """A CSR graph whose vertex 0 has ``hub_degree`` neighbours (the 2^22
+    R-MAT's hub) and whose other vertices have 0-40."""
+    degs = rng.integers(0, 41, size=n).astype(np.int64)
+    degs[0] = hub_degree
+    indptr = np.concatenate([[0], np.cumsum(degs)]).astype(np.int64)
+    return indptr, rng.integers(0, n, size=int(indptr[-1])).astype(np.int32)
+
+
+def _gather_twice(cuda_device, indptr, indices, part_of, batch, k, rng):
+    """The gather kernel against its plain version (exact at alpha=0, 1e-6
+    with a penalty), one launch a call, and a second call the same bits."""
+    args = [torch.from_numpy(a).to(cuda_device) for a in (indptr, indices, part_of, batch)]
+    for alpha, sizes in ((0.0, np.zeros(k)), (0.37, rng.random(k) * 100)):
+        s_dev = torch.from_numpy(sizes.astype(np.float32)).to(cuda_device)
+        before = ops.launches
+        got = ops.fennel_scores_gather(*args, s_dev, alpha, 1.5)
+        again = ops.fennel_scores_gather(*args, s_dev, alpha, 1.5)
+        torch.cuda.synchronize()
+        assert ops.launches == before + 2
+        want = fennel_scores_gather_ref(*args, s_dev, alpha, 1.5)
+        if alpha == 0.0:
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+        assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 8, 32, 33, 64, ops.MAX_K])
+def test_gather_kernel_every_counting_width(cuda_device, hub_graph, k):
+    """K on both sides of the warp's width (ballot counting up to 32, match
+    counting above) and at MAX_K (one row a group), on the hub graph's
+    chunks, a ragged tail and zero-degree rows."""
+    g = hub_graph
+    rng = np.random.default_rng(100 + k)
+    part_of = rng.integers(-1, k, size=g.num_vertices).astype(np.int32)
+    zero = np.flatnonzero(g.degrees == 0)[:5]
+    for batch in list(_batches(g, rng)) + [np.concatenate([zero, [int(g.degrees.argmax())], zero])]:
+        _gather_twice(cuda_device, g.indptr, g.indices, part_of, batch.astype(np.int64), k, rng)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [8, 64])
+def test_gather_kernel_97k_row(cuda_device, k):
+    """A row of 97,599 entries alone, and among 511 short rows (the 2^22
+    chunk that held one block for 0.13 ms), twice to the same bits."""
+    rng = np.random.default_rng(k)
+    indptr, indices = _hub_csr(rng)
+    part_of = rng.integers(0, k, size=indptr.shape[0] - 1).astype(np.int32)
+    part_of[rng.random(part_of.shape[0]) < 0.3] = -1
+    _gather_twice(cuda_device, indptr, indices, part_of, np.array([0], np.int64), k, rng)
+    chunk = np.concatenate([[0], rng.permutation(np.arange(1, 100_000))[:511]]).astype(np.int64)
+    _gather_twice(cuda_device, indptr, indices, part_of, chunk, k, rng)
+    _gather_twice(cuda_device, indptr, indices, part_of, chunk[::-1].copy(), k, rng)
+
+
+@pytest.mark.gpu
+def test_gather_kernel_all_neighbours_unassigned(cuda_device):
+    rng = np.random.default_rng(3)
+    indptr, indices = _hub_csr(rng, n=20_000, hub_degree=30_000)
+    part_of = np.full(indptr.shape[0] - 1, -1, np.int32)
+    batch = np.arange(512, dtype=np.int64)
+    _gather_twice(cuda_device, indptr, indices, part_of, batch, 8, rng)
+    out = ops.fennel_scores_gather(*[torch.from_numpy(a).to(cuda_device)
+                                     for a in (indptr, indices, part_of, batch)],
+                                   torch.zeros(8, device=cuda_device), 0.0, 1.5)
+    assert not bool(out.any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("counts", [(0, 512, 0, 511), (512, 0, 512, 512), (0, 0, 1, 0)])
+def test_sharded_gather_kernel_97k_row_and_empty_shards(cuda_device, counts):
+    """The sharded entry with empty shards and the 97,599-entry row first in
+    its first non-empty shard; each row's size row picked once; twice to the
+    same bits."""
+    rng = np.random.default_rng(sum(counts))
+    indptr, indices = _hub_csr(rng)
+    k = 8
+    part_of = rng.integers(-1, k, size=indptr.shape[0] - 1).astype(np.int32)
+    batch = np.concatenate([[0], rng.permutation(np.arange(1, 100_000))])[: sum(counts)]
+    dev = [torch.from_numpy(a).to(cuda_device) for a in (indptr, indices, part_of,
+                                                         batch.astype(np.int64))]
+    start = torch.tensor(np.concatenate([[0], np.cumsum(counts)]), dtype=torch.int64,
+                         device=cuda_device)
+    for alpha, sizes in ((0.0, np.zeros((4, k))), (0.37, rng.random((4, k)) * 100)):
+        s_dev = torch.from_numpy(sizes.astype(np.float32)).to(cuda_device)
+        args = (*dev, start, s_dev, alpha, 1.5)
+        before = ops.sharded_launches
+        got = ops.fennel_scores_sharded_gather(*args)
+        again = ops.fennel_scores_sharded_gather(*args)
+        torch.cuda.synchronize()
+        assert ops.sharded_launches == before + 2
+        want = fennel_scores_sharded_gather_ref(*args)
+        if alpha == 0.0:
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+        assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,d,k", [(3, 40_000, 8), (2048, 64, 8), (1, 97_599, 64), (5, 0, 8)])
+def test_dense_kernel_wide_and_empty_rows(cuda_device, b, d, k):
+    """Dense rows wider than a block's share (split over the cluster) and of
+    width 0, in the flat and the sharded dense entries."""
+    rng = np.random.default_rng(b + d + k)
+    nbr = torch.from_numpy(rng.integers(-1, k, size=(b, d)).astype(np.int32)).to(cuda_device)
+    sizes = torch.from_numpy((rng.random(k) * 100).astype(np.float32)).to(cuda_device)
+    got = ops.fennel_scores(nbr, sizes, 0.37, 1.5)
+    torch.testing.assert_close(got, fennel_scores_ref(nbr, sizes, 0.37, 1.5), rtol=1e-6, atol=1e-6)
+    zeros = torch.zeros_like(sizes)
+    assert torch.equal(ops.fennel_scores(nbr, zeros, 0.0), fennel_scores_ref(nbr, zeros, 0.0, 1.5))
+    nbr3 = nbr.reshape(1, b, d)
+    assert torch.equal(ops.fennel_scores_sharded(nbr3, zeros[None], 0.0),
+                       fennel_scores_sharded_ref(nbr3, zeros[None], 0.0, 1.5))
+
+
 # ------------------------------------------------------------------ ell_spmv
 @pytest.mark.gpu
 @pytest.mark.parametrize("reduce", ["sum", "min"])

@@ -312,3 +312,210 @@ def test_sharded_wrappers_reject_bad_arguments():
     ops.fennel_scores_sharded(nbr, torch.zeros((2, 2)), 0.0)
     ops.fennel_scores_sharded_gather(**_sharded_gather_args(), alpha=0.0, gamma=1.5)
     assert (ops.launches, ops.sharded_launches) == before
+
+
+# ------------------------------------------------ the kernel's split (model)
+def _split_model(indptr, indices, part_of, batch, k, width=None):
+    """int64[C, K] counts by a numpy model of ``csrc/partition_score.cu``'s
+    split: per group of ``ops.tile_plan``, each of the cluster's blocks
+    counts the entries of its share of the path into its own counters; a
+    block whose share ends inside a row adds its counts of that row to the
+    block holding the row's end item (the owner), and the owner's counts
+    are the row's. The test checks that the blocks adding to a row are the
+    ones with a non-empty share from ``first_block`` up to the owner. With
+    ``width`` the rows are a dense [C, width] matrix ``part_of`` (indptr,
+    indices and batch unused)."""
+    c = len(batch) if width is None else part_of.shape[0]
+    if width is None:
+        begin = indptr[batch]
+        degrees = indptr[batch + 1] - begin
+    else:
+        begin = np.arange(c, dtype=np.int64) * width
+        degrees = np.full(c, width, np.int64)
+    plan = ops.tile_plan(degrees, k, width)
+    g, cb = plan["group_rows"], ops.CLUSTER_BLOCKS
+    assert plan["blocks"] == -(-c // g) * cb
+    hist = np.zeros((c, k), np.int64)
+    for gi, bounds in enumerate(plan["bounds"]):
+        assert (np.diff(bounds) >= 0).all() and bounds[0] == 0
+        r0 = gi * g
+        ends = plan["ends"][r0 : r0 + g]
+        starts = ends - degrees[r0 : r0 + g]
+        block_counts = []
+        for b in range(cb):
+            items = np.arange(bounds[b], bounds[b + 1])
+            r = np.searchsorted(ends, items, side="left")  # first row ending at or after the item
+            entry = items < ends[r]
+            r, items = r[entry], items[entry]
+            j = begin[r0 + r] + items - starts[r]
+            parts = (part_of[indices[j]] if width is None else part_of.reshape(-1)[j]).astype(np.int64)
+            keep = (parts >= 0) & (parts < k)
+            block_counts.append(np.bincount(r[keep] * k + parts[keep],
+                                             minlength=len(ends) * k).reshape(-1, k))
+        for lr in range(len(ends)):
+            own = plan["owner"][r0 + lr]
+            assert bounds[own] <= ends[lr] < bounds[own + 1]
+            # the blocks whose share ends inside the row (each adds its counts)
+            adding = [b for b in range(own)
+                      if bounds[b] < bounds[b + 1] and starts[lr] < bounds[b + 1] <= ends[lr]]
+            assert adding == [b for b in range(plan["first_block"][r0 + lr], own)
+                              if bounds[b] < bounds[b + 1]]
+            assert plan["split"][r0 + lr] == bool(adding)
+            hist[r0 + lr] = block_counts[own][lr] + sum(block_counts[b][lr] for b in adding)
+    return hist, plan
+
+
+def _csr(degrees, n, rng):
+    """indptr int64[n+1], indices int32 for n vertices whose first rows have
+    ``degrees`` (the rest degree 3), neighbours drawn at random."""
+    degs = np.full(n, 3, np.int64)
+    degs[: len(degrees)] = degrees
+    indptr = np.concatenate([[0], np.cumsum(degs)]).astype(np.int64)
+    return indptr, rng.integers(0, n, size=int(indptr[-1])).astype(np.int32)
+
+
+def _model_vs_plain(indptr, indices, part_of, batch, k):
+    got, plan = _split_model(indptr, indices, part_of, batch, k)
+    want = ops.fennel_scores_gather(
+        torch.from_numpy(indptr), torch.from_numpy(indices), torch.from_numpy(part_of),
+        torch.from_numpy(batch), torch.zeros(k), 0.0, 1.5)
+    np.testing.assert_array_equal(got, want.numpy().astype(np.int64))
+    return plan
+
+
+def _boundary_degrees():
+    """Rows of more than WHOLE_ROW items (so they may be split): one a
+    share, each ending on its share's last item; then rows whose end items
+    fall on a share's first item, empty rows between."""
+    cb, s = ops.CLUSTER_BLOCKS, ops.WHOLE_ROW + 904
+    on_last = [s - 1] * cb  # path s cb, shares of s: row r ends at s r + s - 1
+    on_first = [s, s - 1, 0, 0, s * cb - 2 * s - 4]  # rows 0, 1 end at items s, 2 s
+    return on_last, on_first
+
+
+@pytest.mark.parametrize("k", [1, 8, 32, 33, 64, 4096])
+def test_split_model_edge_cases(k):
+    """Empty and zero-degree rows, a row spanning every block of its
+    cluster, rows ending exactly on a share's boundary, a ragged last group
+    (at K=4096 a group is 4 rows, so the calls span many clusters)."""
+    rng = np.random.default_rng(k)
+    on_last, on_first = _boundary_degrees()
+    head = [0, 0, 50_000, 0, 1, 0]
+    degrees = head + on_last + on_first + rng.integers(0, 40, size=40).tolist()
+    n = 2000
+    indptr, indices = _csr(degrees, n, rng)
+    part_of = rng.integers(-1, k + 2, size=n).astype(np.int32)  # ids past K are not counted
+    a, b = len(head), len(head) + len(on_last)
+    for batch in (np.arange(len(degrees)), np.arange(a, b), np.arange(b, b + len(on_first)),
+                  np.arange(1030), np.array([2]), np.array([0, 1, 3])):
+        plan = _model_vs_plain(indptr, indices, part_of, batch.astype(np.int64), k)
+        if batch.shape == (1,):  # the long row alone spans every block
+            assert plan["first_block"][0] == 0 and plan["owner"][0] == ops.CLUSTER_BLOCKS - 1
+    # the boundary cases do fall on the boundaries
+    plan = ops.tile_plan(np.array(on_last), 8)
+    assert (plan["ends"] + 1 == plan["bounds"][0][1:]).all() and not plan["split"].any()
+    plan = ops.tile_plan(np.array(on_first), 8)
+    assert plan["ends"][0] == plan["bounds"][0][1] and plan["split"][0]
+
+
+def test_split_model_short_rows_stay_whole():
+    """A share's nominal bound inside a row of at most WHOLE_ROW items moves
+    back to the row's start, so such rows are never split; longer rows are
+    split where the bound falls."""
+    rng = np.random.default_rng(4)
+    whole = ops.WHOLE_ROW
+    for _ in range(20):
+        degrees = rng.integers(0, 3000, size=512)
+        degrees[rng.integers(512)] = rng.integers(0, 100_000)
+        plan = ops.tile_plan(degrees, 8)
+        share = -(-(plan["ends"][-1] + 1) // ops.CLUSTER_BLOCKS)
+        assert not (plan["split"] & (degrees + 1 <= whole)).any()
+        assert (np.diff(plan["bounds"][0]) <= share + whole).all()
+
+
+def test_split_model_hub_graph(hub_graph):
+    """The hub chunk (a row of over 1,024 entries among 511 short rows) and
+    a ragged tail, at K = 8 and 64."""
+    g = hub_graph
+    rng = np.random.default_rng(11)
+    for k in (8, 64):
+        part_of = rng.integers(0, k, size=g.num_vertices).astype(np.int32)
+        part_of[rng.random(g.num_vertices) < 0.3] = -1
+        for batch in _chunks(g, rng):
+            plan = _model_vs_plain(g.indptr, g.indices, part_of, batch.astype(np.int64), k)
+            assert not (plan["split"] & (g.degrees[batch] < ops.WHOLE_ROW)).any()
+
+
+def test_split_model_all_unassigned_and_edgeless():
+    rng = np.random.default_rng(2)
+    indptr, indices = _csr([0] * 20 + [7, 0, 9 + 3 * ops.WHOLE_ROW], 100, rng)
+    _model_vs_plain(indptr, indices, np.full(100, -1, np.int32), np.arange(100, dtype=np.int64), 8)
+    edgeless = np.zeros(11, np.int64)
+    _model_vs_plain(edgeless, np.zeros(0, np.int32), np.zeros(10, np.int32),
+                    np.arange(10, dtype=np.int64), 8)
+
+
+@pytest.mark.parametrize("counts", [(40, 0, 17, 5), (0, 0, 0, 9), (512, 512, 512, 512)])
+def test_split_model_sharded_with_empty_shards(hub_graph, counts):
+    """The sharded gather entry's rows (shard after shard, empty shards as
+    repeated bounds, the hub first) through the model's counts and the
+    kernel's clamped size-row search, against the sharded plain version."""
+    g = hub_graph
+    k = 8
+    rng = np.random.default_rng(sum(counts))
+    part_of = rng.integers(-1, k, size=g.num_vertices).astype(np.int32)
+    hub = int(g.degrees.argmax())
+    order = rng.permutation(g.num_vertices)
+    batch = np.concatenate([[hub], order[order != hub]])[: sum(counts)].astype(np.int64)
+    shard_start = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+    sizes = (rng.random((len(counts), k)) * 50).astype(np.float32)
+    hist, _ = _split_model(g.indptr, g.indices, part_of, batch, k)
+    size_row = [max(s for s in range(len(counts)) if shard_start[s] <= r)
+                for r in range(batch.shape[0])]
+    penalty = (0.37 * 1.5) * torch.pow(torch.clamp(torch.from_numpy(sizes), min=0.0), 0.5)
+    got = torch.from_numpy(hist).to(torch.float32) - penalty[size_row]
+    tg = graph_from_arrays(g.indptr, g.indices, CPU).to(CPU)
+    want = ops.fennel_scores_sharded_gather(
+        tg.indptr, tg.indices, torch.from_numpy(part_of), torch.from_numpy(batch),
+        torch.from_numpy(shard_start), torch.from_numpy(sizes), 0.37, 1.5)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("b,d,k", SHAPES + [(3, 40_000, 8), (2048, 64, 8)])
+def test_split_model_dense_rows(b, d, k):
+    """The dense entries' rows of a fixed width on the same split: groups
+    sized to give each thread of a cluster UNROLL items."""
+    nbr, _ = _dense_inputs(b, d, k)
+    got, plan = _split_model(None, None, nbr, np.arange(b), k, width=d)
+    assert plan["group_rows"] == ops.group_rows(b, k, d)
+    want = ops.fennel_scores(torch.from_numpy(nbr), torch.zeros(k), 0.0)
+    np.testing.assert_array_equal(got, want.numpy().astype(np.int64))
+
+
+def test_group_rows_rule():
+    """One row a thread, counters within COUNT_INTS, dense groups filling one
+    batch of UNROLL items a thread."""
+    assert ops.group_rows(512, 8) == 512 and ops.group_rows(4096, 8) == ops.THREADS
+    assert ops.group_rows(4096, 64) == ops.COUNT_INTS // 64 == 256
+    assert ops.group_rows(512, ops.MAX_K) == 1
+    assert ops.group_rows(7, 8) == 7
+    full = ops.CLUSTER_BLOCKS * ops.THREADS * ops.UNROLL
+    assert ops.group_rows(4096, 8, width=64) == min(ops.THREADS, full // 65)
+    assert ops.group_rows(200, 16, width=100) == 200
+    assert ops.group_rows(3, 8, width=10**6) == 1
+    assert ops.group_rows(5000, 8, width=0) == ops.THREADS
+    for k in (1, 8, 33, 64, 1000, ops.MAX_K):
+        g = ops.group_rows(10**6, k)
+        assert 1 <= g <= ops.THREADS and g * k <= ops.COUNT_INTS
+
+
+def test_tiling_constants_match_the_kernel_source():
+    from pathlib import Path
+
+    src = (Path(ops.__file__).parent / "csrc" / "partition_score.cu").read_text()
+    assert f"constexpr int kThreads = {ops.THREADS};" in src
+    assert f"constexpr int kClusterBlocks = {ops.CLUSTER_BLOCKS};" in src
+    assert f"constexpr int kUnroll = {ops.UNROLL};" in src
+    assert f"constexpr int kWholeRow = {ops.WHOLE_ROW};" in src
+    assert f"constexpr int kCountInts = {ops.COUNT_INTS};" in src
+    assert f"constexpr int kMaxK = {ops.MAX_K};" in src
