@@ -17,7 +17,11 @@ Phases:
      launch on its own slice of the device ids, captured in one CUDA graph
      (total, mean a launch, the slowest launch), beside the empty kernel
      captured the same way, every launch's scores equal to one plain call
-     over all the rows; each row names the design (``cluster_path``);
+     over all the rows; each row names the design (``cluster_path``); and
+     the zoo's shapes: ``chunk4096_k8`` (the first 4,096 rows of the random
+     order, heistream's chunk) and ``dense_sampled_s<s>x512_k8`` (the
+     ``[s, 512]`` matrix a ``cuttana-batched`` run samples for the first
+     chunk holding a row above 512);
   2. the main path: ``fennel`` through ``repro_torch.api.partition`` on an
      R-MAT graph of 2^22 vertices and average degree 16 (the scale of SNAP's
      soc-LiveJournal1), k=8, edge balance, random order, seed 0; every chunk
@@ -101,7 +105,37 @@ Phases:
      generator, 8 ``decode_step``s from position 32,760 (36 launches a step,
      all on the split-KV decode variant), one layer's attention over that
      cache against the plain version, and one step under ``torch.profiler``
-     (device busy time, idle share, attention device ms).
+     (device busy time, idle share, attention device ms);
+ 18. (runs after phase 11, while the graphs are loaded) the partitioner zoo
+     on web-s: each of the 16 algorithms ported after the first slices, at
+     the committed rows' spec (k=8, seed 0, edge balance and random order
+     where the algorithm takes them), with device="cuda" and "cpu" giving
+     identical results (assignment, or the vertex-cut edge partition) equal
+     to the reference's value (``WEB_S_ZOO``); the partition-score launches
+     equal ``kernel_calls`` for the engine-backed ones, plus one dense-entry
+     launch per chunk holding a row above ``sample_cap`` for
+     ``cuttana-batched`` (counted from the graph), one dense launch a chunk
+     for ``cuttana-batched-legacy``, none for the host loops; and
+     ``cuttana-parallel`` at S=4 with the ``gain`` and ``completeness``
+     buffers (sharded launches only);
+ 19. social-m: ``cuttana-buffcut`` (gain), ``cluster+cuttana``,
+     ``heistream`` and ``cuttana-incremental`` (16 batches, S=1 and S=4)
+     against the reference's edge cuts, launches equal to ``kernel_calls``;
+     the gather entry against its plain version, timed like phase 1, on
+     the chunk of the ``cluster+*`` coarse graph's random order that holds
+     its longest supervertex row (``coarse_chunk512_k8``);
+     ``IncrementalPartitioner`` on the churn suite's stream
+     (``rmat_churn(25000, 16, seed 7, "random")``, 20 batches) against
+     ``BENCH_partition.json``'s edge cut; ``heistream`` under
+     ``torch.profiler`` (busy time, idle share);
+ 20. ``cuttana-batched`` on phase 2's 2^22 R-MAT (k=8, edge balance, random
+     order, seed 0, ``sample_cap`` 512, ``use_refinement=False``): first
+     on the 2^20 R-MAT, device="cuda" and "cpu" giving identical
+     assignments equal to the reference's edge cut
+     (``RMAT_BATCHED_EDGE_CUT``), then on 2^22 under ``torch.profiler``:
+     8,192 gather launches plus one dense launch per chunk holding a row of
+     degree above 512, the quality scan against a host recomputation,
+     ``stream_seconds`` and the idle share.
 
 Kernel times: ``ms`` is device time per launch (launches captured in a CUDA
 graph and replayed, so the host's cost of a call is out); ``call_ms``,
@@ -114,7 +148,8 @@ The last lines are the ``{"kernels": [...]}`` summary, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero before that line. Without a CUDA device (and without ``--tiny``)
 the script exits 2 and prints no result. ``--tiny`` runs phases 12-17 at
-the reduced configs and small kernel shapes.
+the reduced configs and small kernel shapes, phase 19 on social-s (its
+constants unchecked) and phase 20 on the 2^12 and 2^14 graphs.
 """
 from __future__ import annotations
 
@@ -183,6 +218,52 @@ WEB_S_EDGE_CUT = {
 }
 SOCIAL_M_CUTTANA_EDGE_CUT = 0.8217978285092379
 SOCIAL_M_CUTTANA_PARALLEL_EDGE_CUT = 0.7972897394038334
+# the reference's values for the zoo (repro.api.partition on web-s, the spec
+# of the committed quality rows: k=8, seed 0, edge balance and random order
+# where the algorithm takes them): edge cut, or (replication factor, edge
+# imbalance) for the vertex-cut algorithms
+WEB_S_ZOO = {
+    "chunked": 0.2763935139476899,
+    "cluster+cuttana": 0.5425709934905203,
+    "cluster+fennel": 0.6345822386586121,
+    "cuttana-batched": 0.6185177128131327,
+    "cuttana-batched-legacy": 0.6185177128131327,
+    "cuttana-buffcut": 0.5029367961311267,
+    "cuttana-incremental": 0.6459361769775264,
+    "cuttana-legacy": 0.5606603189477736,
+    "fennel-legacy": 0.6510985792934956,
+    "ginger": [3.911, 1.0499506350507872],
+    "hash": 0.8749477066215967,
+    "hdrf": [5.541, 1.000016733881089],
+    "heistream": 0.6341471577502971,
+    "heistream-legacy": 0.6341471577502971,
+    "ldg-legacy": 0.651299385866564,
+    "random": 0.8755250255191687,
+}
+# cuttana-parallel at S=4 by buffer strategy
+WEB_S_ZOO_PARALLEL = {"gain": 0.624131929918506, "completeness": 0.6729948626985056}
+# social-m, the same spec; keys are algo/num_shards
+SOCIAL_M_ZOO_SPECS = (
+    ("cuttana-buffcut", {"strategy": "gain"}),
+    ("cluster+cuttana", {}),
+    ("heistream", {}),
+    ("cuttana-incremental", {"num_batches": 16}),
+    ("cuttana-incremental", {"num_batches": 16, "num_shards": NUM_SHARDS}),
+)
+SOCIAL_M_ZOO = {
+    "cuttana-buffcut/1": 0.8243048897411314,
+    "cluster+cuttana/1": 0.8247421678629733,
+    "heistream/1": 0.8393051488689073,
+    "cuttana-incremental/1": 0.7922356680745942,
+    "cuttana-incremental/4": 0.7946412375942578,
+}
+# BENCH_partition.json churn/rmat25000/incremental
+CHURN_EDGE_CUT = 0.7724772058256066
+# the reference's edge cut of phase 20's spec (cuttana-batched, k=8, edge
+# balance, random order, seed 0, sample_cap 512, use_refinement=False) on
+# the R-MAT of 2^scale vertices, average degree 16, seed 0, for the scales
+# phase 20 checks (a quarter of its graph: 2^20 on the card, 2^12 with --tiny)
+RMAT_BATCHED_EDGE_CUT = {20: 0.8362624552954572, 12: 0.7886621145043896}
 
 
 def log(msg: str) -> None:
@@ -275,74 +356,71 @@ def split_stats(np, ops, degrees, k: int, width=None) -> dict:
     return {"blocks": plan["blocks"], "split_rows": int(plan["split"].sum())}
 
 
-def kernel_checks(torch, np, ops, ref, dgraph, graph, device, timer, floor):
-    """Phase 1: kernel vs plain version at the main path's shapes."""
-    rng = np.random.default_rng(0)
+def gather_row(torch, np, ops, ref, dgraph, graph, device, timer, floor, rng, name, batch, k):
+    """One gather-entry row: the kernel on ``batch``'s rows of ``dgraph`` at
+    ``k`` (a seeded ``part_of``, 30 % unassigned) against its plain version,
+    exact at alpha=0 and within 1e-6 with a penalty, timed."""
     n = graph.num_vertices
-    order = rng.permutation(n)
-    hub = int(graph.degrees.argmax())
-    gather_shapes = [
-        ("chunk512_k8", order[:CHUNK], 8),
-        ("chunk512_k64", order[CHUNK : 2 * CHUNK], 64),
-        ("chunk512_hub_k8", np.concatenate([[hub], order[2 * CHUNK : 3 * CHUNK - 1]]), 8),
-    ]
-    rows_out = []
-    for name, batch, k in gather_shapes:
-        part_np = rng.integers(0, k, size=n).astype(np.int32)
-        part_np[rng.random(n) < 0.3] = -1
-        part_of = torch.from_numpy(part_np).to(device)
-        b = torch.from_numpy(batch.astype(np.int64)).to(device)
-        zeros = torch.zeros(k, dtype=torch.float32, device=device)
-        sizes = torch.from_numpy((rng.random(k) * 100).astype(np.float32)).to(device)
-        args = (dgraph.indptr, dgraph.indices, part_of, b)
-        got0 = ops.fennel_scores_gather(*args, zeros, 0.0, 1.5)
-        want0 = ref.fennel_scores_gather_ref(*args, zeros, 0.0, 1.5)
-        got1 = ops.fennel_scores_gather(*args, sizes, 0.37, 1.5)
-        want1 = ref.fennel_scores_gather_ref(*args, sizes, 0.37, 1.5)
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-        err0 = float((got0 - want0).abs().max())
-        err1 = float((got1 - want1).abs().max())
-        check(err0 == 0.0, f"{name}: kernel differs from plain version at alpha=0 ({err0})")
-        check(err1 <= 1e-6, f"{name}: kernel differs from plain version with penalty ({err1})")
-        if "hub" in name:
-            check(torch.equal(got0, ops.fennel_scores_gather(*args, zeros, 0.0, 1.5)),
-                  f"{name}: two launches differ")
-        rows, pos = ref.expand_rows(dgraph.indptr, b)
-        parts = part_of[dgraph.indices[pos].long()]
-        keep = parts >= 0
-        keys = rows[keep] * k + parts[keep].long()
-        nnz = int(rows.shape[0])
-        c = int(b.shape[0])
-        # each input read once, the output written once: the batch, two
-        # indptr entries per row, the row's indices, one part_of gather per
-        # entry, the size row; C*K float32 scores out
-        nbytes = c * 8 + 2 * c * 8 + nnz * 4 + nnz * 4 + k * 4 + c * k * 4
-        rows_out.append({
-            "shape": name, "variant": SCORE_VARIANT, "rows": c, "k": k, "nnz": nnz,
-            **split_stats(np, ops, graph.degrees[batch], k),
-            "max_abs_err_alpha0": err0, "max_abs_err_penalty": err1,
-            "ms": timer.device_ms(lambda: ops.fennel_scores_gather(*args, zeros, 0.0, 1.5)),
-            "call_ms": timer(lambda: ops.fennel_scores_gather(*args, zeros, 0.0, 1.5)),
-            "plain_ms": timer(lambda: ref.fennel_scores_gather_ref(*args, zeros, 0.0, 1.5)),
-            "library_ms": timer(lambda: torch.bincount(keys, minlength=c * k)),
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "floor_ms": floor_ms(torch, timer, floor, c, k),
-        })
-    # the dense entry (the JAX signature)
-    bsz, d, k = 200, 100, 16
-    nbr = torch.from_numpy(rng.integers(-1, k, size=(bsz, d)).astype(np.int32)).to(device)
+    part_np = rng.integers(0, k, size=n).astype(np.int32)
+    part_np[rng.random(n) < 0.3] = -1
+    part_of = torch.from_numpy(part_np).to(device)
+    b = torch.from_numpy(batch.astype(np.int64)).to(device)
+    zeros = torch.zeros(k, dtype=torch.float32, device=device)
+    sizes = torch.from_numpy((rng.random(k) * 100).astype(np.float32)).to(device)
+    args = (dgraph.indptr, dgraph.indices, part_of, b)
+    got0 = ops.fennel_scores_gather(*args, zeros, 0.0, 1.5)
+    want0 = ref.fennel_scores_gather_ref(*args, zeros, 0.0, 1.5)
+    got1 = ops.fennel_scores_gather(*args, sizes, 0.37, 1.5)
+    want1 = ref.fennel_scores_gather_ref(*args, sizes, 0.37, 1.5)
+    sync(torch, device)
+    err0 = float((got0 - want0).abs().max())
+    err1 = float((got1 - want1).abs().max())
+    check(err0 == 0.0, f"{name}: kernel differs from plain version at alpha=0 ({err0})")
+    check(err1 <= 1e-6, f"{name}: kernel differs from plain version with penalty ({err1})")
+    if "hub" in name:
+        check(torch.equal(got0, ops.fennel_scores_gather(*args, zeros, 0.0, 1.5)),
+              f"{name}: two launches differ")
+    rows, pos = ref.expand_rows(dgraph.indptr, b)
+    parts = part_of[dgraph.indices[pos].long()]
+    keep = parts >= 0
+    keys = rows[keep] * k + parts[keep].long()
+    nnz = int(rows.shape[0])
+    c = int(b.shape[0])
+    # each input read once, the output written once: the batch, two
+    # indptr entries per row, the row's indices, one part_of gather per
+    # entry, the size row; C*K float32 scores out
+    nbytes = c * 8 + 2 * c * 8 + nnz * 4 + nnz * 4 + k * 4 + c * k * 4
+    return {
+        "shape": name, "variant": SCORE_VARIANT, "rows": c, "k": k, "nnz": nnz,
+        "max_row": int(graph.degrees[batch].max()),
+        **split_stats(np, ops, graph.degrees[batch], k),
+        "max_abs_err_alpha0": err0, "max_abs_err_penalty": err1,
+        "ms": timer.device_ms(lambda: ops.fennel_scores_gather(*args, zeros, 0.0, 1.5)),
+        "call_ms": timer(lambda: ops.fennel_scores_gather(*args, zeros, 0.0, 1.5)),
+        "plain_ms": timer(lambda: ref.fennel_scores_gather_ref(*args, zeros, 0.0, 1.5)),
+        "library_ms": timer(lambda: torch.bincount(keys, minlength=c * k)),
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "floor_ms": floor_ms(torch, timer, floor, c, k),
+    }
+
+
+def dense_row(torch, np, ops, ref, device, timer, floor, rng, name, nbr_np, k):
+    """One dense-entry row: the kernel on the int32 ``[B, D]`` matrix
+    ``nbr_np`` at ``k`` against its plain version, exact at alpha=0 and
+    within 1e-6 with a penalty, timed."""
+    bsz, d = nbr_np.shape
+    nbr = torch.from_numpy(nbr_np).to(device)
     zeros = torch.zeros(k, dtype=torch.float32, device=device)
     sizes = torch.from_numpy((rng.random(k) * 100).astype(np.float32)).to(device)
     err0 = float((ops.fennel_scores(nbr, zeros, 0.0) - ref.fennel_scores_ref(nbr, zeros, 0.0, 1.5)).abs().max())
     err1 = float((ops.fennel_scores(nbr, sizes, 0.37, 1.5) - ref.fennel_scores_ref(nbr, sizes, 0.37, 1.5)).abs().max())
-    check(err0 == 0.0, f"dense: kernel differs from plain version at alpha=0 ({err0})")
-    check(err1 <= 1e-6, f"dense: kernel differs from plain version with penalty ({err1})")
+    check(err0 == 0.0, f"{name}: kernel differs from plain version at alpha=0 ({err0})")
+    check(err1 <= 1e-6, f"{name}: kernel differs from plain version with penalty ({err1})")
     flat = nbr.reshape(-1).long()
     keep = flat >= 0
     keys = (torch.arange(bsz, device=device).repeat_interleave(d)[keep] * k + flat[keep])
-    rows_out.append({
-        "shape": "dense200x100_k16", "variant": SCORE_VARIANT, "rows": bsz, "k": k,
+    return {
+        "shape": name, "variant": SCORE_VARIANT, "rows": bsz, "k": k,
         "nnz": bsz * d, **split_stats(np, ops, np.full(bsz, d), k, d),
         "max_abs_err_alpha0": err0, "max_abs_err_penalty": err1,
         "ms": timer.device_ms(lambda: ops.fennel_scores(nbr, sizes, 0.37, 1.5)),
@@ -351,7 +429,58 @@ def kernel_checks(torch, np, ops, ref, dgraph, graph, device, timer, floor):
         "library_ms": timer(lambda: torch.bincount(keys, minlength=bsz * k)),
         "bound_ms": (bsz * d * 4 + k * 4 + bsz * k * 4) / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes", "floor_ms": floor_ms(torch, timer, floor, bsz, k, d),
-    })
+    }
+
+
+def sampled_matrix(np, graph, rng, k: int, sample_cap: int = 512) -> np.ndarray:
+    """The ``[s, width]`` matrix a ``cuttana-batched`` run sends through the
+    dense entry for the first chunk of the random order holding a row above
+    ``sample_cap``: each such row's ``sample_cap`` neighbours drawn without
+    replacement (from ``default_rng(0)``, in row order, as the engine draws
+    them), their parts under a seeded ``part_of`` (30 % unassigned), padded
+    with -1 to ``width``, a power of two of at least 8."""
+    from repro_torch.graph.stream import stream_order
+
+    ids = stream_order(graph, "random", 0)
+    first = int(np.flatnonzero(graph.degrees[ids] > sample_cap)[0]) // CHUNK
+    batch = ids[first * CHUNK : (first + 1) * CHUNK]
+    over = batch[graph.degrees[batch] > sample_cap]
+    n = graph.num_vertices
+    part_np = rng.integers(0, k, size=n).astype(np.int32)
+    part_np[rng.random(n) < 0.3] = -1
+    width = max(8, 1 << (sample_cap - 1).bit_length())
+    out = np.full((over.size, width), -1, dtype=np.int32)
+    draw = np.random.default_rng(0)
+    indptr, indices = graph.indptr, graph.indices
+    for j, v in enumerate(over.tolist()):
+        nb = indices[indptr[v] : indptr[v + 1]]
+        out[j, :sample_cap] = part_np[nb[draw.choice(nb.size, size=sample_cap, replace=False)]]
+    return out
+
+
+def kernel_checks(torch, np, ops, ref, dgraph, graph, device, timer, floor):
+    """Phase 1: kernel vs plain version at the main path's shapes."""
+    rng = np.random.default_rng(0)
+    order = rng.permutation(graph.num_vertices)
+    hub = int(graph.degrees.argmax())
+    gather_shapes = [
+        ("chunk512_k8", order[:CHUNK], 8),
+        ("chunk512_k64", order[CHUNK : 2 * CHUNK], 64),
+        ("chunk512_hub_k8", np.concatenate([[hub], order[2 * CHUNK : 3 * CHUNK - 1]]), 8),
+    ]
+    rows_out = [gather_row(torch, np, ops, ref, dgraph, graph, device, timer, floor, rng,
+                           name, batch, k) for name, batch, k in gather_shapes]
+    # the dense entry (the JAX signature)
+    rows_out.append(dense_row(torch, np, ops, ref, device, timer, floor, rng, "dense200x100_k16",
+                              rng.integers(-1, 16, size=(200, 100)).astype(np.int32), 16))
+    # the zoo's shapes (phases 18-20): heistream's 4,096-row chunks and the
+    # sampled rows of cuttana-batched (sample_cap 512, so width 512)
+    zoo_rng = np.random.default_rng(1)
+    rows_out.append(gather_row(torch, np, ops, ref, dgraph, graph, device, timer, floor, zoo_rng,
+                               "chunk4096_k8", order[: 8 * CHUNK], 8))
+    sampled = sampled_matrix(np, graph, zoo_rng, 8)
+    rows_out.append(dense_row(torch, np, ops, ref, device, timer, floor, zoo_rng,
+                              f"dense_sampled_s{sampled.shape[0]}x512_k8", sampled, 8))
     rows_out.append(stream_checks(torch, np, ops, ref, dgraph, graph, device, timer, floor,
                                   sharded=False))
     for row in rows_out:
@@ -755,6 +884,260 @@ def spmv_kernel_checks(torch, np, spmv, spmv_ref, lg, device, timer):
     for row in rows_out:
         log(json.dumps({"phase": 9, **row}))
     return rows_out
+
+
+def zoo_fields(tapi, name: str, **params) -> dict:
+    """Spec fields of the committed quality rows: k=8, seed 0, edge balance
+    and random order where the algorithm takes them."""
+    info = tapi.get_info(name)
+    fields = dict(algo=name, k=8, seed=0, params=params or None)
+    if info.balance_modes:
+        fields["balance_mode"] = "edge"
+    if "order" in info.common:
+        fields["order"] = "random"
+    return fields
+
+
+def zoo_value(res):
+    """A run's committed quality value: the edge cut of an edge-cut run,
+    (replication factor, edge imbalance) of a vertex-cut run."""
+    q = res.quality()
+    if res.is_vertex_cut:
+        return [q["replication_factor"], q["edge_imbalance"]]
+    return q["edge_cut"]
+
+
+def sampled_chunks(np, graph, sample_cap: int, order: str = "random", seed: int = 0,
+                   chunk: int = CHUNK) -> int:
+    """Chunks of the stream holding a row above ``sample_cap``: the
+    dense-entry launches of a ``cuttana-batched`` run, on top of one
+    gather-entry launch a chunk."""
+    from repro_torch.graph.stream import stream_order
+
+    over = graph.degrees[stream_order(graph, order, seed)] > sample_cap
+    return int(np.logical_or.reduceat(over, np.arange(0, over.size, chunk)).sum())
+
+
+def zoo_run(torch, np, tapi, ops, counters, graph, device, fields, expect_launches,
+            cpu_too: bool = True) -> tuple:
+    """One spec on ``device`` (and on the CPU): identical results, and the
+    partition-score launches of the device run, sequential and sharded
+    entries together, equal to ``expect_launches(result)``. Returns the
+    device result, the row to log and the launch counts."""
+    spec = tapi.PartitionSpec(**fields)
+    reset_counts(*counters)
+    on_dev = tapi.partition(graph, spec, device=device)
+    sync(torch, device)
+    seq, sharded = ops.launches, ops.sharded_launches
+    want = expect_launches(on_dev) if device.type == "cuda" else 0
+    check(seq + sharded == want,
+          f"{fields['algo']}: {seq} + {sharded} partition-score launches, expected {want}")
+    row = {"algo": fields["algo"], "params": fields.get("params"), "value": zoo_value(on_dev),
+           "kernel_calls": on_dev.telemetry.get("kernel_calls"), "launches": seq,
+           "sharded_launches": sharded, "timings_device": on_dev.timings}
+    if cpu_too:
+        on_cpu = tapi.partition(graph, spec, device="cpu")
+        check(np.array_equal(on_dev.assignment, on_cpu.assignment),
+              f"{fields['algo']}: {device.type} and cpu results differ")
+        if on_dev.is_vertex_cut:
+            for f in ("replicas", "masters", "edge_counts"):
+                check(np.array_equal(getattr(on_dev.edge_partition, f),
+                                     getattr(on_cpu.edge_partition, f)),
+                      f"{fields['algo']}: {device.type} and cpu {f} differ")
+        check(on_dev.quality() == on_cpu.quality(),
+              f"{fields['algo']}: {device.type} and cpu quality differ")
+        row.update(identical_to_cpu=True, timings_cpu=on_cpu.timings)
+    return on_dev, row, (seq, sharded)
+
+
+def profile_once(torch, fn, device, kernel_name: str) -> tuple:
+    """One call of ``fn`` under ``torch.profiler`` (a window of seconds, so
+    no warm-up call): its value and the card's busy time and idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    on_card = device.type == "cuda"
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        sync(torch, device)
+        wall = time.perf_counter() - t0
+    return out, {"profiled_wall_s": wall, **device_time(prof, wall, on_card, kernel_name)}
+
+
+def zoo_phases(torch, np, tapi, ops, ref, counters, device, timer, floor, web, social, graph,
+               dataset: str, tiny: bool, ident: str) -> tuple:
+    """Phases 18-20: the partitioner zoo on the card. Returns the launches of
+    each path and the kernel rows at the zoo's own shapes, for the summary
+    line."""
+    from repro_torch.core.cluster import build_coarse_graph, streaming_cluster
+    from repro_torch.core.incremental import IncrementalPartitioner
+    from repro_torch.graph.churn import rmat_churn
+    from repro_torch.graph.generators import rmat_graph
+    from repro_torch.graph.metrics import quality_report
+    from repro_torch.graph.stream import stream_order
+
+    paths: dict = {}
+    kernel_rows: list = []
+
+    def engine_launches(res):
+        return res.telemetry["kernel_calls"]
+
+    def batched_launches(res):
+        cap = res.spec.params.sample_cap
+        return res.telemetry["kernel_calls"] + sampled_chunks(np, res.graph, cap)
+
+    def legacy_batched_launches(res):
+        return -(-res.graph.num_vertices // res.spec.params.chunk)
+
+    # ----------------------------------------------------------- phase 18
+    for name in sorted(WEB_S_ZOO):
+        info = tapi.get_info(name)
+        if name == "cuttana-batched":
+            expect = batched_launches
+        elif name == "cuttana-batched-legacy":
+            expect = legacy_batched_launches
+        elif info.engine == "engine":
+            expect = engine_launches
+        else:
+            expect = lambda res: 0  # host loops: no partition-score launch  # noqa: E731
+        res, row, launched = zoo_run(torch, np, tapi, ops, counters, web, device,
+                                     zoo_fields(tapi, name), expect)
+        check(row["value"] == WEB_S_ZOO[name],
+              f"web-s {name}: {row['value']} != the reference's {WEB_S_ZOO[name]}")
+        if name == "cuttana-batched":
+            row["dense_launches"] = launched[0] - row["kernel_calls"] if device.type == "cuda" else 0
+        paths[f"web-s {name}"] = launched
+        log(json.dumps({"phase": 18, "dataset": "web-s", "kind": info.kind, **row}))
+    for strategy in ("gain", "completeness"):
+        name = f"cuttana-parallel/{strategy}"
+        res, row, launched = zoo_run(
+            torch, np, tapi, ops, counters, web, device,
+            zoo_fields(tapi, "cuttana-parallel", num_shards=NUM_SHARDS, strategy=strategy),
+            engine_launches)
+        check(launched[0] == 0, f"web-s {name}: the sequential entry launched")
+        check(row["value"] == WEB_S_ZOO_PARALLEL[strategy],
+              f"web-s {name}: {row['value']} != the reference's {WEB_S_ZOO_PARALLEL[strategy]}")
+        paths[f"web-s {name} num_shards={NUM_SHARDS}"] = launched
+        log(json.dumps({"phase": 18, "dataset": "web-s", "num_shards": NUM_SHARDS, **row}))
+
+    # ----------------------------------------------------------- phase 19
+    for name, params in SOCIAL_M_ZOO_SPECS:
+        res, row, launched = zoo_run(torch, np, tapi, ops, counters, social, device,
+                                     zoo_fields(tapi, name, **params), engine_launches,
+                                     cpu_too=False)
+        key = f"{name}/{params.get('num_shards', 1)}"
+        if not tiny:
+            check(row["value"] == SOCIAL_M_ZOO[key],
+                  f"social-m {name} {params}: {row['value']} != {SOCIAL_M_ZOO[key]}")
+        paths[" ".join([dataset, name] + [f"{k}={v}" for k, v in params.items()])] = launched
+        for extra in ("stream_seconds", "fm_moves", "clusters_found", "coarse_edges",
+                      "prepass_seconds", "project_seconds", "restream_windows",
+                      "buffer_strategy", "buffer_evictions", "refine_moves"):
+            if extra in res.telemetry or extra in res.timings:
+                row[extra] = res.telemetry.get(extra, res.timings.get(extra))
+        log(json.dumps({"phase": 19, "dataset": dataset, **row}))
+    # the gather entry on the coarse graph of cluster+* at this spec: the
+    # chunk of its random order holding the longest supervertex row, which
+    # the kernel splits over the blocks of its cluster
+    k = 8
+    ids = stream_order(social, "random", 0)
+    cluster_of, num_clusters, _ = streaming_cluster(
+        social, ids, max(0.1 * social.indices.shape[0] / k, 1.0),
+        max(int(0.1 * social.num_vertices / k), 1), 1000)
+    coarse = build_coarse_graph(social, cluster_of, num_clusters)
+    cids = stream_order(coarse, "random", 0)
+    at = int(np.flatnonzero(cids == int(coarse.degrees.argmax()))[0]) // CHUNK * CHUNK
+    row = gather_row(torch, np, ops, ref, coarse.to(device), coarse, device, timer, floor,
+                     np.random.default_rng(2), "coarse_chunk512_k8", cids[at : at + CHUNK], k)
+    kernel_rows.append(row)
+    log(json.dumps({"phase": 19, "dataset": dataset, "coarse_graph": "cluster+* prepass",
+                    "coarse_vertices": coarse.num_vertices, **row}))
+    del coarse
+    # the churn suite's stream (benchmarks/churn.py): 20 arrival batches
+    stream = rmat_churn(25_000, avg_degree=16, seed=7, ordering="random")
+    final = stream.final_graph()
+    reset_counts(*counters)
+    t0 = time.perf_counter()
+    inc = IncrementalPartitioner(stream.num_vertices, 8, balance_mode="edge", seed=7,
+                                 device=device)
+    batch_s = []
+    for batch in stream.batches(20):
+        t1 = time.perf_counter()
+        inc.ingest(batch)
+        sync(torch, device)
+        batch_s.append(time.perf_counter() - t1)
+    part = inc.finalize()
+    stream_s = time.perf_counter() - t0
+    cut = quality_report(final, part, 8, device)["edge_cut"]
+    check(cut == CHURN_EDGE_CUT, f"churn incremental: edge_cut {cut} != {CHURN_EDGE_CUT}")
+    want = inc.kernel_calls if device.type == "cuda" else 0
+    check(ops.launches + ops.sharded_launches == want,
+          f"churn incremental: {ops.launches} launches, expected {want}")
+    paths["churn rmat25000 incremental"] = (ops.launches, ops.sharded_launches)
+    log(json.dumps({
+        "phase": 19, "stream": "rmat_churn(25000, 16, seed 7, random)", "batches": 20,
+        "edge_cut": cut, "kernel_calls": inc.kernel_calls, "launches": ops.launches,
+        "restream_windows": inc.restream_windows, "stream_seconds": stream_s,
+        "mean_batch_ms": 1e3 * sum(batch_s) / len(batch_s), "device": ident,
+    }))
+    res, prof_row = profile_once(
+        torch, lambda: tapi.partition(social, tapi.PartitionSpec(
+            **zoo_fields(tapi, "heistream")), device=device), device, "score_path_kernel")
+    log(json.dumps({"phase": 19, "dataset": dataset, "algo": "heistream", "profiled": True,
+                    "kernel_calls": res.telemetry["kernel_calls"],
+                    "stream_seconds": res.timings["stream_seconds"], **prof_row}))
+
+    # ----------------------------------------------------------- phase 20
+    fields = zoo_fields(tapi, "cuttana-batched", sample_cap=512, use_refinement=False)
+    scale = int(np.log2(graph.num_vertices))
+    # the same spec on a 4x smaller R-MAT: the card's run equals the CPU's
+    # (every launch's kernel against its plain version along the path) and
+    # the reference's value
+    ref_scale = scale - 2
+    small = rmat_graph(1 << ref_scale, avg_degree=16, seed=0)
+    res, row, launched = zoo_run(
+        torch, np, tapi, ops, counters, small, device, fields,
+        lambda r: r.telemetry["kernel_calls"] + sampled_chunks(np, r.graph, 512))
+    check(row["value"] == RMAT_BATCHED_EDGE_CUT[ref_scale],
+          f"rmat 2^{ref_scale} cuttana-batched: {row['value']} != the reference's "
+          f"{RMAT_BATCHED_EDGE_CUT[ref_scale]}")
+    paths[f"rmat 2^{ref_scale} cuttana-batched"] = launched
+    log(json.dumps({"phase": 20, "graph": f"rmat 2^{ref_scale} avg_degree 16",
+                    "reference_edge_cut": RMAT_BATCHED_EDGE_CUT[ref_scale],
+                    "rows_above_cap": int((small.degrees > 512).sum()),
+                    "stream_seconds": res.timings["stream_seconds"], **row}))
+    del small, res
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    spec = tapi.PartitionSpec(**fields)
+    reset_counts(*counters)
+    res, prof_row = profile_once(
+        torch, lambda: tapi.partition(graph, spec, device=device), device, "score_path_kernel")
+    chunks = -(-graph.num_vertices // CHUNK)
+    dense = sampled_chunks(np, graph, 512)
+    check(res.telemetry["kernel_calls"] == chunks,
+          f"cuttana-batched: kernel_calls {res.telemetry['kernel_calls']} != {chunks} chunks")
+    want = chunks + dense if device.type == "cuda" else 0
+    check(ops.launches == want and ops.sharded_launches == 0,
+          f"cuttana-batched: {ops.launches} launches, expected {chunks} gather + {dense} dense")
+    paths[f"rmat 2^{scale} cuttana-batched"] = (ops.launches, ops.sharded_launches)
+    launches = ops.launches
+    q = res.quality()
+    check_quality(np, graph, res.assignment, q, 8, "cuttana-batched")
+    log(json.dumps({
+        "phase": 20, "algo": "cuttana-batched", "params": fields["params"],
+        "graph": f"rmat 2^{scale} avg_degree 16", "edge_cut": q["edge_cut"],
+        "edge_imbalance": q["edge_imbalance"], "kernel_calls": res.telemetry["kernel_calls"],
+        "gather_launches": chunks if device.type == "cuda" else 0,
+        "dense_launches": launches - chunks if device.type == "cuda" else 0,
+        "rows_above_cap": int((graph.degrees > 512).sum()),
+        "stream_seconds": res.timings["stream_seconds"], "total_s": res.timings["total_s"],
+        "max_memory_allocated": torch.cuda.max_memory_allocated() if device.type == "cuda" else None,
+        "device": ident, **prof_row,
+    }))
+    return paths, kernel_rows
 
 
 def check_quality(np, graph, part, q, k: int, what: str) -> None:
@@ -1618,8 +2001,14 @@ def main() -> int:
     log(json.dumps({"phase": 11, "dataset": dataset, **profile_analytics(
         torch, social_res, spmv, device)}))
 
+    # ------------------------------------------------------ phases 18-20
+    del lg, on_cpu
+    main_res._localized = None  # the analytics layout of phases 9-10
+    zoo_paths, zoo_rows = zoo_phases(torch, np, tapi, ops, ref, counters, device, timer, floor,
+                                     web, social, graph, dataset, args.tiny, ident)
+
     # ----------------------------------------------------------- phase 12
-    del graph, main_res, social_res, social, lg, web_res, on_cpu
+    del graph, main_res, social_res, social, web_res
     if device.type == "cuda":
         torch.cuda.empty_cache()
     import torch.nn.functional as F
@@ -1673,12 +2062,22 @@ def main() -> int:
             "library_ms": main_shape["library_ms"], **extra,
         }
 
+    # the zoo's kernel shapes (phases 1 and 19): 4,096-row chunks, a sampled
+    # dense matrix, the longest coarse row's chunk
+    zoo_shapes = [{key: row[key] for key in (
+        "shape", "rows", "max_row", "ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
+        "floor_ms", "split_rows") if key in row}
+        for row in [r for r in shapes if r["shape"].startswith(("chunk4096", "dense_sampled"))]
+        + zoo_rows]
     log(json.dumps({"kernels": [
-        summary("partition_score", shapes, main_launches, TPU_KERNEL, variant=SCORE_VARIANT,
-                floor_ms=shapes[0]["floor_ms"], stream=stream_summary(shapes[-1])),
+        summary("partition_score", shapes + zoo_rows, main_launches, TPU_KERNEL,
+                variant=SCORE_VARIANT, floor_ms=shapes[0]["floor_ms"],
+                stream=stream_summary(shapes[-1]), zoo_shapes=zoo_shapes,
+                zoo_launches={path: n[0] for path, n in zoo_paths.items() if n[0]}),
         summary("partition_score_sharded", sharded_shapes, sharded_launches, TPU_KERNEL_SHARDED,
                 variant=SCORE_VARIANT, floor_ms=sharded_shapes[0]["floor_ms"],
-                stream=stream_summary(sharded_shapes[-1])),
+                stream=stream_summary(sharded_shapes[-1]),
+                zoo_launches={path: n[1] for path, n in zoo_paths.items() if n[1]}),
         summary("ell_spmv", spmv_shapes, spmv_launches, TPU_KERNEL_SPMV, SPMV_SOURCE,
                 variant=SPMV_VARIANT, gb_per_s=spmv_shapes[0]["gb_per_s"]),
         summary("flash_attention", flash_shapes, lm_launches["flash_attention"],

@@ -1,5 +1,5 @@
-"""Analytic workload cost model (port of ``repro.analytics.costmodel``,
-its edge-cut branch; paper Table IV / Fig. 2 analogue).
+"""Analytic workload cost model (port of ``repro.analytics.costmodel``;
+paper Table IV / Fig. 2 analogue).
 
 Modelled per-iteration time =
     max_p(compute_p) + max_p(network_p) + overhead
@@ -9,14 +9,14 @@ with
 
 Edge-cut (vertex-partitioned) engines with sender-side aggregation send each
 vertex once per remote partition containing a neighbour (Σ_u D(u) messages -
-the paper's communication volume).
+the paper's communication volume). Vertex-cut (edge-partitioned) engines
+(HDRF/Ginger) sync each replicated vertex mirror->master and back:
+2 * (|A(v)| - 1) messages per vertex per iteration.
 
 :class:`CostModel`'s defaults are the reference's model parameters, kept
 unchanged so that ``mode="model"`` gives the reference's numbers. They are
 parameters of a model, not a measurement of any device, this card included:
-a time from :func:`workload_cost` is modelled, never measured. The
-vertex-cut branch (edge partitions with replicas and masters) arrives with
-the partitioner-zoo slice of the port, which brings ``EdgePartition``.
+a time from :func:`workload_cost` is modelled, never measured.
 """
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ import dataclasses
 
 import numpy as np
 
+from repro_torch.core.hdrf import EdgePartition
 from repro_torch.graph.csr import CSRGraph
 
 __all__ = ["CostModel", "workload_cost"]
@@ -59,24 +60,31 @@ def workload_cost(
     iters: int,
     model: CostModel | None = None,
 ) -> dict:
-    """``assignment`` is a vertex partition array (edge-cut engines). A
-    vertex-cut edge partition raises ``NotImplementedError`` until the
-    partitioner-zoo slice of the port."""
+    """``assignment`` is either a vertex partition array (edge-cut engines)
+    or an :class:`~repro_torch.core.hdrf.EdgePartition` (vertex-cut
+    engines)."""
     model = model or CostModel()
-    if hasattr(assignment, "replicas") or hasattr(assignment, "masters"):
-        raise NotImplementedError(
-            "vertex-cut cost model: edge partitions arrive with the "
-            "partitioner-zoo slice of the port"
-        )
-    part = np.asarray(assignment)
-    if part.shape != (graph.num_vertices,):
-        raise ValueError(
-            f"assignment has shape {part.shape}, expected ({graph.num_vertices},): "
-            "a vertex partition array"
-        )
-    deg = graph.degrees.astype(np.float64)
-    edges_per_worker = np.bincount(part, weights=deg, minlength=k)
-    sent, recv = _edge_cut_traffic(graph, part, k)
+    if isinstance(assignment, EdgePartition):
+        edges_per_worker = assignment.edge_counts.astype(np.float64)
+        reps = assignment.replicas.sum(axis=1).astype(np.float64)
+        # mirrors -> master partial aggregates, then master -> mirrors values
+        v_msgs = 2.0 * np.maximum(reps - 1.0, 0.0)
+        # attribute send/recv to the master's partition (upper bound on the
+        # hot worker; mirrors' traffic is spread across their partitions)
+        sent = np.bincount(
+            assignment.masters, weights=v_msgs, minlength=k
+        ).astype(np.float64)
+        recv = sent.copy()
+    else:
+        part = np.asarray(assignment)
+        if part.shape != (graph.num_vertices,):
+            raise ValueError(
+                f"assignment has shape {part.shape}, expected "
+                f"({graph.num_vertices},): a vertex partition array"
+            )
+        deg = graph.degrees.astype(np.float64)
+        edges_per_worker = np.bincount(part, weights=deg, minlength=k)
+        sent, recv = _edge_cut_traffic(graph, part, k)
 
     compute_s = edges_per_worker.max() / model.edge_rate
     network_s = (sent + recv).max() * model.msg_bytes / model.bandwidth

@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import TYPE_CHECKING
+from typing import TYPE_CHECKING, Any
 
 import numpy as np
 import torch
@@ -22,8 +22,11 @@ __all__ = ["PartitionResult"]
 
 @dataclasses.dataclass(eq=False)  # ndarray fields make generated __eq__ raise
 class PartitionResult:
-    """``assignment`` is the vertex->partition array (int32[|V|]) the
-    algorithm returned; ``device`` is where the run and the quality scans
+    """``assignment`` is the algorithm's native output: the vertex->partition
+    array (int32[|V|]) for edge-cut algorithms, the edge->partition array
+    (over ``graph.edges_array()``) for vertex-cut ones, whose full
+    :class:`~repro_torch.core.hdrf.EdgePartition` (replicas, masters) is
+    ``edge_partition``. ``device`` is where the run and the quality scans
     execute."""
 
     spec: PartitionSpec
@@ -32,12 +35,17 @@ class PartitionResult:
     device: torch.device
     timings: dict = dataclasses.field(default_factory=dict)
     telemetry: dict = dataclasses.field(default_factory=dict)
+    edge_partition: Any = None
     _quality: dict | None = dataclasses.field(default=None, repr=False)
     _localized: LocalizedGraph | None = dataclasses.field(default=None, repr=False)
 
     @property
     def k(self) -> int:
         return self.spec.k
+
+    @property
+    def is_vertex_cut(self) -> bool:
+        return self.edge_partition is not None
 
     @property
     def profile(self) -> dict | None:
@@ -47,16 +55,35 @@ class PartitionResult:
         per-superstep rows. See :mod:`repro_torch.core.profile`."""
         return self.telemetry.get("profile")
 
-    def quality(self) -> dict:
-        """Lazily computed + cached λ_EC / λ_CV / imbalances, scanned on
-        ``device`` (:func:`repro_torch.graph.metrics.quality_report`)."""
-        if self._quality is None:
-            from repro_torch.graph.metrics import quality_report
+    def vertex_assignment(self) -> np.ndarray:
+        """A vertex->partition view: the assignment itself for edge-cut
+        results, replica *masters* for vertex-cut results."""
+        if self.is_vertex_cut:
+            return np.asarray(self.edge_partition.masters)
+        return self.assignment
 
-            self._quality = {
-                "kind": "edge-cut",
-                **quality_report(self.graph, self.assignment, self.k, self.device),
-            }
+    def quality(self) -> dict:
+        """Lazily computed + cached quality metrics. Edge-cut results: λ_EC /
+        λ_CV / imbalances, scanned on ``device``
+        (:func:`repro_torch.graph.metrics.quality_report`). Vertex-cut
+        results: replication factor + edge imbalance (host numpy over the
+        edge partition)."""
+        if self._quality is None:
+            if self.is_vertex_cut:
+                ep = self.edge_partition
+                self._quality = {
+                    "kind": "vertex-cut",
+                    "k": self.k,
+                    "replication_factor": float(ep.replication_factor),
+                    "edge_imbalance": float(ep.edge_imbalance()),
+                }
+            else:
+                from repro_torch.graph.metrics import quality_report
+
+                self._quality = {
+                    "kind": "edge-cut",
+                    **quality_report(self.graph, self.assignment, self.k, self.device),
+                }
         return self._quality
 
     # ------------------------------------------------------------- analytics
@@ -81,8 +108,10 @@ class PartitionResult:
         """Run the paper's analytics study on this partition.
 
         ``mode="model"``: the reference's cost model, with the reference's
-        parameters; its times are modelled, not measured on any device.
-        ``mode="simulated"``: run the vertex-program engine on ``device``
+        parameters (edge-cut and vertex-cut results alike); its times are
+        modelled, not measured on any device.
+        ``mode="simulated"`` (edge-cut results only): run the vertex-program
+        engine on ``device``
         (the K devices on the leading axis of one card's arrays) and report
         its halo traffic; ``seconds`` is the wall time of the run, the card
         synchronised before the clock stops. ``values`` is float32[|V|].
@@ -90,13 +119,19 @@ class PartitionResult:
         if mode == "model":
             from repro_torch.analytics import workload_cost
 
+            target = self.edge_partition if self.is_vertex_cut else self.assignment
             return {
                 "mode": "model",
                 "program": program,
-                **workload_cost(self.graph, self.assignment, self.k, iters),
+                **workload_cost(self.graph, target, self.k, iters),
             }
         if mode != "simulated":
             raise ValueError(f"unknown analytics mode {mode!r}")
+        if self.is_vertex_cut:
+            raise ValueError(
+                "simulated analytics needs a vertex partition; "
+                "vertex-cut results only support mode='model'"
+            )
         from repro_torch.analytics import PROGRAMS, GraphEngine
 
         if program not in PROGRAMS:

@@ -2,7 +2,10 @@
 
 Port of ``repro.api.runner``. Keyword arguments are built from the registry
 entry, so a spec run calls the partitioner exactly as a hand-written call
-would; assignments equal the reference's under the same spec.
+would; assignments (and a vertex-cut run's edge partition) equal the
+reference's under the same spec. The device is resolved before anything
+else, so a request for a missing card raises for every algorithm, the host
+ones (``random``, ``hdrf``, the per-vertex ``*-legacy`` loops) included.
 """
 from __future__ import annotations
 
@@ -48,6 +51,9 @@ def partition(
     per-superstep phase timings, see ``PartitionResult.profile``) and, when
     ``num_shards=0``/``"auto"`` or ``chunk=0`` was requested,
     ``telemetry["autotune"]`` recording the resolved knobs and their source.
+    Vertex-cut algorithms (``hdrf``, ``ginger``) return their
+    :class:`~repro_torch.core.hdrf.EdgePartition` as
+    ``result.edge_partition``; ``result.assignment`` is its ``edge_part``.
     """
     device = resolve_device(device)
     if spec is None and isinstance(graph, (PartitionSpec, dict, str)):
@@ -73,13 +79,19 @@ def partition(
 
         graph = load_source(spec.source, seed=spec.seed)
     info = get_info(spec.algo)
+    kwargs = build_spec_kwargs(info, spec)
     telemetry: dict = {}
+    if info.telemetry:
+        kwargs["telemetry"] = telemetry
     t0 = time.perf_counter()
-    out = info.resolve()(
-        graph, spec.k, telemetry=telemetry, device=device,
-        **build_spec_kwargs(info, spec),
-    )
+    out = info.resolve()(graph, spec.k, device=device, **kwargs)
     timings = {"total_s": time.perf_counter() - t0}
+    edge_partition = None
+    if info.kind == "vertex-cut":
+        edge_partition = out
+        assignment = np.asarray(out.edge_part)
+    else:
+        assignment = np.asarray(out)
     for key in _TIMING_KEYS:
         if key in telemetry:
             timings[key] = telemetry.pop(key)
@@ -91,8 +103,9 @@ def partition(
     return PartitionResult(
         spec=spec,
         graph=graph,
-        assignment=np.asarray(out),
+        assignment=assignment,
         device=device,
         timings=timings,
         telemetry=telemetry,
+        edge_partition=edge_partition,
     )

@@ -2,9 +2,11 @@
 
 Port of ``repro.api.spec``. A spec fully determines a run (algorithm, K,
 balance condition, stream order, seed, per-algorithm knobs) and is validated
-at construction against the registry, so an invalid or not-yet-ported
-request fails before any graph is streamed. The JSON form is the
-reference's, so one spec file drives both packages.
+at construction against the registry with the reference's rules and
+messages, so an invalid request fails before any graph is streamed. The
+JSON form is the reference's, so one spec file drives both packages. Two
+requests valid in the reference still fail here until the port's
+out-of-core slice: an on-disk ``source`` and ``prefetch="on"``.
 """
 from __future__ import annotations
 
@@ -13,23 +15,27 @@ import json
 from typing import Any
 
 from repro_torch.api.registry import PartitionerInfo, get_info
+from repro_torch.core.priority import BUFFER_STRATEGIES
 
 __all__ = ["PartitionSpec", "STREAM_ORDERS"]
 
 STREAM_ORDERS = ("natural", "random", "bfs", "dfs")
 _BALANCE_MODES = ("vertex", "edge")
+# cuttana-buffcut is *defined* as the prioritized variant (eq6 spells
+# algo="cuttana"), and the preserved seed loop only implements Eq. 6.
+_STRATEGY_CHOICES = {
+    "cuttana-buffcut": ("completeness", "gain"),
+    "cuttana-legacy": ("eq6",),
+}
 
 
 @dataclasses.dataclass(frozen=True)
 class PartitionSpec:
     """Declarative request: ``partition(graph, spec) -> PartitionResult``.
 
-    ``params`` may be the algorithm's typed params dataclass, a plain dict of
-    its fields, or None (defaults); it is normalized to the typed block.
-    ``source`` names the graph when the caller passes none:
-    ``"rmat:<n>[:<avg_degree>]"`` or ``"dataset:<name>"``.
-    ``replication_budget`` is the serving layer's knob, carried so specs
-    round-trip with the reference; nothing in this slice reads it.
+    ``params`` may be given as the algorithm's typed params dataclass, a
+    plain dict of its fields, or None (defaults); it is normalized to the
+    typed block at construction so equality and JSON round-trips are exact.
     """
 
     algo: str
@@ -39,7 +45,13 @@ class PartitionSpec:
     order: str = "natural"
     seed: int = 0
     params: Any = None
+    # where the graph comes from when the caller does not pass one:
+    # "rmat:<n>[:<avg_degree>]" or "dataset:<name>" (on-disk graphs arrive
+    # with the port's out-of-core slice). None means the caller supplies
+    # the graph object.
     source: str | None = None
+    # the serving layer's replica budget, carried so specs round-trip with
+    # the reference; nothing in the port reads it yet
     replication_budget: float = 0.0
 
     def __post_init__(self) -> None:
@@ -59,11 +71,31 @@ class PartitionSpec:
                 f"unknown balance_mode {self.balance_mode!r}; "
                 f"expected one of {_BALANCE_MODES}"
             )
+        if info.balance_modes and self.balance_mode not in info.balance_modes:
+            raise ValueError(
+                f"{self.algo!r} supports balance modes {info.balance_modes}, "
+                f"got {self.balance_mode!r}"
+            )
         if self.order not in STREAM_ORDERS:
             raise ValueError(
                 f"unknown stream order {self.order!r}; expected one of "
                 f"{STREAM_ORDERS}"
             )
+        # a knob the algorithm does not consume must stay at its default -
+        # otherwise two different specs would silently produce the same run
+        # (seed is exempt: "may not matter" is its understood contract)
+        for name in ("epsilon", "balance_mode", "order"):
+            applicable = name in info.common or (
+                name == "balance_mode" and bool(info.balance_modes)
+            )
+            if not applicable:
+                default = type(self).__dataclass_fields__[name].default
+                if getattr(self, name) != default:
+                    raise ValueError(
+                        f"{self.algo!r} does not use {name!r} "
+                        f"(accepted spec fields: {info.common or ('none',)}); "
+                        f"leave it at its default {default!r}"
+                    )
         if (
             not isinstance(self.replication_budget, (int, float))
             or isinstance(self.replication_budget, bool)
@@ -79,6 +111,11 @@ class PartitionSpec:
             validate_source(self.source)
         object.__setattr__(self, "params", _normalize_params(info, self.params))
 
+    # ------------------------------------------------------------ properties
+    @property
+    def info(self) -> PartitionerInfo:
+        return get_info(self.algo)
+
     # --------------------------------------------------------- serialization
     def to_dict(self) -> dict:
         d = {
@@ -93,7 +130,8 @@ class PartitionSpec:
             d["source"] = self.source
         if self.replication_budget != 0:
             d["replication_budget"] = self.replication_budget
-        d["params"] = dataclasses.asdict(self.params)
+        if self.params is not None:
+            d["params"] = dataclasses.asdict(self.params)
         return d
 
     @classmethod
@@ -125,6 +163,10 @@ class PartitionSpec:
 
 def _normalize_params(info: PartitionerInfo, params: Any):
     cls = info.params_cls
+    if cls is None:
+        if params is None or params == {}:
+            return None
+        raise ValueError(f"{info.name!r} takes no per-algorithm params")
     if params is None:
         return cls()
     if isinstance(params, cls):
@@ -149,23 +191,30 @@ def _normalize_params(info: PartitionerInfo, params: Any):
 
 
 # field annotations in the params blocks (all from-__future__ strings)
-_FIELD_TYPES = {"int": int, "float": (int, float), "bool": bool, "str": str}
-# algorithms whose chunk may be 0: resolved through the auto-tuner
-_AUTO_CHUNK = ("cuttana-parallel", "fennel-parallel")
+_FIELD_TYPES = {
+    "int": int,
+    "float": (int, float),
+    "bool": bool,
+    "str": str,
+}
 
 
 def _check_param_types(info: PartitionerInfo, block: Any):
-    """Field-by-field value typing, so a bad spec fails at construction."""
+    """Field-by-field value typing, so a bad spec (e.g. ``d_max: "big"`` in a
+    hand-edited JSON) fails at construction, not mid-stream."""
     for field in dataclasses.fields(block):
         value = getattr(block, field.name)
         ann = field.type
+        allow_none = "None" in ann
         if value is None:
-            if "None" in ann:
+            if allow_none:
                 continue
             raise ValueError(
                 f"{info.name!r} param {field.name!r} must be {ann}, got None"
             )
-        expected = _FIELD_TYPES[ann.split(" |")[0].strip()]
+        expected = _FIELD_TYPES.get(ann.split(" |")[0].strip())
+        if expected is None:  # unmapped annotation: leave it to the callee
+            continue
         ok = isinstance(value, expected)
         if expected is not bool and isinstance(value, bool):
             ok = False  # bool passes isinstance(int) but is never a knob value
@@ -176,7 +225,8 @@ def _check_param_types(info: PartitionerInfo, block: Any):
             )
         if field.name == "num_shards" and value < 0:
             # 0 (spec sugar: "auto") resolves through the tuning artifact at
-            # run time; anything negative is a caller error
+            # run time; anything negative is always a caller error - fail at
+            # spec construction, not mid-stream
             raise ValueError(
                 f"{info.name!r} param 'num_shards' must be >= 1, "
                 f"or 0/'auto' for the tuned shard count, got {value!r}"
@@ -186,15 +236,51 @@ def _check_param_types(info: PartitionerInfo, block: Any):
                 f"{info.name!r} param 'max_workers' must be >= 0 "
                 f"(0 = one thread per shard up to cpu_count), got {value!r}"
             )
-    from repro_torch.core.engine import EngineConfig
+        if field.name == "chunk":
+            auto_ok = info.name in ("cuttana-parallel", "fennel-parallel")
+            if value < (0 if auto_ok else 1):
+                hint = " or 0 for the tuned chunk size" if auto_ok else ""
+                raise ValueError(
+                    f"{info.name!r} param 'chunk' must be >= 1{hint}, "
+                    f"got {value!r}"
+                )
+        if field.name == "prefetch" and value not in ("auto", "on", "off"):
+            raise ValueError(
+                f"{info.name!r} param 'prefetch' must be one of "
+                f"'auto', 'on', 'off', got {value!r}"
+            )
+        if field.name == "prefetch" and value == "on":
+            from repro_torch.core.engine import EngineConfig
 
-    # every ported block has a chunk; EngineConfig raises for chunk < 1 and
-    # for prefetch outside auto/on/off or "on" (not ported yet). A chunk of
-    # 0 is "auto" for the _AUTO_CHUNK algorithms, resolved at run time.
-    chunk = 1 if block.chunk == 0 and info.name in _AUTO_CHUNK else block.chunk
-    EngineConfig(chunk=chunk, prefetch=getattr(block, "prefetch", "auto"))
-    if hasattr(block, "strategy"):
-        from repro_torch.core.priority import make_priority
-
-        make_priority(block.strategy, 1)  # raises for unknown / unported names
+            EngineConfig(prefetch=value)  # raises: no out-of-core graphs yet
+        if field.name == "strategy":
+            allowed = _STRATEGY_CHOICES.get(info.name, BUFFER_STRATEGIES)
+            if value not in allowed:
+                raise ValueError(
+                    f"{info.name!r} param 'strategy' must be one of "
+                    f"{allowed}, got {value!r}"
+                )
+        if field.name == "num_batches" and value < 1:
+            raise ValueError(
+                f"{info.name!r} param 'num_batches' must be >= 1, got {value!r}"
+            )
+        if field.name == "drift_threshold" and value < 0:
+            raise ValueError(
+                f"{info.name!r} param 'drift_threshold' must be >= 0, "
+                f"got {value!r}"
+            )
+        if field.name == "window_frac" and not (0 < value <= 1):
+            raise ValueError(
+                f"{info.name!r} param 'window_frac' must be in (0, 1], "
+                f"got {value!r}"
+            )
+        if field.name == "hub_degree" and value < 2:
+            raise ValueError(
+                f"{info.name!r} param 'hub_degree' must be >= 2, got {value!r}"
+            )
+        if field.name == "cluster_cap_frac" and not (0 < value <= 1):
+            raise ValueError(
+                f"{info.name!r} param 'cluster_cap_frac' must be in (0, 1], "
+                f"got {value!r}"
+            )
     return block

@@ -1,1 +1,2 @@
-"""Streaming partitioners: shared state, the engine, FENNEL, LDG, CUTTANA."""
+"""Streaming partitioners: shared state, the engine, and the zoo the
+registry (:mod:`repro_torch.api.registry`) names."""

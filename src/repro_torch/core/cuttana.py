@@ -1,7 +1,9 @@
 """CUTTANA: prioritized buffered streaming + coarsened refinement (paper §III).
 
-Port of ``repro.core.cuttana``: :func:`partition`, its phase 2, and
-:func:`refine_any` (phase 2 applied to any partitioner's output).
+Port of ``repro.core.cuttana``: :func:`partition`, its phase 2,
+:func:`partition_buffcut` (``cuttana-buffcut``: the same engine under the
+``gain`` or ``completeness`` eviction priority) and :func:`refine_any`
+(phase 2 applied to any partitioner's output).
 
 Phase 1 (Algorithm 1) runs through
 :class:`repro_torch.core.engine.StreamEngine`: ``use_buffer=True`` selects
@@ -31,7 +33,7 @@ from repro_torch.core.engine import (
     StreamEngine,
 )
 from repro_torch.core.refinement import Refiner, build_subpartition_graph
-from repro_torch.core.subpartition import SubPartitioner
+from repro_torch.core.subpartition import SubPartitioner, phase2_subpartitioner
 from repro_torch.device import resolve_device
 from repro_torch.graph.csr import CSRGraph
 
@@ -106,13 +108,9 @@ def partition(
         else ImmediatePolicy()
     )
     state = PartitionState.create(graph, k, epsilon, balance_mode, seed, device=device)
-    subp = SubPartitioner(
-        graph,
-        k,
-        subparts_per_partition,
-        epsilon=max(epsilon, 0.10),
-        balance_mode=balance_mode,
-        seed=seed,
+    refine = use_refinement and k > 1
+    subp = phase2_subpartitioner(
+        graph, k, subparts_per_partition, refine, epsilon, balance_mode, seed
     )
     t0 = time.perf_counter()
     engine = StreamEngine(
@@ -131,7 +129,7 @@ def partition(
     part = finalize(state)
     t1 = time.perf_counter()
     moves, improvement = 0, 0.0
-    if use_refinement and k > 1:
+    if refine:
         part, moves, improvement = _phase2_refine(
             graph, subp, k, epsilon, balance_mode, thresh, max_moves, device
         )
@@ -144,7 +142,7 @@ def partition(
             phase2_seconds=phase2_s,
             refine_moves=moves,
             refine_improvement=improvement,
-            subpartitions=int(subp.kp),
+            subpartitions=k * int(subparts_per_partition),
         )
     return part
 
@@ -181,3 +179,39 @@ def refine_any(
         graph, subp, k, epsilon, balance_mode, thresh, None, device
     )
     return refined
+
+
+def partition_buffcut(
+    graph: CSRGraph,
+    k: int,
+    epsilon: float = 0.05,
+    balance_mode: str = "edge",
+    d_max: int = 1000,
+    strategy: str = "gain",
+    max_qsize: int | None = None,
+    theta: float = 1.0,
+    subparts_per_partition: int | None = None,
+    use_refinement: bool = True,
+    thresh: float = 0.0,
+    max_moves: int | None = None,
+    order: str = "natural",
+    seed: int = 0,
+    chunk: int = 512,
+    prefetch: str = "auto",
+    telemetry: dict | None = None,
+    *,
+    device: str | torch.device | None = None,
+) -> np.ndarray:
+    """``cuttana-buffcut``: CUTTANA's engine with a prioritized (non-Eq.-6)
+    buffer-eviction strategy - ``"gain"`` (default) or ``"completeness"``.
+    The spec layer rejects ``strategy="eq6"`` here (that spec spells
+    ``algo="cuttana"``); this entry point exists so the variant's own
+    defaults are the callable's defaults."""
+    return partition(
+        graph, k, epsilon=epsilon, balance_mode=balance_mode, d_max=d_max,
+        max_qsize=max_qsize, theta=theta,
+        subparts_per_partition=subparts_per_partition,
+        use_refinement=use_refinement, thresh=thresh, max_moves=max_moves,
+        order=order, seed=seed, chunk=chunk, prefetch=prefetch,
+        strategy=strategy, telemetry=telemetry, device=device,
+    )

@@ -1,5 +1,6 @@
-"""Batched streaming engine: one scoring core for FENNEL, LDG and CUTTANA,
-sequential and sharded.
+"""Batched streaming engine: one scoring core for every engine-backed
+partitioner (FENNEL, LDG, CUTTANA and its variants, HeiStream, the
+incremental engine), sequential and sharded.
 
 Port of ``repro.core.engine``: scorers, :class:`EngineConfig`,
 :class:`ImmediatePolicy` (with the restreaming ``reassign`` mode),
@@ -14,6 +15,9 @@ come from ONE call of the partition-score kernel
 rows and the ``part_of`` mirror directly on the device. A host loop then
 places the chunk's vertices in stream order, correcting the histograms for
 in-chunk neighbours, so assignments are bit-identical to the reference.
+With ``EngineConfig(exact=False)`` (``cuttana-batched``) the histograms stay
+one chunk stale, and rows above ``sample_cap`` neighbours are scored on a
+seeded sample through one more launch, of the kernel's dense entry.
 
 The sharded policies run S interleaved shard frontiers per superstep. ONE
 call of the sharded partition-score kernel per superstep histograms every
@@ -29,10 +33,13 @@ What lives where, and why:
   inputs and outputs. The immediate policy writes each chunk's placements
   into the mirror before the next launch; the sharded policies write each
   superstep's placements into it at the boundary exchange, before the next
-  superstep's launch. The buffered policy places one vertex at a time on the
-  host and syncs the whole mirror once when it ends.
+  superstep's launch. An ``on_chunk_end`` hook (HeiStream's FM passes) may
+  move the chunk's vertices on the host; the chunk's rows are written into
+  the mirror after it. The buffered policy places one vertex at a time on
+  the host and syncs the whole mirror once when it ends.
 * On the host, in numpy as in the reference: the placement loops, the
-  priority buffers and their Eq. 6 priority, the sub-partitioner, and the
+  priority buffers and their eviction priorities (Eq. 6, ``gain``,
+  ``completeness``), the sub-partitioner, the sampled rows' draws and the
   tie-break generator. Each placement depends on the one before it; a torch
   op per vertex would cost a launch plus a device-to-host sync per vertex,
   10-100x the numpy cost.
@@ -61,6 +68,7 @@ from repro_torch.core.subpartition import SubPartitioner
 from repro_torch.graph.csr import CSRGraph
 from repro_torch.graph.stream import ShardedStream, stream_order
 from repro_torch.kernels.partition_score.ops import (
+    fennel_scores,
     fennel_scores_gather,
     fennel_scores_sharded_gather,
 )
@@ -215,6 +223,13 @@ class LDGScorer:
 class EngineConfig:
     """Chunking knobs for the scoring core.
 
+    ``exact=True``: in-chunk histogram corrections, no sampling - results
+    match the reference's sequential loops bit for bit. ``exact=False``
+    (``cuttana-batched``): histograms stale by one chunk, and rows above
+    ``sample_cap`` neighbours scored on a seeded uniform sample of
+    ``sample_cap`` of them, the counts rescaled by ``degree / sample_cap``
+    (``sample_cap`` is only read in this mode).
+
     ``max_workers`` threads run the sharded policies' per-shard superstep
     tasks (``None``/``0`` = auto: ``min(num_shards, cpu_count)``); results
     are bit-identical for every worker count because shard tasks write
@@ -232,6 +247,8 @@ class EngineConfig:
     prefetch: str = "auto"
     max_workers: int | None = None
     wave: int = 128
+    sample_cap: int = 512
+    exact: bool = True
 
     def __post_init__(self) -> None:
         if self.prefetch not in ("auto", "on", "off"):
@@ -245,6 +262,8 @@ class EngineConfig:
             )
         if self.chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {self.chunk}")
+        if self.sample_cap < 1:
+            raise ValueError(f"sample_cap must be >= 1, got {self.sample_cap}")
 
 
 # ----------------------------------------------------------------- policies
@@ -282,6 +301,7 @@ class ImmediatePolicy:
         cap = state.vertex_capacity if vertex_mode else state.edge_capacity
         neg_inf = float("-inf")
         sc = [neg_inf] * k  # per-vertex score buffer (neg_inf == disallowed)
+        hook = eng.on_chunk_end
         for start, batch, degs, expanded in _iter_chunk_expansions(eng):
             nbr_views = _chunk_views(expanded[1], degs) if subp is not None else None
             H, corr = eng.chunk_histograms(start, batch, expanded)
@@ -294,7 +314,7 @@ class ImmediatePolicy:
             v_list = v_counts.tolist()
             e_list = e_counts.tolist()
             load = v_list if vertex_mode else e_list
-            dst, starts = corr
+            dst, starts = corr if corr is not None else (None, None)
             for i in range(len(bl)):
                 v, deg = bl[i], dl[i]
                 cur = -1
@@ -344,7 +364,7 @@ class ImmediatePolicy:
                 add[p] = u[1]
                 if subp is not None:
                     subp.assign(v, p, nbr_views[i], deg)
-                if p != cur:
+                if corr is not None and p != cur:
                     if reassign:
                         for j in dst[starts[i] : starts[i + 1]]:
                             rj = H[j]
@@ -357,6 +377,11 @@ class ImmediatePolicy:
             part_of[batch] = assigned
             v_counts[:] = v_list
             e_counts[:] = e_list
+            if hook is not None:
+                # the hook (HeiStream's FM passes) may move the chunk's own
+                # vertices on the host; the mirror takes the rows it leaves
+                hook(eng, batch)
+                assigned = part_of[batch]
             eng.flush_chunk(start, batch.shape[0], assigned)
 
 
@@ -383,19 +408,19 @@ class BufferedPolicy:
 
     def run(self, eng: "StreamEngine") -> None:
         state = eng.state
-        buf = PriorityBuffer(
-            self.max_qsize, eng.graph, make_priority(self.strategy, self.d_max, self.theta)
-        )
+        prio = make_priority(self.strategy, self.d_max, self.theta)
+        buf = PriorityBuffer(self.max_qsize, graph=eng.graph, priority=prio)
         part_of = state.part_of
         d_max = self.d_max
+        track = prio.tracks_parts
         stats = BufferStats()
 
         def cascade(v: int, nbrs: np.ndarray) -> None:
             worklist = [(v, nbrs)]
             while worklist:
                 u, un = worklist.pop()
-                eng.place(u, un)
-                for w in buf.notify_many(un):
+                p = eng.place(u, un)
+                for w in buf.notify_many(un, p if track else None):
                     worklist.append((w, buf.remove(w)))
 
         for _, batch, degs, expanded in _iter_chunk_expansions(eng):
@@ -408,11 +433,12 @@ class BufferedPolicy:
                     stats.bypass += 1
                     cascade(v, nbrs)
                     continue
-                assigned = int((part_of[nbrs] != -1).sum())
+                nbr_parts = part_of[nbrs]
+                assigned = int((nbr_parts != -1).sum())
                 if assigned == nbrs.size and nbrs.size > 0:
                     cascade(v, nbrs)  # complete already
                     continue
-                buf.push(v, assigned)
+                buf.push(v, nbrs, assigned, nbr_parts if track else None)
                 stats.observe_len(len(buf))
                 if buf.full:
                     u, un = buf.pop_best()
@@ -764,10 +790,13 @@ class _SuperstepRunner:
         """Score + place all shards' candidates concurrently, commit at the
         boundary via a vectorised reduction.
 
-        Returns the flat neighbour-id array of everything placed when
-        ``need_cols`` (the buffered policy notifies every shard buffer with
-        it), else the placed vertex ids; None when the superstep had no
-        candidates (and then it launches nothing).
+        Returns, when ``need_cols``, a ``(cols, parts)`` pair: the flat
+        neighbour-id array of everything placed (the buffered policy
+        notifies every shard buffer with it) and ``parts[j]``, the partition
+        the owner of neighbour slot ``j`` was just placed in (read by
+        partition-tracking buffer strategies); else the placed vertex ids;
+        None when the superstep had no candidates (and then it launches
+        nothing).
         """
         eng = self.eng
         state = eng.state
@@ -870,7 +899,16 @@ class _SuperstepRunner:
             parallel_wall=parallel_wall,
         )
         if self.need_cols:
-            return np.concatenate([p.cols for p in live])
+            cols_all = np.concatenate([p.cols for p in live])
+            # partition of the *placer*, aligned with its neighbour slots
+            parts_all = np.concatenate(
+                [
+                    assigned_flat[starts[s] : bounds[s]][p.rows]
+                    for s, p in enumerate(preps)
+                    if p is not None
+                ]
+            )
+            return cols_all, parts_all
         return big
 
     def finalize_telemetry(self) -> None:
@@ -964,6 +1002,7 @@ class ShardedBufferedPolicy:
         self.max_qsize = int(max_qsize)
         prio = make_priority(strategy, d_max, theta)  # validates the name
         self.strategy = prio.name
+        self.tracks_parts = prio.tracks_parts
         self.d_max = prio.d_max
         self.theta = prio.theta
 
@@ -979,11 +1018,14 @@ class ShardedBufferedPolicy:
         indptr, indices = graph.indptr, graph.indices
         part_of = eng.state.part_of
         sharded = ShardedStream.from_ids(eng.ids, num_shards)
+        track = self.tracks_parts
         runner = _SuperstepRunner(eng, sharded, need_cols=True)
         chunk = max(int(eng.config.chunk), 1)
         bufs = [
             PriorityBuffer(
-                self.max_qsize, graph, make_priority(self.strategy, self.d_max, self.theta)
+                self.max_qsize,
+                graph=graph,
+                priority=make_priority(self.strategy, self.d_max, self.theta),
             )
             for _ in range(num_shards)
         ]
@@ -1006,15 +1048,17 @@ class ShardedBufferedPolicy:
             if take.shape[0]:
                 tdegs = (indptr[take + 1] - indptr[take]).astype(np.int64)
                 trows, tcols = _expand_csr_batch(indptr, indices, take, tdegs)
-                asg = np.bincount(
-                    trows[part_of[tcols] != -1], minlength=take.shape[0]
-                )
+                tparts = part_of[tcols]
+                asg = np.bincount(trows[tparts != -1], minlength=take.shape[0])
                 byp = tdegs >= d_max
                 comp = (~byp) & (asg == tdegs) & (tdegs > 0)
                 tl = take.tolist()
                 al = asg.tolist()
                 bypl = byp.tolist()
                 compl = comp.tolist()
+                if track:
+                    toffs = np.zeros(take.shape[0] + 1, dtype=np.int64)
+                    np.cumsum(tdegs, out=toffs[1:])
                 for i in range(len(tl)):
                     if bypl[i]:
                         bypass_n += 1
@@ -1022,7 +1066,12 @@ class ShardedBufferedPolicy:
                     elif compl[i]:
                         cand.append(tl[i])
                     else:
-                        buf.push(tl[i], al[i])
+                        buf.push(
+                            tl[i],
+                            None,
+                            al[i],
+                            tparts[toffs[i] : toffs[i + 1]] if track else None,
+                        )
                 while buf.full:
                     u, _ = buf.pop_best()
                     evicted += 1
@@ -1041,13 +1090,13 @@ class ShardedBufferedPolicy:
                 evicted, drained_n, bypass_n, len(buf),
             )
 
-        def notify(s: int, placed_cols: np.ndarray):
+        def notify(s: int, placed_cols: np.ndarray, placed_parts=None):
             """Boundary: shard s's buffer learns about ALL placements.
             Mutates only shard s's buffer and pending slot."""
             buf = bufs[s]
             if not len(buf):
                 return
-            for w in buf.notify_many(placed_cols):
+            for w in buf.notify_many(placed_cols, placed_parts):
                 buf.remove(w)
                 pending[s].append(w)
 
@@ -1079,11 +1128,16 @@ class ShardedBufferedPolicy:
                     # no sync and no launch
                     runner.step += 1
                     continue
-                cols = runner.run_superstep(batches)
-                if cols is not None and cols.size:
+                res = runner.run_superstep(batches)
+                if res is None:
+                    continue
+                cols, placed_parts = res
+                if not track:
+                    placed_parts = None
+                if cols.size:
                     t1 = time.perf_counter()
                     for f in [
-                        runner.pool.submit(notify, s, cols)
+                        runner.pool.submit(notify, s, cols, placed_parts)
                         for s in range(num_shards)
                     ]:
                         f.result()
@@ -1100,8 +1154,12 @@ class StreamEngine:
 
     ``ids`` overrides the stream order (otherwise computed from
     ``order``/``seed``); ``subpartitioner`` hooks CUTTANA's Def. 2
-    sub-placement into every commit. The engine runs on the device of
-    ``state.part_of_dev``. ``prefetch_ahead`` is whether the sharded
+    sub-placement into every commit; ``on_chunk_end(engine, batch)`` runs
+    after each chunk of the immediate policy (HeiStream's
+    FM refinement): it may move the chunk's own vertices on the host, then
+    must call ``engine.scorer.begin(engine.state)``; the engine writes the
+    chunk's rows of ``part_of`` into the device mirror after it. The engine
+    runs on the device of ``state.part_of_dev``. ``prefetch_ahead`` is whether the sharded
     policies expand superstep t+1's frontier while t runs (``prefetch``
     ``"auto"``; ``"off"`` turns it off)."""
 
@@ -1117,6 +1175,7 @@ class StreamEngine:
         seed: int = 0,
         ids: np.ndarray | None = None,
         config: EngineConfig | None = None,
+        on_chunk_end=None,
     ):
         self.graph = graph
         self.state = state
@@ -1125,6 +1184,7 @@ class StreamEngine:
         self.subp = subpartitioner
         self.config = config or EngineConfig()
         self.ids = stream_order(graph, order, seed) if ids is None else ids
+        self.on_chunk_end = on_chunk_end
         # run counters surfaced in PartitionResult.telemetry: kernel_calls
         # counts chunk-histogram calls, single_place_calls the host-scored
         # placements (buffered policy); policies add their own
@@ -1137,6 +1197,8 @@ class StreamEngine:
         ).to(self.device)
         self._zero_sizes = torch.zeros(state.k, dtype=torch.float32, device=self.device)
         self._pos = np.full(graph.num_vertices, -1, dtype=np.int64)
+        # the sampled rows' draws (exact=False), the reference's stream
+        self._sample_rng = np.random.default_rng(seed)
 
     def run(self) -> PartitionState:
         self.scorer.begin(self.state)
@@ -1162,13 +1224,22 @@ class StreamEngine:
     # --------------------------------------------------- chunked histograms
     def chunk_histograms(self, start: int, batch: np.ndarray, expanded: tuple):
         """All C x K assigned-neighbour histograms of the chunk
-        ``ids[start:start+C]`` from one kernel call on the device.
+        ``ids[start:start+C]`` from one gather-entry launch on the device.
 
-        Returns ``(hist, (dst, starts))``: ``hist`` is a list of C rows of K
-        Python floats; for chunk position ``i``,
+        Returns ``(hist, corr)``: ``hist`` is a list of C rows of K Python
+        floats. ``corr`` is None in stale mode (``exact=False``), else
+        ``(dst, starts)``: for chunk position ``i``,
         ``dst[starts[i]:starts[i+1]]`` lists the later chunk positions that
         have ``batch[i]`` as a neighbour - the rows to bump when ``batch[i]``
-        is assigned."""
+        is assigned.
+
+        In stale mode the rows above ``sample_cap`` neighbours are scored on
+        a sample: each draws ``sample_cap`` of its neighbours from
+        ``_sample_rng`` (in row order, as the reference), their partitions
+        go as one ``[s, width]`` matrix through ONE dense-entry launch
+        (``width`` a power of two >= 8, padded with -1), and its rows replace
+        those of the gather result, which is then cast to float64 and
+        multiplied by ``degree / sample_cap``."""
         c = batch.shape[0]
         self.telemetry["kernel_calls"] += 1
         g = self._dgraph
@@ -1176,12 +1247,36 @@ class StreamEngine:
             g.indptr, g.indices, self.state.part_of_dev,
             self._ids_dev[start : start + c], self._zero_sizes, 0.0, 1.5,
         )
-        rows, cols = expanded
-        return hist.cpu().tolist(), self._inchunk_corr(batch, rows, cols)
+        cfg = self.config
+        if cfg.exact:
+            rows, cols = expanded
+            return hist.cpu().tolist(), self._inchunk_corr(batch, rows, cols)
+        w = cfg.sample_cap
+        indptr, indices = self.graph.indptr, self.graph.indices
+        over = np.flatnonzero(indptr[batch + 1] - indptr[batch] > w)
+        if over.size == 0:
+            return hist.cpu().tolist(), None
+        part_of = self.state.part_of  # the chunk-start state, as the mirror's
+        width = max(8, 1 << (w - 1).bit_length())
+        nbr_parts = np.full((over.size, width), -1, dtype=np.int32)
+        scale = np.empty(over.size, dtype=np.float64)
+        for j, i in enumerate(over.tolist()):
+            v = batch[i]
+            nb = indices[indptr[v] : indptr[v + 1]]
+            sel = self._sample_rng.choice(nb.size, size=w, replace=False)
+            nbr_parts[j, :w] = part_of[nb[sel]]
+            scale[j] = nb.size / w
+        hist[torch.from_numpy(over).to(self.device)] = fennel_scores(
+            torch.from_numpy(nbr_parts).to(self.device), self._zero_sizes, 0.0, 1.5
+        )
+        out = hist.cpu().numpy().astype(np.float64)
+        out[over] *= scale[:, None]
+        return out.tolist(), None
 
-    def flush_chunk(self, start: int, c: int, assigned: list[int]) -> None:
-        """Write a chunk's placements into the device mirror of ``part_of``."""
-        vals = torch.tensor(assigned, dtype=torch.int32).to(self.device)
+    def flush_chunk(self, start: int, c: int, assigned) -> None:
+        """Write a chunk's placements (a list or an array of C partitions)
+        into the device mirror of ``part_of``."""
+        vals = torch.as_tensor(assigned, dtype=torch.int32).to(self.device)
         self.state.part_of_dev[self._ids_dev[start : start + c]] = vals
 
     def _inchunk_corr(self, batch: np.ndarray, rows: np.ndarray, cols: np.ndarray):

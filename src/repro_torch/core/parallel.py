@@ -38,7 +38,7 @@ from repro_torch.core.engine import (
     ShardedImmediatePolicy,
     StreamEngine,
 )
-from repro_torch.core.subpartition import SubPartitioner
+from repro_torch.core.subpartition import phase2_subpartitioner
 from repro_torch.device import resolve_device
 from repro_torch.graph.csr import CSRGraph
 
@@ -114,13 +114,9 @@ def partition_parallel(
         chunk=chunk, prefetch=prefetch, max_workers=max_workers
     )
     state = PartitionState.create(graph, k, epsilon, balance_mode, seed, device=device)
-    subp = SubPartitioner(
-        graph,
-        k,
-        subparts_per_partition,
-        epsilon=max(epsilon, 0.10),
-        balance_mode=balance_mode,
-        seed=seed,
+    refine = use_refinement and k > 1
+    subp = phase2_subpartitioner(
+        graph, k, subparts_per_partition, refine, epsilon, balance_mode, seed
     )
     t0 = time.perf_counter()
     engine = StreamEngine(
@@ -139,7 +135,7 @@ def partition_parallel(
     part = finalize(state)
     t1 = time.perf_counter()
     moves, improvement = 0, 0.0
-    if use_refinement and k > 1:
+    if refine:
         # merge + coarsen + refine: the trade pass that reconciles the
         # shard-boundary vertices the relaxed supersteps mis-scored
         part, moves, improvement = _phase2_refine(
@@ -154,7 +150,7 @@ def partition_parallel(
             phase2_seconds=phase2_s,
             refine_moves=moves,
             refine_improvement=improvement,
-            subpartitions=int(subp.kp),
+            subpartitions=k * int(subparts_per_partition),
         )
     return part
 

@@ -1,7 +1,7 @@
 """Restreaming (Nishimura & Ugander; Awadelkarim & Ugander) with CUTTANA as
 the core partitioner (port of ``repro.core.restream``).
 
-Pass 1 runs any partitioner the port has registered; passes 2..n re-stream
+Pass 1 runs any registered edge-cut partitioner; passes 2..n re-stream
 vertices with the FULL previous assignment visible, reassigning each vertex
 greedily under the balance condition; an optional final refinement pass
 applies phase-2 trades (:func:`~repro_torch.core.cuttana.refine_any`).
@@ -65,13 +65,13 @@ def partition_restream(
             0, chunk, algo="restream", num_vertices=graph.num_vertices
         ).num_shards
     num_shards = _check_num_shards(num_shards)
-    # raises for an unported base, naming the slice that brings it
-    base_fn = get_info(base).resolve()
+    base_info = get_info(base, kind="edge-cut")
     t0 = time.perf_counter()
     base_telemetry: dict = {}
-    part = base_fn(
+    base_kwargs = {"telemetry": base_telemetry} if base_info.telemetry else {}
+    part = base_info.resolve()(
         graph, k, epsilon=epsilon, balance_mode=balance_mode,
-        order=order, seed=seed, telemetry=base_telemetry, device=device,
+        order=order, seed=seed, device=device, **base_kwargs,
     )
     base_s = time.perf_counter() - t0
     kernel_calls = base_telemetry.get("kernel_calls", 0)

@@ -173,3 +173,25 @@ class SubPartitioner:
                 sub_v += addv
                 sub_e += adde
             self.sub_of[vs[g0:g1]] = sp
+
+
+def phase2_subpartitioner(
+    graph: CSRGraph,
+    k: int,
+    subparts_per_partition: int,
+    refine: bool,
+    epsilon: float = 0.05,
+    balance_mode: str = "edge",
+    seed: int = 0,
+) -> SubPartitioner | None:
+    """The sub-placement a CUTTANA run builds in phase 1 for phase 2 to
+    refine, or None when the run does not refine. It feeds only phase 2 and
+    draws its ties from its own generator, so a run without refinement
+    skips it: the same assignment without a K'/K-wide host update per
+    placed vertex."""
+    if not refine:
+        return None
+    return SubPartitioner(
+        graph, k, subparts_per_partition,
+        epsilon=max(epsilon, 0.10), balance_mode=balance_mode, seed=seed,
+    )

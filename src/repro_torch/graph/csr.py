@@ -72,6 +72,14 @@ class CSRGraph:
     def neighbors(self, v: int) -> np.ndarray:
         return self.indices[self.indptr[v] : self.indptr[v + 1]]
 
+    def edges_array(self) -> np.ndarray:
+        """(|E|, 2) array with each undirected edge listed once (u < v), in
+        CSR order - the order vertex-cut ``edge_part`` arrays index."""
+        src = np.repeat(np.arange(self.num_vertices, dtype=np.int64), self.degrees)
+        dst = self.indices.astype(np.int64)
+        mask = src < dst
+        return np.stack([src[mask], dst[mask]], axis=1)
+
     # ---------------------------------------------------------------- device
     def to(self, device: torch.device) -> DeviceCSR:
         """The graph's arrays on ``device``, copied there on first use and

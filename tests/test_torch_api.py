@@ -67,23 +67,21 @@ def test_spec_json_round_trips_with_reference(algo):
 
 
 def test_unported_and_invalid_requests_raise():
-    with pytest.raises(ValueError, match="slice 4"):
-        tapi.PartitionSpec(algo="cuttana-incremental", k=4)
-    with pytest.raises(ValueError, match="slice 4"):
-        tapi.PartitionSpec(algo="hdrf", k=4)
+    # the zoo's specs are the reference's (they raised before the zoo was ported)
+    for fields in (dict(algo="cuttana-incremental", k=4), dict(algo="hdrf", k=4),
+                   dict(algo="cuttana", k=4, params={"strategy": "gain"})):
+        assert tapi.PartitionSpec(**fields).to_json() == rapi.PartitionSpec(**fields).to_json()
     with pytest.raises(ValueError, match="Did you mean 'fennel'"):
         tapi.PartitionSpec(algo="fenel", k=4)
     with pytest.raises(ValueError, match="slice 5"):
         tapi.PartitionSpec(algo="fennel", k=4, source="graphs/web.bin")
     with pytest.raises(ValueError, match="slice 5"):
         tapi.PartitionSpec(algo="fennel", k=4, params={"prefetch": "on"})
-    with pytest.raises(ValueError, match="slice 4"):
-        tapi.PartitionSpec(algo="cuttana", k=4, params={"strategy": "gain"})
-    with pytest.raises(ValueError, match="unknown buffer strategy"):
+    with pytest.raises(ValueError, match="param 'strategy' must be one of"):
         tapi.PartitionSpec(algo="cuttana", k=4, params={"strategy": "best"})
     with pytest.raises(ValueError, match="must be int"):
         tapi.PartitionSpec(algo="cuttana", k=4, params={"d_max": "big"})
-    with pytest.raises(ValueError, match="chunk must be >= 1"):
+    with pytest.raises(ValueError, match="param 'chunk' must be >= 1"):
         tapi.PartitionSpec(algo="ldg", k=4, params={"chunk": 0})
     with pytest.raises(ValueError, match="unknown dataset"):
         tapi.PartitionSpec(algo="ldg", k=4, source="dataset:nope")
@@ -95,13 +93,9 @@ def test_unported_and_invalid_requests_raise():
 
 @pytest.mark.parametrize("name", sorted(rapi.REGISTRY))
 def test_every_reference_algorithm_is_ported_or_names_its_slice(name):
-    """Slice 2 registers fennel-parallel, cuttana-parallel and
-    cuttana-restream; every other name of the reference still raises and
-    names the slice that brings it."""
-    slice2 = {"fennel-parallel", "cuttana-parallel", "cuttana-restream"}
-    if name in {"fennel", "ldg", "cuttana"} | slice2:
-        assert tapi.get_info(name).name == name
-        assert name in tapi.list_algorithms()
-    else:
-        with pytest.raises(ValueError, match=r"arrives with slice 4 .*ported now: "):
-            tapi.get_info(name)
+    """Every name the reference registers is ported: it resolves to a
+    callable of the port, with the reference's kind and placement."""
+    info, ref = tapi.get_info(name), rapi.get_info(name)
+    assert info.name == name and name in tapi.list_algorithms(ref.kind)
+    assert (info.kind, info.placement, info.engine) == (ref.kind, ref.placement, ref.engine)
+    assert info.resolve().__module__.startswith("repro_torch.")

@@ -1,4 +1,6 @@
-"""The partition-score CUDA kernel (sequential and sharded entries), the
+"""The partition-score CUDA kernel (sequential and sharded entries; the
+partitioner zoo's paths through them: sampled dense rows, 4,096-row chunks,
+long coarse rows, one engine per arrival batch), the
 gather/reduce CUDA kernel (segment and ELL entries), the flash-attention and
 the selective-scan kernels against their plain PyTorch versions on the card,
 and the partitioners, the analytics engine and the reduced LMs on the card
@@ -166,6 +168,115 @@ def test_parallel_on_card_matches_cpu_and_launches_per_superstep(cuda_device, al
     on_cpu = tapi.partition(web, spec, device="cpu")
     np.testing.assert_array_equal(on_card.assignment, on_cpu.assignment)
     assert on_card.quality()["edge_cut"] == on_cpu.quality()["edge_cut"]
+
+
+def _launch_counts():
+    return ops.launches, ops.sharded_launches
+
+
+def _launched_since(before):
+    torch.cuda.synchronize()
+    return ops.launches - before[0], ops.sharded_launches - before[1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sample_cap", [16, 512])
+def test_cuttana_batched_on_card_launches_both_entries(cuda_device, hub_graph, sample_cap):
+    """One gather-entry launch a chunk, plus one dense-entry launch for each
+    chunk that holds a row above ``sample_cap``; the same assignment as on
+    the CPU. The legacy loop launches the dense entry once a chunk."""
+    from repro_torch.core.cuttana_batched import partition_batched
+    from repro_torch.core.legacy import cuttana_batched_partition
+    from repro_torch.graph.stream import stream_order
+
+    g = hub_graph
+    kw = dict(balance_mode="edge", order="random", seed=0, sample_cap=sample_cap)
+    degs = g.degrees[stream_order(g, "random", 0)]
+    sampled = sum(int((degs[s:s + 512] > sample_cap).any()) for s in range(0, g.num_vertices, 512))
+    assert sampled > 0
+    tel = {}
+    before = _launch_counts()
+    got = partition_batched(g, 8, telemetry=tel, device=cuda_device, **kw)
+    assert _launched_since(before) == (tel["kernel_calls"] + sampled, 0)
+    assert tel["kernel_calls"] == -(-g.num_vertices // 512)
+    np.testing.assert_array_equal(got, partition_batched(g, 8, device="cpu", **kw))
+    before = _launch_counts()
+    got = cuttana_batched_partition(g, 8, device=cuda_device, **kw)
+    assert _launched_since(before) == (-(-g.num_vertices // 512), 0)
+    np.testing.assert_array_equal(got, cuttana_batched_partition(g, 8, device="cpu", **kw))
+
+
+@pytest.mark.gpu
+def test_heistream_on_card_4096_row_chunks(cuda_device, hub_graph):
+    """Batches of 4,096 rows (8 groups of 512 a launch), FM moves between
+    launches; the same assignment as on the CPU."""
+    from repro_torch.core import heistream_like
+
+    kw = dict(balance_mode="edge", order="random", seed=0)
+    tel = {}
+    before = _launch_counts()
+    got = heistream_like.partition(hub_graph, 8, telemetry=tel, device=cuda_device, **kw)
+    assert _launched_since(before) == (tel["kernel_calls"], 0)
+    assert tel["kernel_calls"] == -(-hub_graph.num_vertices // 4096) and tel["fm_moves"] > 0
+    np.testing.assert_array_equal(got, heistream_like.partition(hub_graph, 8, device="cpu", **kw))
+
+
+@pytest.mark.gpu
+def test_cluster_fennel_on_card_long_coarse_rows(cuda_device, hub_graph):
+    """The coarse multigraph holds supervertex rows above 4,096 items (the
+    kernel's split-row path); the same assignment as on the CPU."""
+    from repro_torch.core.cluster import build_coarse_graph, partition_cluster, streaming_cluster
+    from repro_torch.graph.stream import stream_order
+
+    g, k = hub_graph, 4
+    ids = stream_order(g, "random", 0)
+    cl, nc, _ = streaming_cluster(g, ids, max(0.1 * g.indices.shape[0] / k, 1.0),
+                                  max(int(0.1 * g.num_vertices / k), 1), 1000)
+    assert build_coarse_graph(g, cl, nc).degrees.max() > 4096
+    kw = dict(balance_mode="edge", order="random", seed=0, base="fennel")
+    tel = {}
+    before = _launch_counts()
+    got = partition_cluster(g, k, telemetry=tel, device=cuda_device, **kw)
+    assert _launched_since(before) == (tel["kernel_calls"], 0)
+    assert tel["kernel_calls"] == -(-nc // 512)
+    np.testing.assert_array_equal(got, partition_cluster(g, k, device="cpu", **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("num_shards", [1, 4])
+def test_incremental_on_card_launches_per_batch(cuda_device, num_shards):
+    """A new engine (and graph upload) per arrival batch and per re-stream
+    window: the launches equal ``kernel_calls`` and the run equals the
+    CPU's."""
+    from repro_torch.core.incremental import partition_incremental
+    from repro_torch.graph.generators import load_dataset
+
+    web = load_dataset("web-s", seed=0)
+    kw = dict(balance_mode="edge", order="random", seed=0, num_shards=num_shards,
+              drift_threshold=0.02)
+    tel = {}
+    before = _launch_counts()
+    got = partition_incremental(web, 8, telemetry=tel, device=cuda_device, **kw)
+    seq, sharded = _launched_since(before)
+    assert seq + sharded == tel["kernel_calls"] > 0
+    assert (sharded > 0) == (num_shards > 1) and tel["restream_windows"] > 0
+    np.testing.assert_array_equal(got, partition_incremental(web, 8, device="cpu", **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strategy", ["gain", "completeness"])
+def test_parallel_strategies_on_card(cuda_device, strategy):
+    import repro_torch.api as tapi
+    from repro_torch.graph.generators import load_dataset
+
+    web = load_dataset("web-s", seed=0)
+    spec = tapi.PartitionSpec(algo="cuttana-parallel", k=8, balance_mode="edge", order="random",
+                              seed=0, params={"num_shards": 4, "strategy": strategy})
+    before = _launch_counts()
+    on_card = tapi.partition(web, spec, device=cuda_device)
+    assert _launched_since(before) == (0, on_card.telemetry["kernel_calls"])
+    on_cpu = tapi.partition(web, spec, device="cpu")
+    np.testing.assert_array_equal(on_card.assignment, on_cpu.assignment)
 
 
 def _hub_csr(rng, n=100_000, hub_degree=97_599):

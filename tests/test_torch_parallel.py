@@ -272,11 +272,18 @@ def test_restream_reassign_preserves_load_accounting(small_graph):
 
 
 def test_restream_unported_base_names_its_slice(small_graph):
-    _, tg = small_graph
-    with pytest.raises(ValueError, match="slice 4"):
-        restream.partition_restream(tg, 4, base="hdrf", device=CPU)
-    with pytest.raises(ValueError, match="unknown partitioner"):
-        restream.partition_restream(tg, 4, base="nope", device=CPU)
+    """Every edge-cut base runs (the zoo is ported); a vertex-cut or unknown
+    base raises the reference's error."""
+    rg, tg = small_graph
+    for base in ("hdrf", "nope"):
+        with pytest.raises(ValueError) as want:
+            ref_restream.partition_restream(rg, 4, base=base)
+        with pytest.raises(ValueError) as got:
+            restream.partition_restream(tg, 4, base=base, device=CPU)
+        assert str(got.value) == str(want.value)
+    np.testing.assert_array_equal(
+        restream.partition_restream(tg, 4, base="heistream", passes=2, device=CPU),
+        ref_restream.partition_restream(rg, 4, base="heistream", passes=2))
 
 
 @pytest.mark.parametrize("balance_mode", ["vertex", "edge"])
@@ -306,7 +313,7 @@ def test_parallel_num_shards_validation(graph):
         # chunk=0 ("auto") is reserved to the parallel algos
         ("cuttana-restream", {"chunk": 0}, "chunk"),
         ("cuttana-parallel", {"prefetch": "on"}, "slice 5"),
-        ("cuttana-parallel", {"strategy": "completeness"}, "slice 4"),
+        ("cuttana-parallel", {"strategy": "best"}, "strategy"),
     ]
     for algo, params, match in bad_specs:
         with pytest.raises(ValueError, match=match):
@@ -314,6 +321,9 @@ def test_parallel_num_shards_validation(graph):
         if not match.startswith("slice"):  # the reference refuses these too
             with pytest.raises(ValueError, match=match):
                 rapi.PartitionSpec(algo=algo, k=4, params=params)
+    # every buffer strategy is accepted, as in the reference
+    fields = dict(algo="cuttana-parallel", k=4, params={"strategy": "completeness"})
+    assert tapi.PartitionSpec(**fields).to_json() == rapi.PartitionSpec(**fields).to_json()
     # chunk=0 is accepted where the reference accepts it
     for algo in ("cuttana-parallel", "fennel-parallel"):
         assert tapi.PartitionSpec(algo=algo, k=4, params={"chunk": 0}).params.chunk == 0
