@@ -135,7 +135,27 @@ Phases:
      (``RMAT_BATCHED_EDGE_CUT``), then on 2^22 under ``torch.profiler``:
      8,192 gather launches plus one dense launch per chunk holding a row of
      degree above 512, the quality scan against a host recomputation,
-     ``stream_seconds`` and the idle share.
+     ``stream_seconds`` and the idle share;
+ 21. (runs after phase 20, while phase 2's graph is loaded) out-of-core
+     graphs: (a) ``BENCH_partition.json``'s ``outofcore/rmat40000`` rows -
+     the R-MAT of 40,000 vertices, average degree 12, seed 0, written as an
+     ``.npy`` edge list and converted with ``convert_edge_list`` (1,172,517
+     bytes), then ``fennel``, ``cuttana`` and ``cuttana-parallel`` S=4 (k=8,
+     edge balance, random order, seed 0) resident and memory-mapped (and
+     ``cuttana-parallel`` mapped with ``prefetch="off"``): the committed edge
+     cuts, mapped assignments equal to resident ones, the mapped runs'
+     launches on the rows entries only; (b) phase 2's 2^22 R-MAT written
+     with ``convert_csr`` (v2), then a child process that only opens the
+     file runs phase 2's ``fennel`` on the card: its assignment equals phase
+     2's, its 8,192 launches are all on the rows entry and equal
+     ``kernel_calls``, and its peak device memory is below phase 2's by at
+     least the graph's device arrays (its peak RSS, ``decode_wall_s`` and
+     ``prefetch_hit_rate`` logged); (c) the rows entries against their plain
+     versions at the mapped shapes (``mapped_chunk512_k8``: the first chunk
+     of the random order, decoded from the file and packed as the engine
+     packs it; ``mapped_superstep_s4x512_k8``: the first superstep at S=4),
+     exact at alpha=0 and within 1e-6 with a penalty, timed like phase 1,
+     with the packed buffer's bytes and its host-to-device copy time.
 
 Kernel times: ``ms`` is device time per launch (launches captured in a CUDA
 graph and replayed, so the host's cost of a call is out); ``call_ms``,
@@ -149,7 +169,8 @@ power limit, and ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero before that line. Without a CUDA device (and without ``--tiny``)
 the script exits 2 and prints no result. ``--tiny`` runs phases 12-17 at
 the reduced configs and small kernel shapes, phase 19 on social-s (its
-constants unchecked) and phase 20 on the 2^12 and 2^14 graphs.
+constants unchecked), phase 20 on the 2^12 and 2^14 graphs, and phase 21's
+full-size part on a 2^12 R-MAT.
 """
 from __future__ import annotations
 
@@ -215,6 +236,14 @@ WEB_S_EDGE_CUT = {
     "fennel-parallel": 0.6862229956993926,
     "cuttana-parallel": 0.6669873993875399,
     "cuttana-restream": 0.3857912615672953,
+}
+# BENCH_partition.json's outofcore/rmat40000 rows (phase 21): the converted
+# file's bytes and the edge cuts, resident and mapped alike
+OUTOFCORE_FILE_BYTES = 1_172_517
+OUTOFCORE_EDGE_CUT = {
+    "fennel": 0.7964539101261845,
+    "cuttana": 0.7836849769185488,
+    "cuttana-parallel": 0.7905363837141883,
 }
 SOCIAL_M_CUTTANA_EDGE_CUT = 0.8217978285092379
 SOCIAL_M_CUTTANA_PARALLEL_EDGE_CUT = 0.7972897394038334
@@ -1140,6 +1169,273 @@ def zoo_phases(torch, np, tapi, ops, ref, counters, device, timer, floor, web, s
     return paths, kernel_rows
 
 
+def main_spec(tapi):
+    """Phase 2's spec (the main path): ``fennel``, k=8, edge balance, random
+    order, seed 0."""
+    return tapi.PartitionSpec(algo="fennel", k=8, epsilon=0.05, balance_mode="edge",
+                              order="random", seed=0)
+
+
+def mapped_child(path: str, out: str, tiny: bool) -> int:
+    """The child of phase 21(b): open the file, run phase 2's spec on it,
+    save the assignment to ``out`` and print one JSON line. Its peak RSS and
+    device memory are its own."""
+    sys.path.insert(0, str(ROOT / "scripts"))
+    from outofcore_decode_study import PeakRss
+
+    rss = PeakRss()
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    import repro_torch.api as tapi
+    from repro_torch.graph.external import ExternalCSRGraph
+    from repro_torch.kernels.partition_score import build, ops
+
+    device = torch.device("cpu" if tiny else "cuda")
+    if device.type == "cuda":
+        build.LIBRARY.load()  # built by the parent's phase 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    rss_base = rss.current()  # the interpreter, torch and the CUDA runtime
+    t0 = time.perf_counter()
+    graph = ExternalCSRGraph(path)
+    open_s = time.perf_counter() - t0
+    ops.reset()
+    res = tapi.partition(graph, main_spec(tapi), device=device)
+    sync(torch, device)
+    launches = {"rows": ops.rows_launches, "sharded_rows": ops.sharded_rows_launches,
+                "gather": ops.launches, "sharded": ops.sharded_launches}
+    peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
+    peak_rss = rss.stop()
+    t0 = time.perf_counter()
+    q = res.quality()  # the range scans, a row range's rows on the card at a time
+    quality_s = time.perf_counter() - t0
+    np.save(out, res.assignment)
+    tel = res.telemetry
+    print(json.dumps({
+        "open_seconds": open_s, "stream_seconds": res.timings["stream_seconds"],
+        "total_s": res.timings["total_s"], "kernel_calls": tel["kernel_calls"],
+        "launches": launches, "decode_wall_s": tel.get("decode_wall_s"),
+        "prefetch_hit_rate": tel.get("prefetch_hit_rate"),
+        "prefetch_wait_s": tel.get("prefetch_wait_s"),
+        "graph_backing": tel["graph_backing"], "peak_graph_bytes": tel["peak_graph_bytes"],
+        "mapped_graph_bytes": tel["mapped_graph_bytes"],
+        "compressed_graph_bytes": tel["compressed_graph_bytes"],
+        "max_memory_allocated": peak, "peak_rss_bytes": peak_rss, "rss_before_graph_bytes": rss_base,
+        "quality": q, "quality_seconds": quality_s,
+    }), flush=True)
+    return 0
+
+
+def rows_row(torch, np, ops, ref, device, timer, floor, rng, name, graph, batches, k):
+    """One rows-entry row at a mapped shape: the rows of ``batches`` (one
+    batch: a chunk; several: a superstep's shards) decoded from the mapped
+    ``graph`` and packed into one host buffer as the engine packs them,
+    copied to the device, the kernel against its plain version (exact at
+    alpha=0, within 1e-6 with a penalty), timed like phase 1, and the copy
+    timed on its own."""
+    from repro_torch.core.engine import _expand_csr_batch, _pack_rows, _unpack_rows
+
+    sharded = len(batches) > 1
+    big = np.concatenate(batches).astype(np.int64)
+    degs = (graph.indptr[big + 1] - graph.indptr[big]).astype(np.int64)
+    _, cols = _expand_csr_batch(graph.indptr, graph.indices, big, degs)
+    c, nnz, s = big.shape[0], cols.shape[0], len(batches)
+    bounds = np.concatenate([[0], np.cumsum([b.shape[0] for b in batches])]).astype(np.int64)
+    head = [big, bounds] if sharded else []
+    h = sum(a.shape[0] for a in head)
+    packed = _pack_rows(head, degs, cols, device.type == "cuda")
+    dev = packed.to(device, non_blocking=True)
+    local_indptr, cols_dev = _unpack_rows(dev, h, c, nnz)
+    n = graph.num_vertices
+    part_np = rng.integers(0, k, size=n).astype(np.int32)
+    part_np[rng.random(n) < 0.3] = -1
+    part_of = torch.from_numpy(part_np).to(device)
+    rows_s = (s, k) if sharded else (k,)
+    zeros = torch.zeros(rows_s, dtype=torch.float32, device=device)
+    sizes = torch.from_numpy((rng.random(rows_s) * 100).astype(np.float32)).to(device)
+    if sharded:
+        args = (local_indptr, cols_dev, part_of, dev[c:h])
+        kern, plain = ops.fennel_scores_sharded_rows, ref.fennel_scores_sharded_rows_ref
+    else:
+        args = (local_indptr, cols_dev, part_of)
+        kern, plain = ops.fennel_scores_rows, ref.fennel_scores_rows_ref
+    got0, want0 = kern(*args, zeros, 0.0, 1.5), plain(*args, zeros, 0.0, 1.5)
+    got1, want1 = kern(*args, sizes, 0.37, 1.5), plain(*args, sizes, 0.37, 1.5)
+    sync(torch, device)
+    err0 = float((got0 - want0).abs().max())
+    err1 = float((got1 - want1).abs().max())
+    check(err0 == 0.0, f"{name}: rows kernel differs from plain version at alpha=0 ({err0})")
+    check(err1 <= 1e-6, f"{name}: rows kernel differs from plain version with penalty ({err1})")
+    rows = torch.repeat_interleave(torch.arange(c, device=device), local_indptr.diff())
+    parts = part_of[cols_dev.long()]
+    keep = parts >= 0
+    keys = rows[keep] * k + parts[keep].long()
+    # each input read once, the output written once: the local offsets, the
+    # rows' neighbour ids, one part_of gather per entry, the shard bounds and
+    # size rows; C*K float32 scores out
+    nbytes = (c + 1) * 8 + nnz * 4 + nnz * 4 + (s + 1) * 8 * sharded + zeros.numel() * 4 + c * k * 4
+    return {
+        "shape": name, "variant": SCORE_VARIANT, "entry": kern.__name__, "shards": s,
+        "rows": c, "k": k, "nnz": nnz, "max_row": int(degs.max()),
+        **split_stats(np, ops, degs, k),
+        "max_abs_err_alpha0": err0, "max_abs_err_penalty": err1,
+        "packed_bytes": packed.numel() * 8,
+        "copy_ms": timer(lambda: packed.to(device, non_blocking=True)),
+        "ms": timer.device_ms(lambda: kern(*args, zeros, 0.0, 1.5)),
+        "call_ms": timer(lambda: kern(*args, zeros, 0.0, 1.5)),
+        "plain_ms": timer(lambda: plain(*args, zeros, 0.0, 1.5)),
+        "library_ms": timer(lambda: torch.bincount(keys, minlength=c * k)),
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "floor_ms": floor_ms(torch, timer, floor, c, k),
+    }
+
+
+def outofcore_phase(torch, np, tapi, ops, ref, counters, device, timer, floor, graph, main_res,
+                    main_peak, main_rss, tiny: bool, ident: str) -> tuple:
+    """Phase 21: out-of-core graphs on the card. ``main_peak`` is phase 2's
+    (peak device memory, memory allocated before the run), ``main_rss`` the
+    process's peak RSS after phase 2. Returns the kernel rows of the two rows
+    entries and the launches of their main paths (the mapped full-size
+    ``fennel``, the mapped ``cuttana-parallel``)."""
+    import tempfile
+
+    from repro_torch.graph.external import ExternalCSRGraph, convert_csr, convert_edge_list
+    from repro_torch.graph.generators import rmat_graph
+    from repro_torch.graph.stream import ShardedStream, stream_order
+
+    t_phase = time.perf_counter()
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ooc") as td:
+        # ------------------------------------------------- (a) rmat40000
+        n = 40_000
+        small = rmat_graph(n, avg_degree=12, seed=0)
+        edges_path = str(Path(td) / "edges.npy")
+        np.save(edges_path, small.edges_array())
+        bin_path = str(Path(td) / "rmat40000.bin")
+        t0 = time.perf_counter()
+        stats = convert_edge_list(edges_path, bin_path, num_vertices=n)
+        convert_s = time.perf_counter() - t0
+        check(stats["file_bytes"] == OUTOFCORE_FILE_BYTES == Path(bin_path).stat().st_size,
+              f"rmat40000: converted file has {stats['file_bytes']} bytes, "
+              f"expected {OUTOFCORE_FILE_BYTES}")
+        log(json.dumps({"phase": 21, "graph": "rmat40000 avg_degree 12", "convert_seconds":
+                        convert_s, **{k_: stats[k_] for k_ in (
+                            "file_bytes", "raw_bytes", "compression_ratio", "num_edges")}}))
+        mapped = ExternalCSRGraph(bin_path)
+        for algo in ("fennel", "cuttana", "cuttana-parallel"):
+            params = {"num_shards": NUM_SHARDS} if algo == "cuttana-parallel" else None
+            spec = tapi.PartitionSpec(algo=algo, k=8, balance_mode="edge", order="random",
+                                      seed=0, params=params)
+            variants = [("resident", small, spec), ("mapped", mapped, spec)]
+            if params:
+                variants.append(("mapped-sync", mapped,
+                                 spec.replace(params={**params, "prefetch": "off"})))
+            results = {}
+            for backing, g, vspec in variants:
+                reset_counts(*counters)
+                res = tapi.partition(g, vspec, device=device)
+                sync(torch, device)
+                counts = (ops.launches, ops.sharded_launches, ops.rows_launches,
+                          ops.sharded_rows_launches)
+                calls = res.telemetry.get("kernel_calls", 0) if device.type == "cuda" else 0
+                gather_i = 1 if params else 0
+                want = [0, 0, 0, 0]
+                want[gather_i + (2 if backing != "resident" else 0)] = calls
+                check(list(counts) == want,
+                      f"rmat40000 {algo} {backing}: launches {counts}, expected {want}")
+                if backing == "mapped" and params:
+                    launches["sharded_rows"] = counts[3]
+                results[backing] = res
+                q = res.quality()
+                check(q["edge_cut"] == OUTOFCORE_EDGE_CUT[algo],
+                      f"rmat40000 {algo} {backing}: edge_cut {q['edge_cut']} != "
+                      f"{OUTOFCORE_EDGE_CUT[algo]}")
+                check(np.array_equal(res.assignment, results["resident"].assignment),
+                      f"rmat40000 {algo}: {backing} and resident assignments differ")
+                tel = res.telemetry
+                log(json.dumps({
+                    "phase": 21, "graph": "rmat40000", "algo": algo, "backing": backing,
+                    "prefetch": vspec.params.prefetch, "edge_cut": q["edge_cut"],
+                    "timings": res.timings, "kernel_calls": tel.get("kernel_calls"),
+                    "launches": dict(zip(("gather", "sharded", "rows", "sharded_rows"), counts)),
+                    **{key: tel.get(key) for key in (
+                        "peak_graph_bytes", "mapped_graph_bytes", "compressed_graph_bytes",
+                        "decode_wall_s", "prefetch_hit_rate", "prefetch_wait_s")},
+                }))
+        del mapped, results, small
+
+        # ------------------------------------------------- (b) full size
+        if tiny:
+            graph = rmat_graph(1 << 12, avg_degree=16, seed=0)
+            main_res = tapi.partition(graph, main_spec(tapi), device=device)
+            main_rss = None  # the rehearsal's process peak is not phase 2's
+        scale = int(np.log2(graph.num_vertices))
+        full_path = str(Path(td) / f"rmat{scale}.bin")
+        t0 = time.perf_counter()
+        convert_csr(graph, full_path)
+        write_s = time.perf_counter() - t0
+        graph_device_bytes = graph.indptr.nbytes + graph.indices.nbytes
+        out = str(Path(td) / "assignment.npy")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--mapped-child", full_path,
+             "--child-out", out] + (["--tiny"] if tiny else []),
+            capture_output=True, text=True, timeout=900,
+        )
+        child_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"mapped child failed:\n{proc.stdout}\n{proc.stderr}")
+        child = json.loads(proc.stdout.strip().splitlines()[-1])
+        got = np.load(out)
+        chunks = -(-graph.num_vertices // CHUNK)
+        expect_rows = chunks if device.type == "cuda" else 0
+        check(np.array_equal(got, main_res.assignment),
+              f"rmat 2^{scale}: mapped and resident fennel assignments differ")
+        check(child["kernel_calls"] == chunks,
+              f"mapped fennel: kernel_calls {child['kernel_calls']} != {chunks} chunks")
+        check(child["launches"] == {"rows": expect_rows, "sharded_rows": 0, "gather": 0,
+                                    "sharded": 0},
+              f"mapped fennel: launches {child['launches']}, expected {expect_rows} rows launches")
+        check(child["quality"] == main_res.quality(),
+              f"rmat 2^{scale}: mapped quality scan differs from phase 2's")
+        launches["rows"] = child["launches"]["rows"]
+        saved = None
+        main_peak, main_base = main_peak  # phase 2's peak and what it started from
+        if device.type == "cuda":
+            saved = main_peak - child["max_memory_allocated"]
+            check(saved >= graph_device_bytes,
+                  f"mapped peak device memory {child['max_memory_allocated']} is not below the "
+                  f"resident {main_peak} by the graph's {graph_device_bytes} bytes")
+        log(json.dumps({
+            "phase": 21, "graph": f"rmat 2^{scale} avg_degree 16", "file_bytes":
+            Path(full_path).stat().st_size, "write_seconds": write_s, "child_seconds": child_s,
+            "resident_max_memory_allocated": main_peak,
+            "resident_allocated_before": main_base, "graph_device_bytes": graph_device_bytes,
+            "device_bytes_saved": saved, "resident_peak_rss_bytes": main_rss,
+            "resident_stream_seconds": main_res.timings["stream_seconds"],
+            "mapped": child, "device": ident,
+        }))
+
+        # --------------------------------------- (c) rows entries' shapes
+        full = ExternalCSRGraph(full_path)
+        ids = stream_order(full, "random", 0)
+        rng = np.random.default_rng(21)
+        s4 = ShardedStream.from_ids(ids, NUM_SHARDS)
+        shapes = [
+            rows_row(torch, np, ops, ref, device, timer, floor, rng, "mapped_chunk512_k8",
+                     full, [ids[:CHUNK]], 8),
+            rows_row(torch, np, ops, ref, device, timer, floor, rng,
+                     f"mapped_superstep_s{NUM_SHARDS}x{CHUNK}_k8", full,
+                     [sh[:CHUNK] for sh in s4.shards], 8),
+        ]
+        for row in shapes:
+            log(json.dumps({"phase": 21, **row}))
+        del full
+    log(f"phase 21: {time.perf_counter() - t_phase:.3f} s")
+    return shapes, launches
+
+
 def check_quality(np, graph, part, q, k: int, what: str) -> None:
     """The device quality scan against a host recomputation."""
     check(part.shape == (graph.num_vertices,) and part.min() >= 0 and part.max() < k,
@@ -1661,7 +1957,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tiny", action="store_true",
                     help="rehearse every phase on the CPU at a tiny size (prints no result)")
+    ap.add_argument("--mapped-child", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--child-out", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.mapped_child:  # phase 21's child process
+        return mapped_child(args.mapped_child, args.child_out, args.tiny)
 
     import numpy as np
     import torch
@@ -1677,6 +1977,9 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT / "scripts"))
     import kernel_ablation_partition_score as score_ablation
+    from outofcore_decode_study import PeakRss
+
+    rss = PeakRss()  # phase 21 reports the process's peak RSS through phase 2
     import repro_torch.api as tapi
     from repro_torch.graph.generators import rmat_graph
     from repro_torch.graph.stream import ShardedStream
@@ -1729,10 +2032,11 @@ def main() -> int:
     if device.type == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    spec = tapi.PartitionSpec(algo="fennel", k=8, epsilon=0.05, balance_mode="edge",
-                              order="random", seed=0)
+    # allocated before the run: the graph's arrays (uploaded in phase 1) and
+    # what phase 1's checks still hold
+    main_base = torch.cuda.memory_allocated() if device.type == "cuda" else None
     reset_counts(*counters)
-    res = tapi.partition(graph, spec, device=device)
+    res = tapi.partition(graph, main_spec(tapi), device=device)
     if device.type == "cuda":
         torch.cuda.synchronize()
     main_launches = ops.launches
@@ -1753,9 +2057,13 @@ def main() -> int:
         "vertex_imbalance": q["vertex_imbalance"], "edge_imbalance": q["edge_imbalance"],
         "stream_seconds": res.timings["stream_seconds"], "total_s": res.timings["total_s"],
         "kernel_calls": res.telemetry["kernel_calls"], "launches": main_launches,
-        "variant": SCORE_VARIANT, "max_memory_allocated": peak, "device": ident,
+        "variant": SCORE_VARIANT, "max_memory_allocated": peak,
+        "memory_allocated_before": main_base, "device": ident,
     }))
     main_res = res  # phase 10 runs the analytics on this assignment
+    # phase 21 holds the mapped run's peaks against these (the process's RSS
+    # so far: phases 0-2, the graph generated and partitioned resident)
+    main_peak, main_rss = (peak, main_base), rss.read()
 
     # ------------------------------------------------------------ phase 3
     from repro_torch.graph.generators import load_dataset
@@ -2007,6 +2315,11 @@ def main() -> int:
     zoo_paths, zoo_rows = zoo_phases(torch, np, tapi, ops, ref, counters, device, timer, floor,
                                      web, social, graph, dataset, args.tiny, ident)
 
+    # ----------------------------------------------------------- phase 21
+    rows_shapes, rows_launches = outofcore_phase(
+        torch, np, tapi, ops, ref, counters, device, timer, floor, graph, main_res, main_peak,
+        main_rss, args.tiny, ident)
+
     # ----------------------------------------------------------- phase 12
     del graph, main_res, social_res, social, web_res
     if device.type == "cuda":
@@ -2078,6 +2391,17 @@ def main() -> int:
                 variant=SCORE_VARIANT, floor_ms=sharded_shapes[0]["floor_ms"],
                 stream=stream_summary(sharded_shapes[-1]),
                 zoo_launches={path: n[1] for path, n in zoo_paths.items() if n[1]}),
+        # the rows entries: the same kernel on a memory-mapped graph's
+        # chunks (phase 21's full-size fennel) and supersteps (its
+        # cuttana-parallel), at phase 21's mapped shapes
+        summary("partition_score_rows", rows_shapes[:1], rows_launches["rows"], TPU_KERNEL,
+                variant=SCORE_VARIANT, entry="fennel_scores_rows",
+                floor_ms=rows_shapes[0]["floor_ms"], copy_ms=rows_shapes[0]["copy_ms"],
+                packed_bytes=rows_shapes[0]["packed_bytes"]),
+        summary("partition_score_sharded_rows", rows_shapes[1:], rows_launches["sharded_rows"],
+                TPU_KERNEL_SHARDED, variant=SCORE_VARIANT, entry="fennel_scores_sharded_rows",
+                floor_ms=rows_shapes[1]["floor_ms"], copy_ms=rows_shapes[1]["copy_ms"],
+                packed_bytes=rows_shapes[1]["packed_bytes"]),
         summary("ell_spmv", spmv_shapes, spmv_launches, TPU_KERNEL_SPMV, SPMV_SOURCE,
                 variant=SPMV_VARIANT, gb_per_s=spmv_shapes[0]["gb_per_s"]),
         summary("flash_attention", flash_shapes, lm_launches["flash_attention"],

@@ -46,9 +46,9 @@ _STREAM_COMMON = ("epsilon", "balance_mode", "order", "seed")
 @dataclasses.dataclass(frozen=True)
 class FennelAlgoParams:
     """FENNEL knobs (paper Eq. 7). ``hybrid`` only bites in edge mode.
-    ``prefetch`` is the reference's decode-ahead switch ("auto"/"off" for a
-    resident graph; "on" needs an out-of-core graph, which the port does
-    not have yet); it never changes assignments."""
+    ``prefetch`` is the decode-ahead switch for memory-mapped graphs
+    ("auto"/"on"/"off", see :class:`~repro_torch.core.engine.EngineConfig`);
+    it never changes assignments."""
 
     gamma: float = 1.5
     alpha_scale: float = 1.0

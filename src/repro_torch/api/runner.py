@@ -73,11 +73,11 @@ def partition(
         if spec.source is None:
             raise ValueError(
                 "partition() needs a graph: pass one explicitly or set "
-                "spec.source (rmat:<n>[:<avg_degree>] or dataset:<name>)"
+                "spec.source (rmat:<n>, dataset:<name>, or a graph path)"
             )
-        from repro_torch.graph.generators import load_source
+        from repro_torch.graph.external import load_graph_source
 
-        graph = load_source(spec.source, seed=spec.seed)
+        graph = load_graph_source(spec.source, seed=spec.seed)
     info = get_info(spec.algo)
     kwargs = build_spec_kwargs(info, spec)
     telemetry: dict = {}
@@ -95,9 +95,24 @@ def partition(
     for key in _TIMING_KEYS:
         if key in telemetry:
             timings[key] = telemetry.pop(key)
+    # graph-memory accounting, the reference's: for a mapped (out-of-core)
+    # graph the resident footprint is just its host-side caches and
+    # mapped_graph_bytes the file-backed rest; for an in-memory CSR it is the
+    # whole structure
+    backing = getattr(graph, "backing", "resident")
+    if backing == "mapped":
+        peak_graph_bytes = int(graph.nbytes_resident)
+        mapped_graph_bytes = int(graph.nbytes_mapped)
+    else:
+        peak_graph_bytes = int(graph.indptr.nbytes + graph.indices.nbytes)
+        mapped_graph_bytes = 0
     telemetry.update(
-        graph_backing="resident",
-        peak_graph_bytes=int(graph.indptr.nbytes + graph.indices.nbytes),
+        graph_backing=backing,
+        peak_graph_bytes=peak_graph_bytes,
+        mapped_graph_bytes=mapped_graph_bytes,
+        # block-compressed (v2) on-disk payload: byte index + varint data;
+        # 0 for raw v1 files and resident graphs
+        compressed_graph_bytes=int(getattr(graph, "nbytes_compressed", 0) or 0),
         device=str(device),
     )
     return PartitionResult(

@@ -4,9 +4,9 @@ Port of ``repro.api.spec``. A spec fully determines a run (algorithm, K,
 balance condition, stream order, seed, per-algorithm knobs) and is validated
 at construction against the registry with the reference's rules and
 messages, so an invalid request fails before any graph is streamed. The
-JSON form is the reference's, so one spec file drives both packages. Two
-requests valid in the reference still fail here until the port's
-out-of-core slice: an on-disk ``source`` and ``prefetch="on"``.
+JSON form is the reference's, so one spec file drives both packages.
+``source`` takes the reference's grammar: ``rmat:<n>[:<avg_degree>]``,
+``dataset:<name>`` or a path to an on-disk graph.
 """
 from __future__ import annotations
 
@@ -46,9 +46,8 @@ class PartitionSpec:
     seed: int = 0
     params: Any = None
     # where the graph comes from when the caller does not pass one:
-    # "rmat:<n>[:<avg_degree>]" or "dataset:<name>" (on-disk graphs arrive
-    # with the port's out-of-core slice). None means the caller supplies
-    # the graph object.
+    # "rmat:<n>[:<avg_degree>]", "dataset:<name>" or a path to an on-disk
+    # graph. None means the caller supplies the graph object.
     source: str | None = None
     # the serving layer's replica budget, carried so specs round-trip with
     # the reference; nothing in the port reads it yet
@@ -106,7 +105,7 @@ class PartitionSpec:
                 f"got {self.replication_budget!r}"
             )
         if self.source is not None:
-            from repro_torch.graph.generators import validate_source
+            from repro_torch.graph.external import validate_source
 
             validate_source(self.source)
         object.__setattr__(self, "params", _normalize_params(info, self.params))
@@ -249,10 +248,6 @@ def _check_param_types(info: PartitionerInfo, block: Any):
                 f"{info.name!r} param 'prefetch' must be one of "
                 f"'auto', 'on', 'off', got {value!r}"
             )
-        if field.name == "prefetch" and value == "on":
-            from repro_torch.core.engine import EngineConfig
-
-            EngineConfig(prefetch=value)  # raises: no out-of-core graphs yet
         if field.name == "strategy":
             allowed = _STRATEGY_CHOICES.get(info.name, BUFFER_STRATEGIES)
             if value not in allowed:

@@ -28,9 +28,16 @@ sequential policies.
 
 What lives where, and why:
 
-* On the device: the CSR ``indptr``/``indices``, the stream order, the
-  ``part_of`` mirror (:attr:`PartitionState.part_of_dev`) and the kernels'
-  inputs and outputs. The immediate policy writes each chunk's placements
+* On the device: the CSR ``indptr``/``indices`` of a resident graph, the
+  stream order, the ``part_of`` mirror (:attr:`PartitionState.part_of_dev`)
+  and the kernels' inputs and outputs. A memory-mapped graph
+  (``backing == "mapped"``) is never copied whole: it takes the *rows
+  route* on every device. Each chunk's fetch (on the prefetch thread when
+  decode-ahead is on) decodes the chunk's rows and packs its local
+  ``indptr`` and neighbour ids into one host buffer, pinned for a card;
+  the main thread makes one host-to-device copy of it and launches the
+  kernel's rows entry on it. A superstep packs its candidates, shard bounds,
+  local ``indptr`` and neighbour ids into one buffer the same way. The immediate policy writes each chunk's placements
   into the mirror before the next launch; the sharded policies write each
   superstep's placements into it at the boundary exchange, before the next
   superstep's launch. An ``on_chunk_end`` hook (HeiStream's FM passes) may
@@ -45,8 +52,10 @@ What lives where, and why:
   10-100x the numpy cost.
 * Threads: the shard tasks, the buffered shards' ingests and the chained
   sub-partition merge run on :class:`~repro_torch.core.executor.ShardPool`
-  threads and touch numpy only. Every launch, copy and mirror write stays
-  on the main thread, on the current stream.
+  threads and touch numpy only; the decode-ahead thread
+  (:class:`~repro_torch.graph.prefetch.BatchPrefetcher`) decodes and packs
+  host buffers only. Every launch, copy and mirror write stays on the main
+  thread, on the current stream.
 
 On the CPU (``device="cpu"``) the same code runs with CPU tensors, and the
 kernel wrappers take their plain PyTorch versions.
@@ -55,6 +64,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -66,11 +76,15 @@ from repro_torch.core.priority import BufferStats, make_priority
 from repro_torch.core.profile import SuperstepProfiler
 from repro_torch.core.subpartition import SubPartitioner
 from repro_torch.graph.csr import CSRGraph
+from repro_torch.graph.external import is_mapped
+from repro_torch.graph.prefetch import BatchPrefetcher, PrefetchStats
 from repro_torch.graph.stream import ShardedStream, stream_order
 from repro_torch.kernels.partition_score.ops import (
     fennel_scores,
     fennel_scores_gather,
+    fennel_scores_rows,
     fennel_scores_sharded_gather,
+    fennel_scores_sharded_rows,
 )
 
 __all__ = [
@@ -237,11 +251,12 @@ class EngineConfig:
     shard task: candidates are scored ``wave`` at a time against a frozen
     penalty/histogram view, refreshed exactly between waves.
 
-    ``prefetch`` is the reference's decode-ahead switch. For a resident
-    graph ``"auto"`` keeps the sharded policies' ahead-of-time frontier
-    expansion on and ``"off"`` turns it off (the synchronous baseline);
-    neither changes assignments. ``"on"`` needs an out-of-core graph and
-    raises until the port has one."""
+    ``prefetch`` controls the decode-ahead pipeline for out-of-core graphs:
+    ``"auto"`` overlaps chunk/superstep decode with scoring only when the
+    graph is memory-mapped, ``"on"`` forces it, ``"off"`` disables it AND the
+    sharded ahead-of-time frontier expansion - the synchronous baseline. The
+    prefetcher consumes the identical fetch results in the identical order,
+    so assignments are bit-identical across all three modes."""
 
     chunk: int = 512
     prefetch: str = "auto"
@@ -255,15 +270,23 @@ class EngineConfig:
             raise ValueError(
                 f'prefetch must be "auto", "on" or "off", got {self.prefetch!r}'
             )
-        if self.prefetch == "on":
-            raise ValueError(
-                'prefetch="on" decodes an out-of-core graph ahead of the stream; '
-                "out-of-core graphs arrive with slice 5 of the port"
-            )
         if self.chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {self.chunk}")
         if self.sample_cap < 1:
             raise ValueError(f"sample_cap must be >= 1, got {self.sample_cap}")
+
+
+def _resolve_prefetch(mode: str, graph) -> tuple[bool, bool]:
+    """``(decode_ahead, ahead_prep)`` for a prefetch mode: ``"on"`` forces
+    the decode pipeline, ``"off"`` disables it and the sharded ahead-of-time
+    frontier expansion, ``"auto"`` enables the pipeline only for mapped
+    graphs and leaves ahead-prep on - resident runs keep their overlap.
+    ``EngineConfig`` has validated ``mode``."""
+    if mode == "on":
+        return True, True
+    if mode == "off":
+        return False, False
+    return is_mapped(graph), True
 
 
 # ----------------------------------------------------------------- policies
@@ -302,7 +325,7 @@ class ImmediatePolicy:
         neg_inf = float("-inf")
         sc = [neg_inf] * k  # per-vertex score buffer (neg_inf == disallowed)
         hook = eng.on_chunk_end
-        for start, batch, degs, expanded in _iter_chunk_expansions(eng):
+        for start, batch, degs, expanded in _iter_chunk_expansions(eng, pack=eng.rows_route):
             nbr_views = _chunk_views(expanded[1], degs) if subp is not None else None
             H, corr = eng.chunk_histograms(start, batch, expanded)
             bl = batch.tolist()
@@ -471,15 +494,66 @@ def _chunk_views(cols, degs):
     return np.split(cols, np.cumsum(degs[:-1]))
 
 
-def _iter_chunk_expansions(eng: "StreamEngine"):
-    """Yield ``(start, batch, degs, (rows, cols))`` per stream chunk."""
+def _pack_rows(head: list, degs: np.ndarray, cols: np.ndarray, pin: bool) -> torch.Tensor:
+    """One int64 host buffer (pinned when ``pin``) holding the int64 arrays
+    of ``head`` back to back, then the rows' local ``indptr`` (len(degs) + 1
+    offsets), then ``cols`` as int32 - what one host-to-device copy takes to
+    the card. A fresh buffer a call: the caching host allocator keeps it
+    from reuse until the copy that reads it has ended."""
+    h = sum(a.shape[0] for a in head)
+    c, nnz = degs.shape[0], cols.shape[0]
+    buf = torch.empty(h + c + 1 + (nnz + 1) // 2, dtype=torch.int64, pin_memory=pin)
+    a = buf.numpy()
+    o = 0
+    for x in head:
+        a[o : o + x.shape[0]] = x
+        o += x.shape[0]
+    a[o] = 0
+    np.cumsum(degs, out=a[o + 1 : o + 1 + c])
+    a[o + c + 1 :].view(np.int32)[:nnz] = cols
+    return buf
+
+
+def _unpack_rows(dev: torch.Tensor, h: int, c: int, nnz: int):
+    """``(local_indptr, cols)`` views of a :func:`_pack_rows` buffer whose
+    head holds ``h`` int64 values."""
+    return dev[h : h + c + 1], dev[h + c + 1 :].view(torch.int32)[:nnz]
+
+
+def _iter_chunk_expansions(eng: "StreamEngine", pack: bool = False):
+    """Yield ``(start, batch, degs, (rows, cols[, packed]))`` per stream
+    chunk; with ``pack`` the chunk's rows also come packed for the rows
+    route (:func:`_pack_rows`).
+
+    The fetch touches only the immutable CSR read surface, so when the
+    engine's prefetcher is enabled chunk t+1 is expanded (for a compressed
+    mapped graph: varint-decoded) and packed on the prefetch thread while
+    chunk t is being scored. Inline and prefetched paths run the identical
+    fetch in the identical order, so the consumed stream is bit-identical
+    either way."""
     indptr, indices = eng.graph.indptr, eng.graph.indices
     ids = eng.ids
     chunk = eng.config.chunk
-    for start in range(0, ids.shape[0], chunk):
+    pin = eng.device.type == "cuda"
+
+    def fetch(start):
         batch = ids[start : start + chunk]
         degs = (indptr[batch + 1] - indptr[batch]).astype(np.int64)
-        yield start, batch, degs, _expand_csr_batch(indptr, indices, batch, degs)
+        rows, cols = _expand_csr_batch(indptr, indices, batch, degs)
+        if pack:
+            return start, batch, degs, (rows, cols, _pack_rows([], degs, cols, pin))
+        return start, batch, degs, (rows, cols)
+
+    starts = range(0, ids.shape[0], chunk)
+    if not eng.prefetch_enabled:
+        for s in starts:
+            yield fetch(s)
+        return
+    pf = BatchPrefetcher(fetch, starts, stats=eng.prefetch_stats)
+    try:
+        yield from pf
+    finally:
+        pf.close()
 
 
 # --------------------------------------------------------- sharded policies
@@ -589,6 +663,14 @@ class _SuperstepRunner:
         self.pool = ShardPool(eng.config.max_workers, sharded.num_shards)
         self.profile = SuperstepProfiler(workers=self.pool.workers)
         self.prefetch_ahead = eng.prefetch_ahead
+        # with an inline (single-worker) pool, prepare_async would run on the
+        # calling thread and the ahead-prep overlap would silently vanish; a
+        # dedicated decode thread keeps the pipeline real on one core
+        self._prefetch_ex: ThreadPoolExecutor | None = (
+            ThreadPoolExecutor(1, thread_name_prefix="prefetch")
+            if eng.prefetch_enabled and self.pool.workers == 1
+            else None
+        )
         self._zero_sizes = torch.zeros(
             (sharded.num_shards, state.k), dtype=torch.float32, device=eng.device
         )
@@ -604,35 +686,75 @@ class _SuperstepRunner:
             self._subp_chain.result()
             self.profile.add("merge", time.perf_counter() - t0)
             self._subp_chain = None
+        if self._prefetch_ex is not None:
+            self._prefetch_ex.shutdown(wait=True)
+            self._prefetch_ex = None
         self.pool.shutdown()
 
     # ----------------------------------------------------------- prefetch
+    def submit_decode(self, fn, *args):
+        """Submit decode work: the dedicated prefetch thread when the pool
+        is inline, else the pool."""
+        ex = self._prefetch_ex
+        return (ex.submit if ex is not None else self.pool.submit)(fn, *args)
+
     def prepare_async(self, batches: list[np.ndarray]) -> list:
         """Submit per-shard frontier expansion; futures align with shards."""
-        indptr, indices = self.eng.graph.indptr, self.eng.graph.indices
+        eng = self.eng
+        indptr, indices = eng.graph.indptr, eng.graph.indices
+        fn = _prepare_shard
+        if eng.prefetch_enabled:
+            stats = eng.prefetch_stats
+
+            def fn(ip, ix, b):
+                t0 = time.perf_counter()
+                try:
+                    return _prepare_shard(ip, ix, b)
+                finally:
+                    stats.record_decode(time.perf_counter() - t0)
+
         return [
-            self.pool.submit(_prepare_shard, indptr, indices, b)
-            if b.shape[0]
-            else None
+            self.submit_decode(fn, indptr, indices, b) if b.shape[0] else None
             for b in batches
         ]
 
-    def wait_preps(self, futs: list) -> list[_ShardPrep | None]:
+    def wait_preps(self, futs: list, record: bool = False) -> list[_ShardPrep | None]:
+        hit = all(f is None or f.done() for f in futs)
         t0 = time.perf_counter()
         preps = [f.result() if f is not None else None for f in futs]
-        self.profile.add("prep", time.perf_counter() - t0)
+        wait = time.perf_counter() - t0
+        self.profile.add("prep", wait)
+        if record and self.eng.prefetch_enabled:
+            self.eng.prefetch_stats.record_wait(wait, hit)
         return preps
 
     # -------------------------------------------------------- histogramming
-    def _histograms(self, big: np.ndarray, counts: list[int]):
+    def _histograms(self, big: np.ndarray, counts: list[int], live: list[_ShardPrep]):
         """float64[total, K] assigned-neighbour histograms of the whole
         superstep from ONE sharded partition-score call, and the candidates'
         ids on the device. Rows are the candidates shard after shard; the
         engine scores with ``alpha=0`` (the penalties change with every
         placement, so the shard tasks apply them on the host), so the counts
-        are exact integers and equal the reference's."""
+        are exact integers and equal the reference's. On the rows route the
+        candidates, shard bounds and the shards' decoded rows (``live``)
+        reach the device in one copy."""
         eng = self.eng
         total = big.shape[0]
+        if eng.rows_route:
+            degs = np.concatenate([p.degs for p in live])
+            cols = np.concatenate([p.cols for p in live])
+            bounds = np.zeros(len(counts) + 1, dtype=np.int64)
+            np.cumsum(counts, out=bounds[1:])
+            head = total + bounds.shape[0]
+            dev = _pack_rows(
+                [big, bounds], degs, cols, eng.device.type == "cuda"
+            ).to(eng.device, non_blocking=True)
+            local_indptr, cols_dev = _unpack_rows(dev, head, total, cols.shape[0])
+            out = fennel_scores_sharded_rows(
+                local_indptr, cols_dev, eng.state.part_of_dev,
+                dev[total:head], self._zero_sizes, 0.0, 1.5,
+            )
+            return out.cpu().numpy().astype(np.float64), dev[:total]
         packed = np.empty(total + len(counts) + 1, dtype=np.int64)
         packed[:total] = big
         packed[total] = 0
@@ -826,7 +948,7 @@ class _SuperstepRunner:
         # one kernel call for every shard, on the main thread, before the
         # shard tasks fan out
         t_k = time.perf_counter()
-        hist_all, big_dev = self._histograms(big, counts)
+        hist_all, big_dev = self._histograms(big, counts, live)
         score_s = time.perf_counter() - t_k
         # fan out: one task per non-empty shard, each writing its disjoint
         # slice of assigned_flat (and mutating only its own hist rows)
@@ -960,7 +1082,7 @@ class ShardedImmediatePolicy:
             else:
                 prefetched = runner.prepare_async(steps[0]) if steps else None
                 for t, batches in enumerate(steps):
-                    preps = runner.wait_preps(prefetched)
+                    preps = runner.wait_preps(prefetched, record=True)
                     # overlap: expand superstep t+1's frontier while t scores,
                     # places and merges (expansion reads only the immutable CSR)
                     prefetched = (
@@ -1032,6 +1154,37 @@ class ShardedBufferedPolicy:
         pending: list[list[int]] = [[] for _ in range(num_shards)]
         cursors = [0] * num_shards
         d_max = self.d_max
+        prefetch_on = eng.prefetch_enabled
+        stats = eng.prefetch_stats
+        # decode-ahead slots: shard -> (cursor snapshot, in-flight scan).
+        # Each slot is written on the main thread between rounds and consumed
+        # only by that shard's ingest task, so access stays disjoint.
+        adm: dict[int, tuple[int, object]] = {}
+
+        def scan(s: int, cursor: int):
+            """Assignment-independent half of shard s's ingest: the stream
+            slice and its (decoded) neighbour expansion. Reads only the
+            immutable CSR, so it may overlap a superstep writing ``part_of``."""
+            take = sharded.shards[s][cursor : cursor + chunk]
+            if not take.shape[0]:
+                return take, None, None
+            tdegs = (indptr[take + 1] - indptr[take]).astype(np.int64)
+            return take, tdegs, _expand_csr_batch(indptr, indices, take, tdegs)
+
+        def timed_scan(s: int, cursor: int):
+            t0 = time.perf_counter()
+            try:
+                return scan(s, cursor)
+            finally:
+                stats.record_decode(time.perf_counter() - t0)
+
+        def prefetch_scans():
+            """Queue the next round's admission scans: once every ingest has
+            returned, the round's cursors are final, so the next slices are
+            known and can decode while the superstep scores and places."""
+            for s in range(num_shards):
+                if cursors[s] < sharded.shards[s].shape[0]:
+                    adm[s] = (cursors[s], runner.submit_decode(timed_scan, s, cursors[s]))
 
         def ingest(s: int):
             """One shard's superstep ingest: admission scan + buffer churn.
@@ -1042,12 +1195,19 @@ class ShardedBufferedPolicy:
             cand = pending[s]
             pending[s] = []
             buf = bufs[s]
-            take = sharded.shards[s][cursors[s] : cursors[s] + chunk]
+            pre = adm.pop(s, None)
+            if pre is not None and pre[0] == cursors[s]:
+                fut = pre[1]
+                was_ready = fut.done()
+                t0 = time.perf_counter()
+                take, tdegs, texp = fut.result()
+                stats.record_wait(time.perf_counter() - t0, was_ready)
+            else:
+                take, tdegs, texp = scan(s, cursors[s])
             cursors[s] += take.shape[0]
             evicted = drained_n = bypass_n = 0
             if take.shape[0]:
-                tdegs = (indptr[take + 1] - indptr[take]).astype(np.int64)
-                trows, tcols = _expand_csr_batch(indptr, indices, take, tdegs)
+                trows, tcols = texp
                 tparts = part_of[tcols]
                 asg = np.bincount(trows[tparts != -1], minlength=take.shape[0])
                 byp = tdegs >= d_max
@@ -1102,6 +1262,8 @@ class ShardedBufferedPolicy:
 
         bstats = BufferStats()
         try:
+            if prefetch_on:
+                prefetch_scans()
             while True:
                 t0 = time.perf_counter()
                 results = [
@@ -1111,6 +1273,8 @@ class ShardedBufferedPolicy:
                     ]
                 ]
                 runner.profile.add("prep", time.perf_counter() - t0)
+                if prefetch_on:
+                    prefetch_scans()
                 batches = [r[0] for r in results]
                 for _, ev, dr, by, blen in results:
                     bstats.evictions += ev
@@ -1159,9 +1323,13 @@ class StreamEngine:
     FM refinement): it may move the chunk's own vertices on the host, then
     must call ``engine.scorer.begin(engine.state)``; the engine writes the
     chunk's rows of ``part_of`` into the device mirror after it. The engine
-    runs on the device of ``state.part_of_dev``. ``prefetch_ahead`` is whether the sharded
-    policies expand superstep t+1's frontier while t runs (``prefetch``
-    ``"auto"``; ``"off"`` turns it off)."""
+    runs on the device of ``state.part_of_dev``. ``prefetch_enabled`` is
+    whether chunks (and sharded admission scans) are decoded ahead on a
+    prefetch thread, ``prefetch_ahead`` whether the sharded policies expand
+    superstep t+1's frontier while t runs (:func:`_resolve_prefetch`).
+    ``rows_route`` is whether the graph is memory-mapped, so that the
+    kernels read each chunk's rows from a copy of them instead of a whole
+    copy of the graph on the device."""
 
     def __init__(
         self,
@@ -1189,9 +1357,13 @@ class StreamEngine:
         # counts chunk-histogram calls, single_place_calls the host-scored
         # placements (buffered policy); policies add their own
         self.telemetry: dict = {"kernel_calls": 0, "single_place_calls": 0}
-        self.prefetch_ahead = self.config.prefetch != "off"
+        self.prefetch_enabled, self.prefetch_ahead = _resolve_prefetch(
+            self.config.prefetch, graph
+        )
+        self.prefetch_stats = PrefetchStats()
         self.device = state.device
-        self._dgraph = graph.to(self.device)
+        self.rows_route = is_mapped(graph)
+        self._dgraph = None if self.rows_route else graph.to(self.device)
         self._ids_dev = torch.from_numpy(
             np.ascontiguousarray(self.ids, dtype=np.int64)
         ).to(self.device)
@@ -1203,6 +1375,13 @@ class StreamEngine:
     def run(self) -> PartitionState:
         self.scorer.begin(self.state)
         self.policy.run(self)
+        if self.prefetch_enabled:
+            self.telemetry.update(self.prefetch_stats.to_telemetry())
+        # a compressed indices proxy reports exact varint-decode wall time;
+        # prefer it over the prefetcher's coarser fetch-wall aggregate
+        decode_s = getattr(self.graph.indices, "decode_seconds", None)
+        if decode_s is not None:
+            self.telemetry["decode_wall_s"] = round(float(decode_s), 6)
         return self.state
 
     # ------------------------------------------------- per-vertex placement
@@ -1224,7 +1403,9 @@ class StreamEngine:
     # --------------------------------------------------- chunked histograms
     def chunk_histograms(self, start: int, batch: np.ndarray, expanded: tuple):
         """All C x K assigned-neighbour histograms of the chunk
-        ``ids[start:start+C]`` from one gather-entry launch on the device.
+        ``ids[start:start+C]`` from one gather-entry launch on the device
+        (on the rows route: one copy of the chunk's packed rows, the third
+        element of ``expanded``, and one rows-entry launch).
 
         Returns ``(hist, corr)``: ``hist`` is a list of C rows of K Python
         floats. ``corr`` is None in stale mode (``exact=False``), else
@@ -1241,28 +1422,36 @@ class StreamEngine:
         those of the gather result, which is then cast to float64 and
         multiplied by ``degree / sample_cap``."""
         c = batch.shape[0]
+        rows, cols = expanded[0], expanded[1]
         self.telemetry["kernel_calls"] += 1
-        g = self._dgraph
-        hist = fennel_scores_gather(
-            g.indptr, g.indices, self.state.part_of_dev,
-            self._ids_dev[start : start + c], self._zero_sizes, 0.0, 1.5,
-        )
+        if self.rows_route:
+            dev = expanded[2].to(self.device, non_blocking=True)
+            local_indptr, cols_dev = _unpack_rows(dev, 0, c, cols.shape[0])
+            hist = fennel_scores_rows(
+                local_indptr, cols_dev, self.state.part_of_dev, self._zero_sizes, 0.0, 1.5
+            )
+        else:
+            g = self._dgraph
+            hist = fennel_scores_gather(
+                g.indptr, g.indices, self.state.part_of_dev,
+                self._ids_dev[start : start + c], self._zero_sizes, 0.0, 1.5,
+            )
         cfg = self.config
         if cfg.exact:
-            rows, cols = expanded
             return hist.cpu().tolist(), self._inchunk_corr(batch, rows, cols)
         w = cfg.sample_cap
-        indptr, indices = self.graph.indptr, self.graph.indices
-        over = np.flatnonzero(indptr[batch + 1] - indptr[batch] > w)
+        indptr = self.graph.indptr
+        degs = (indptr[batch + 1] - indptr[batch]).astype(np.int64)
+        over = np.flatnonzero(degs > w)
         if over.size == 0:
             return hist.cpu().tolist(), None
         part_of = self.state.part_of  # the chunk-start state, as the mirror's
+        first = np.cumsum(degs) - degs  # each row's first entry in cols
         width = max(8, 1 << (w - 1).bit_length())
         nbr_parts = np.full((over.size, width), -1, dtype=np.int32)
         scale = np.empty(over.size, dtype=np.float64)
         for j, i in enumerate(over.tolist()):
-            v = batch[i]
-            nb = indices[indptr[v] : indptr[v + 1]]
+            nb = cols[first[i] : first[i] + degs[i]]
             sel = self._sample_rng.choice(nb.size, size=w, replace=False)
             nbr_parts[j, :w] = part_of[nb[sel]]
             scale[j] = nb.size / w

@@ -1,8 +1,9 @@
 """CUTTANA Phase 2: coarsened refinement (paper §III-B).
 
 Port of ``repro.core.refinement``. The sub-partition graph ``W`` (Def. 3) is
-built on the device with one ``bincount`` over the CSR entries and copied
-to the host once. The :class:`Refiner`'s trades are sequential: each move
+built on the device with one ``bincount`` over the CSR entries (one per row
+range of a memory-mapped graph) and copied to the host once. The
+:class:`Refiner`'s trades are sequential: each move
 rewrites O(K') entries of ``M`` and a few segment-tree paths (Theorem 2),
 so they stay on the host in numpy, as in the reference:
 
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.graph.csr import CSRGraph
+from repro_torch.graph.external import is_mapped, iter_row_ranges
 
 NEG_INF = -np.inf
 
@@ -29,12 +31,24 @@ def build_subpartition_graph(
 ) -> torch.Tensor:
     """Dense float64[K', K'] sub-partition adjacency on ``device``;
     W[i,j] = #edges between members of S_i and S_j, diagonal zeroed. Counts
-    are exact integers in float64, so W equals the reference's."""
-    g = graph.to(device)
-    sub = torch.from_numpy(np.ascontiguousarray(sub_of, dtype=np.int64)).to(g.device)
-    key = sub[g.sources()] * kp + sub[g.indices.long()]
-    w = torch.bincount(key, minlength=kp * kp).to(torch.float64).reshape(kp, kp)
-    del key
+    are exact integers in float64, so W equals the reference's. A mapped
+    graph is counted in row ranges, each range's rows copied once."""
+    sub = torch.from_numpy(np.ascontiguousarray(sub_of, dtype=np.int64)).to(device)
+    if is_mapped(graph):
+        counts = torch.zeros(kp * kp, dtype=torch.int64, device=sub.device)
+        for lo, degs, dst in iter_row_ranges(graph):
+            rows = torch.arange(lo, lo + degs.shape[0], dtype=torch.int64, device=sub.device)
+            src = torch.repeat_interleave(
+                rows, torch.from_numpy(degs).to(sub.device), output_size=dst.shape[0]
+            )
+            key = sub[src] * kp + sub[torch.from_numpy(dst).to(sub.device).long()]
+            counts += torch.bincount(key, minlength=kp * kp)
+    else:
+        g = graph.to(device)
+        key = sub[g.sources()] * kp + sub[g.indices.long()]
+        counts = torch.bincount(key, minlength=kp * kp)
+        del key
+    w = counts.to(torch.float64).reshape(kp, kp)
     w = 0.5 * (w + w.T)  # symmetric storage counted each edge twice -> halve
     w.fill_diagonal_(0.0)
     return w

@@ -4,7 +4,8 @@ The graph lives on the host in numpy, exactly as in the reference, because
 the streaming loops read neighbour rows one chunk at a time on the host.
 :meth:`CSRGraph.to` places ``indptr`` (int64[|V|+1]) and ``indices``
 (int32[2|E|]) on a device once; the kernels, the sub-partition graph build
-and the quality scans read that copy.
+and the quality scans read that copy. A memory-mapped graph
+(:class:`~repro_torch.graph.external.ExternalCSRGraph`) has no such copy.
 """
 from __future__ import annotations
 
@@ -127,6 +128,16 @@ class CSRGraph:
         order2 = np.lexsort((dst, src))
         indices = dst[order2].astype(np.int32)
         return CSRGraph(indptr=indptr, indices=indices)
+
+    # ------------------------------------------------------------- files
+    def save(self, path: str) -> None:
+        """An ``.npz`` dump, the reference's format."""
+        np.savez_compressed(path, indptr=self.indptr, indices=self.indices)
+
+    @staticmethod
+    def load(path: str) -> "CSRGraph":
+        data = np.load(path)
+        return CSRGraph(indptr=data["indptr"], indices=data["indices"])
 
     def __repr__(self) -> str:  # pragma: no cover
         return f"CSRGraph(|V|={self.num_vertices}, |E|={self.num_edges})"

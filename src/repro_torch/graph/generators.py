@@ -177,51 +177,3 @@ DATASETS = {
 def load_dataset(name: str, seed: int = 0) -> CSRGraph:
     gen, kwargs = DATASETS[name]
     return gen(seed=seed, **kwargs)
-
-
-def _parse_source(source: str):
-    """``("rmat", (n, avg_degree))`` or ``("dataset", name)`` for a spec
-    source; raises ``ValueError`` for anything else."""
-    if not isinstance(source, str) or not source:
-        raise ValueError(f"source must be a non-empty string, got {source!r}")
-    if source.startswith("rmat:"):
-        fields = source.split(":")[1:]
-        try:
-            if not 1 <= len(fields) <= 2:
-                raise ValueError
-            n = int(fields[0])
-            deg = float(fields[1]) if len(fields) == 2 else 16.0
-        except ValueError:
-            raise ValueError(
-                f"bad source {source!r}: expected rmat:<n>[:<avg_degree>]"
-            ) from None
-        if n < 1 or deg <= 0:
-            raise ValueError(f"bad source {source!r}: n must be >= 1 and avg_degree > 0")
-        return "rmat", (n, deg)
-    if source.startswith("dataset:"):
-        name = source.split(":", 1)[1]
-        if name not in DATASETS:
-            raise ValueError(
-                f"bad source {source!r}: unknown dataset {name!r} "
-                f"(available: {', '.join(sorted(DATASETS))})"
-            )
-        return "dataset", name
-    raise ValueError(
-        f"source {source!r} names a graph file; on-disk graphs arrive with "
-        "slice 5 of the port (use rmat:<n>[:<avg_degree>] or dataset:<name>)"
-    )
-
-
-def validate_source(source: str) -> None:
-    """Syntax-check a ``PartitionSpec.source``: ``rmat:<n>[:<avg_degree>]``
-    or ``dataset:<name>``."""
-    _parse_source(source)
-
-
-def load_source(source: str, *, seed: int = 0) -> CSRGraph:
-    """Generate the graph a spec ``source`` names."""
-    kind, arg = _parse_source(source)
-    if kind == "rmat":
-        n, deg = arg
-        return rmat_graph(n, avg_degree=deg, seed=seed)
-    return load_dataset(arg, seed=seed)

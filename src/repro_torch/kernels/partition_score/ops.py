@@ -7,7 +7,10 @@ other. ``launches`` counts the launches of the sequential entries
 (``fennel_scores``, ``fennel_scores_gather``; the port of
 ``fennel_scores_pallas``), ``sharded_launches`` those of the sharded entries
 (``fennel_scores_sharded``, ``fennel_scores_sharded_gather``; the port of
-``fennel_scores_sharded_pallas``). CPU calls count in neither.
+``fennel_scores_sharded_pallas``). The rows entries (``fennel_scores_rows``,
+``fennel_scores_sharded_rows``), which score a chunk-local CSR copied to the
+card for a memory-mapped graph, count in ``rows_launches`` and
+``sharded_rows_launches``. CPU calls count in none.
 
 The kernel splits a call by entries, not by rows (``csrc/partition_score.cu``):
 the rows are cut into groups, one cluster of ``CLUSTER_BLOCKS`` blocks each;
@@ -27,8 +30,10 @@ from repro_torch.kernels.partition_score import build
 from repro_torch.kernels.partition_score.ref import (
     fennel_scores_gather_ref,
     fennel_scores_ref,
+    fennel_scores_rows_ref,
     fennel_scores_sharded_gather_ref,
     fennel_scores_sharded_ref,
+    fennel_scores_sharded_rows_ref,
 )
 
 __all__ = [
@@ -40,12 +45,16 @@ __all__ = [
     "WHOLE_ROW",
     "fennel_scores",
     "fennel_scores_gather",
+    "fennel_scores_rows",
     "fennel_scores_sharded",
     "fennel_scores_sharded_gather",
+    "fennel_scores_sharded_rows",
     "group_rows",
     "launches",
     "reset",
+    "rows_launches",
     "sharded_launches",
+    "sharded_rows_launches",
     "tile_plan",
 ]
 
@@ -115,13 +124,19 @@ def tile_plan(degrees: np.ndarray, k: int, width: int | None = None) -> dict:
 
 launches = 0
 sharded_launches = 0
+rows_launches = 0
+sharded_rows_launches = 0
+# device -> int64 arange, the rows entries' batch (row r is local row r)
+_row_ids_cache: dict = {}
 
 
 def reset() -> None:
     """Zero the launch counts."""
-    global launches, sharded_launches
+    global launches, sharded_launches, rows_launches, sharded_rows_launches
     launches = 0
     sharded_launches = 0
+    rows_launches = 0
+    sharded_rows_launches = 0
 
 
 def _check_k(sizes: torch.Tensor) -> int:
@@ -143,6 +158,41 @@ def _check_graph(indptr, indices, part_of, batch, device) -> None:
         )
     if batch.shape[0] > _MAX_ROWS:
         raise ValueError(f"at most {_MAX_ROWS} rows per call, got {batch.shape[0]}")
+
+
+def _check_rows(local_indptr, cols, part_of, device) -> int:
+    """Check a chunk-local CSR (row ``r`` is ``cols[local_indptr[r] :
+    local_indptr[r + 1]]``); returns its row count. The values are read for
+    a CPU tensor only: on the card that read would cost a synchronisation
+    a chunk."""
+    _check("local_indptr", local_indptr, torch.int64, 1, device)
+    _check("cols", cols, torch.int32, 1, device)
+    _check("part_of", part_of, torch.int32, 1, device)
+    c = local_indptr.shape[0] - 1
+    if not 0 <= c <= _MAX_ROWS:
+        raise ValueError(f"local_indptr must hold 1 to {_MAX_ROWS + 1} offsets, got {c + 1}")
+    if device.type == "cpu":
+        if (
+            int(local_indptr[0]) != 0
+            or int(local_indptr[-1]) != cols.shape[0]
+            or bool((local_indptr[1:] < local_indptr[:-1]).any())
+        ):
+            raise ValueError(f"local_indptr must rise from 0 to len(cols) = {cols.shape[0]}")
+        if cols.numel() and (int(cols.min()) < 0 or int(cols.max()) >= part_of.shape[0]):
+            raise ValueError(f"cols must be vertex ids in [0, {part_of.shape[0]})")
+    return c
+
+
+def _row_ids(c: int, device: torch.device) -> torch.Tensor:
+    """int64[c] ``0..c-1`` on ``device``, from a cached arange (grown to a
+    power of two), so a rows entry is the gather entry's launch with
+    ``batch[r] = r``."""
+    key = str(device)
+    ids = _row_ids_cache.get(key)
+    if ids is None or ids.shape[0] < c:
+        ids = torch.arange(max(1 << (c - 1).bit_length(), 1024), dtype=torch.int64, device=device)
+        _row_ids_cache[key] = ids
+    return ids[:c]
 
 
 def _launch(fn, *args) -> None:
@@ -180,6 +230,39 @@ def fennel_scores_gather(
             float(alpha * gamma), float(gamma - 1.0), out.data_ptr(),
         )
         launches += 1
+    return out
+
+
+def fennel_scores_rows(
+    local_indptr: torch.Tensor,  # int64[C+1] offsets of the chunk's rows in cols
+    cols: torch.Tensor,  # int32[nnz] the rows' neighbour ids
+    part_of: torch.Tensor,  # int32[V], -1 = unassigned
+    sizes: torch.Tensor,  # float32[K]
+    alpha: float,
+    gamma: float,
+) -> torch.Tensor:
+    """scores f32[C, K] for a chunk's rows copied to the device as a
+    chunk-local CSR (the engine's call for a memory-mapped graph). One
+    launch of the gather entry's kernel with row ``r`` read from
+    ``local_indptr[r] .. local_indptr[r + 1]``."""
+    global rows_launches
+    device = local_indptr.device
+    c = _check_rows(local_indptr, cols, part_of, device)
+    _check("sizes", sizes, torch.float32, 1, device)
+    k = _check_k(sizes)
+    if device.type == "cpu":
+        return fennel_scores_rows_ref(local_indptr, cols, part_of, sizes, alpha, gamma)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    out = torch.empty((c, k), dtype=torch.float32, device=device)
+    if c:
+        _launch(
+            build.library().partition_score_gather,
+            local_indptr.data_ptr(), cols.data_ptr(), part_of.data_ptr(),
+            _row_ids(c, device).data_ptr(), c, sizes.data_ptr(), k,
+            float(alpha * gamma), float(gamma - 1.0), out.data_ptr(),
+        )
+        rows_launches += 1
     return out
 
 
@@ -266,6 +349,56 @@ def fennel_scores_sharded_gather(
             out.data_ptr(),
         )
         sharded_launches += 1
+    return out
+
+
+def fennel_scores_sharded_rows(
+    local_indptr: torch.Tensor,  # int64[total+1] offsets of the rows in cols
+    cols: torch.Tensor,  # int32[nnz] the rows' neighbour ids
+    part_of: torch.Tensor,  # int32[V], -1 = unassigned
+    shard_start: torch.Tensor,  # int64[S+1] first row of each shard, then total
+    sizes: torch.Tensor,  # float32[S, K] one size row per shard
+    alpha: float,
+    gamma: float,
+) -> torch.Tensor:
+    """scores f32[total, K] for a superstep's candidate rows copied to the
+    device as one local CSR, shard after shard (the parallel engine's call
+    for a memory-mapped graph). One launch of the sharded gather entry's
+    kernel; ``shard_start`` as in :func:`fennel_scores_sharded_gather`."""
+    global sharded_rows_launches
+    device = local_indptr.device
+    total = _check_rows(local_indptr, cols, part_of, device)
+    _check("shard_start", shard_start, torch.int64, 1, device)
+    _check("sizes", sizes, torch.float32, 2, device)
+    k = _check_k(sizes)
+    s = sizes.shape[0]
+    if s < 1 or shard_start.shape[0] != s + 1:
+        raise ValueError(
+            f"shard_start must have S+1 = {s + 1} entries for {s} size rows, "
+            f"got {shard_start.shape[0]}"
+        )
+    if device.type == "cpu":
+        if (
+            int(shard_start[0]) != 0
+            or int(shard_start[-1]) != total
+            or bool((shard_start[1:] < shard_start[:-1]).any())
+        ):
+            raise ValueError(f"shard_start must rise from 0 to {total}")
+        return fennel_scores_sharded_rows_ref(
+            local_indptr, cols, part_of, shard_start, sizes, alpha, gamma
+        )
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    out = torch.empty((total, k), dtype=torch.float32, device=device)
+    if total:
+        _launch(
+            build.library().partition_score_sharded_gather,
+            local_indptr.data_ptr(), cols.data_ptr(), part_of.data_ptr(),
+            _row_ids(total, device).data_ptr(), shard_start.data_ptr(), s, total,
+            sizes.data_ptr(), k, float(alpha * gamma), float(gamma - 1.0),
+            out.data_ptr(),
+        )
+        sharded_rows_launches += 1
     return out
 
 

@@ -52,6 +52,16 @@ def fennel_scores_gather_ref(indptr, indices, part_of, batch, sizes,
     return _scores(rows, parts, batch.shape[0], sizes, alpha, gamma)
 
 
+def fennel_scores_rows_ref(local_indptr, cols, part_of, sizes,
+                           alpha: float, gamma: float) -> torch.Tensor:
+    """The rows entry: row ``r`` is ``cols[local_indptr[r] :
+    local_indptr[r + 1]]`` of a chunk-local CSR, i.e. the gather entry with
+    ``batch[r] = r``."""
+    c = local_indptr.shape[0] - 1
+    batch = torch.arange(c, dtype=torch.int64, device=local_indptr.device)
+    return fennel_scores_gather_ref(local_indptr, cols, part_of, batch, sizes, alpha, gamma)
+
+
 def fennel_scores_ref(nbr_parts, sizes, alpha: float, gamma: float) -> torch.Tensor:
     """The dense entry: row ``r`` is ``nbr_parts[r, :]`` (-1 padding)."""
     b, d = nbr_parts.shape
@@ -77,6 +87,16 @@ def fennel_scores_sharded_gather_ref(indptr, indices, part_of, batch, shard_star
     total = batch.shape[0]
     return _scores(rows, parts, total, sizes, alpha, gamma,
                    shard_rows(shard_start, total))
+
+
+def fennel_scores_sharded_rows_ref(local_indptr, cols, part_of, shard_start, sizes,
+                                   alpha: float, gamma: float) -> torch.Tensor:
+    """The sharded rows entry: :func:`fennel_scores_rows_ref` with row ``r``
+    penalised by the size row of its shard."""
+    total = local_indptr.shape[0] - 1
+    batch = torch.arange(total, dtype=torch.int64, device=local_indptr.device)
+    return fennel_scores_sharded_gather_ref(local_indptr, cols, part_of, batch,
+                                            shard_start, sizes, alpha, gamma)
 
 
 def fennel_scores_sharded_ref(nbr_parts, sizes, alpha: float, gamma: float) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """The partition-score CUDA kernel (sequential and sharded entries; the
 partitioner zoo's paths through them: sampled dense rows, 4,096-row chunks,
-long coarse rows, one engine per arrival batch), the
+long coarse rows, one engine per arrival batch; the rows entries of a
+memory-mapped graph and its bounded device memory), the
 gather/reduce CUDA kernel (segment and ELL entries), the flash-attention and
 the selective-scan kernels against their plain PyTorch versions on the card,
 and the partitioners, the analytics engine and the reduced LMs on the card
@@ -168,6 +169,102 @@ def test_parallel_on_card_matches_cpu_and_launches_per_superstep(cuda_device, al
     on_cpu = tapi.partition(web, spec, device="cpu")
     np.testing.assert_array_equal(on_card.assignment, on_cpu.assignment)
     assert on_card.quality()["edge_cut"] == on_cpu.quality()["edge_cut"]
+
+
+def _local_rows(rng, degs, num_vertices):
+    """A chunk-local CSR (int64 offsets, int32 sorted-unique cols) of rows
+    with ``degs`` entries over ``num_vertices`` vertices."""
+    cols = [np.sort(rng.choice(num_vertices, size=d, replace=False)) for d in degs]
+    local = np.concatenate(([0], np.cumsum(degs))).astype(np.int64)
+    return local, np.concatenate(cols).astype(np.int32)
+
+
+# rows of a chunk: short rows, empty rows, and a hub row of 9,000 entries,
+# more than WHOLE_ROW, so the kernel splits it over its cluster's blocks
+ROWS_DEGS = [0, 3, 9000, 17, 0, 1, 600] + [12] * 505
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [8, 64])
+def test_rows_kernel_matches_plain_version(cuda_device, k):
+    from repro_torch.kernels.partition_score.ref import fennel_scores_rows_ref
+
+    rng = np.random.default_rng(k)
+    v = 50_000
+    assert max(ROWS_DEGS) > ops.WHOLE_ROW
+    local, cols = _local_rows(rng, ROWS_DEGS, v)
+    part_of = rng.integers(-1, k, size=v).astype(np.int32)
+    dev = [torch.from_numpy(a).to(cuda_device) for a in (local, cols, part_of)]
+    for alpha, sizes in ((0.0, np.zeros(k)), (0.37, rng.random(k) * 100)):
+        s_dev = torch.from_numpy(sizes.astype(np.float32)).to(cuda_device)
+        before = ops.rows_launches
+        got = ops.fennel_scores_rows(*dev, s_dev, alpha, 1.5)
+        torch.cuda.synchronize()
+        assert ops.rows_launches == before + 1
+        want = fennel_scores_rows_ref(*dev, s_dev, alpha, 1.5)
+        if alpha == 0.0:
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("counts", [(128, 128, 128, 128), (0, 300, 0, 212), (512, 0, 0, 0)])
+def test_sharded_rows_kernel_matches_plain_version(cuda_device, counts):
+    from repro_torch.kernels.partition_score.ref import fennel_scores_sharded_rows_ref
+
+    rng = np.random.default_rng(sum(counts))
+    v, k, s = 50_000, 8, len(counts)
+    local, cols = _local_rows(rng, ROWS_DEGS, v)
+    part_of = rng.integers(-1, k, size=v).astype(np.int32)
+    dev = [torch.from_numpy(a).to(cuda_device) for a in (local, cols, part_of)]
+    start = torch.tensor(np.concatenate([[0], np.cumsum(counts)]), dtype=torch.int64,
+                         device=cuda_device)
+    for alpha, sizes in ((0.0, np.zeros((s, k))), (0.37, rng.random((s, k)) * 100)):
+        s_dev = torch.from_numpy(sizes.astype(np.float32)).to(cuda_device)
+        before = ops.sharded_rows_launches
+        got = ops.fennel_scores_sharded_rows(*dev, start, s_dev, alpha, 1.5)
+        torch.cuda.synchronize()
+        assert ops.sharded_rows_launches == before + 1
+        want = fennel_scores_sharded_rows_ref(*dev, start, s_dev, alpha, 1.5)
+        if alpha == 0.0:
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo", ["fennel", "fennel-parallel"])
+def test_mapped_run_on_card_holds_one_chunk(cuda_device, tmp_path, algo):
+    """A memory-mapped graph partitions on the card with the CPU's
+    assignment, one rows-entry launch a chunk (or superstep), and a peak of
+    device memory below the bytes of the graph's device arrays. (A CUTTANA
+    run's peak is its phase-2 W, K' x K' float64: not the graph's.)"""
+    import repro_torch.api as tapi
+    from repro_torch.graph.external import ExternalCSRGraph, convert_csr
+
+    g = rmat_graph(200_000, avg_degree=16, seed=2)
+    path = str(tmp_path / "g.bin")
+    convert_csr(g, path)
+    graph_bytes = g.indptr.nbytes + g.indices.nbytes
+    params = {"num_shards": 4} if algo.endswith("parallel") else {}
+    spec = tapi.PartitionSpec(algo=algo, k=8, balance_mode="edge", order="random", seed=0,
+                              params=params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    counts = ops.rows_launches, ops.sharded_rows_launches, ops.launches, ops.sharded_launches
+    on_card = tapi.partition(ExternalCSRGraph(path), spec, device=cuda_device)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    launched = (ops.rows_launches - counts[0], ops.sharded_rows_launches - counts[1],
+                ops.launches - counts[2], ops.sharded_launches - counts[3])
+    calls = on_card.telemetry["kernel_calls"]
+    assert launched == ((calls, 0, 0, 0) if algo == "fennel" else (0, calls, 0, 0))
+    assert peak < graph_bytes, (peak, graph_bytes)
+    on_cpu = tapi.partition(g, spec, device="cpu")
+    np.testing.assert_array_equal(on_card.assignment, on_cpu.assignment)
+    assert on_card.quality() == on_cpu.quality()
 
 
 def _launch_counts():
