@@ -5,7 +5,8 @@
     python3 chip_smoke.py --tiny    # CPU rehearsal at a tiny size (no result)
 
 Phases:
-  0. set-up: card name and power limit, torch/CUDA versions, kernel build;
+  0. set-up: card name and power limit, torch/CUDA versions, kernel build
+     (phase 1's graph is generated on the host while nvcc runs);
   1. the partition-score kernel against its plain PyTorch version on the card
      at the main path's shapes (C=512 chunks of the phase-2 graph at K=8 and
      K=64, the chunk holding the highest-degree vertex, the dense entry),
@@ -63,8 +64,9 @@ Phases:
  10. the analytics path: ``result.analytics(program, iters,
      mode="simulated")`` on phase 2's ``fennel`` assignment for pagerank
      (30 iterations), cc and sssp (20): one kernel launch per iteration,
-     values equal to the port's device="cpu" run (cc/sssp exactly,
-     pagerank within rtol 1e-5, atol 1e-9), a second pagerank run on the
+     values after ``CPU_PARITY_ITERS`` (5) iterations equal to the port's
+     device="cpu" run at that depth (cc/sssp exactly, pagerank within rtol
+     1e-5, atol 1e-9), a second pagerank run on the
      card bit-identical, ``halo_messages_per_iter`` equal to
      ``comm_volume * k * |V|``; web-s values against the float64 oracles;
  11. pagerank on social-m (phase 3's ``cuttana`` partition) under
@@ -155,7 +157,32 @@ Phases:
      of the random order, decoded from the file and packed as the engine
      packs it; ``mapped_superstep_s4x512_k8``: the first superstep at S=4),
      exact at alpha=0 and within 1e-6 with a penalty, timed like phase 1,
-     with the packed buffer's bytes and its host-to-device copy time.
+     with the packed buffer's bytes and its host-to-device copy time;
+ 22. (runs after phase 21, while phase 2's graph and partition are loaded)
+     the graph-DB study and partition-aware serving, fed by partitions made
+     on the card: (a) ``benchmarks/serving.py``'s recipe with the port (the
+     R-MAT of 8,000 vertices, degree 12, seed 0; ``cuttana``, ``fennel``,
+     ``hdrf`` and ``random`` at k=8; 2,000 queries of the default mix
+     seeded 1 at concurrency 1,000): every field of the six committed
+     ``serving/rmat8000/*`` rows of ``BENCH_partition.json`` but
+     ``qps_wall`` (``SERVING_ROWS``), gather launches equal to
+     ``kernel_calls`` (none for the host-placed ``cuttana``, ``hdrf`` and
+     ``random``), ``qps_wall`` logged; the gather entry against its plain
+     version on the first chunk of that cuttana stream
+     (``serving_rmat8000_chunk512_k8``), timed like phase 1; (b) phase 2's
+     2^22 ``fennel`` partition served at replication budget 0.05 with
+     ``SERVING_QUERIES`` (1,000) queries (seed 1) at concurrency 1,000, at
+     auto workers and at one worker: the same answers per query and the
+     same sim metrics and counters, the answers equal to the
+     ``QueryEngine``'s, the plan's and runs' seconds logged, and
+     ``result.db(hops=1|2)`` with 256 queries;
+     (c) ``python -m repro_torch.api.cli`` in child processes on the card:
+     ``partition`` (cuttana, ``--with-db``) gives (a)'s quality and
+     ``kernel_calls`` (0: cuttana places every vertex on the host),
+     ``serve-bench`` (cuttana, 2,000 queries seeded 1, concurrency 1,000)
+     the committed ``qps_sim`` and RPCs; ``partition`` on fennel, run in
+     this process, gives (a)'s quality and launches the kernel once per
+     ``kernel_calls`` (16).
 
 Kernel times: ``ms`` is device time per launch (launches captured in a CUDA
 graph and replayed, so the host's cost of a call is out); ``call_ms``,
@@ -169,14 +196,17 @@ power limit, and ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero before that line. Without a CUDA device (and without ``--tiny``)
 the script exits 2 and prints no result. ``--tiny`` runs phases 12-17 at
 the reduced configs and small kernel shapes, phase 19 on social-s (its
-constants unchecked), phase 20 on the 2^12 and 2^14 graphs, and phase 21's
-full-size part on a 2^12 R-MAT.
+constants unchecked), phase 20 on the 2^12 and 2^14 graphs, phase 21's
+full-size part on a 2^12 R-MAT, and phase 22(b) on phase 2's 2^14
+partition (phase 22's committed rows and the CLI run unchanged, on the
+CPU).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -205,6 +235,10 @@ FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 # throughput), 132 SMs at the 1.98 GHz boost clock behind the 67 TFLOP/s
 EXP_PER_S = 132 * 16 * 1.98e9
 ANALYTICS_ITERS = {"pagerank": 30, "cc": 20, "sssp": 20}  # benchmarks/analytics.py
+# phase 10 holds the card's values against the CPU run after this many
+# iterations of each program (the CPU run at full depth took 110-130 s of
+# the smoke's time limit)
+CPU_PARITY_ITERS = 5
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py's
 # an attention output row is a softmax average over up to 32768 keys, so its
 # entries are ~sqrt(e / keys) in size, at or below the bf16 allowance above;
@@ -293,6 +327,53 @@ CHURN_EDGE_CUT = 0.7724772058256066
 # the R-MAT of 2^scale vertices, average degree 16, seed 0, for the scales
 # phase 20 checks (a quarter of its graph: 2^20 on the card, 2^12 with --tiny)
 RMAT_BATCHED_EDGE_CUT = {20: 0.8362624552954572, 12: 0.7886621145043896}
+# phase 22(b)'s queries on the 2^22 partition: 2,000 took 71.5 s at one
+# worker on the card's host, above the 60 s a run may take in the smoke
+SERVING_QUERIES = 1000
+# BENCH_partition.json's serving/rmat8000/* rows (phase 22; benchmarks/
+# serving.py: R-MAT 8000, degree 12, seed 0, k=8, 2,000 queries seeded 1 at
+# concurrency 1,000), every field but qps_wall (the host's clock)
+SERVING_ALGOS = ("cuttana", "fennel", "hdrf", "random")
+SERVING_ROWS = {
+    "serving/rmat8000/cuttana": {
+        "algo": "cuttana", "bench": "serving/rmat8000/cuttana",
+        "communication_volume": 0.252890625, "concurrency": 1000,
+        "edge_cut": 0.771688622754491, "local_queries": 449, "messages": 28618,
+        "num_queries": 2000, "p50_sim_ms": 0.20871840000000003,
+        "p99_sim_ms": 0.9992079999999999, "qps_sim": 37263.08095863419, "rpcs": 14309,
+        "wire_bytes": 54748496},
+    "serving/rmat8000/fennel": {
+        "algo": "fennel", "bench": "serving/rmat8000/fennel",
+        "communication_volume": 0.256125, "concurrency": 1000,
+        "edge_cut": 0.7868502994011976, "local_queries": 447, "messages": 28740,
+        "num_queries": 2000, "p50_sim_ms": 0.2089012, "p99_sim_ms": 0.9924368,
+        "qps_sim": 32496.31576269672, "rpcs": 14370, "wire_bytes": 54711888},
+    "serving/rmat8000/hdrf": {
+        "algo": "hdrf", "bench": "serving/rmat8000/hdrf",
+        "communication_volume": 0.275453125, "concurrency": 1000,
+        "edge_cut": 0.8608383233532935, "local_queries": 443, "messages": 28966,
+        "num_queries": 2000, "p50_sim_ms": 0.2092504, "p99_sim_ms": 1.001914496,
+        "qps_sim": 28558.3295999981, "rpcs": 14483, "wire_bytes": 55904016},
+    "serving/rmat8000/random": {
+        "algo": "random", "bench": "serving/rmat8000/random",
+        "communication_volume": 0.2843125, "concurrency": 1000,
+        "edge_cut": 0.8773652694610778, "local_queries": 436, "messages": 29256,
+        "num_queries": 2000, "p50_sim_ms": 0.21794760000000002,
+        "p99_sim_ms": 0.99607524, "qps_sim": 33467.25411246957, "rpcs": 14628,
+        "wire_bytes": 56551816},
+    "serving/rmat8000/cuttana/replication": {
+        "algo": "cuttana", "answers_identical": True,
+        "bench": "serving/rmat8000/cuttana/replication",
+        "replication_adjacency_entries": 125160, "replication_budget": 0.05,
+        "replication_budget_pairs": 400, "replication_demand_covered": 15802,
+        "replication_num_replicas": 400, "rpc_reduction": 0.04881656804733725,
+        "rpcs_base": 3380, "rpcs_replicated": 3215},
+    "serving/rmat8000/ordering": {
+        "bench": "serving/rmat8000/ordering", "p99_cuttana_over_fennel": 1.006822802217733,
+        "p99_cuttana_over_hdrf": 0.9972986756746156,
+        "qps_cuttana_over_random": 1.1134191300370333, "tail_ordering_ok": True,
+        "throughput_ordering_ok": True},
+}
 
 
 def log(msg: str) -> None:
@@ -1436,6 +1517,247 @@ def outofcore_phase(torch, np, tapi, ops, ref, counters, device, timer, floor, g
     return shapes, launches
 
 
+def serving_spec(tapi, algo: str):
+    """``benchmarks/serving.py``'s ``_spec`` at k=8, seed 0."""
+    if algo in ("random", "hdrf"):
+        return tapi.PartitionSpec(algo=algo, k=8, seed=0)
+    return tapi.PartitionSpec(algo=algo, k=8, balance_mode="edge", order="random", seed=0)
+
+
+def sim_report(rep) -> dict:
+    """A serving report without its wall-clock fields."""
+    d = rep.to_dict()
+    for key in ("wall_s", "qps_wall"):
+        d.pop(key)
+    d["latency_ms"] = {"sim": d["latency_ms"]["sim"]}
+    return d
+
+
+def same_answers(np, a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(
+        np.array_equal(va, b[qid]) if isinstance(va, np.ndarray) else va == b[qid]
+        for qid, va in a.items())
+
+
+def serving_phase(torch, np, tapi, ops, ref, counters, device, timer, floor, graph, main_res,
+                  tiny: bool, ident: str) -> tuple:
+    """Phase 22: the graph-DB study and partition-aware serving, fed by
+    partitions made on the card. (a) ``benchmarks/serving.py``'s recipe with
+    the port against the committed ``serving/rmat8000/*`` rows; (b) phase 2's
+    2^22 ``fennel`` partition served at replication budget 0.05, at auto and
+    at one worker, against each other and the ``QueryEngine``, and the DB
+    study on it; (c) the CLI on the card in child processes. Returns the
+    kernel row ``serving_rmat8000_chunk512_k8`` and the gather launches of
+    (a)'s partitions by algorithm."""
+    import tempfile
+
+    from repro_torch.db import QueryEngine
+    from repro_torch.graph.generators import rmat_graph
+    from repro_torch.graph.metrics import quality_report
+    from repro_torch.graph.stream import stream_order
+    from repro_torch.serve.graph import QueryMix, build_workload, run_load
+
+    t_phase = time.perf_counter()
+    # ------------------------------------------------ (a) serving/rmat8000
+    small = rmat_graph(8000, avg_degree=12, seed=0)
+    workload = build_workload(small, 2000, QueryMix(), seed=1)
+    launches, reports, quality = {}, {}, {}
+    for algo in SERVING_ALGOS:
+        reset_counts(*counters)
+        res = tapi.partition(small, serving_spec(tapi, algo), device=device)
+        sync(torch, device)
+        calls = res.telemetry.get("kernel_calls", 0)
+        counts = (ops.launches, ops.sharded_launches, ops.rows_launches,
+                  ops.sharded_rows_launches)
+        want = (calls if device.type == "cuda" else 0, 0, 0, 0)
+        check(counts == want, f"rmat8000 {algo}: launches {counts}, expected {want}")
+        launches[algo] = counts[0]
+        part = res.vertex_assignment()
+        t0 = time.perf_counter()
+        rep = run_load(res.serve(store_results=False), workload=workload, concurrency=1000)
+        load_s = time.perf_counter() - t0
+        reports[algo] = rep
+        q = quality_report(small, part, 8, device)
+        quality[algo] = (q, calls)
+        row = {
+            "bench": f"serving/rmat8000/{algo}", "algo": algo, "num_queries": rep.num_queries,
+            "concurrency": rep.concurrency, "qps_sim": rep.qps_sim,
+            "p99_sim_ms": rep.latency_ms["sim"]["p99"], "p50_sim_ms": rep.latency_ms["sim"]["p50"],
+            "rpcs": rep.rpcs, "messages": rep.messages, "wire_bytes": rep.wire_bytes,
+            "local_queries": rep.local_queries, "edge_cut": q["edge_cut"],
+            "communication_volume": q["comm_volume"],
+        }
+        check(row == SERVING_ROWS[row["bench"]],
+              f"{row['bench']}: {row} != the committed {SERVING_ROWS[row['bench']]}")
+        log(json.dumps({"phase": 22, **row, "kernel_calls": calls, "launches": counts[0],
+                        "qps_wall": rep.qps_wall, "wall_s": rep.wall_s, "load_seconds": load_s,
+                        "partition_seconds": res.timings["total_s"], "device": ident}))
+    res = tapi.partition(small, serving_spec(tapi, "cuttana"), device=device)
+    base = run_load(res.serve(replication_budget=0.0), workload=workload[:500],
+                    concurrency=1000)
+    repl = run_load(res.serve(replication_budget=0.05), workload=workload[:500],
+                    concurrency=1000)
+    row = {
+        "bench": "serving/rmat8000/cuttana/replication", "algo": "cuttana",
+        "replication_budget": 0.05, "rpcs_base": base.rpcs, "rpcs_replicated": repl.rpcs,
+        "rpc_reduction": 1.0 - repl.rpcs / max(base.rpcs, 1),
+        "answers_identical": same_answers(np, base.answers(), repl.answers()),
+        **{f"replication_{key}": val for key, val in repl.replication.items()},
+    }
+    check(row == SERVING_ROWS[row["bench"]], f"{row['bench']}: {row}")
+    qps = {a: reports[a].qps_sim for a in SERVING_ALGOS}
+    p99 = {a: reports[a].latency_ms["sim"]["p99"] for a in SERVING_ALGOS}
+    order_row = {
+        "bench": "serving/rmat8000/ordering",
+        "qps_cuttana_over_random": qps["cuttana"] / qps["random"],
+        "p99_cuttana_over_fennel": p99["cuttana"] / p99["fennel"],
+        "p99_cuttana_over_hdrf": p99["cuttana"] / p99["hdrf"],
+        "throughput_ordering_ok": bool(qps["cuttana"] > qps["random"]),
+        "tail_ordering_ok": bool(p99["cuttana"] <= 1.05 * min(p99["fennel"], p99["hdrf"])),
+    }
+    check(order_row == SERVING_ROWS[order_row["bench"]], f"{order_row['bench']}: {order_row}")
+    log(json.dumps({"phase": 22, **row}))
+    log(json.dumps({"phase": 22, **order_row}))
+    # the gather entry on the first chunk of that cuttana stream (random
+    # order, seed 0), against its plain version
+    kernel_row = gather_row(torch, np, ops, ref, small.to(device), small, device, timer, floor,
+                            np.random.default_rng(22), "serving_rmat8000_chunk512_k8",
+                            stream_order(small, "random", 0)[:CHUNK], 8)
+    log(json.dumps({"phase": 22, **kernel_row}))
+
+    # ---------------------------------------- (b) phase 2's 2^22 partition
+    scale = int(np.log2(graph.num_vertices))
+    big_workload = build_workload(graph, SERVING_QUERIES, QueryMix(), seed=1)
+    runs = []
+    for workers in (0, 1):
+        t0 = time.perf_counter()
+        svc = main_res.serve(replication_budget=0.05, max_workers=workers, store_results=True)
+        plan_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rep = run_load(svc, workload=big_workload, concurrency=1000)
+        runs.append((rep, plan_s, time.perf_counter() - t0, svc.workers))
+        del svc
+    (rep, _, _, _), (one, _, _, _) = runs
+    check(same_answers(np, rep.answers(), one.answers()),
+          f"rmat 2^{scale} serving: auto and one-worker answers differ")
+    check(sim_report(rep) == sim_report(one),
+          f"rmat 2^{scale} serving: auto and one-worker sim metrics or counters differ")
+    answers = rep.answers()
+    engine = QueryEngine(graph, main_res.vertex_assignment(), 8)
+    t0 = time.perf_counter()
+    for kind, run in (("one_hop", engine.one_hop), ("two_hop", engine.two_hop)):
+        qids = [i for i, (kd, _) in enumerate(big_workload) if kd == kind]
+        seeds = np.array([big_workload[i][1] for i in qids], dtype=np.int64)
+        # queries are independent: the engine answers slices of them on 8
+        # threads (numpy's unique and concatenate release the lock)
+        with ThreadPoolExecutor(8) as pool:
+            got = [a for part in pool.map(lambda idx: run(seeds[idx])[0],
+                                          np.array_split(np.arange(seeds.size), 8))
+                   for a in part]
+        check(all(np.array_equal(answers[i], g.astype(np.int64)) for i, g in zip(qids, got)),
+              f"rmat 2^{scale} serving: {kind} answers differ from the QueryEngine's")
+    engine_s = time.perf_counter() - t0
+    check(all(answers[i] == graph.degree(s) for i, (kd, s) in enumerate(big_workload)
+              if kd == "point"), f"rmat 2^{scale} serving: point answers are not degrees")
+    dbs = {}
+    for hops in (1, 2):
+        t0 = time.perf_counter()
+        dbs[hops] = {**main_res.db(hops=hops, num_queries=256),
+                     "seconds": time.perf_counter() - t0}
+        d = dbs[hops]
+        check(d["total_rpcs"] > 0 and all(np.isfinite(d[key]) for key in (
+            "qps", "p99_latency_ms", "mean_latency_ms")),
+              f"rmat 2^{scale} db hops={hops}: {d}")
+    log(json.dumps({
+        "phase": 22, "graph": f"rmat 2^{scale} avg_degree 16", "algo": "fennel", "k": 8,
+        "replication_budget": 0.05, "queries": len(big_workload), "concurrency": 1000,
+        "replication": rep.replication, "qps_sim": rep.qps_sim,
+        "latency_sim_ms": rep.latency_ms["sim"], "rpcs": rep.rpcs, "messages": rep.messages,
+        "wire_bytes": rep.wire_bytes, "scanned_edges": rep.scanned_edges,
+        "local_queries": rep.local_queries, "kind_counts": rep.kind_counts,
+        "runs": [{"workers": w, "plan_seconds": p, "run_seconds": r, "wall_s": x.wall_s,
+                  "qps_wall": x.qps_wall, "latency_wall_ms": x.latency_ms["wall"]}
+                 for x, p, r, w in runs],
+        "identical_across_workers": True, "equal_to_query_engine": True,
+        "query_engine_seconds": engine_s, "db": dbs,
+        "device": ident,
+    }))
+    del runs, rep, one, answers, engine
+
+    # ------------------------------------------------ (c) the CLI on the card
+    from repro_torch.api.cli import main as cli_main
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    dev = ["--device", device.type]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli") as td:
+        specs = {}
+        for algo in ("cuttana", "fennel"):
+            specs[algo] = Path(td) / f"{algo}.json"
+            specs[algo].write_text(serving_spec(tapi, algo).to_json())
+        out = {}
+        commands = {
+            "partition": ["partition", "--rmat", "8000", "--avg-degree", "12", "--with-db"],
+            "serve-bench": ["serve-bench", "--rmat", "8000", "--avg-degree", "12",
+                            "--queries", "2000", "--concurrency", "1000", "--load-seed", "1"],
+        }
+
+        def run_cli(name):  # the two children run side by side
+            path = Path(td) / f"{name}.json"
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "repro_torch.api.cli", *commands[name], "--spec",
+                 str(specs["cuttana"]), "--out", str(path), *dev],
+                env=env, capture_output=True, text=True, timeout=600)
+            check(proc.returncode == 0, f"cli {name} failed:\n{proc.stdout}\n{proc.stderr}")
+            return name, (json.loads(path.read_text()), time.perf_counter() - t0)
+
+        with ThreadPoolExecutor(len(commands)) as pool:
+            out.update(pool.map(run_cli, commands))
+        # the engine-backed spec through the CLI in this process, its launches
+        # counted: cuttana places every vertex on the host, fennel scores a
+        # chunk a launch
+        path = Path(td) / "partition_fennel.json"
+        reset_counts(*counters)
+        t0 = time.perf_counter()
+        check(cli_main(["partition", "--rmat", "8000", "--avg-degree", "12", "--spec",
+                        str(specs["fennel"]), "--out", str(path), *dev]) == 0,
+              "cli partition fennel failed")
+        sync(torch, device)
+        out["partition fennel"] = (json.loads(path.read_text()), time.perf_counter() - t0)
+        cli_launches = ops.launches
+        for name, algo in (("partition", "cuttana"), ("partition fennel", "fennel")):
+            report, _ = out[name]
+            q, calls = quality[algo]
+            check(report["quality"]["edge_cut"] == q["edge_cut"]
+                  and report["quality"]["comm_volume"] == q["comm_volume"],
+                  f"cli {name}: quality {report['quality']} != phase 22(a)'s {algo}")
+            check(report["telemetry"]["kernel_calls"] == calls,
+                  f"cli {name}: kernel_calls {report['telemetry']['kernel_calls']} != "
+                  f"phase 22(a)'s {calls}")
+            check(report["device"].startswith(device.type), f"cli {name}: {report['device']}")
+        calls = out["partition fennel"][0]["telemetry"]["kernel_calls"]
+        check(calls > 0 and cli_launches == (calls if device.type == "cuda" else 0),
+              f"cli partition fennel: {cli_launches} launches, kernel_calls {calls}")
+        db = out["partition"][0]["db"]
+        check(db["one_hop"]["total_rpcs"] > 0 and db["two_hop"]["total_rpcs"] > 0,
+              f"cli partition cuttana: db {db}")
+        serving = out["serve-bench"][0]["serving"]
+        want = SERVING_ROWS["serving/rmat8000/cuttana"]
+        check(serving["qps_sim"] == want["qps_sim"] and serving["rpcs"] == want["rpcs"],
+              f"cli serve-bench: qps_sim {serving['qps_sim']} rpcs {serving['rpcs']} != the "
+              f"committed {want['qps_sim']} / {want['rpcs']}")
+        log(json.dumps({
+            "phase": 22, "cli": {name: {"seconds": sec, "device": r.get("device"),
+                                        "kernel_calls": r.get("telemetry", {}).get("kernel_calls")}
+                                 for name, (r, sec) in out.items()},
+            "cli_fennel_launches": cli_launches, "db_cuttana": db,
+            "serve_bench": {key: serving[key] for key in (
+                "qps_sim", "rpcs", "wire_bytes", "qps_wall", "wall_s")},
+        }))
+    log(f"phase 22: {time.perf_counter() - t_phase:.3f} s")
+    return kernel_row, launches
+
+
 def check_quality(np, graph, part, q, k: int, what: str) -> None:
     """The device quality scan against a host recomputation."""
     check(part.shape == (graph.num_vertices,) and part.min() >= 0 and part.max() < k,
@@ -2003,15 +2325,25 @@ def main() -> int:
     ident = "cpu rehearsal" if args.tiny else gpu_identity()
     log(f"phase 0: {ident} | torch {torch.__version__} | cuda {torch.version.cuda}")
     floor = None  # the empty kernel of phases 1 and 5's launch floors
-    if not args.tiny:
-        # one nvcc per kernel source, all started together
-        libraries = [build.LIBRARY, spmv_build.LIBRARY, fa_build.LIBRARY, scan_build.LIBRARY]
-        t0 = time.perf_counter()
-        with ThreadPoolExecutor(len(libraries) + 1) as pool:
-            floor_job = pool.submit(score_ablation.floor_library)
-            list(pool.map(lambda lib: lib.load(), libraries))
+    scale = 14 if args.tiny else 22
+    # one nvcc per kernel source, all started together; phase 1's graph is
+    # generated on the host while they compile
+    libraries = [] if args.tiny else [
+        build.LIBRARY, spmv_build.LIBRARY, fa_build.LIBRARY, scan_build.LIBRARY]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(libraries) + 1) as pool:
+        floor_job = None if args.tiny else pool.submit(score_ablation.floor_library)
+        build_jobs = [pool.submit(lib.load) for lib in libraries]
+        t1 = time.perf_counter()
+        graph = rmat_graph(1 << scale, avg_degree=16, seed=0)
+        gen_s = time.perf_counter() - t1
+        for job in build_jobs:
+            job.result()
+        if floor_job is not None:
             floor = floor_job.result()
-        log(f"phase 0: kernels built in {time.perf_counter() - t0:.3f} s")
+    if not args.tiny:
+        log(f"phase 0: kernels built (beside phase 1's graph) in "
+            f"{time.perf_counter() - t0:.3f} s")
         for lib in libraries:
             log(f"phase 0: {lib.path.name}: nvcc {lib.build_seconds:.3f} s")
             for line in lib.build_log.splitlines():
@@ -2019,10 +2351,7 @@ def main() -> int:
                     log(f"phase 0: ptxas: {line.strip()}")
 
     # ------------------------------------------------------------ phase 1
-    scale = 14 if args.tiny else 22
-    t0 = time.perf_counter()
-    graph = rmat_graph(1 << scale, avg_degree=16, seed=0)
-    log(f"phase 1: rmat 2^{scale} generated in {time.perf_counter() - t0:.3f} s: "
+    log(f"phase 1: rmat 2^{scale} generated in {gen_s:.3f} s (beside the builds): "
         f"{graph.num_vertices} vertices, {graph.num_edges} edges, "
         f"max degree {int(graph.degrees.max())}")
     dgraph = graph.to(device)
@@ -2263,28 +2592,30 @@ def main() -> int:
         got = out["values"]
         check(got.shape == (n,) and got.dtype == np.float32 and np.isfinite(got).all(),
               f"analytics {prog}: values have the wrong shape, type or non-finite entries")
-        want = on_cpu.analytics(prog, iters, mode="simulated")
+        short = main_res.analytics(prog, CPU_PARITY_ITERS, mode="simulated")["values"]
+        want = on_cpu.analytics(prog, CPU_PARITY_ITERS, mode="simulated")
         if prog == "pagerank":
-            check(np.allclose(got, want["values"], rtol=1e-5, atol=1e-9),
+            check(np.allclose(short, want["values"], rtol=1e-5, atol=1e-9),
                   f"analytics pagerank: {device.type} and cpu values differ beyond rtol 1e-5")
             check((got > 0).all() and got.sum() <= 1.0 + 1e-3, "analytics pagerank: not a distribution")
             again = main_res.analytics(prog, iters, mode="simulated")
             check(np.array_equal(again["values"], got), "analytics pagerank: two runs differ")
         else:
-            check(np.array_equal(got, want["values"]),
+            check(np.array_equal(short, want["values"]),
                   f"analytics {prog}: {device.type} and cpu values differ")
         check(abs(out["halo_messages_per_iter"] - q["comm_volume"] * lg.k * n) < 1e-3,
               f"analytics {prog}: halo messages {out['halo_messages_per_iter']} != "
               f"comm_volume * k * |V| = {q['comm_volume'] * lg.k * n}")
         log(json.dumps({
             "phase": 10, "program": prog, "iters": iters, "launches": launches,
-            "seconds": out["seconds"], "cpu_seconds": want["seconds"],
+            "seconds": out["seconds"], "cpu_parity_iters": CPU_PARITY_ITERS,
+            "cpu_seconds": want["seconds"],
             "localize_seconds": main_res.timings["localize_seconds"],
             "halo_messages_per_iter": out["halo_messages_per_iter"],
             "padded_halo_elements_per_iter": out["padded_halo_elements_per_iter"],
             "max_local_edges": out["max_local_edges"], "mean_local_edges": out["mean_local_edges"],
-            "identical_to_cpu": bool(np.array_equal(got, want["values"])),
-            "max_rel_diff_to_cpu": float(np.max(np.abs(got - want["values"])
+            "identical_to_cpu": bool(np.array_equal(short, want["values"])),
+            "max_rel_diff_to_cpu": float(np.max(np.abs(short - want["values"])
                                                 / np.maximum(np.abs(want["values"]), 1e-30))),
             "second_run_seconds": again["seconds"] if prog == "pagerank" else None,
             "max_memory_allocated": peak, "device": ident,
@@ -2319,6 +2650,11 @@ def main() -> int:
     rows_shapes, rows_launches = outofcore_phase(
         torch, np, tapi, ops, ref, counters, device, timer, floor, graph, main_res, main_peak,
         main_rss, args.tiny, ident)
+
+    # ----------------------------------------------------------- phase 22
+    serving_row, serving_launches = serving_phase(
+        torch, np, tapi, ops, ref, counters, device, timer, floor, graph, main_res, args.tiny,
+        ident)
 
     # ----------------------------------------------------------- phase 12
     del graph, main_res, social_res, social, web_res
@@ -2376,17 +2712,19 @@ def main() -> int:
         }
 
     # the zoo's kernel shapes (phases 1 and 19): 4,096-row chunks, a sampled
-    # dense matrix, the longest coarse row's chunk
+    # dense matrix, the longest coarse row's chunk; and phase 22's chunk of
+    # the served cuttana stream
     zoo_shapes = [{key: row[key] for key in (
         "shape", "rows", "max_row", "ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
         "floor_ms", "split_rows") if key in row}
         for row in [r for r in shapes if r["shape"].startswith(("chunk4096", "dense_sampled"))]
-        + zoo_rows]
+        + zoo_rows + [serving_row]]
     log(json.dumps({"kernels": [
-        summary("partition_score", shapes + zoo_rows, main_launches, TPU_KERNEL,
-                variant=SCORE_VARIANT, floor_ms=shapes[0]["floor_ms"],
+        summary("partition_score", shapes + zoo_rows + [serving_row], main_launches,
+                TPU_KERNEL, variant=SCORE_VARIANT, floor_ms=shapes[0]["floor_ms"],
                 stream=stream_summary(shapes[-1]), zoo_shapes=zoo_shapes,
-                zoo_launches={path: n[0] for path, n in zoo_paths.items() if n[0]}),
+                zoo_launches={path: n[0] for path, n in zoo_paths.items() if n[0]},
+                serving_launches=serving_launches),
         summary("partition_score_sharded", sharded_shapes, sharded_launches, TPU_KERNEL_SHARDED,
                 variant=SCORE_VARIANT, floor_ms=sharded_shapes[0]["floor_ms"],
                 stream=stream_summary(sharded_shapes[-1]),

@@ -1,7 +1,14 @@
 """``PartitionResult``: the result of a spec run (port of
 ``repro.api.result``: :meth:`PartitionResult.quality`, the parallel engine's
-:attr:`PartitionResult.profile`, and the analytics study
-:meth:`PartitionResult.analytics`)."""
+:attr:`PartitionResult.profile`, the analytics study
+:meth:`PartitionResult.analytics`, the graph-DB study
+:meth:`PartitionResult.db`, partition-aware serving
+:meth:`PartitionResult.serve` / :meth:`PartitionResult.serve_bench`, and
+the CLI's report :meth:`PartitionResult.to_report`).
+
+The DB study and the service run on the host over the result's host
+arrays, as in the reference; ``device`` is where the partition was made.
+"""
 from __future__ import annotations
 
 import dataclasses
@@ -17,7 +24,7 @@ from repro_torch.graph.csr import CSRGraph
 if TYPE_CHECKING:
     from repro_torch.analytics.localize import LocalizedGraph
 
-__all__ = ["PartitionResult"]
+__all__ = ["PartitionResult", "jsonify"]
 
 
 @dataclasses.dataclass(eq=False)  # ndarray fields make generated __eq__ raise
@@ -157,3 +164,157 @@ class PartitionResult:
             "max_local_edges": st.max_local_edges,
             "mean_local_edges": st.mean_local_edges,
         }
+
+    # -------------------------------------------------------------------- db
+    def db(
+        self,
+        workload: str = "ldbc",
+        hops: int = 2,
+        num_queries: int = 256,
+        seed: int = 0,
+        degree_biased: bool = True,
+        concurrency: int = 24,
+        seeds: np.ndarray | None = None,
+    ) -> dict:
+        """Run the graph-DB workload study (paper Table V) on this partition.
+
+        Pass precomputed query ``seeds`` to reuse one mix across several
+        calls (e.g. hops=1 and hops=2 on the same result); otherwise a fresh
+        degree-biased LDBC-like mix is drawn from ``seed``.
+        """
+        from repro_torch.db import QueryEngine, ldbc_query_mix
+
+        if workload != "ldbc":
+            raise ValueError(f"unknown db workload {workload!r}; expected 'ldbc'")
+        if hops not in (1, 2):
+            raise ValueError(f"hops must be 1 or 2, got {hops!r}")
+        part = self.vertex_assignment()
+        engine = QueryEngine(self.graph, part, self.k)
+        if seeds is None:
+            seeds = ldbc_query_mix(
+                self.graph, num_queries, seed=seed, degree_biased=degree_biased
+            )
+        else:
+            num_queries = len(seeds)
+        _, stats = engine.one_hop(seeds) if hops == 1 else engine.two_hop(seeds)
+        return {
+            "workload": workload,
+            "hops": hops,
+            "num_queries": num_queries,
+            "qps": stats.throughput_qps(concurrency),
+            "p99_latency_ms": stats.p99_latency_s() * 1e3,
+            "mean_latency_ms": float(stats.latencies_s.mean()) * 1e3,
+            "total_rpcs": stats.total_rpcs,
+            "total_net_values": stats.total_net_values,
+            "total_scanned_edges": stats.total_scanned_edges,
+        }
+
+    # ---------------------------------------------------------------- serving
+    def serve(
+        self,
+        replication_budget: float | None = None,
+        max_workers: int = 0,
+        fanout_cap: int = 64,
+        store_results: bool = True,
+    ):
+        """Stand up a partition-aware query service over this partition
+        (its assignment as it stands: nothing is re-partitioned).
+
+        Returns an (unstarted) :class:`repro_torch.serve.graph.GraphService`;
+        use it as a context manager or hand it to
+        :func:`repro_torch.serve.graph.run_load`, which starts/stops it
+        around the load run. ``replication_budget`` defaults to the spec's
+        own knob.
+        """
+        from repro_torch.serve.graph import GraphService
+
+        budget = (
+            self.spec.replication_budget
+            if replication_budget is None
+            else replication_budget
+        )
+        return GraphService(
+            self.graph,
+            self.vertex_assignment(),
+            self.k,
+            replication_budget=budget,
+            max_workers=max_workers,
+            fanout_cap=fanout_cap,
+            store_results=store_results,
+        )
+
+    def serve_bench(
+        self,
+        num_queries: int = 1000,
+        concurrency: int = 256,
+        mix=None,
+        seed: int = 0,
+        mode: str = "closed",
+        rate_qps: float | None = None,
+        replication_budget: float | None = None,
+        max_workers: int = 0,
+        store_results: bool = False,
+    ) -> dict:
+        """Partition -> serve -> load-gen in one call; returns the serving
+        report as a JSON-ready dict (the CLI ``serve-bench`` payload)."""
+        from repro_torch.serve.graph import run_load
+
+        report = run_load(
+            self.serve(
+                replication_budget=replication_budget,
+                max_workers=max_workers,
+                store_results=store_results,
+            ),
+            num_queries=num_queries,
+            concurrency=concurrency,
+            mix=mix,
+            seed=seed,
+            mode=mode,
+            rate_qps=rate_qps,
+        )
+        return jsonify(report.to_dict())
+
+    # ----------------------------------------------------------------- report
+    def to_report(
+        self, include_assignment: bool = False, include_quality: bool = True
+    ) -> dict:
+        """JSON-serializable structured report (the CLI's output row): the
+        reference's keys plus ``device``, where the partition was made.
+
+        ``include_quality=False`` skips the quality metrics, which scan the
+        whole edge set - the escape hatch for out-of-core runs where the
+        graph deliberately exceeds RAM.
+        """
+        report = {
+            "spec": self.spec.to_dict(),
+            "graph": {
+                "num_vertices": int(self.graph.num_vertices),
+                "num_edges": int(self.graph.num_edges),
+            },
+            "device": str(self.device),
+            "timings": jsonify(self.timings),
+            "telemetry": jsonify(self.telemetry),
+        }
+        if include_quality:
+            report["quality"] = jsonify(self.quality())
+        if include_assignment:
+            report["assignment"] = self.assignment.tolist()
+        return report
+
+
+def jsonify(obj):
+    """Recursively convert numpy scalars/arrays, torch tensors and devices
+    for ``json.dumps``."""
+    if isinstance(obj, dict):
+        return {str(key): jsonify(val) for key, val in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [jsonify(val) for val in obj]
+    if isinstance(obj, np.ndarray):
+        return obj.tolist()
+    if isinstance(obj, np.generic):
+        return obj.item()
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu().tolist()
+    if isinstance(obj, torch.device):
+        return str(obj)
+    return obj

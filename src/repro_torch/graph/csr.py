@@ -73,6 +73,9 @@ class CSRGraph:
     def neighbors(self, v: int) -> np.ndarray:
         return self.indices[self.indptr[v] : self.indptr[v + 1]]
 
+    def degree(self, v: int) -> int:
+        return int(self.indptr[v + 1] - self.indptr[v])
+
     def edges_array(self) -> np.ndarray:
         """(|E|, 2) array with each undirected edge listed once (u < v), in
         CSR order - the order vertex-cut ``edge_part`` arrays index."""

@@ -1108,3 +1108,76 @@ def test_reduced_model_on_card_matches_cpu(cuda_device, arch):
     g_card, _ = serve(card, dparams, prompts.to(card.device), 6)
     g_cpu, _ = serve(cpu, params, prompts, 6)
     assert torch.equal(g_card.cpu(), g_cpu)
+
+
+# ---------------------------------------------------------- graph serving
+def _sim_report(rep) -> dict:
+    d = rep.to_dict()
+    for key in ("wall_s", "qps_wall"):
+        d.pop(key)
+    d["latency_ms"] = {"sim": d["latency_ms"]["sim"]}
+    return d
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo", ["fennel", "cuttana", "hdrf"])
+def test_served_partition_on_card_matches_cpu(cuda_device, algo):
+    """A partition made on the card serves the same report (sim floats,
+    counters, replication) and answers as the one made on the CPU; the
+    gather entry launches once per ``kernel_calls``."""
+    import repro_torch.api as tapi
+    from repro_torch.serve.graph import QueryMix, build_workload, run_load
+
+    g = rmat_graph(6000, avg_degree=12, seed=1)
+    fields = dict(algo=algo, k=8, seed=0)
+    if algo != "hdrf":
+        fields.update(balance_mode="edge", order="random")
+    ops.reset()
+    on_card = tapi.partition(g, tapi.PartitionSpec(**fields), device=cuda_device)
+    torch.cuda.synchronize()
+    assert ops.launches == on_card.telemetry.get("kernel_calls", 0)
+    if algo == "fennel":
+        assert ops.launches > 0
+    on_cpu = tapi.partition(g, tapi.PartitionSpec(**fields), device="cpu")
+    np.testing.assert_array_equal(on_card.vertex_assignment(), on_cpu.vertex_assignment())
+    workload = build_workload(g, 400, QueryMix(), seed=1)
+    reports = [run_load(r.serve(replication_budget=0.05, max_workers=w), workload=workload,
+                        concurrency=100) for r, w in ((on_card, 0), (on_cpu, 1))]
+    assert _sim_report(reports[0]) == _sim_report(reports[1])
+    a, b = reports[0].answers(), reports[1].answers()
+    assert set(a) == set(b)
+    for qid, want in b.items():
+        if isinstance(want, np.ndarray):
+            np.testing.assert_array_equal(a[qid], want)
+        else:
+            assert a[qid] == want
+    assert on_card.db(hops=2) == on_cpu.db(hops=2)
+
+
+@pytest.mark.gpu
+def test_cli_partition_on_card_matches_cpu(cuda_device, tmp_path):
+    """``repro_torch.api.cli partition --device cuda`` gives the CPU run's
+    report (quality, DB study, analytics model) and assignment, with the
+    kernel's launches."""
+    import json
+
+    from repro_torch.api.cli import main
+
+    spec = tmp_path / "spec.json"
+    spec.write_text(json.dumps({"algo": "fennel", "k": 8, "balance_mode": "edge",
+                                "order": "random", "seed": 0}))
+    reports = {}
+    for dev in ("cuda", "cpu"):
+        out = tmp_path / f"{dev}.json"
+        ops.reset()
+        assert main(["partition", "--spec", str(spec), "--rmat", "8000", "--avg-degree", "12",
+                     "--with-db", "--with-analytics", "--device", dev, "--out", str(out),
+                     "--assignment-out", str(tmp_path / dev)]) == 0
+        reports[dev] = (json.loads(out.read_text()), ops.launches)
+    (card, launches), (cpu, cpu_launches) = reports["cuda"], reports["cpu"]
+    assert card["device"].startswith("cuda") and cpu["device"] == "cpu"
+    assert launches == card["telemetry"]["kernel_calls"] == 16 and cpu_launches == 0
+    for key in ("spec", "graph", "quality", "analytics", "db"):
+        assert card[key] == cpu[key], key
+    np.testing.assert_array_equal(np.load(card["assignment_path"]),
+                                  np.load(cpu["assignment_path"]))

@@ -121,3 +121,16 @@ def test_state_from_arrays_round_trip():
             np.full(5, 7), np.zeros(4), np.zeros(4), k=4, epsilon=0.05,
             balance_mode="edge", seed=0, total_degree=10, device=CPU,
         )
+
+
+@pytest.mark.parametrize("num_vertices,avg_degree", [(600, 2), (1500, 6)])
+def test_degree_matches_reference(num_vertices, avg_degree):
+    """``CSRGraph.degree(v)`` (the router's point query) equals the
+    reference's on every vertex, isolated vertices included."""
+    want = rgen.rmat_graph(num_vertices, avg_degree=avg_degree, seed=1)
+    got = tgen.rmat_graph(num_vertices, avg_degree=avg_degree, seed=1)
+    degs = [got.degree(v) for v in range(got.num_vertices)]
+    assert degs == [want.degree(v) for v in range(want.num_vertices)]
+    assert all(type(d) is int for d in degs)
+    assert 0 in degs  # isolated vertices are covered
+    assert degs == got.degrees.tolist()
