@@ -171,7 +171,7 @@ Phases:
      version on the first chunk of that cuttana stream
      (``serving_rmat8000_chunk512_k8``), timed like phase 1; (b) phase 2's
      2^22 ``fennel`` partition served at replication budget 0.05 with
-     ``SERVING_QUERIES`` (1,000) queries (seed 1) at concurrency 1,000, at
+     ``SERVING_QUERIES`` (500) queries (seed 1) at concurrency 1,000, at
      auto workers and at one worker: the same answers per query and the
      same sim metrics and counters, the answers equal to the
      ``QueryEngine``'s, the plan's and runs' seconds logged, and
@@ -182,7 +182,39 @@ Phases:
      ``serve-bench`` (cuttana, 2,000 queries seeded 1, concurrency 1,000)
      the committed ``qps_sim`` and RPCs; ``partition`` on fennel, run in
      this process, gives (a)'s quality and launches the kernel once per
-     ``kernel_calls`` (16).
+     ``kernel_calls`` (16);
+ 23. (runs after phase 11, while phase 2's layout is loaded) the analytics
+     engine's sharded mode: ``run_sharded`` on phase 2's partition, one
+     process a partition (8 gloo ranks, all on the one card, the halo
+     staged through pinned host buffers; NCCL takes a rank a card, and its
+     refusal of shared cards is checked), pagerank 30, cc 20 and sssp 20 in
+     one start: equal to phase 10's simulated values (cc and sssp ``==``,
+     pagerank within rtol 1e-6), each rank one ``ell_spmv`` launch and one
+     all-to-all an iteration, the elements sent an iteration equal to
+     ``padded_halo_elements_per_iter``; the start's seconds, each rank's host
+     ms an iteration and the staged bytes recorded (host times of ranks that
+     share one card, not a multi-card speed); then the kernel at the largest
+     rank's segment shape, timed like phase 9 with its empty-launch floor;
+ 24. (runs last) LM training: (a) the attention wrapper's gradient (the
+     kernel forward, the plain version's backward) against plain autograd
+     at ``repro-100m``'s shape (B=8, T=256, H=10, Hkv=5, Dh=64, bf16) and a
+     qwen3-8b layer (T=2048, bf16), the scan's at a falcon layer's width
+     (D=8192, T cut to 256 so plain autograd fits), relative L2 per tensor
+     (``GRAD_TOL``), each with its forward, backward, plain and (attention)
+     SDPA forward + backward times; (b) ``repro_torch.launch.train`` at
+     ``repro-100m`` (bf16, global batch 8, seq 256) under deterministic
+     algorithms: 30 steps with ``--ckpt-every 10 --fail-at 15`` leave
+     ``latest_step`` 10, the resumed run ends at 30, and its losses for
+     steps 11-30 equal an uninterrupted run's with ``==`` (the final loss
+     below step 1's), 10 attention launches a step; the elastic demo (20
+     steps, crash at 10, resume); (c) one float32 step of ``repro-100m``
+     (TF32 off, global batch 2) on the card against the CPU port on the same
+     parameters and batch, loss and grad norm within rtol 1e-3; (d) step ms,
+     tokens a second, peak memory, attention launches a step by variant,
+     one step under ``torch.profiler`` (busy time, idle share), and one
+     checkpoint of the state saved and restored (bytes, seconds).
+
+Every phase logs its seconds (``phase_seconds``).
 
 Kernel times: ``ms`` is device time per launch (launches captured in a CUDA
 graph and replayed, so the host's cost of a call is out); ``call_ms``,
@@ -197,9 +229,10 @@ non-zero before that line. Without a CUDA device (and without ``--tiny``)
 the script exits 2 and prints no result. ``--tiny`` runs phases 12-17 at
 the reduced configs and small kernel shapes, phase 19 on social-s (its
 constants unchecked), phase 20 on the 2^12 and 2^14 graphs, phase 21's
-full-size part on a 2^12 R-MAT, and phase 22(b) on phase 2's 2^14
-partition (phase 22's committed rows and the CLI run unchanged, on the
-CPU).
+full-size part on a 2^12 R-MAT, phase 22(b) on phase 2's 2^14 partition
+(phase 22's committed rows and the CLI run unchanged, on the CPU), phase
+23 with CPU ranks, and phase 24 at reduced qwen3-8b and small gradient
+shapes.
 """
 from __future__ import annotations
 
@@ -259,6 +292,11 @@ SCAN_TOL = {"float32": 1e-4, "bfloat16": 3e-2}  # tests/test_kernels.py's
 # 1/(dt*|A|) <= 100 steps at dt >= 0.01 and |A| >= 1; the test shapes' 1e-4
 # covers 8-32 steps
 SCAN_LAYER_TOL = 1e-3
+# phase 24(a): an autograd wrapper's output and every input's gradient
+# against plain autograd on the card, relative L2 per tensor (the backward
+# is the plain version itself; the forward is the kernel, within its
+# tolerance, and a bf16 output rounds once)
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 LM_ARCHS = ("qwen3-8b", "falcon-mamba-7b")
 CHUNK = 512
 NUM_SHARDS = 4
@@ -328,8 +366,10 @@ CHURN_EDGE_CUT = 0.7724772058256066
 # phase 20 checks (a quarter of its graph: 2^20 on the card, 2^12 with --tiny)
 RMAT_BATCHED_EDGE_CUT = {20: 0.8362624552954572, 12: 0.7886621145043896}
 # phase 22(b)'s queries on the 2^22 partition: 2,000 took 71.5 s at one
-# worker on the card's host, above the 60 s a run may take in the smoke
-SERVING_QUERIES = 1000
+# worker on the card's host, above the 60 s a run may take in the smoke;
+# 1,000 took 18.9 s at auto workers and 36.8 s at one (run W22); cut to 500
+# for phases 23-24's time within the smoke's limit
+SERVING_QUERIES = 500
 # BENCH_partition.json's serving/rmat8000/* rows (phase 22; benchmarks/
 # serving.py: R-MAT 8000, degree 12, seed 0, k=8, 2,000 queries seeded 1 at
 # concurrency 1,000), every field but qps_wall (the host's clock)
@@ -393,6 +433,20 @@ def gpu_identity() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+class PhaseClock:
+    """Logs each phase's seconds of host clock, from the end of the one
+    before."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+
+    def mark(self, phase) -> None:
+        now = time.perf_counter()
+        log(json.dumps({"phase": phase, "phase_seconds": now - self.last,
+                        "since_start_s": now - self.start}))
+        self.last = now
+
+
 class Timer:
     """Mean milliseconds of ``fn()`` over ``reps`` calls after a warm-up:
     CUDA events on the card, the host clock on the CPU."""
@@ -449,6 +503,22 @@ class Timer:
         return start.elapsed_time(end) / (replays * reps)
 
 
+def launch_shape(num_rows: int, k: int, width=None) -> tuple:
+    """The ablation script's ``launch_shape``, without the ``src`` entry that
+    it puts on ``sys.path`` at every call: phases 1 and 5 call it for every
+    chunk and superstep of a stream, and a ``sys.path`` thousands of entries
+    long makes every later import crawl, above all in phase 23's spawned
+    ranks, which start from the parent's ``sys.path`` (minutes instead of
+    seconds to start eight ranks on the card's host)."""
+    import kernel_ablation_partition_score as ablation
+
+    path = list(sys.path)
+    try:
+        return ablation.launch_shape(num_rows, k, width)
+    finally:
+        sys.path[:] = path
+
+
 def floor_ms(torch, timer, floor, num_rows: int, k: int, width=None):
     """Device ms of the empty kernel at the kernel's launch shape for
     ``num_rows`` rows at ``k`` (None on the CPU)."""
@@ -456,7 +526,7 @@ def floor_ms(torch, timer, floor, num_rows: int, k: int, width=None):
         return None
     import kernel_ablation_partition_score as ablation
 
-    return timer.device_ms(ablation.floor_call(torch, floor, ablation.launch_shape(num_rows, k, width)))
+    return timer.device_ms(ablation.floor_call(torch, floor, launch_shape(num_rows, k, width)))
 
 
 def split_stats(np, ops, degrees, k: int, width=None) -> dict:
@@ -646,7 +716,7 @@ def stream_checks(torch, np, ops, ref, dgraph, graph, device, timer, floor, shar
     if device.type == "cuda":
         times, outs = ablation.stream_times(torch, calls)
         empty = ablation.stream_times(torch, [ablation.floor_call(
-            torch, floor, ablation.launch_shape(bounds[i + 1] - bounds[i], k))
+            torch, floor, launch_shape(bounds[i + 1] - bounds[i], k))
             for i in range(launches)])[0]
     else:
         t0 = time.perf_counter()
@@ -1076,7 +1146,7 @@ def profile_once(torch, fn, device, kernel_name: str) -> tuple:
 
 
 def zoo_phases(torch, np, tapi, ops, ref, counters, device, timer, floor, web, social, graph,
-               dataset: str, tiny: bool, ident: str) -> tuple:
+               dataset: str, tiny: bool, ident: str, clock) -> tuple:
     """Phases 18-20: the partitioner zoo on the card. Returns the launches of
     each path and the kernel rows at the zoo's own shapes, for the summary
     line."""
@@ -1130,6 +1200,8 @@ def zoo_phases(torch, np, tapi, ops, ref, counters, device, timer, floor, web, s
               f"web-s {name}: {row['value']} != the reference's {WEB_S_ZOO_PARALLEL[strategy]}")
         paths[f"web-s {name} num_shards={NUM_SHARDS}"] = launched
         log(json.dumps({"phase": 18, "dataset": "web-s", "num_shards": NUM_SHARDS, **row}))
+
+    clock.mark(18)
 
     # ----------------------------------------------------------- phase 19
     for name, params in SOCIAL_M_ZOO_SPECS:
@@ -1197,6 +1269,8 @@ def zoo_phases(torch, np, tapi, ops, ref, counters, device, timer, floor, web, s
     log(json.dumps({"phase": 19, "dataset": dataset, "algo": "heistream", "profiled": True,
                     "kernel_calls": res.telemetry["kernel_calls"],
                     "stream_seconds": res.timings["stream_seconds"], **prof_row}))
+
+    clock.mark(19)
 
     # ----------------------------------------------------------- phase 20
     fields = zoo_fields(tapi, "cuttana-batched", sample_cap=512, use_refinement=False)
@@ -2275,6 +2349,405 @@ def reduced_parity(torch, np, device) -> list:
     return rows
 
 
+def sharded_phase(torch, np, spmv, spmv_ref, lg, sim_values: dict, device, timer, floor,
+                  ident: str) -> tuple:
+    """Phase 23: the analytics engine's sharded mode on phase 2's partition:
+    one process a partition (k=8 gloo ranks, all on the one card; NCCL takes
+    a rank a card and waits for a box with eight), pagerank, cc and sssp in
+    one start, held against phase 10's simulated values; then the kernel at
+    the largest rank's segment shape. Returns the kernel row and the ranks'
+    launches."""
+    from repro_torch.analytics import PROGRAMS, GraphEngine
+    from repro_torch.analytics.engine import check_backend, rank_devices, run_sharded
+
+    on_card = device.type == "cuda"
+    k = lg.k
+    if on_card:
+        devices = rank_devices(k, "cuda", torch.cuda.device_count())
+        if len(set(devices)) < k:
+            try:
+                check_backend("nccl", devices)
+                check(False, "NCCL accepted ranks that share a card")
+            except ValueError as err:
+                check('backend="gloo"' in str(err), f"NCCL refusal names no way out: {err}")
+    runs = [(PROGRAMS[prog](), None, iters) for prog, iters in ANALYTICS_ITERS.items()]
+    values, report = run_sharded(lg, runs, device, backend="gloo")
+    padded = GraphEngine(lg, runs[0][0], device=device).stats(1).padded_halo_elements_per_iter
+    launches = 0
+    for (prog, iters), got, run in zip(ANALYTICS_ITERS.items(), values, report["runs"]):
+        want = sim_values[prog]
+        if prog == "pagerank":
+            check(np.allclose(got, want, rtol=1e-6, atol=0),
+                  "sharded pagerank differs from the simulated run beyond rtol 1e-6")
+        else:
+            check(np.array_equal(got, want), f"sharded {prog} differs from the simulated run")
+        expect = [iters if on_card else 0] * k
+        check(run["spmv_launches"] == expect,
+              f"sharded {prog}: ranks launched {run['spmv_launches']}, expected {expect}")
+        check(run["all_to_all_calls"] == [iters] * k,
+              f"sharded {prog}: all-to-all calls {run['all_to_all_calls']} != {iters} a rank")
+        check(run["elements_sent_per_iter"] == padded,
+              f"sharded {prog}: {run['elements_sent_per_iter']} elements an iteration != "
+              f"padded_halo_elements_per_iter {padded}")
+        launches += sum(run["spmv_launches"])
+        log(json.dumps({
+            "phase": 23, "program": prog, "iters": iters, "ranks": k,
+            "backend": report["backend"], "route": report["route"],
+            "identical_to_simulated": bool(np.array_equal(got, want)),
+            "max_rel_diff_to_simulated": float(np.max(np.abs(got - want)
+                                                      / np.maximum(np.abs(want), 1e-30))),
+            "spmv_launches": run["spmv_launches"], "all_to_all_calls": run["all_to_all_calls"],
+            "elements_sent_per_iter": run["elements_sent_per_iter"],
+            "host_ms_per_iter": run["iter_ms"], "staged_bytes": run["staged_bytes"],
+            "note": "host times of ranks sharing one card, not a multi-card speed",
+        }))
+    log(json.dumps({"phase": 23, "spawn_seconds": report["spawn_seconds"],
+                    "rank_timeline": report["rank_timeline"], "devices": report["devices"],
+                    "route": report["route"], "device": ident}))
+    # the kernel at the largest rank's shape: one device's CSR rows (k=1)
+    row_ptr = lg.row_ptr()
+    p = int(np.argmax(row_ptr[:, -1]))
+    nnz = int(row_ptr[p, -1])
+    rng = np.random.default_rng(23)
+    x = torch.from_numpy(rng.random((1, lg.state_len)).astype(np.float32)).to(device)
+    rp = torch.from_numpy(row_ptr[p : p + 1]).to(device)
+    cols = torch.from_numpy(np.ascontiguousarray(lg.cols[p : p + 1])).to(device)
+    rows64 = torch.from_numpy(lg.rows[p : p + 1].astype(np.int64)).to(device)
+    cols64 = cols.long()
+    x_read = int(np.unique(lg.cols[p, :nnz]).shape[0])
+    args = (x, rp, cols, "sum")
+    row = spmv_row(
+        torch, timer, f"rank{p}_of_k{k}_sum", "segments", "sum",
+        spmv.ell_spmv_segments(*args), spmv_ref.ell_spmv_segments_ref(*args),
+        lambda: spmv.ell_spmv_segments(*args), lambda: spmv_ref.ell_spmv_segments_ref(*args),
+        lambda: torch.zeros((1, lg.v_max + 1), device=device).scatter_reduce_(
+            1, rows64, x.gather(1, cols64), "sum", include_self=True),
+        nbytes=(lg.v_max + 1) * 8 + nnz * 4 + x_read * 4 + lg.v_max * 4, ops=nnz, reps=20,
+        rows=lg.v_max, nnz=nnz)
+    if floor is not None:
+        import kernel_ablation_partition_score as ablation
+
+        row["floor_ms"] = timer.device_ms(ablation.floor_call(
+            torch, floor, (spmv.tiles(lg.v_max, lg.e_max), spmv.THREADS, 0, 1)))
+    log(json.dumps({"phase": 23, **row}))
+    return row, launches
+
+
+def grad_row(torch, timer, name, fn, plain, inputs, grad_out, tol, library=None,
+             bound=None) -> dict:
+    """Phase 24(a): one kernel's autograd wrapper against plain autograd on
+    the card: the output and every input's gradient within ``tol`` relative
+    L2; the kernel forward, its backward (the plain version recomputed and
+    differentiated), plain forward + backward and (attention)
+    ``scaled_dot_product_attention`` forward + backward, each timed."""
+    device = timer.device
+    out = fn(*inputs)
+    outs = out if isinstance(out, tuple) else (out,)
+    check(all(o.grad_fn is not None for o in outs), f"grad {name}: an output has no grad_fn")
+    got = torch.autograd.grad(outs, inputs, grad_out)
+    want_out = plain(*inputs)
+    want_outs = want_out if isinstance(want_out, tuple) else (want_out,)
+    want = torch.autograd.grad(want_outs, inputs, grad_out)
+
+    def rel(a, b):
+        a, b = a.detach().double(), b.detach().double()
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    out_err = max(rel(a, b) for a, b in zip(outs, want_outs))
+    grad_errs = [rel(a, b) for a, b in zip(got, want)]
+    check(out_err <= tol and max(grad_errs) <= tol,
+          f"grad {name}: output {out_err} / gradients {grad_errs} beyond {tol} relative L2")
+    del out, outs, got, want_out, want_outs, want
+    sync(torch, device)
+
+    def forward():
+        with torch.no_grad():
+            return fn(*inputs)
+
+    def backward():
+        o = fn(*inputs)
+        return torch.autograd.grad(o if isinstance(o, tuple) else (o,), inputs, grad_out)
+
+    def plain_both():
+        o = plain(*inputs)
+        return torch.autograd.grad(o if isinstance(o, tuple) else (o,), inputs, grad_out)
+
+    fwd_ms = timer.device_ms(forward, reps=20, replays=3)
+    both_ms = timer(backward, reps=5, warmup=2)
+    row = {
+        "shape": name, "dtype": str(inputs[0].dtype).split(".")[1], "output_rel_l2": out_err,
+        "grad_rel_l2": grad_errs, "tol": tol, "ms": fwd_ms,
+        "backward_ms": both_ms - timer(forward, reps=5, warmup=1),
+        "fwd_bwd_ms": both_ms, "plain_fwd_bwd_ms": timer(plain_both, reps=3, warmup=1),
+        "library_fwd_bwd_ms": None,
+    }
+    if library is not None:
+        def lib_both():
+            o = library(*inputs)
+            return torch.autograd.grad((o,), inputs, grad_out)
+        row["library_fwd_bwd_ms"] = timer(lib_both, reps=5, warmup=2)
+    if bound is not None:
+        row.update(bound)
+    return row
+
+
+def attention_grad_row(torch, np, F, fa, fa_ref, timer, name, b, hq, hkv, t, dh, dtype):
+    device = timer.device
+    gen = torch.Generator(device=device).manual_seed(b * t + dh)
+    q, k, v = (torch.randn(s, generator=gen, device=device).to(dtype).requires_grad_(True)
+               for s in ((b, hq, t, dh), (b, hkv, t, dh), (b, hkv, t, dh)))
+    grad_out = (torch.randn((b, hq, t, dh), generator=gen, device=device).to(dtype),)
+    pairs = attention_pairs(np, t, t, True, None, 0) * b * hq
+    flops = 4 * pairs * dh
+    rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+    nbytes = (2 * b * hq * t * dh + 2 * b * hkv * t * dh) * q.element_size()
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
+    # forward + backward: the forward's two products, the backward's five
+    # (S and P recomputed, dV, dP, dQ, dK: 2.5x the forward's flops)
+    train_ms = max(3.5 * flops / rate, 3 * nbytes / HBM_BYTES_PER_S) * 1e3
+    before = dict(fa.variant_launches)
+    variant = fa.kernel_variant(dtype, t, hq // hkv, dh, fa.is_aligned(q, k, v))
+    row = grad_row(
+        torch, timer, name,
+        lambda q, k, v: fa.flash_attention(q, k, v, causal=True),
+        lambda q, k, v: fa_ref.flash_attention_ref(q, k, v, causal=True),
+        (q, k, v), grad_out, GRAD_TOL[str(dtype).split(".")[1]],
+        library=lambda q, k, v: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                               enable_gqa=True),
+        bound={"bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+               "fwd_bwd_bound_ms": train_ms, "flops": flops})
+    check(device.type != "cuda" or fa.variant_launches[variant] > before[variant],
+          f"grad {name}: the {variant} variant did not run")
+    row.update({"variant": variant, "b": b, "hq": hq, "hkv": hkv, "t": t, "dh": dh})
+    log(json.dumps({"phase": 24, "part": "a", **row}))
+    return row
+
+
+def scan_grad_row(torch, scan, scan_ref, timer, name, bsz, t, d, n):
+    device = timer.device
+    gen = torch.Generator(device=device).manual_seed(t + d)
+
+    def leaf(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=device) * scale).requires_grad_(True)
+
+    dt_raw, a_log = leaf((bsz, t, d)), leaf((d, n), 0.5)
+    x, b, c, d_skip = leaf((bsz, t, d)), leaf((bsz, t, n)), leaf((bsz, t, n)), leaf((d,))
+    with torch.no_grad():
+        dt = torch.nn.functional.softplus(dt_raw - 4.0)  # dt ~ 0.02, the model's range
+        a = -torch.exp(a_log)
+    inputs = (x, dt.requires_grad_(True), a.requires_grad_(True), b, c, d_skip)
+    gen_out = torch.Generator(device=device).manual_seed(5)
+    grad_out = (torch.randn((bsz, t, d), generator=gen_out, device=device),
+                torch.randn((bsz, d, n), generator=gen_out, device=device))
+    exps = bsz * t * d * n
+    nbytes = 4 * (2 * bsz * t * d + d * n + 2 * bsz * t * n + d + bsz * t * d + bsz * d * n)
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, exps / EXP_PER_S * 1e3
+    row = grad_row(torch, timer, name, scan.selective_scan, scan_ref.selective_scan_ref,
+                   inputs, grad_out, GRAD_TOL["float32"],
+                   bound={"bound_ms": max(bytes_ms, ops_ms),
+                          "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"})
+    row.update({"b": bsz, "t": t, "d": d, "n": n})
+    log(json.dumps({"phase": 24, "part": "a", **row}))
+    return row
+
+
+def training_phase(torch, np, F, counters, device, timer, tiny: bool, ident: str) -> dict:
+    """Phase 24: LM training. (a) the attention and scan wrappers' gradients
+    against plain autograd on the card; (b) ``repro_torch.launch.train``
+    at ``repro-100m`` (bf16, the reference's defaults): a crash at step 15
+    with checkpoints every 10, the resumed run to 30 and an uninterrupted
+    run, their losses for steps 11-30 equal under deterministic algorithms,
+    and the elastic demo; (c) one float32 step on the card against the CPU
+    port; (d) step time, tokens a second, peak memory, the idle share of a
+    profiled step and its attention launches by variant."""
+    import tempfile
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.mamba_scan import ops as scan
+    from repro_torch.kernels.mamba_scan import ref as scan_ref
+    from repro_torch.launch import elastic
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import Model
+    from repro_torch.train.checkpoint import latest_step
+    from repro_torch.train.data import TokenPipeline
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.step import make_train_step
+
+    on_card = device.type == "cuda"
+    record = {"device": ident}
+    # (a) gradients
+    dt16 = torch.bfloat16
+    if tiny:
+        grad_rows = [attention_grad_row(torch, np, F, fa, fa_ref, timer, "attn_tiny_bf16",
+                                        2, 4, 2, 64, 64, dt16),
+                     scan_grad_row(torch, scan, scan_ref, timer, "scan_tiny", 1, 16, 64, 16)]
+    else:
+        grad_rows = [
+            attention_grad_row(torch, np, F, fa, fa_ref, timer, "repro100m_b8_t256_bf16",
+                               8, 10, 5, 256, 64, dt16),
+            attention_grad_row(torch, np, F, fa, fa_ref, timer, "qwen3_8b_layer_t2048_bf16",
+                               1, 32, 8, 2048, 128, dt16),
+            scan_grad_row(torch, scan, scan_ref, timer, "falcon_layer_d8192_t256",
+                          1, 256, 8192, 16),
+        ]
+    record["grad_rows"] = grad_rows
+    if on_card:
+        torch.cuda.empty_cache()
+    # (b) the driver: crash, resume, and the uninterrupted run
+    arch = "reduced:qwen3-8b" if tiny else "repro-100m"
+    steps, base = 30, ["--arch", arch, "--steps", "30", "--log-every", "10",
+                       "--device", str(device.type)]
+    if tiny:
+        base += ["--global-batch", "2", "--seq-len", "32"]
+    cfg = train_mod.get_model_config(arch)
+    n_attn = sum(s.mixer == "attn" for s in cfg.layers())
+    runs = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory(prefix="smoke_train_") as tmp:
+            ck = os.path.join(tmp, "ckpt")
+            for name, extra in (("crashed", ["--ckpt-dir", ck, "--ckpt-every", "10",
+                                             "--fail-at", "15"]),
+                                ("resumed", ["--ckpt-dir", ck, "--ckpt-every", "10"]),
+                                ("whole", [])):
+                history = []
+                reset_counts(*counters)
+                t0 = time.perf_counter()
+                try:
+                    train_mod.main(base + extra, history)
+                    check(name != "crashed", "the run with --fail-at 15 did not crash")
+                except RuntimeError as err:
+                    check(name == "crashed" and "injected failure" in str(err),
+                          f"train run {name} raised {err}")
+                seconds = time.perf_counter() - t0
+                expect = n_attn * len(history) if on_card else 0
+                check(fa.launches == expect,
+                      f"train {name}: {fa.launches} attention launches, expected {expect}")
+                check(all(m.launches == 0 for m in counters if m is not fa),
+                      f"train {name}: another kernel launched")
+                if name == "crashed":
+                    check(latest_step(ck) == 10,
+                          f"the crash left latest_step {latest_step(ck)}, expected 10")
+                runs[name] = {"history": history, "seconds": seconds, "launches": fa.launches,
+                              "variants": dict(fa.variant_launches)}
+            check(latest_step(ck) == steps, f"the resumed run ended at {latest_step(ck)}")
+            elastic_dir = os.path.join(tmp, "elastic")
+            t0 = time.perf_counter()
+            elastic_loss = elastic.main(["--ckpt-dir", elastic_dir, "--steps", "20",
+                                         "--arch", arch, "--device", str(device.type)])
+            elastic_s = time.perf_counter() - t0
+            check(np.isfinite(elastic_loss) and latest_step(elastic_dir) == 20,
+                  "the elastic demo did not finish at step 20 with a finite loss")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    crashed, resumed, whole = (runs[n]["history"] for n in ("crashed", "resumed", "whole"))
+    check([h["step"] for h in resumed] == list(range(11, steps + 1)),
+          "the resumed run did not take steps 11-30")
+    same = [a["loss"] == b["loss"] for a, b in zip(resumed, whole[10:])]
+    check(all(same), f"resumed losses differ from the uninterrupted run's at steps "
+                     f"{[11 + i for i, s in enumerate(same) if not s]}")
+    check([h["loss"] for h in crashed] == [h["loss"] for h in whole[:15]],
+          "the crashed run's losses differ from the uninterrupted run's")
+    last, first = resumed[-1]["loss"], whole[0]["loss"]
+    check(np.isfinite(last) and last < first, f"final loss {last} not below step 1's {first}")
+    record["driver"] = {
+        "arch": arch, "steps": steps, "losses_equal_steps_11_30": True,
+        "deterministic_algorithms": True, "first_loss": first, "final_loss": last,
+        "losses": [h["loss"] for h in whole], "grad_norms": [h["grad_norm"] for h in whole],
+        "seconds": {n: r["seconds"] for n, r in runs.items()},
+        "launches": {n: r["launches"] for n, r in runs.items()},
+        "elastic_seconds": elastic_s, "elastic_final_loss": elastic_loss,
+    }
+    log(json.dumps({"phase": 24, "part": "b", **record["driver"]}))
+    # (c) one float32 step on the card against the CPU port
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cpu = Model(cfg32, "cpu")
+        p_cpu = cpu.init(torch.Generator().manual_seed(0))
+        batch_np = TokenPipeline(cfg.vocab_size, 32 if tiny else 256, 2, seed=1234)
+        batch = next(batch_np)
+        batch_np.close()
+        outs = []
+        for model, params in ((Model(cfg32, device), tree_to(p_cpu, device)), (cpu, p_cpu)):
+            step = make_train_step(model, total_steps=steps, warmup=1)
+            tb = {k: torch.from_numpy(v).to(model.device, torch.int64) for k, v in batch.items()}
+            opt = adamw_init(params)
+            opt.step += 1  # past warm-up: a step at the peak rate
+            _, _, m = step(params, opt, tb)
+            outs.append({k: float(v) for k, v in m.items()})
+        del p_cpu, params
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    card, host = outs
+    for key in ("loss", "grad_norm"):
+        check(abs(card[key] - host[key]) <= 1e-3 * abs(host[key]),
+              f"float32 step: {key} {card[key]} on the card, {host[key]} on the cpu")
+    record["float32_step"] = {"card": card, "cpu": host, "global_batch": 2,
+                              "rtol": 1e-3, "tf32": False}
+    log(json.dumps({"phase": 24, "part": "c", **record["float32_step"]}))
+    # (d) step time, throughput, memory, idle share, launches by variant
+    model = Model(cfg, device)
+    params = model.init(torch.Generator(device=model.device).manual_seed(0))
+    opt = adamw_init(params, cfg.opt_state_dtype)
+    step = make_train_step(model, total_steps=100, warmup=10)
+    gb, seq = (2, 32) if tiny else (8, 256)
+    pipe = TokenPipeline(cfg.vocab_size, seq, gb, seed=1234)
+    batches = [{k: torch.from_numpy(v).to(model.device, torch.int64)
+                for k, v in next(pipe).items()} for _ in range(6)]
+    pipe.close()
+    state = {"params": params, "opt": opt}
+
+    def one(i):
+        state["params"], state["opt"], m = step(state["params"], state["opt"], batches[i % 6])
+        return m
+
+    one(0)
+    sync(torch, device)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts(*counters)
+    t0 = time.perf_counter()
+    for i in range(5):
+        one(i + 1)
+    sync(torch, device)
+    step_s = (time.perf_counter() - t0) / 5
+    launches, variants = fa.launches / 5, {n: c / 5 for n, c in fa.variant_launches.items()}
+    check(launches == (n_attn if on_card else 0),
+          f"a train step launched {launches} attention kernels, expected {n_attn}")
+    prof = profile_lm(torch, lambda: one(0), device, "attn_")
+    # one checkpoint of this state, written in the foreground and read back
+    from repro_torch.train.checkpoint import save_checkpoint
+
+    with tempfile.TemporaryDirectory(prefix="smoke_ckpt_") as tmp:
+        t0 = time.perf_counter()
+        path = save_checkpoint(tmp, 1, train_mod.checkpoint_tree(cfg, state["params"],
+                                                                 state["opt"]))
+        ckpt_save_s = time.perf_counter() - t0
+        ckpt_bytes = os.path.getsize(os.path.join(path, "leaves.npz"))
+        t0 = time.perf_counter()
+        _, _, restored = train_mod.restore(tmp, cfg, state["params"], state["opt"], device)
+        sync(torch, device)
+        ckpt_restore_s = time.perf_counter() - t0
+        check(restored == 1, "the checkpoint did not restore its step")
+    record["step"] = {
+        "arch": arch, "global_batch": gb, "seq_len": seq, "dtype": cfg.dtype,
+        "step_ms": step_s * 1e3, "tokens_per_s": gb * seq / step_s,
+        "max_memory_allocated": torch.cuda.max_memory_allocated() if on_card else None,
+        "attention_launches_per_step": launches, "attention_variants_per_step": variants,
+        "params": tree_numel(params), "profile": prof, "checkpoint_bytes": ckpt_bytes,
+        "checkpoint_save_s": ckpt_save_s, "checkpoint_restore_s": ckpt_restore_s,
+    }
+    log(json.dumps({"phase": 24, "part": "d", **record["step"]}))
+    del state, params, opt, model, batches
+    if on_card:
+        torch.cuda.empty_cache()
+    return record
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tiny", action="store_true",
@@ -2285,6 +2758,9 @@ def main() -> int:
     if args.mapped_child:  # phase 21's child process
         return mapped_child(args.mapped_child, args.child_out, args.tiny)
 
+    # phase 24(b) runs the train driver under deterministic algorithms; cuBLAS
+    # needs this before its first handle to give the same bits run to run
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import numpy as np
     import torch
 
@@ -2322,6 +2798,7 @@ def main() -> int:
     counters = (ops, spmv, fa, scan)  # every kernel wrapper's launch count
 
     # ------------------------------------------------------------ phase 0
+    clock = PhaseClock()
     ident = "cpu rehearsal" if args.tiny else gpu_identity()
     log(f"phase 0: {ident} | torch {torch.__version__} | cuda {torch.version.cuda}")
     floor = None  # the empty kernel of phases 1 and 5's launch floors
@@ -2351,11 +2828,13 @@ def main() -> int:
                     log(f"phase 0: ptxas: {line.strip()}")
 
     # ------------------------------------------------------------ phase 1
+    clock.mark(0)
     log(f"phase 1: rmat 2^{scale} generated in {gen_s:.3f} s (beside the builds): "
         f"{graph.num_vertices} vertices, {graph.num_edges} edges, "
         f"max degree {int(graph.degrees.max())}")
     dgraph = graph.to(device)
     shapes = kernel_checks(torch, np, ops, ref, dgraph, graph, device, timer, floor)
+    clock.mark(1)
 
     # ------------------------------------------------------------ phase 2
     if device.type == "cuda":
@@ -2393,6 +2872,7 @@ def main() -> int:
     # phase 21 holds the mapped run's peaks against these (the process's RSS
     # so far: phases 0-2, the graph generated and partitioned resident)
     main_peak, main_rss = (peak, main_base), rss.read()
+    clock.mark(2)
 
     # ------------------------------------------------------------ phase 3
     from repro_torch.graph.generators import load_dataset
@@ -2436,13 +2916,17 @@ def main() -> int:
         "max_memory_allocated": torch.cuda.max_memory_allocated() if device.type == "cuda" else None,
     }))
 
+    clock.mark(3)
+
     # ------------------------------------------------------------ phase 4
     social_res = res  # phase 11 profiles pagerank on this partition
     social = res.graph
     log(json.dumps({"phase": 4, "dataset": dataset, **profile_stream(torch, tapi, social, device)}))
+    clock.mark(4)
 
     # ------------------------------------------------------------ phase 5
     sharded_shapes = sharded_kernel_checks(torch, np, ops, ref, dgraph, graph, device, timer, floor)
+    clock.mark(5)
 
     # ------------------------------------------------------------ phase 6
     if device.type == "cuda":
@@ -2488,6 +2972,7 @@ def main() -> int:
         "workers1_profile": profile_totals(one.profile), "device": ident,
     }))
     del dgraph, res, one
+    clock.mark(6)
 
     # ------------------------------------------------------------ phase 7
     for algo in ("fennel-parallel", "cuttana-parallel", "cuttana-restream"):
@@ -2551,10 +3036,12 @@ def main() -> int:
         "max_memory_allocated": torch.cuda.max_memory_allocated() if device.type == "cuda" else None,
     }))
     del res
+    clock.mark(7)
 
     # ------------------------------------------------------------ phase 8
     log(json.dumps({"phase": 8, "dataset": dataset, **profile_stream(
         torch, tapi, social, device, "fennel-parallel", {"num_shards": NUM_SHARDS})}))
+    clock.mark(8)
 
     # ------------------------------------------------------------ phase 9
     lg = main_res.localized()
@@ -2570,12 +3057,14 @@ def main() -> int:
         "state_len": lg.state_len, "max_local_edges": lg.max_local_edges(),
     }))
     spmv_shapes = spmv_kernel_checks(torch, np, spmv, spmv_ref, lg, device, timer)
+    clock.mark(9)
 
     # ----------------------------------------------------------- phase 10
     q = main_res.quality()
     n = graph.num_vertices
     on_cpu = dataclasses.replace(main_res, device=torch.device("cpu"))  # shares the layout
     spmv_launches = 0
+    sim_values = {}  # phase 23 holds the sharded mode against these
     for prog, iters in ANALYTICS_ITERS.items():
         if device.type == "cuda":
             torch.cuda.synchronize()
@@ -2589,7 +3078,7 @@ def main() -> int:
         check(launches == expect, f"analytics {prog}: {launches} launches, expected {expect}")
         spmv_launches += launches
         peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
-        got = out["values"]
+        got = sim_values[prog] = out["values"]
         check(got.shape == (n,) and got.dtype == np.float32 and np.isfinite(got).all(),
               f"analytics {prog}: values have the wrong shape, type or non-finite entries")
         short = main_res.analytics(prog, CPU_PARITY_ITERS, mode="simulated")["values"]
@@ -2634,27 +3123,37 @@ def main() -> int:
     check(np.array_equal(sp[finite], want[finite]) and (sp[~finite] > 1e30).all(),
           "web-s sssp differs from the oracle")
     log(json.dumps({"phase": 10, "dataset": "web-s", "oracles_agree": True}))
+    clock.mark(10)
 
     # ----------------------------------------------------------- phase 11
     social_res.localized().to(device)  # layout built and placed outside the profile
     log(json.dumps({"phase": 11, "dataset": dataset, **profile_analytics(
         torch, social_res, spmv, device)}))
+    clock.mark(11)
+
+    # ----------------------------------------------------------- phase 23
+    sharded_row, sharded_spmv_launches = sharded_phase(
+        torch, np, spmv, spmv_ref, lg, sim_values, device, timer, floor, ident)
+    clock.mark(23)
 
     # ------------------------------------------------------ phases 18-20
     del lg, on_cpu
     main_res._localized = None  # the analytics layout of phases 9-10
     zoo_paths, zoo_rows = zoo_phases(torch, np, tapi, ops, ref, counters, device, timer, floor,
-                                     web, social, graph, dataset, args.tiny, ident)
+                                     web, social, graph, dataset, args.tiny, ident, clock)
+    clock.mark(20)
 
     # ----------------------------------------------------------- phase 21
     rows_shapes, rows_launches = outofcore_phase(
         torch, np, tapi, ops, ref, counters, device, timer, floor, graph, main_res, main_peak,
         main_rss, args.tiny, ident)
+    clock.mark(21)
 
     # ----------------------------------------------------------- phase 22
     serving_row, serving_launches = serving_phase(
         torch, np, tapi, ops, ref, counters, device, timer, floor, graph, main_res, args.tiny,
         ident)
+    clock.mark(22)
 
     # ----------------------------------------------------------- phase 12
     del graph, main_res, social_res, social, web_res
@@ -2664,11 +3163,13 @@ def main() -> int:
 
     flash_shapes = flash_kernel_checks(torch, np, F, fa, fa_ref, timer, args.tiny)
     decode_shapes = [r for r in flash_shapes if r["variant"] == "decode_split"]
+    clock.mark(12)
 
     # ----------------------------------------------------------- phase 13
     scan_shapes = scan_kernel_checks(torch, scan, scan_ref, timer, args.tiny)
     if device.type == "cuda":
         torch.cuda.empty_cache()
+    clock.mark(13)
 
     # ------------------------------------------------------ phases 14, 15
     lm_launches = {"flash_attention": 0, "selective_scan": 0}
@@ -2681,17 +3182,24 @@ def main() -> int:
             for name, n in rec[path]["flash_variants"].items():
                 flash_variants[name] += n
         log(json.dumps({"phase": phase, **rec}))
+        clock.mark(phase)
         if arch == "qwen3-8b":
             # ------------------------------------------------------- phase 17
             long_rec = long_decode_phase(torch, np, counters, device, model, params, args.tiny,
                                          ident)
             log(json.dumps({"phase": 17, **long_rec}))
+            clock.mark(17)
         del model, params
         if device.type == "cuda":
             torch.cuda.empty_cache()
 
     # ----------------------------------------------------------- phase 16
     reduced_parity(torch, np, device)
+    clock.mark(16)
+
+    # ----------------------------------------------------------- phase 24
+    train_rec = training_phase(torch, np, F, counters, device, timer, args.tiny, ident)
+    clock.mark(24)
 
     # ------------------------------------------------------------ summary
     def stream_summary(row):
@@ -2740,11 +3248,21 @@ def main() -> int:
                 TPU_KERNEL_SHARDED, variant=SCORE_VARIANT, entry="fennel_scores_sharded_rows",
                 floor_ms=rows_shapes[1]["floor_ms"], copy_ms=rows_shapes[1]["copy_ms"],
                 packed_bytes=rows_shapes[1]["packed_bytes"]),
+        # phase 23: the same kernel, k=1 a rank, in the sharded mode's ranks
         summary("ell_spmv", spmv_shapes, spmv_launches, TPU_KERNEL_SPMV, SPMV_SOURCE,
-                variant=SPMV_VARIANT, gb_per_s=spmv_shapes[0]["gb_per_s"]),
+                variant=SPMV_VARIANT, gb_per_s=spmv_shapes[0]["gb_per_s"],
+                sharded_launches=sharded_spmv_launches, sharded_rank_row={
+                    key: sharded_row.get(key) for key in (
+                        "shape", "rows", "nnz", "ms", "call_ms", "plain_ms", "library_ms",
+                        "bound_ms", "bound_by", "floor_ms", "gb_per_s", "max_abs_err")}),
         summary("flash_attention", flash_shapes, lm_launches["flash_attention"],
                 TPU_KERNEL_FLASH, FLASH_SOURCE, variant=flash_shapes[0]["variant"],
-                tflops=flash_shapes[0]["tflops"], variant_launches=flash_variants),
+                tflops=flash_shapes[0]["tflops"], variant_launches=flash_variants,
+                # phase 24: the training path (the driver's three runs and
+                # the elastic demo) and the gradient rows
+                train_launches=train_rec["driver"]["launches"],
+                train_variants_per_step=train_rec["step"]["attention_variants_per_step"],
+                grad_rows=[r for r in train_rec["grad_rows"] if "hq" in r]),
         # the decode variant on its own: phase 17's long-context decode is its main
         # path, and its timed shape is phase 12's layer at phase 17's batch (B=8)
         summary("flash_attention_decode_split", decode_shapes,
@@ -2756,7 +3274,8 @@ def main() -> int:
                     "shape", "n_split", "ms", "bound_ms", "library_ms", "plain_ms")}),
         summary("selective_scan", scan_shapes, lm_launches["selective_scan"],
                 TPU_KERNEL_SCAN, SCAN_SOURCE, variant=scan_shapes[0]["variant"],
-                exp_bound_share=scan_shapes[0]["exp_bound_share"]),
+                exp_bound_share=scan_shapes[0]["exp_bound_share"],
+                grad_rows=[r for r in train_rec["grad_rows"] if "n" in r]),
     ]}))
     if args.tiny:
         log("tiny rehearsal finished on the CPU: every phase ran; no device result")

@@ -37,7 +37,7 @@ class DeviceLocalized:
     cols: torch.Tensor  # int32[k, e_max]
     row_ptr: torch.Tensor  # int64[k, v_max + 1]
     degrees_full: torch.Tensor  # float32[k, state_len]
-    send_gather: torch.Tensor  # int64[k, k, h_max]
+    send_gather: torch.Tensor  # int64[k, k, h_max] (a sharded rank's: [k, h_max])
 
 
 @dataclasses.dataclass

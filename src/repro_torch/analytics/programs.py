@@ -12,10 +12,15 @@ engine may apply ``message`` to a whole state vector before the gather and
 get the same bits; ``init`` builds numpy arrays, as in the reference. The
 float64 ``reference_*`` functions are numpy copies of the reference's dense
 oracles.
+
+The three programs are built from module-level functions (parameters bound
+with ``functools.partial``), so they pickle: the sharded engine ships them
+to its worker processes.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable
 
 import numpy as np
@@ -51,66 +56,69 @@ class VertexProgram:
         )
 
 
+def _pagerank_init(l2g, count, ctx):
+    n = ctx["num_vertices"]
+    x = np.full(l2g.shape[0], 1.0 / n, dtype=np.float32)
+    x[count:] = 0.0
+    return x
+
+
+def _pagerank_message(src_state, src_deg):
+    return src_state / torch.clamp(src_deg, min=1.0)
+
+
+def _pagerank_apply(damping, old, agg, ctx):
+    n = ctx["num_vertices"]
+    return (1.0 - damping) / n + damping * agg
+
+
 def pagerank_program(damping: float = 0.85) -> VertexProgram:
-    def init(l2g, count, ctx):
-        n = ctx["num_vertices"]
-        x = np.full(l2g.shape[0], 1.0 / n, dtype=np.float32)
-        x[count:] = 0.0
-        return x
-
-    def message(src_state, src_deg):
-        return src_state / torch.clamp(src_deg, min=1.0)
-
-    def apply(old, agg, ctx):
-        n = ctx["num_vertices"]
-        return (1.0 - damping) / n + damping * agg
-
     return VertexProgram(
-        name="pagerank", identity=0.0, reduce_kind="sum",
-        init=init, message=message, apply=apply,
+        name="pagerank", identity=0.0, reduce_kind="sum", init=_pagerank_init,
+        message=_pagerank_message, apply=functools.partial(_pagerank_apply, damping),
     )
 
 
 _INF = np.float32(3.0e38)
 
 
+def _cc_init(l2g, count, ctx):
+    x = l2g.astype(np.float32).copy()
+    x[count:] = _INF
+    return x
+
+
+def _identity_message(src_state, src_deg):
+    return src_state
+
+
+def _min_apply(old, agg, ctx):
+    return torch.minimum(old, agg)
+
+
 def cc_program() -> VertexProgram:
     """Connected components via label propagation (labels = vertex ids)."""
-
-    def init(l2g, count, ctx):
-        x = l2g.astype(np.float32).copy()
-        x[count:] = _INF
-        return x
-
-    def message(src_state, src_deg):
-        return src_state
-
-    def apply(old, agg, ctx):
-        return torch.minimum(old, agg)
-
     return VertexProgram(
         name="cc", identity=float(_INF), reduce_kind="min",
-        init=init, message=message, apply=apply,
+        init=_cc_init, message=_identity_message, apply=_min_apply,
     )
+
+
+def _sssp_init(source, l2g, count, ctx):
+    x = np.full(l2g.shape[0], _INF, dtype=np.float32)
+    x[np.flatnonzero(l2g == source)] = 0.0
+    return x
+
+
+def _sssp_message(src_state, src_deg):
+    return src_state + 1.0
 
 
 def sssp_program(source: int = 0) -> VertexProgram:
     """Single-source shortest path, unit weights (Bellman-Ford)."""
-
-    def init(l2g, count, ctx):
-        x = np.full(l2g.shape[0], _INF, dtype=np.float32)
-        x[np.flatnonzero(l2g == source)] = 0.0
-        return x
-
-    def message(src_state, src_deg):
-        return src_state + 1.0
-
-    def apply(old, agg, ctx):
-        return torch.minimum(old, agg)
-
     return VertexProgram(
         name="sssp", identity=float(_INF), reduce_kind="min",
-        init=init, message=message, apply=apply,
+        init=functools.partial(_sssp_init, source), message=_sssp_message, apply=_min_apply,
     )
 
 

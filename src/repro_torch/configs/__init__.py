@@ -1,8 +1,9 @@
 """Architecture registry of the port: ``get_config(arch)``, the reduced
 smoke-test variants and ``get_model_config`` (the launchers' name parser).
 
-The port serves qwen3-8b (dense GQA with qk-norm) and falcon-mamba-7b
-(attention-free Mamba-1). The reference's other eight architectures need
+The port serves and trains qwen3-8b (dense GQA with qk-norm) and
+falcon-mamba-7b (attention-free Mamba-1); ``launch/train.py`` adds the
+reference's ``repro-100m``. The reference's other eight architectures need
 mixers the port does not have yet (sliding-window ring caches, MLA, MoE,
 cross-attention, frame inputs); asking for one raises
 ``NotImplementedError`` naming the ROADMAP item that brings it.
@@ -82,5 +83,6 @@ def shrink(cfg: ModelConfig) -> ModelConfig:
         d_head=32 if cfg.d_head else None,
         n_experts=8 if cfg.n_experts else 0,
         n_shared_experts=min(cfg.n_shared_experts, 1),
+        remat=False,
     )
     return dataclasses.replace(cfg, **changes)

@@ -19,6 +19,7 @@ from repro_torch.models.config import LATER_ITEM
 __all__ = [
     "graph_from_arrays",
     "lm_params_from_arrays",
+    "lm_params_to_reference",
     "localized_from_arrays",
     "state_from_arrays",
 ]
@@ -136,8 +137,10 @@ def localized_from_arrays(
 
 
 def _tensor(arr, device: torch.device) -> torch.Tensor:
-    """A tensor copy of a numpy array; bfloat16 arrays (the reference's
-    ``ml_dtypes`` type) keep their bits."""
+    """A tensor copy of a numpy array (or a tensor on ``device``); bfloat16
+    arrays (the reference's ``ml_dtypes`` type) keep their bits."""
+    if isinstance(arr, torch.Tensor):
+        return arr.to(device)
     arr = np.asarray(arr)
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16).to(device)
@@ -153,7 +156,8 @@ def _tree(tree, fn):
 def lm_params_from_arrays(cfg, params: dict, device: str | torch.device | None = None) -> dict:
     """The port's parameter dict (``Model.init``'s layout) from the
     reference's parameter pytree as numpy arrays (``jax.tree.map(np.asarray,
-    params)``): ``blocks``, whose leaves carry a leading ``n_blocks`` axis,
+    params)``) or tensors (a restored checkpoint): ``blocks``, whose leaves
+    carry a leading ``n_blocks`` axis,
     is unstacked into one dict per layer in ``cfg.layers()`` order, so both
     packages compute with the same weights."""
     device = resolve_device(device)
@@ -163,7 +167,7 @@ def lm_params_from_arrays(cfg, params: dict, device: str | torch.device | None =
     if len(blocks) != len(cfg.block):
         raise ValueError(f"params hold {len(blocks)} block layers, cfg has {len(cfg.block)}")
     layers = [
-        _tree(blocks[j], lambda a, i=i: _tensor(np.asarray(a)[i], device))
+        _tree(blocks[j], lambda a, i=i: _tensor(a[i], device))
         for i in range(cfg.n_blocks)
         for j in range(len(cfg.block))
     ]
@@ -174,4 +178,35 @@ def lm_params_from_arrays(cfg, params: dict, device: str | torch.device | None =
     }
     if "unembed" in params:
         out["unembed"] = _tensor(params["unembed"], device)
+    return out
+
+
+def lm_params_to_reference(cfg, params: dict) -> dict:
+    """The inverse of :func:`lm_params_from_arrays`: the port's parameter
+    dict (or a tree of the same layout, such as AdamW's moments) in the
+    reference's layout, ``{"blocks", "embed", "final_norm", "prefix",
+    "unembed"}``, with the layers of each ``cfg.block`` position stacked on
+    a leading ``n_blocks`` axis, on the parameters' device. Flattened in
+    JAX's leaf order (:mod:`repro_torch.train.pytree`) it gives the
+    reference's leaves one by one, which is what lets checkpoints cross."""
+    if cfg.prefix:
+        raise NotImplementedError(f"prefix layers are not ported yet; {LATER_ITEM}")
+    layers = params["layers"]
+    width = len(cfg.block)
+    if len(layers) != cfg.n_blocks * width:
+        raise ValueError(f"params hold {len(layers)} layers, cfg has {cfg.n_blocks * width}")
+
+    def stack(group: list):
+        if isinstance(group[0], dict):
+            return {key: stack([g[key] for g in group]) for key in group[0]}
+        return torch.stack(group)
+
+    out = {
+        "blocks": tuple(stack(layers[j::width]) for j in range(width)),
+        "embed": params["embed"],
+        "final_norm": params["final_norm"],
+        "prefix": (),
+    }
+    if "unembed" in params:
+        out["unembed"] = params["unembed"]
     return out

@@ -28,6 +28,13 @@ activations and its ``[B, S, Hkv, Dh]`` cache transposed, with no copy. The
 output is laid out the same way (``[B, Tq, Hq, Dh]`` in memory, returned as a
 ``[B, Hq, Tq, Dh]`` view), so the model's ``reshape(B, T, Hq * Dh)`` after it
 is free.
+
+Under autograd (grad mode on and an input that requires a gradient) the
+launch runs inside :class:`_FlashAttention`: its forward is the kernel, its
+backward runs the plain version again on the saved inputs and
+differentiates it, as the reference's training forward is differentiated
+through its jnp mirrors and never through Pallas. A second derivative
+raises. Calls without a gradient launch directly and save nothing.
 """
 from __future__ import annotations
 
@@ -35,6 +42,7 @@ import ctypes
 import functools
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels.flash_attention import build
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -161,8 +169,8 @@ def flash_attention(
     i``) over the keys that the masks keep: causal ``kpos <= qpos``, a
     sliding ``window`` ``kpos > qpos - window``; ``Hq / Hkv`` query heads
     share a key/value head. Returns ``[B, Hq, Tq, Dh]`` in ``q``'s dtype
-    (float32 statistics inside)."""
-    global launches
+    (float32 statistics inside). On a CUDA tensor that needs a gradient the
+    output carries one (the plain version's, recomputed)."""
     _check(q, k, v, window)
     device = q.device
     if device.type == "cpu":
@@ -171,11 +179,41 @@ def flash_attention(
         raise ValueError(f"unsupported device {device}")
     if q.dtype not in DTYPES:
         raise TypeError(f"the kernel takes {sorted(map(str, DTYPES))}, got {q.dtype}")
-    b, hq, tq, dh = q.shape
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, got {dh}")
+    if q.shape[3] not in HEAD_DIMS:
+        raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, got {q.shape[3]}")
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("q, k and v need a contiguous last dimension")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, causal, window, q_offset)
+    return _launch(q, k, v, causal, window, q_offset)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel forward with the plain version's gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        ctx.save_for_backward(q, k, v)
+        ctx.masks = (causal, window, q_offset)
+        return _launch(q, k, v, causal, window, q_offset)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_out):
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[:3])]
+        wanted = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            out = flash_attention_ref(*inputs, *ctx.masks)
+            grads = iter(torch.autograd.grad(out, wanted, grad_out))
+        return (*(next(grads) if t.requires_grad else None for t in inputs), None, None, None)
+
+
+def _launch(q, k, v, causal, window, q_offset) -> torch.Tensor:
+    """One launch of the kernel on checked CUDA tensors."""
+    global launches
+    device = q.device
+    b, hq, tq, dh = q.shape
     out = torch.empty((b, tq, hq, dh), dtype=q.dtype, device=device).transpose(1, 2)
     if tq == 0:
         return out

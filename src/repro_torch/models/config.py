@@ -2,9 +2,14 @@
 ``ModelConfig`` (a pure dataclass, so it is copied, not imported).
 
 A model is ``prefix`` layers followed by ``n_blocks`` repeats of a ``block``
-pattern. Only the fields the port reads are copied: the reference's
-mesh-sharding knobs, its MoE routing, cross-attention, image-token and
-training-policy settings come with the slices that read them.
+pattern. Only the fields the port reads are copied, the training-policy
+hints included (``router_aux_weight``, ``opt_state_dtype``, ``remat``,
+``remat_policy``, with the reference's defaults). The reference's
+mesh-sharding knobs (``activation_partitioning`` and the
+``*_weight_shard`` fields) place activations and weights over a TPU mesh;
+the port runs on one card, so they stay out until a mesh exists (ROADMAP
+Queue 1 item 8d). MoE routing, cross-attention and image tokens come with
+the families that read them (item 8c).
 """
 from __future__ import annotations
 
@@ -52,6 +57,7 @@ class ModelConfig:
     n_experts: int = 0
     n_shared_experts: int = 0
     d_ff_expert: int = 0
+    router_aux_weight: float = 0.01
     # ---- mamba
     ssm_state: int = 16
     d_conv: int = 4
@@ -62,6 +68,12 @@ class ModelConfig:
     embed_scale: bool = False  # gemma-style sqrt(d) embedding multiplier
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
+    # training-policy hints consumed by launch/train
+    opt_state_dtype: str = "float32"  # "bfloat16" for the giant MoEs
+    remat: bool = True
+    # remat policy: "dots" (save matmul outputs), "nothing", or "save_moe"
+    # (keep MoE outputs; raises until MoE is ported)
+    remat_policy: str = "dots"
 
     # ------------------------------------------------------------ derived
     @property

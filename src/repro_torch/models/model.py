@@ -9,6 +9,16 @@ lm_params_from_arrays`` unstacks the reference's pytree into this layout.
 The decode cache is a list with one dict per layer; ``decode_step`` writes
 it in place (the reference returns a new pytree) and returns it.
 
+``forward`` is differentiable, as the reference's is: the attention and scan
+kernels carry the plain versions' gradients (their wrappers' autograd
+Functions). With ``cfg.remat`` each layer that takes part in a backward
+runs under ``torch.utils.checkpoint`` (non-reentrant): ``remat_policy``
+``"dots"`` keeps the matmul outputs (the reference's
+``dots_with_no_batch_dims_saveable``: ``aten.mm``/``addmm``, not the
+batched attention products), ``"nothing"`` keeps none. The reference
+checkpoints a whole block of its scan; every ported config's block is one
+layer, so the two cut the graph at the same places.
+
 Supported: token inputs, GQA self-attention (qk-norm, full attention and
 sliding windows at prefill), Mamba-1 mixers, dense FFNs. MoE, MLA,
 cross-attention, frame inputs, ``prefix`` layers and the sliding-window ring
@@ -16,9 +26,11 @@ cache raise ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
+import torch.utils.checkpoint as checkpoint
 from torch import nn
 
 from repro_torch.device import resolve_device
@@ -43,6 +55,34 @@ def _check_supported(cfg: ModelConfig) -> None:
             later(f"the {spec.mixer!r} mixer")
         if spec.ffn not in ("dense", "none"):
             later(f"the {spec.ffn!r} FFN")
+    if cfg.remat and cfg.remat_policy not in ("dots", "nothing"):
+        if cfg.remat_policy == "save_moe":
+            later('remat_policy "save_moe" (it keeps MoE outputs)')
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+
+
+# the matmuls whose outputs remat_policy "dots" keeps: products with no
+# batch dimension, as the reference's dots_with_no_batch_dims_saveable
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _SAVED_DOTS:
+        return checkpoint.CheckpointPolicy.MUST_SAVE
+    return checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _needs_grad(x: torch.Tensor, p: dict) -> bool:
+    if not torch.is_grad_enabled():
+        return False
+    stack = [x, p]
+    while stack:
+        t = stack.pop()
+        if isinstance(t, dict):
+            stack.extend(t.values())
+        elif t.requires_grad:
+            return True
+    return False
 
 
 class Model(nn.Module):
@@ -140,16 +180,30 @@ class Model(nn.Module):
         cfg = self.cfg
         x = self._embed(params, inputs["tokens"])
         for spec, p in zip(cfg.layers(), params["layers"]):
-            h = rms_norm(x, p["norm1"])
-            if spec.mixer == "attn":
-                y, _ = gqa_forward(h, p["attn"], cfg, window=spec.window)
+            if cfg.remat and _needs_grad(x, p):
+                context = checkpoint.noop_context_fn
+                if cfg.remat_policy == "dots":
+                    context = functools.partial(
+                        checkpoint.create_selective_checkpoint_contexts, _dots_policy)
+                x = checkpoint.checkpoint(self._layer, x, p, spec, use_reentrant=False,
+                                          context_fn=context)
             else:
-                y, _ = mamba_forward(h, p["mamba"], cfg)
-            x = x + y
-            if spec.ffn == "dense":
-                x = x + dense_ffn(rms_norm(x, p["norm2"]), p["ffn"], cfg.activation)
+                x = self._layer(x, p, spec)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return self._head(params, x), aux
+
+    def _layer(self, x: torch.Tensor, p: dict, spec: LayerSpec) -> torch.Tensor:
+        """One layer of the full-sequence forward."""
+        cfg = self.cfg
+        h = rms_norm(x, p["norm1"])
+        if spec.mixer == "attn":
+            y, _ = gqa_forward(h, p["attn"], cfg, window=spec.window)
+        else:
+            y, _ = mamba_forward(h, p["mamba"], cfg)
+        x = x + y
+        if spec.ffn == "dense":
+            x = x + dense_ffn(rms_norm(x, p["norm2"]), p["ffn"], cfg.activation)
+        return x
 
     # ----------------------------------------------------------------- cache
     def init_cache(self, batch: int, seq: int, dtype: torch.dtype | None = None) -> list:
