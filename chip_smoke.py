@@ -98,10 +98,12 @@ Phases:
  15. falcon-mamba-7b the same way: prefill with 64 scan launches, serve
      with none (decode is the plain recurrence, as in the reference), and
      one prefill under ``torch.profiler``;
- 16. both reduced configs in float32 with the same weights on the card and
-     on the CPU: logits within 1e-4 and equal greedy tokens; for qwen3 also
-     one decode step over a seeded 8,192-long cache, where the decode
-     kernel splits the cache;
+ 16. the six reduced configs (qwen3-8b, falcon-mamba-7b, minitron-8b,
+     deepseek-coder-33b, jamba-v0.1-52b, arctic-480b) in float32 with the
+     same weights on the card and on the CPU: logits and the router loss
+     within 1e-4, every MoE layer's expert ids and the greedy tokens equal;
+     for each with attention also one decode step over a seeded 8,192-long
+     cache, where the decode kernel splits the cache;
  17. qwen3-8b long-context decode at full width and depth, with phase 14's
      weights: B=8, a 32,768-position bf16 cache filled from a seeded
      generator, 8 ``decode_step``s from position 32,760 (36 launches a step,
@@ -120,8 +122,8 @@ Phases:
      for ``cuttana-batched-legacy``, none for the host loops; and
      ``cuttana-parallel`` at S=4 with the ``gain`` and ``completeness``
      buffers (sharded launches only);
- 19. social-m: ``cuttana-buffcut`` (gain), ``cluster+cuttana``,
-     ``heistream`` and ``cuttana-incremental`` (16 batches, S=1 and S=4)
+ 19. social-s: ``cuttana-buffcut`` (gain) and ``cluster+cuttana``; social-m:
+     ``heistream`` and ``cuttana-incremental`` (16 batches, S=1 and S=4);
      against the reference's edge cuts, launches equal to ``kernel_calls``;
      the gather entry against its plain version, timed like phase 1, on
      the chunk of the ``cluster+*`` coarse graph's random order that holds
@@ -171,11 +173,11 @@ Phases:
      version on the first chunk of that cuttana stream
      (``serving_rmat8000_chunk512_k8``), timed like phase 1; (b) phase 2's
      2^22 ``fennel`` partition served at replication budget 0.05 with
-     ``SERVING_QUERIES`` (500) queries (seed 1) at concurrency 1,000, at
+     ``SERVING_QUERIES`` (200) queries (seed 1) at concurrency 1,000, at
      auto workers and at one worker: the same answers per query and the
      same sim metrics and counters, the answers equal to the
      ``QueryEngine``'s, the plan's and runs' seconds logged, and
-     ``result.db(hops=1|2)`` with 256 queries;
+     ``result.db(hops=1|2)`` with 256 and ``DB_TWO_HOP_QUERIES`` (32) queries;
      (c) ``python -m repro_torch.api.cli`` in child processes on the card:
      ``partition`` (cuttana, ``--with-db``) gives (a)'s quality and
      ``kernel_calls`` (0: cuttana places every vertex on the host),
@@ -195,6 +197,25 @@ Phases:
      ms an iteration and the staged bytes recorded (host times of ranks that
      share one card, not a multi-card speed); then the kernel at the largest
      rank's segment shape, timed like phase 9 with its empty-launch floor;
+ 25. (runs after phase 16) the MoE families and expert placement: (d)
+     first, while the card is empty, the attention kernel at arctic-480b's
+     shapes (g = 7: Hq=56, Hkv=8, Dh=128, bf16) against its plain version,
+     timed like phase 12: prefill B=1, T=8192 on ``wgmma_bf16`` and decode
+     B=8 over the serve loop's 160-key cache on ``decode_split``; (a)
+     jamba-v0.1-52b (13.26B parameters) and then arctic-480b (14.07B) at
+     full width cut to one block (jamba's eight-layer period: 7 Mamba, 1
+     attention, 4 MoE and 4 dense FFNs; arctic's one layer of 128 experts
+     beside a dense FFN), bf16, seeded, through ``lm_phase``: prefill B=1
+     T=8192 (jamba 1 ``wgmma_bf16`` and 7 scan launches, arctic 1), serve B=8
+     prompt 128 gen 32 (159 ``decode_split`` launches), finite logits, peak
+     memory, tok/s, a decode step and the prefill under ``torch.profiler``
+     with the MoE ranges' share of device time; each model freed before the
+     next; (b) minitron-8b and deepseek-coder-33b at full width with two
+     layers: prefill T=8192 (2 ``wgmma_bf16`` launches) and 8 decode steps
+     at B=8 from the end of a seeded 8,192 cache (16 ``decode_split``); (c)
+     ``place_experts`` on ``examples/moe_placement.py``'s trace (50,000
+     tokens, E=160, top-6, 16 devices): the round-robin, contiguous and
+     CUTTANA mean fanouts equal the reference's (``PLACEMENT_FANOUT``);
  24. (runs last) LM training: (a) the attention wrapper's gradient (the
      kernel forward, the plain version's backward) against plain autograd
      at ``repro-100m``'s shape (B=8, T=256, H=10, Hkv=5, Dh=64, bf16) and a
@@ -227,8 +248,9 @@ The last lines are the ``{"kernels": [...]}`` summary, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero before that line. Without a CUDA device (and without ``--tiny``)
 the script exits 2 and prints no result. ``--tiny`` runs phases 12-17 at
-the reduced configs and small kernel shapes, phase 19 on social-s (its
-constants unchecked), phase 20 on the 2^12 and 2^14 graphs, phase 21's
+the reduced configs and small kernel shapes, phase 25 at the reduced
+configs and small arctic rows, phase 19 on social-s (its constants
+unchecked), phase 20 on the 2^12 and 2^14 graphs, phase 21's
 full-size part on a 2^12 R-MAT, phase 22(b) on phase 2's 2^14 partition
 (phase 22's committed rows and the CLI run unchanged, on the CPU), phase
 23 with CPU ranks, and phase 24 at reduced qwen3-8b and small gradient
@@ -298,6 +320,12 @@ SCAN_LAYER_TOL = 1e-3
 # tolerance, and a bf16 output rounds once)
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 LM_ARCHS = ("qwen3-8b", "falcon-mamba-7b")
+MOE_ARCHS = ("jamba-v0.1-52b", "arctic-480b")  # phase 25(a), full width, one block
+DENSE_ARCHS = ("minitron-8b", "deepseek-coder-33b")  # phase 25(b), full width, two layers
+REDUCED_ARCHS = LM_ARCHS + DENSE_ARCHS + MOE_ARCHS  # phase 16
+# examples/moe_placement.py's mean fanouts, computed with repro.core.placement
+# on the CPU (50,000 tokens, E=160, top-6, 16 devices, skew 0.7, seed 0)
+PLACEMENT_FANOUT = {"round_robin": 4.49486, "contiguous": 4.53496, "cuttana": 2.99758}
 CHUNK = 512
 NUM_SHARDS = 4
 # the reference's values for these specs (repro.api.partition, k=8, edge
@@ -344,19 +372,24 @@ WEB_S_ZOO = {
 # cuttana-parallel at S=4 by buffer strategy
 WEB_S_ZOO_PARALLEL = {"gain": 0.624131929918506, "completeness": 0.6729948626985056}
 # social-m, the same spec; keys are algo/num_shards
-SOCIAL_M_ZOO_SPECS = (
-    ("cuttana-buffcut", {"strategy": "gain"}),
-    ("cluster+cuttana", {}),
-    ("heistream", {}),
-    ("cuttana-incremental", {"num_batches": 16}),
-    ("cuttana-incremental", {"num_batches": 16, "num_shards": NUM_SHARDS}),
+# phase 19's specs and the reference's edge cuts (computed with repro on
+# the CPU); cuttana-buffcut and cluster+cuttana run on social-s (20,000
+# vertices): on social-m they took 42.7 and 108.6 s of host time beside
+# the H100 (700 W) in a run that overran the smoke's limit (social-m:
+# 0.8243048897411314 and 0.8247421678629733)
+SOCIAL_ZOO_SPECS = (
+    ("social-s", "cuttana-buffcut", {"strategy": "gain"}),
+    ("social-s", "cluster+cuttana", {}),
+    ("social-m", "heistream", {}),
+    ("social-m", "cuttana-incremental", {"num_batches": 16}),
+    ("social-m", "cuttana-incremental", {"num_batches": 16, "num_shards": NUM_SHARDS}),
 )
-SOCIAL_M_ZOO = {
-    "cuttana-buffcut/1": 0.8243048897411314,
-    "cluster+cuttana/1": 0.8247421678629733,
-    "heistream/1": 0.8393051488689073,
-    "cuttana-incremental/1": 0.7922356680745942,
-    "cuttana-incremental/4": 0.7946412375942578,
+SOCIAL_ZOO = {
+    "social-s cuttana-buffcut/1": 0.790310438281913,
+    "social-s cluster+cuttana/1": 0.8075433217443675,
+    "social-m heistream/1": 0.8393051488689073,
+    "social-m cuttana-incremental/1": 0.7922356680745942,
+    "social-m cuttana-incremental/4": 0.7946412375942578,
 }
 # BENCH_partition.json churn/rmat25000/incremental
 CHURN_EDGE_CUT = 0.7724772058256066
@@ -368,8 +401,12 @@ RMAT_BATCHED_EDGE_CUT = {20: 0.8362624552954572, 12: 0.7886621145043896}
 # phase 22(b)'s queries on the 2^22 partition: 2,000 took 71.5 s at one
 # worker on the card's host, above the 60 s a run may take in the smoke;
 # 1,000 took 18.9 s at auto workers and 36.8 s at one (run W22); cut to 500
-# for phases 23-24's time within the smoke's limit
-SERVING_QUERIES = 500
+# for phases 23-24's time within the smoke's limit, and to 200 for phase 25's
+# (500: 12.3 s at auto and 40.1 s at one on a slower host)
+SERVING_QUERIES = 200
+# result.db's two-hop queries on the 2^22 partition (phase 22(b)): 256 took
+# 58.4 s on that host; the one-hop run keeps 256
+DB_TWO_HOP_QUERIES = 32
 # BENCH_partition.json's serving/rmat8000/* rows (phase 22; benchmarks/
 # serving.py: R-MAT 8000, degree 12, seed 0, k=8, 2,000 queries seeded 1 at
 # concurrency 1,000), every field but qps_wall (the host's clock)
@@ -1204,21 +1241,25 @@ def zoo_phases(torch, np, tapi, ops, ref, counters, device, timer, floor, web, s
     clock.mark(18)
 
     # ----------------------------------------------------------- phase 19
-    for name, params in SOCIAL_M_ZOO_SPECS:
-        res, row, launched = zoo_run(torch, np, tapi, ops, counters, social, device,
+    from repro_torch.graph.generators import load_dataset
+
+    graphs = {"social-m": social, "social-s": social if tiny else load_dataset("social-s", seed=0)}
+    for name_of, name, params in SOCIAL_ZOO_SPECS:
+        on = dataset if tiny else name_of  # --tiny runs every spec on social-s
+        res, row, launched = zoo_run(torch, np, tapi, ops, counters, graphs[name_of], device,
                                      zoo_fields(tapi, name, **params), engine_launches,
                                      cpu_too=False)
-        key = f"{name}/{params.get('num_shards', 1)}"
+        key = f"{on} {name}/{params.get('num_shards', 1)}"
         if not tiny:
-            check(row["value"] == SOCIAL_M_ZOO[key],
-                  f"social-m {name} {params}: {row['value']} != {SOCIAL_M_ZOO[key]}")
-        paths[" ".join([dataset, name] + [f"{k}={v}" for k, v in params.items()])] = launched
+            check(row["value"] == SOCIAL_ZOO[key],
+                  f"{key} {params}: {row['value']} != {SOCIAL_ZOO[key]}")
+        paths[" ".join([on, name] + [f"{k}={v}" for k, v in params.items()])] = launched
         for extra in ("stream_seconds", "fm_moves", "clusters_found", "coarse_edges",
                       "prepass_seconds", "project_seconds", "restream_windows",
                       "buffer_strategy", "buffer_evictions", "refine_moves"):
             if extra in res.telemetry or extra in res.timings:
                 row[extra] = res.telemetry.get(extra, res.timings.get(extra))
-        log(json.dumps({"phase": 19, "dataset": dataset, **row}))
+        log(json.dumps({"phase": 19, "dataset": on, **row}))
     # the gather entry on the coarse graph of cluster+* at this spec: the
     # chunk of its random order holding the longest supervertex row, which
     # the kernel splits over the blocks of its cluster
@@ -1736,7 +1777,8 @@ def serving_phase(torch, np, tapi, ops, ref, counters, device, timer, floor, gra
     dbs = {}
     for hops in (1, 2):
         t0 = time.perf_counter()
-        dbs[hops] = {**main_res.db(hops=hops, num_queries=256),
+        dbs[hops] = {**main_res.db(hops=hops,
+                                   num_queries=256 if hops == 1 else DB_TWO_HOP_QUERIES),
                      "seconds": time.perf_counter() - t0}
         d = dbs[hops]
         check(d["total_rpcs"] > 0 and all(np.isfinite(d[key]) for key in (
@@ -2069,9 +2111,13 @@ def tree_numel(tree) -> int:
     return tree.numel()
 
 
-def profile_lm(torch, fn, device, kernel_name: str) -> dict:
+def profile_lm(torch, fn, device, kernel_name: str, annotation: str | None = None) -> dict:
     """One call of ``fn`` under ``torch.profiler`` after a profiled warm-up
-    call (a short window loses its first device events otherwise)."""
+    call (a short window loses its first device events otherwise). With
+    ``annotation`` also the device time of the kernels launched inside the
+    profiler ranges of that name (the MoE layers' ``MOE_RANGE``) and its
+    share of the card's busy time."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
     on_card = device.type == "cuda"
@@ -2083,22 +2129,37 @@ def profile_lm(torch, fn, device, kernel_name: str) -> dict:
             sync(torch, device)
             wall = time.perf_counter() - t0
             prof.step()
-    return {"profiled_wall_s": wall, **device_time(prof, wall, on_card, kernel_name)}
+    out = {"profiled_wall_s": wall, **device_time(prof, wall, on_card, kernel_name)}
+    if annotation is not None:
+        ranges = [e for e in prof.events() if e.name == annotation
+                  and e.device_type == DeviceType.CPU]
+        ms = sum(e.device_time_total for e in ranges) / 1e3 if on_card else None
+        busy = out["device_busy_s"]
+        out.update({"range": annotation, "range_calls": len(ranges), "range_device_ms": ms,
+                    "range_share_of_busy": ms / (busy * 1e3) if ms is not None and busy else None})
+    return out
 
 
-def lm_phase(torch, np, counters, device, arch: str, tiny: bool, ident: str) -> tuple:
-    """Phases 14-15: ``arch`` at full width and depth (reduced with
-    ``--tiny``): prefill through ``make_prefill_step``, then the serve loop,
-    with the launches of both kernels checked on each path. Returns the
-    record, the model and its weights (phase 17 decodes with qwen3's)."""
+def lm_phase(torch, np, counters, device, arch: str, tiny: bool, ident: str,
+             n_blocks: int | None = None) -> tuple:
+    """Phases 14-15 and 25(a): ``arch`` at full width and depth (reduced
+    with ``--tiny``; ``n_blocks`` cuts the depth at full width): prefill
+    through ``make_prefill_step``, then the serve loop, with the launches of
+    both kernels checked on each path. A model with MoE layers also gets its
+    prefill profiled, and both profiles the MoE ranges' device time. Returns
+    the record, the model and its weights (phase 17 decodes with qwen3's)."""
     from repro_torch.configs import get_model_config
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.mamba_scan import ops as scan
     from repro_torch.launch.serve import prefill_into_cache, serve
     from repro_torch.models import Model
+    from repro_torch.models.layers import MOE_RANGE, moe_capacity
     from repro_torch.serve.lm import make_prefill_step
 
     cfg = get_model_config(("reduced:" if tiny else "") + arch)
+    if n_blocks is not None and not tiny:
+        cfg = dataclasses.replace(cfg, n_blocks=n_blocks)
+    moe = cfg.n_experts > 0
     model = Model(cfg, device)
     on_card = device.type == "cuda"
     n_attn = sum(s.mixer == "attn" for s in cfg.layers())
@@ -2141,7 +2202,10 @@ def lm_phase(torch, np, counters, device, arch: str, tiny: bool, ident: str) -> 
     lp = prefill(params, {"tokens": short}).float()
     ld, _ = prefill_into_cache(model, params, model.init_cache(1, 16), short)
     rel = float((lp - ld.float()).norm() / lp.norm())
-    check(rel < 0.1, f"{arch}: prefill and decode-path logits differ by {rel} (relative L2)")
+    # not held with MoE layers: the capacity, so which (token, slot) pairs
+    # drop, depends on the tokens of a call (16 in the prefill, 1 a step)
+    check(moe or rel < 0.1, f"{arch}: prefill and decode-path logits differ by {rel} "
+                            "(relative L2)")
     # the serve loop
     b, plen, gen = (2, 8, 4) if tiny else (8, 128, 32)
     prompts = torch.as_tensor(rng.integers(2, cfg.vocab_size, (b, plen)), device=model.device)
@@ -2165,17 +2229,23 @@ def lm_phase(torch, np, counters, device, arch: str, tiny: bool, ident: str) -> 
     check(tuple(out.shape) == (b, gen) and int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size,
           f"{arch} serve produced ids of the wrong shape or range")
     serve_peak = torch.cuda.max_memory_allocated() if on_card else None
-    # profiled: one qwen3 decode step, one falcon prefill
+    # profiled: one qwen3 decode step, one falcon prefill; with MoE layers
+    # both, each with the MoE ranges' device time
+    annotation = MOE_RANGE if moe else None
+    prefill_prof = None
+    if not n_attn or moe:
+        prefill_prof = {"what": f"prefill b=1 t={seq}", **profile_lm(
+            torch, lambda: prefill(params, {"tokens": tokens}), device,
+            "scan_kernel" if n_mamba else "attn_", annotation)}
     if n_attn:
         cache = model.init_cache(b, plen + gen)
         tok = prompts[:, :1]
         prof = profile_lm(torch, lambda: model.decode_step(params, cache, tok, plen), device,
-                          "attn_")
+                          "attn_", annotation)
         profiled = f"decode_step b={b} pos={plen}"
     else:
-        prof = profile_lm(torch, lambda: prefill(params, {"tokens": tokens}), device,
-                          "scan_kernel")
-        profiled = f"prefill b=1 t={seq}"
+        prof, profiled = prefill_prof, prefill_prof.pop("what")
+        prefill_prof = None
     record = {
         "arch": cfg.name, "params": tree_numel(params), "param_count": cfg.param_count(),
         "layers": cfg.num_layers, "dtype": cfg.dtype, "init_s": init_s,
@@ -2189,6 +2259,14 @@ def lm_phase(torch, np, counters, device, arch: str, tiny: bool, ident: str) -> 
                   "first_ids": out[0, :8].tolist()},
         "profile": {"what": profiled, **prof}, "device": ident,
     }
+    if prefill_prof is not None:
+        record["profile_prefill"] = prefill_prof
+    if moe:
+        record["active_param_count"] = cfg.active_param_count()
+        record["moe"] = {"n_experts": cfg.n_experts, "top_k": cfg.top_k,
+                         "moe_layers": sum(s.ffn in ("moe", "moe_dense") for s in cfg.layers()),
+                         "capacity_prefill": moe_capacity(seq, cfg),
+                         "capacity_serve_step": moe_capacity(b, cfg)}
     return record, model, params
 
 
@@ -2319,34 +2397,208 @@ def long_cache_step(torch, cpu, params, card, dparams, toks) -> dict:
 
 def reduced_parity(torch, np, device) -> list:
     """Phase 16: each reduced config in float32 with the same weights on the
-    card and on the CPU."""
+    card and on the CPU; with MoE layers also every layer's expert ids and
+    the router loss."""
     from repro_torch.configs import get_model_config
     from repro_torch.launch.serve import serve
     from repro_torch.models import Model
+    from repro_torch.models import layers
+
+    top_k, chosen = layers.top_k, []
+
+    def recording(probs, k):  # every MoE layer's expert ids, in call order
+        vals, idx = top_k(probs, k)
+        chosen.append(idx.cpu())
+        return vals, idx
 
     rows = []
-    for arch in LM_ARCHS:
+    for arch in REDUCED_ARCHS:
         cfg = dataclasses.replace(get_model_config(f"reduced:{arch}"), dtype="float32")
         cpu = Model(cfg, "cpu")
         params = cpu.init(torch.Generator().manual_seed(0))
         card = Model(cfg, device)
         dparams = tree_to(params, card.device)
         toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 24)))
-        got, _ = card.forward(dparams, {"tokens": toks.to(card.device)})
-        want, _ = cpu.forward(params, {"tokens": toks})
+        layers.top_k = recording
+        try:
+            got, got_aux = card.forward(dparams, {"tokens": toks.to(card.device)})
+            ids_card = list(chosen)
+            chosen.clear()
+            want, want_aux = cpu.forward(params, {"tokens": toks})
+            ids_cpu = list(chosen)
+            chosen.clear()
+        finally:
+            layers.top_k = top_k
         ok, err = within(got.cpu(), want, 1e-4)
         check(ok, f"reduced {arch}: {device.type} and cpu logits differ beyond 1e-4 ({err})")
+        ok, aux_err = within(got_aux.cpu(), want_aux, 1e-4)
+        check(ok, f"reduced {arch}: router losses differ beyond 1e-4 ({aux_err})")
+        check(len(ids_card) == len(ids_cpu) == sum(s.ffn in ("moe", "moe_dense")
+                                                   for s in cfg.layers())
+              and all(torch.equal(a, b) for a, b in zip(ids_card, ids_cpu)),
+              f"reduced {arch}: the card and the cpu chose other experts")
         g_card, _ = serve(card, dparams, toks[:, :8].to(card.device), 8)
         g_cpu, _ = serve(cpu, params, toks[:, :8], 8)
         check(torch.equal(g_card.cpu(), g_cpu), f"reduced {arch}: greedy tokens differ")
         row = {"arch": f"reduced:{arch}", "dtype": "float32", "max_abs_err": err,
-               "greedy_tokens_equal": True}
+               "aux": float(want_aux), "aux_abs_err": aux_err, "moe_layers": len(ids_cpu),
+               "expert_ids_equal": True, "greedy_tokens_equal": True}
         if any(s.mixer == "attn" for s in cfg.layers()):
             row["long_cache_decode"] = long_cache_step(torch, cpu, params, card, dparams, toks)
         rows.append(row)
     for row in rows:
         log(json.dumps({"phase": 16, **row}))
     return rows
+
+
+def dense_family_phase(torch, np, counters, device, arch: str, tiny: bool) -> dict:
+    """Phase 25(b): ``arch`` at full width with two layers (reduced with
+    ``--tiny``): ``make_prefill_step`` at B=1, T=8192 (a launch a layer on
+    the tensor-core variant), then 8 ``decode_step``s at B=8 from the end of
+    a seeded 8,192-long cache (a ``decode_split`` launch a layer a step)."""
+    from repro_torch.configs import get_model_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.mamba_scan import ops as scan
+    from repro_torch.models import Model
+    from repro_torch.serve.lm import make_prefill_step
+
+    t_start = time.perf_counter()
+    cfg = get_model_config(("reduced:" if tiny else "") + arch)
+    if not tiny:
+        cfg = dataclasses.replace(cfg, n_blocks=2)
+    on_card = device.type == "cuda"
+    n_attn = cfg.num_layers
+    model = Model(cfg, device)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator(device=model.device).manual_seed(0))
+    seq, b, steps = (64, 2, 4) if tiny else (8192, 8, 8)
+    rng = np.random.default_rng(25)
+    tokens = torch.as_tensor(rng.integers(2, cfg.vocab_size, (1, seq)), device=model.device)
+    reset_counts(*counters)
+    t0 = time.perf_counter()
+    logits = make_prefill_step(model)(params, {"tokens": tokens})
+    sync(torch, device)
+    prefill_s = time.perf_counter() - t0
+    launches = {"flash_attention": fa.launches, "selective_scan": scan.launches}
+    variants = dict(fa.variant_launches)
+    check(launches == {"flash_attention": n_attn * on_card, "selective_scan": 0}
+          and variants == {n: n_attn * on_card * (n == "wgmma_bf16") for n in fa.VARIANTS},
+          f"{arch} prefill launched {launches}, variants {variants}")
+    check(tuple(logits.shape) == (1, 1, cfg.vocab_size) and bool(logits.isfinite().all()),
+          f"{arch} prefill logits have the wrong shape or non-finite entries")
+    del logits
+    cache = model.init_cache(b, seq)
+    fill_cache(torch, cache, torch.Generator(device=model.device).manual_seed(25))
+    tok = torch.as_tensor(rng.integers(2, cfg.vocab_size, (b, 1)), device=model.device)
+    sync(torch, device)
+    reset_counts(*counters)
+    t0 = time.perf_counter()
+    for i in range(steps):
+        logits, cache = model.decode_step(params, cache, tok, seq - steps + i)
+        tok = logits[:, -1].argmax(-1)[:, None]
+    sync(torch, device)
+    decode_s = time.perf_counter() - t0
+    dec_launches = {"flash_attention": fa.launches, "selective_scan": scan.launches}
+    dec_variants = dict(fa.variant_launches)
+    check(dec_launches == {"flash_attention": n_attn * steps * on_card, "selective_scan": 0}
+          and dec_variants == {n: n_attn * steps * on_card * (n == "decode_split")
+                               for n in fa.VARIANTS},
+          f"{arch} decode launched {dec_launches}, variants {dec_variants}")
+    check(bool(logits.isfinite().all()), f"{arch} decode logits are not finite")
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    rec = {
+        "arch": cfg.name, "layers": cfg.num_layers, "dtype": cfg.dtype,
+        "params": tree_numel(params), "group": cfg.n_heads // cfg.n_kv_heads,
+        "activation": cfg.activation, "prefill": {"batch": 1, "seq": seq, "seconds": prefill_s,
+                                                  "launches": launches, "flash_variants": variants},
+        "decode": {"batch": b, "cache_len": seq, "steps": steps, "seconds": decode_s,
+                   "tokens_per_s": b * steps / decode_s, "launches": dec_launches,
+                   "flash_variants": dec_variants, "split_launches": dict(fa.split_launches)},
+        "max_memory_allocated": peak, "seconds": time.perf_counter() - t_start,
+    }
+    del model, params, cache, logits
+    if on_card:
+        torch.cuda.empty_cache()
+    return rec
+
+
+def moe_phase(torch, np, F, fa, fa_ref, counters, device, timer, tiny: bool, ident: str) -> dict:
+    """Phase 25: the MoE families, minitron-8b and deepseek-coder-33b, and
+    CUTTANA expert placement. (d) first, while the card is empty: the attention
+    kernel at arctic-480b's shapes (g = 7) against its plain version; then
+    (a) jamba-v0.1-52b and arctic-480b at full width cut to one block,
+    served through ``lm_phase``; (b) minitron-8b and deepseek-coder-33b at
+    two layers; (c) ``place_experts`` on ``examples/moe_placement.py``'s
+    trace against the reference's fanouts. Each part logs its seconds."""
+    from repro_torch.core import placement
+
+    out = {"seconds": {}}
+    t0 = time.perf_counter()
+    if tiny:  # arctic's g = 7 and Dh at the reduced width
+        rows = [flash_row(torch, np, F, fa, fa_ref, timer, "arctic_prefill_reduced", 1, 14, 2,
+                          256, 256, 128, torch.bfloat16, library_causal=True, reps=(3, 1)),
+                flash_row(torch, np, F, fa, fa_ref, timer, "arctic_decode_reduced", 8, 14, 2, 1,
+                          40, 128, torch.bfloat16, q_offset=39, library_causal=False,
+                          reps=(3, 1))]
+    else:
+        rows = [flash_row(torch, np, F, fa, fa_ref, timer, "arctic_prefill_t8192", 1, 56, 8,
+                          8192, 8192, 128, torch.bfloat16, library_causal=True, reps=(3, 2)),
+                flash_row(torch, np, F, fa, fa_ref, timer, "arctic_decode_tk160_b8", 8, 56, 8,
+                          1, 160, 128, torch.bfloat16, q_offset=159, library_causal=False,
+                          reps=(20, 2))]
+    for row in rows:
+        log(json.dumps({"phase": 25, "part": "d", **row}))
+    out["rows"] = rows
+    if device.type == "cuda":
+        torch.cuda.empty_cache()  # the plain version's scores at the prefill shape
+    out["seconds"]["d"] = time.perf_counter() - t0
+    out["launches"] = {"flash_attention": 0, "selective_scan": 0}
+    out["flash_variants"] = dict.fromkeys(fa.VARIANTS, 0)
+    for arch in MOE_ARCHS:
+        t0 = time.perf_counter()
+        rec, model, params = lm_phase(torch, np, counters, device, arch, tiny, ident, n_blocks=1)
+        del model, params
+        if device.type == "cuda":
+            torch.cuda.empty_cache()  # one big model at a time
+        for path in ("prefill", "serve"):
+            for name, n in rec[path]["launches"].items():
+                out["launches"][name] += n
+            for name, n in rec[path]["flash_variants"].items():
+                out["flash_variants"][name] += n
+        rec["seconds"] = out["seconds"][f"a_{arch}"] = time.perf_counter() - t0
+        log(json.dumps({"phase": 25, "part": "a", **rec}))
+        out[arch] = rec
+    for arch in DENSE_ARCHS:
+        rec = dense_family_phase(torch, np, counters, device, arch, tiny)
+        for path in ("prefill", "decode"):
+            for name, n in rec[path]["launches"].items():
+                out["launches"][name] += n
+            for name, n in rec[path]["flash_variants"].items():
+                out["flash_variants"][name] += n
+        out["seconds"][f"b_{arch}"] = rec["seconds"]
+        log(json.dumps({"phase": 25, "part": "b", **rec}))
+        out[arch] = rec
+    # (c) host numpy, as in the reference
+    t0 = time.perf_counter()
+    e, devices, k = 160, 16, 6  # examples/moe_placement.py: deepseek-v2's experts on 16 devices
+    trace = placement.synthetic_routing_trace(50_000, e, k, skew=0.7, seed=0)
+    placed = placement.place_experts(trace, e, devices, seed=0)
+    layouts = {"round_robin": np.arange(e) % devices,
+               "contiguous": np.repeat(np.arange(devices), e // devices), "cuttana": placed}
+    scores = {name: placement.evaluate_placement(trace, pl) for name, pl in layouts.items()}
+    for name, want in PLACEMENT_FANOUT.items():
+        check(scores[name]["mean_fanout"] == want,
+              f"placement {name}: mean fanout {scores[name]['mean_fanout']} != {want}")
+    check(bool((np.bincount(placed, minlength=devices) == e // devices).all()),
+          "placement: a device holds another count of experts")
+    out["seconds"]["c"] = time.perf_counter() - t0
+    out["placement"] = {"tokens": 50_000, "experts": e, "top_k": k, "devices": devices,
+                        "scores": scores, "seconds": out["seconds"]["c"]}
+    log(json.dumps({"phase": 25, "part": "c", **out["placement"]}))
+    log(json.dumps({"phase": 25, "part_seconds": out["seconds"]}))
+    return out
 
 
 def sharded_phase(torch, np, spmv, spmv_ref, lg, sim_values: dict, device, timer, floor,
@@ -3197,6 +3449,14 @@ def main() -> int:
     reduced_parity(torch, np, device)
     clock.mark(16)
 
+    # ----------------------------------------------------------- phase 25
+    moe_rec = moe_phase(torch, np, F, fa, fa_ref, counters, device, timer, args.tiny, ident)
+    for name, n in moe_rec["launches"].items():
+        lm_launches[name] += n
+    for name, n in moe_rec["flash_variants"].items():
+        flash_variants[name] += n
+    clock.mark(25)
+
     # ----------------------------------------------------------- phase 24
     train_rec = training_phase(torch, np, F, counters, device, timer, args.tiny, ident)
     clock.mark(24)
@@ -3255,14 +3515,21 @@ def main() -> int:
                     key: sharded_row.get(key) for key in (
                         "shape", "rows", "nnz", "ms", "call_ms", "plain_ms", "library_ms",
                         "bound_ms", "bound_by", "floor_ms", "gb_per_s", "max_abs_err")}),
-        summary("flash_attention", flash_shapes, lm_launches["flash_attention"],
+        summary("flash_attention", flash_shapes + moe_rec["rows"], lm_launches["flash_attention"],
                 TPU_KERNEL_FLASH, FLASH_SOURCE, variant=flash_shapes[0]["variant"],
                 tflops=flash_shapes[0]["tflops"], variant_launches=flash_variants,
                 # phase 24: the training path (the driver's three runs and
                 # the elastic demo) and the gradient rows
                 train_launches=train_rec["driver"]["launches"],
                 train_variants_per_step=train_rec["step"]["attention_variants_per_step"],
-                grad_rows=[r for r in train_rec["grad_rows"] if "hq" in r]),
+                grad_rows=[r for r in train_rec["grad_rows"] if "hq" in r],
+                # phase 25: the slice-13 families' launches (in ``launches``
+                # too) and the rows at arctic-480b's shapes (g = 7)
+                moe_family_launches=moe_rec["launches"],
+                g7_rows=[{key: r.get(key) for key in (
+                    "shape", "variant", "n_split", "ms", "call_ms", "plain_ms", "library_ms",
+                    "bound_ms", "bound_by", "tflops", "max_abs_err", "max_row_rel_l2")}
+                    for r in moe_rec["rows"]]),
         # the decode variant on its own: phase 17's long-context decode is its main
         # path, and its timed shape is phase 12's layer at phase 17's batch (B=8)
         summary("flash_attention_decode_split", decode_shapes,
@@ -3275,6 +3542,7 @@ def main() -> int:
         summary("selective_scan", scan_shapes, lm_launches["selective_scan"],
                 TPU_KERNEL_SCAN, SCAN_SOURCE, variant=scan_shapes[0]["variant"],
                 exp_bound_share=scan_shapes[0]["exp_bound_share"],
+                moe_family_launches=moe_rec["launches"]["selective_scan"],
                 grad_rows=[r for r in train_rec["grad_rows"] if "n" in r]),
     ]}))
     if args.tiny:

@@ -1,10 +1,14 @@
 """Architecture registry of the port: ``get_config(arch)``, the reduced
 smoke-test variants and ``get_model_config`` (the launchers' name parser).
 
-The port serves and trains qwen3-8b (dense GQA with qk-norm) and
-falcon-mamba-7b (attention-free Mamba-1); ``launch/train.py`` adds the
-reference's ``repro-100m``. The reference's other eight architectures need
-mixers the port does not have yet (sliding-window ring caches, MLA, MoE,
+The port serves and trains qwen3-8b (dense GQA with qk-norm),
+falcon-mamba-7b (attention-free Mamba-1), the dense minitron-8b (squared
+ReLU) and deepseek-coder-33b, and the MoE families jamba-v0.1-52b (Mamba and
+attention 7:1, a 16-expert top-2 MoE every other layer) and arctic-480b (a
+dense FFN beside a 128-expert top-2 MoE in every layer);
+``launch/train.py`` adds the reference's ``repro-100m``. The reference's
+other four architectures need parts the port does not have yet (the
+sliding-window ring cache and head dim 256, MLA and prefix layers,
 cross-attention, frame inputs); asking for one raises
 ``NotImplementedError`` naming the ROADMAP item that brings it.
 """
@@ -15,25 +19,26 @@ import importlib
 
 from repro_torch.models.config import LATER_ITEM, LayerSpec, ModelConfig
 
-ARCHS = ["qwen3_8b", "falcon_mamba_7b"]
+ARCHS = ["qwen3_8b", "falcon_mamba_7b", "minitron_8b", "deepseek_coder_33b", "jamba_v01_52b",
+         "arctic_480b"]
 
 # canonical ids, as the reference names them
 ALIASES = {
     "qwen3-8b": "qwen3_8b",
     "falcon-mamba-7b": "falcon_mamba_7b",
+    "minitron-8b": "minitron_8b",
+    "deepseek-coder-33b": "deepseek_coder_33b",
+    "jamba-v0.1-52b": "jamba_v01_52b",
+    "arctic-480b": "arctic_480b",
 }
 
 # the reference's other architectures (by its canonical ids) and what they
 # wait for
 LATER = {
-    "deepseek-v2-236b": "MLA and MoE",
-    "arctic-480b": "MoE",
-    "deepseek-coder-33b": "its dense stack (no kernel of its own)",
-    "minitron-8b": "its dense stack (no kernel of its own)",
-    "gemma3-12b": "the sliding-window ring cache",
-    "hubert-xlarge": "frame inputs (encoder-only)",
-    "llama-3.2-vision-90b": "cross-attention",
-    "jamba-v0.1-52b": "MoE",
+    "gemma3-12b": "the sliding-window ring cache and head dim 256",
+    "hubert-xlarge": "frame inputs (encoder-only) and head dim 80",
+    "deepseek-v2-236b": "MLA's absorbed decode and prefix layers",
+    "llama-3.2-vision-90b": "gated cross-attention",
 }
 
 
@@ -82,6 +87,7 @@ def shrink(cfg: ModelConfig) -> ModelConfig:
         n_kv_heads=min(cfg.n_kv_heads, 2) if cfg.n_kv_heads else 0,
         d_head=32 if cfg.d_head else None,
         n_experts=8 if cfg.n_experts else 0,
+        top_k=min(cfg.top_k, 2) if cfg.top_k else 0,
         n_shared_experts=min(cfg.n_shared_experts, 1),
         remat=False,
     )

@@ -159,10 +159,13 @@ def lm_params_from_arrays(cfg, params: dict, device: str | torch.device | None =
     params)``) or tensors (a restored checkpoint): ``blocks``, whose leaves
     carry a leading ``n_blocks`` axis,
     is unstacked into one dict per layer in ``cfg.layers()`` order, so both
-    packages compute with the same weights."""
+    packages compute with the same weights. Nested leaves come along as they
+    are: an MoE layer's ``moe`` dict (the float32 ``router`` ``[D, E]``,
+    ``w_in``/``w_gate`` ``[E, D, F]``, ``w_out`` ``[E, F, D]`` and a
+    ``shared`` dense FFN) keeps its dtypes."""
     device = resolve_device(device)
     if cfg.prefix or params.get("prefix"):
-        raise NotImplementedError(f"prefix layers are not ported yet; {LATER_ITEM}")
+        raise NotImplementedError(f"prefix layers are not ported yet (deepseek-v2); {LATER_ITEM}")
     blocks = params["blocks"]
     if len(blocks) != len(cfg.block):
         raise ValueError(f"params hold {len(blocks)} block layers, cfg has {len(cfg.block)}")
@@ -188,7 +191,8 @@ def lm_params_to_reference(cfg, params: dict) -> dict:
     "unembed"}``, with the layers of each ``cfg.block`` position stacked on
     a leading ``n_blocks`` axis, on the parameters' device. Flattened in
     JAX's leaf order (:mod:`repro_torch.train.pytree`) it gives the
-    reference's leaves one by one, which is what lets checkpoints cross."""
+    reference's leaves one by one (an MoE layer's ``moe`` leaves too, as
+    ``[n_blocks, E, ...]``), which is what lets checkpoints cross."""
     if cfg.prefix:
         raise NotImplementedError(f"prefix layers are not ported yet; {LATER_ITEM}")
     layers = params["layers"]

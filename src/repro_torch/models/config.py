@@ -8,8 +8,11 @@ hints included (``router_aux_weight``, ``opt_state_dtype``, ``remat``,
 mesh-sharding knobs (``activation_partitioning`` and the
 ``*_weight_shard`` fields) place activations and weights over a TPU mesh;
 the port runs on one card, so they stay out until a mesh exists (ROADMAP
-Queue 1 item 8d). MoE routing, cross-attention and image tokens come with
-the families that read them (item 8c).
+Queue 1 item 8d); on one card the reference's weight-stationary MoE
+(``moe_ffn_fshard``) does ``moe_ffn``'s arithmetic, so the port has the one
+layer. MoE routing (``top_k``, ``capacity_factor``) is here; MLA's decode,
+cross-attention and image tokens come with the families that read them
+(item 8c).
 """
 from __future__ import annotations
 
@@ -55,8 +58,10 @@ class ModelConfig:
     activation: str = "swiglu"  # swiglu | gelu | sq_relu
     # ---- MoE
     n_experts: int = 0
+    top_k: int = 0
     n_shared_experts: int = 0
     d_ff_expert: int = 0
+    capacity_factor: float = 1.25
     router_aux_weight: float = 0.01
     # ---- mamba
     ssm_state: int = 16
@@ -72,7 +77,7 @@ class ModelConfig:
     opt_state_dtype: str = "float32"  # "bfloat16" for the giant MoEs
     remat: bool = True
     # remat policy: "dots" (save matmul outputs), "nothing", or "save_moe"
-    # (keep MoE outputs; raises until MoE is ported)
+    # (keep the MoE layers' outputs across the backward pass)
     remat_policy: str = "dots"
 
     # ------------------------------------------------------------ derived
@@ -135,3 +140,15 @@ class ModelConfig:
             total += 2 * d  # norms
         total += d  # final norm
         return int(total)
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: top_k + shared only)."""
+        if self.n_experts == 0:
+            return self.param_count()
+        d = self.d_model
+        fe = self.d_ff_expert or self.d_ff
+        inactive = 0
+        for spec in self.layers():
+            if spec.ffn in ("moe", "moe_dense"):
+                inactive += (self.n_experts - self.top_k) * 3 * d * fe
+        return int(self.param_count() - inactive)

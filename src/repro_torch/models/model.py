@@ -12,17 +12,29 @@ it in place (the reference returns a new pytree) and returns it.
 ``forward`` is differentiable, as the reference's is: the attention and scan
 kernels carry the plain versions' gradients (their wrappers' autograd
 Functions). With ``cfg.remat`` each layer that takes part in a backward
-runs under ``torch.utils.checkpoint`` (non-reentrant): ``remat_policy``
-``"dots"`` keeps the matmul outputs (the reference's
+runs under ``torch.utils.checkpoint`` (non-reentrant), with a policy per
+``remat_policy``: ``"dots"`` keeps the matmul outputs (the reference's
 ``dots_with_no_batch_dims_saveable``: ``aten.mm``/``addmm``, not the
-batched attention products), ``"nothing"`` keeps none. The reference
-checkpoints a whole block of its scan; every ported config's block is one
-layer, so the two cut the graph at the same places.
+batched attention or expert products), ``"nothing"`` keeps none, and
+``"save_moe"`` keeps only the routed MoE output of each MoE layer (the
+reference's ``save_only_these_names("moe_out")``; torch has no names, so
+that output passes through the identity operator
+``repro_torch::moe_out``, and the policy keeps that operator's result and
+recomputes everything else, the expert products included). The reference
+checkpoints a whole block of its scan, the port each layer; recomputation
+replays the same operations, so the gradients are the same either way, and
+equal to those with remat off.
+
+The forward returns the router aux loss summed over the MoE layers in
+layer order, as the reference's scan carry does. An arctic-style
+``"moe_dense"`` FFN adds the dense FFN and the MoE on the same normed input
+into one residual (``x + (dense + moe)``, the reference's order).
 
 Supported: token inputs, GQA self-attention (qk-norm, full attention and
-sliding windows at prefill), Mamba-1 mixers, dense FFNs. MoE, MLA,
-cross-attention, frame inputs, ``prefix`` layers and the sliding-window ring
-cache raise ``NotImplementedError`` naming the ROADMAP item that brings them.
+sliding windows at prefill), Mamba-1 mixers, dense, MoE and dense + MoE
+FFNs. MLA, cross-attention, frame inputs, ``prefix`` layers and the
+sliding-window ring cache raise ``NotImplementedError`` naming the ROADMAP
+item that brings them.
 """
 from __future__ import annotations
 
@@ -36,7 +48,7 @@ from torch import nn
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import gqa_flash_decode, gqa_forward
 from repro_torch.models.config import LATER_ITEM, LayerSpec, ModelConfig
-from repro_torch.models.layers import apply_rope, dense_ffn, qk_head_norm, rms_norm
+from repro_torch.models.layers import apply_rope, dense_ffn, moe_ffn, qk_head_norm, rms_norm
 from repro_torch.models.mamba import mamba_decode_step, mamba_forward
 
 
@@ -53,11 +65,9 @@ def _check_supported(cfg: ModelConfig) -> None:
     for spec in cfg.layers():
         if spec.mixer not in ("attn", "mamba"):
             later(f"the {spec.mixer!r} mixer")
-        if spec.ffn not in ("dense", "none"):
-            later(f"the {spec.ffn!r} FFN")
-    if cfg.remat and cfg.remat_policy not in ("dots", "nothing"):
-        if cfg.remat_policy == "save_moe":
-            later('remat_policy "save_moe" (it keeps MoE outputs)')
+        if spec.ffn not in ("dense", "moe", "moe_dense", "none"):
+            raise ValueError(f"{cfg.name}: unknown FFN {spec.ffn!r}")
+    if cfg.remat and cfg.remat_policy not in ("dots", "nothing", "save_moe"):
         raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
 
 
@@ -66,10 +76,19 @@ def _check_supported(cfg: ModelConfig) -> None:
 _SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
-def _dots_policy(ctx, op, *args, **kwargs):
-    if op in _SAVED_DOTS:
-        return checkpoint.CheckpointPolicy.MUST_SAVE
-    return checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+def _saving(ops: tuple):
+    """A selective-checkpoint policy that keeps the outputs of ``ops``."""
+
+    def policy(ctx, op, *args, **kwargs):
+        if op in ops:
+            return checkpoint.CheckpointPolicy.MUST_SAVE
+        return checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+    return policy
+
+
+_POLICIES = {"dots": _saving(_SAVED_DOTS),
+             "save_moe": _saving((torch.ops.repro_torch.moe_out.default,))}
 
 
 def _needs_grad(x: torch.Tensor, p: dict) -> bool:
@@ -116,6 +135,12 @@ class Model(nn.Module):
         def zeros(n, dtype=dt):
             return torch.zeros(n, dtype=dtype, device=dev)
 
+        def dense(f: int) -> dict:
+            p = {"w_in": normal((d, f), d**-0.5), "w_out": normal((f, d), f**-0.5)}
+            if cfg.activation == "swiglu":
+                p["w_gate"] = normal((d, f), d**-0.5)
+            return p
+
         def layer(spec: LayerSpec) -> dict:
             p: dict = {"norm1": {"scale": ones(d)}}
             if spec.mixer == "attn":
@@ -145,12 +170,21 @@ class Model(nn.Module):
                     "d_skip": ones(di, torch.float32),
                     "out_proj": normal((di, d), di**-0.5),
                 }
-            if spec.ffn == "dense":
-                f = cfg.d_ff
+            if spec.ffn != "none":
                 p["norm2"] = {"scale": ones(d)}
-                p["ffn"] = {"w_in": normal((d, f), d**-0.5), "w_out": normal((f, d), f**-0.5)}
+            if spec.ffn in ("dense", "moe_dense"):
+                p["ffn"] = dense(cfg.d_ff)
+            if spec.ffn in ("moe", "moe_dense"):
+                e, f = cfg.n_experts, cfg.d_ff_expert or cfg.d_ff
+                p["moe"] = {  # the router stays float32 in a bf16 model
+                    "router": normal((d, e), d**-0.5, torch.float32),
+                    "w_in": normal((e, d, f), d**-0.5),
+                    "w_out": normal((e, f, d), f**-0.5),
+                }
                 if cfg.activation == "swiglu":
-                    p["ffn"]["w_gate"] = normal((d, f), d**-0.5)
+                    p["moe"]["w_gate"] = normal((e, d, f), d**-0.5)
+                if cfg.n_shared_experts:
+                    p["moe"]["shared"] = dense(cfg.n_shared_experts * f)
             return p
 
         params: dict = {"embed": normal((cfg.vocab_size, d), 0.02)}
@@ -176,34 +210,50 @@ class Model(nn.Module):
     def forward(self, params: dict, inputs: dict):
         """Full-sequence forward. inputs: ``{"tokens": [B, S]}``. Returns
         ``(logits [B, S, V], aux_loss)``; ``aux_loss`` is the MoE router
-        loss of the reference's signature, zero while no MoE is ported."""
+        loss summed over the layers (float32; zero without MoE layers)."""
         cfg = self.cfg
         x = self._embed(params, inputs["tokens"])
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for spec, p in zip(cfg.layers(), params["layers"]):
             if cfg.remat and _needs_grad(x, p):
                 context = checkpoint.noop_context_fn
-                if cfg.remat_policy == "dots":
+                if cfg.remat_policy in _POLICIES:
                     context = functools.partial(
-                        checkpoint.create_selective_checkpoint_contexts, _dots_policy)
-                x = checkpoint.checkpoint(self._layer, x, p, spec, use_reentrant=False,
-                                          context_fn=context)
+                        checkpoint.create_selective_checkpoint_contexts,
+                        _POLICIES[cfg.remat_policy])
+                x, a = checkpoint.checkpoint(self._layer, x, p, spec, use_reentrant=False,
+                                             context_fn=context)
             else:
-                x = self._layer(x, p, spec)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+                x, a = self._layer(x, p, spec)
+            aux = aux + a
         return self._head(params, x), aux
 
-    def _layer(self, x: torch.Tensor, p: dict, spec: LayerSpec) -> torch.Tensor:
-        """One layer of the full-sequence forward."""
+    def _ffn(self, x: torch.Tensor, p: dict, spec: LayerSpec):
+        """The layer's FFN residual: ``(x + out, aux)``, ``out`` the dense
+        FFN, the MoE, or their sum (in that order), on one normed input."""
+        cfg = self.cfg
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if spec.ffn == "none":
+            return x, aux
+        h = rms_norm(x, p["norm2"])
+        out = None
+        if spec.ffn in ("dense", "moe_dense"):
+            out = dense_ffn(h, p["ffn"], cfg.activation)
+        if spec.ffn in ("moe", "moe_dense"):
+            mo, aux = moe_ffn(h, p["moe"], cfg,
+                              name_output=cfg.remat and cfg.remat_policy == "save_moe")
+            out = mo if out is None else out + mo
+        return x + out, aux
+
+    def _layer(self, x: torch.Tensor, p: dict, spec: LayerSpec):
+        """One layer of the full-sequence forward: ``(x, aux)``."""
         cfg = self.cfg
         h = rms_norm(x, p["norm1"])
         if spec.mixer == "attn":
             y, _ = gqa_forward(h, p["attn"], cfg, window=spec.window)
         else:
             y, _ = mamba_forward(h, p["mamba"], cfg)
-        x = x + y
-        if spec.ffn == "dense":
-            x = x + dense_ffn(rms_norm(x, p["norm2"]), p["ffn"], cfg.activation)
-        return x
+        return self._ffn(x + y, p, spec)
 
     # ----------------------------------------------------------------- cache
     def init_cache(self, batch: int, seq: int, dtype: torch.dtype | None = None) -> list:
@@ -260,8 +310,7 @@ class Model(nn.Module):
             y, (cache["conv"], cache["ssm"]) = mamba_decode_step(
                 h, p["mamba"], self.cfg, cache["conv"], cache["ssm"])
             x = x + y
-        if spec.ffn == "dense":
-            x = x + dense_ffn(rms_norm(x, p["norm2"]), p["ffn"], self.cfg.activation)
+        x, _ = self._ffn(x, p, spec)  # the router loss of a decode step is dropped
         return x
 
     def decode_step(self, params: dict, cache: list, tokens: torch.Tensor, pos: int):

@@ -1,7 +1,8 @@
 """Train, eval and serving step factories (port of ``repro.train.step``).
 
 Loss = token cross-entropy (float32 ``log_softmax`` over the vocabulary)
-plus the router aux loss (zero while no MoE is ported). One microbatch per
+plus ``router_aux_weight`` times the router aux loss (the MoE layers' summed
+Switch loss; zero in a model without them). One microbatch per
 step by default; with ``accum > 1`` the batch leaves carry a leading
 ``accum`` axis and the gradients of the microbatches are summed in float32
 and divided, as the reference's ``lax.scan`` branch does (its ``ce`` is the

@@ -1337,3 +1337,150 @@ def test_train_launcher_steps_on_card(cuda_device, tmp_path):
     assert [h["step"] for h in history] == [1, 2, 3]
     assert all(np.isfinite(h["loss"]) for h in history) and np.isfinite(loss)
     assert latest_step(str(tmp_path)) == 3
+
+
+# --------------------------------- MoE families, minitron-8b, deepseek-coder-33b
+def _record_expert_ids(monkeypatch):
+    """Every MoE layer's chosen expert ids, in call order, on the CPU."""
+    from repro_torch.models import layers
+
+    chosen, top_k = [], layers.top_k
+
+    def recording(probs, k):
+        vals, idx = top_k(probs, k)
+        chosen.append(idx.cpu())
+        return vals, idx
+
+    monkeypatch.setattr(layers, "top_k", recording)
+    return chosen
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "arctic-480b", "deepseek-coder-33b",
+                                  "minitron-8b"])
+def test_reduced_family_on_card_matches_cpu(cuda_device, arch, monkeypatch):
+    """float32, the same weights on both devices: logits and the router loss
+    within 1e-4, every MoE layer's expert ids equal, greedy tokens equal;
+    the forward launches one kernel per attention and per Mamba layer."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.mamba_scan import ops as scan
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(get_reduced_config(arch), dtype="float32")
+    cpu = Model(cfg, "cpu")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    card = Model(cfg, cuda_device)
+    dparams = _params_to(params, card.device)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 24)))
+    chosen = _record_expert_ids(monkeypatch)
+    counts = fa.launches, scan.launches
+    got, got_aux = card.forward(dparams, {"tokens": toks.to(card.device)})
+    torch.cuda.synchronize()
+    launched = fa.launches - counts[0], scan.launches - counts[1]
+    assert launched == (sum(s.mixer == "attn" for s in cfg.layers()),
+                        sum(s.mixer == "mamba" for s in cfg.layers()))
+    on_card = list(chosen)
+    chosen.clear()
+    want, want_aux = cpu.forward(params, {"tokens": toks})
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got_aux.cpu(), want_aux, rtol=1e-4, atol=1e-12)
+    assert len(on_card) == len(chosen) == sum(s.ffn in ("moe", "moe_dense")
+                                              for s in cfg.layers())
+    for a, b in zip(on_card, chosen):
+        assert torch.equal(a, b)
+    prompts = toks[:, :8]
+    g_card, _ = serve(card, dparams, prompts.to(card.device), 6)
+    g_cpu, _ = serve(cpu, params, prompts, 6)
+    assert torch.equal(g_card.cpu(), g_cpu)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,tq,tk", [(1, 256, 256), (2, 333, 333), (1, 64, 200)])
+def test_tensor_core_kernel_at_seven_query_heads_a_kv_head(cuda_device, b, tq, tk):
+    """g = 7 (arctic-480b and deepseek-coder-33b: 56 query heads, 8 KV
+    heads) on the tensor-core prefill variant, in the model's layout."""
+    got = _tensor_core_case(cuda_device, b, 56, 8, tq, tk, 128, tq + tk, model_layout=True,
+                            causal=True, q_offset=tk - tq)
+    assert got.shape == (b, 56, tq, 128)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,tk", [(8, 160), (8, 8192), (1, 32768)])
+def test_decode_kernel_at_seven_query_heads_a_kv_head(cuda_device, dtype, b, tk):
+    """g = 7 decode rows (a row capacity of 8, one row unused) over the
+    model's cache in place: the serve loop's 160 keys, an 8,192 cache and a
+    32k cache at B=1 (which splits)."""
+    _decode_case(cuda_device, dtype, b, 56, 8, 1, tk, 128, b * tk + 7, model_layout=True,
+                 causal=True, q_offset=tk - 1)
+
+
+@pytest.mark.gpu
+def test_reduced_jamba_train_step_on_card_matches_cpu(cuda_device):
+    """One train step of reduced jamba-v0.1-52b (float32) on the card: the
+    scan's and attention's autograd Functions with the MoE in one backward;
+    loss, router loss and grad norm within 1e-4 of the CPU port, both
+    moments (the clipped gradients) within 1e-4 relative L2."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.mamba_scan import ops as scan
+    from repro_torch.models import Model
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.pytree import tree_leaves
+    from repro_torch.train.step import make_train_step
+
+    cfg = dataclasses.replace(get_reduced_config("jamba-v0.1-52b"), dtype="float32")
+    params = Model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 33))
+    outs = []
+    for device in (cuda_device, torch.device("cpu")):
+        batch = {"tokens": torch.from_numpy(toks[:, :-1]).to(device),
+                 "labels": torch.from_numpy(toks[:, 1:]).to(device)}
+        p = _params_to(params, device)
+        counts = fa.launches, scan.launches
+        step = make_train_step(Model(cfg, device), warmup=1, total_steps=10)
+        _, opt, metrics = step(p, adamw_init(p), batch)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            assert (fa.launches - counts[0], scan.launches - counts[1]) == (2, 14)
+        outs.append(({k: float(v) for k, v in metrics.items()},
+                     [t.cpu() for t in tree_leaves((opt.m, opt.v))]))
+    (m_card, s_card), (m_cpu, s_cpu) = outs
+    assert m_cpu["aux"] > 0
+    for key in ("loss", "ce", "aux", "grad_norm"):
+        assert m_card[key] == pytest.approx(m_cpu[key], rel=1e-4), key
+    for a, b in zip(s_card, s_cpu):
+        assert _rel_l2(a, b) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,cap", [(1, 512, 160), (4, 1, 1)])
+def test_bf16_moe_layer_on_card_matches_cpu(cuda_device, b, s, cap, monkeypatch):
+    """One bf16 MoE layer (reduced arctic-480b's experts) on both devices
+    from the same bf16 inputs: the same expert ids, and outputs within the
+    bf16 ulp of their magnitude (both devices multiply float32 copies of the
+    bf16 weights), at a prefill capacity and at the serve loop's cap = 1."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import Model
+    from repro_torch.models import layers
+
+    cfg = dataclasses.replace(get_reduced_config("arctic-480b"), dtype="bfloat16")
+    assert layers.moe_capacity(b * s, cfg) == cap
+    params = Model(cfg, "cpu").init(torch.Generator().manual_seed(3))["layers"][0]["moe"]
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal((b, s, cfg.d_model))
+                         .astype(np.float32)).to(torch.bfloat16)
+    chosen = _record_expert_ids(monkeypatch)
+    got, got_aux = layers.moe_ffn(x.to(cuda_device), _params_to(params, cuda_device), cfg)
+    want, want_aux = layers.moe_ffn(x, params, cfg)
+    assert len(chosen) == 2 and torch.equal(chosen[0], chosen[1])
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(got_aux.cpu(), want_aux, rtol=1e-5, atol=1e-7)
