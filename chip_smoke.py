@@ -79,9 +79,17 @@ Phases:
      at a 32k decode step (B=32 and B=8, Tq=1, Tk=32768, q_offset=32767; B
      cut from ``decode_32k``'s 128 so the plain version's float32 K/V fit)
      on the split-KV decode variant, and 65,536 (batch, head) blocks, past
-     grid y's 65,535, on the decode and the tensor-core variants;
-     ``library_ms`` being ``F.scaled_dot_product_attention``; each row names
-     the variant that ran, and decode rows their split count;
+     grid y's 65,535, on the decode and the tensor-core variants; and the
+     slice-14 families' shapes (``FAMILY_FLASH_ROWS``): gemma3-12b's local
+     (window 1024) and global layers at T=8192 (Hq=16, Hkv=8, Dh=256), its
+     decode over the warm 1,024-slot ring and over the 8,192 cache at B=8,
+     hubert-xlarge at B=8, T=1500 (Dh=80, bidirectional),
+     llama-3.2-vision-90b's cross layer at T=8192 and at a decode step
+     over 1,024 image tokens (Hq=64, Hkv=8, bidirectional), and float32
+     ``fma`` / ``fma_short`` rows at Dh 80 and 256;
+     ``library_ms`` being ``F.scaled_dot_product_attention`` (with a
+     boolean mask where a window or an offset diagonal needs one); each row
+     names the variant that ran, and decode rows their split count;
  13. the selective-scan kernel against its plain version on the card:
      ``tests/test_kernels.py``'s shapes in float32 and bf16 (1e-4 / 3e-2),
      one falcon-mamba-7b layer at prefill (B=1, T=8192, D=8192, N=16,
@@ -98,12 +106,15 @@ Phases:
  15. falcon-mamba-7b the same way: prefill with 64 scan launches, serve
      with none (decode is the plain recurrence, as in the reference), and
      one prefill under ``torch.profiler``;
- 16. the six reduced configs (qwen3-8b, falcon-mamba-7b, minitron-8b,
-     deepseek-coder-33b, jamba-v0.1-52b, arctic-480b) in float32 with the
-     same weights on the card and on the CPU: logits and the router loss
-     within 1e-4, every MoE layer's expert ids and the greedy tokens equal;
-     for each with attention also one decode step over a seeded 8,192-long
-     cache, where the decode kernel splits the cache;
+ 16. the nine reduced configs (qwen3-8b, falcon-mamba-7b, minitron-8b,
+     deepseek-coder-33b, jamba-v0.1-52b, arctic-480b, gemma3-12b,
+     hubert-xlarge, llama-3.2-vision-90b) in float32 with the same weights
+     on the card and on the CPU: logits and the router loss within 1e-4,
+     every MoE layer's expert ids and the greedy tokens equal (gemma3's
+     serve of 8 + 8 tokens runs its 16-slot rings; hubert takes frames and
+     runs ``forward`` only; llama's forward reads image embeddings); for
+     each with a decode path and attention also one decode step over a
+     seeded 8,192-long cache, where the decode kernel splits the cache;
  17. qwen3-8b long-context decode at full width and depth, with phase 14's
      weights: B=8, a 32,768-position bf16 cache filled from a seeded
      generator, 8 ``decode_step``s from position 32,760 (36 launches a step,
@@ -121,7 +132,8 @@ Phases:
      ``cuttana-batched`` (counted from the graph), one dense launch a chunk
      for ``cuttana-batched-legacy``, none for the host loops; and
      ``cuttana-parallel`` at S=4 with the ``gain`` and ``completeness``
-     buffers (sharded launches only);
+     buffers (sharded launches only); the CPU runs are a child process's
+     (``--zoo-cpu-child``), started before phase 9 and collected here;
  19. social-s: ``cuttana-buffcut`` (gain) and ``cluster+cuttana``; social-m:
      ``heistream`` and ``cuttana-incremental`` (16 batches, S=1 and S=4);
      against the reference's edge cuts, launches equal to ``kernel_calls``;
@@ -132,12 +144,12 @@ Phases:
      (``rmat_churn(25000, 16, seed 7, "random")``, 20 batches) against
      ``BENCH_partition.json``'s edge cut; ``heistream`` under
      ``torch.profiler`` (busy time, idle share);
- 20. ``cuttana-batched`` on phase 2's 2^22 R-MAT (k=8, edge balance, random
-     order, seed 0, ``sample_cap`` 512, ``use_refinement=False``): first
-     on the 2^20 R-MAT, device="cuda" and "cpu" giving identical
-     assignments equal to the reference's edge cut
-     (``RMAT_BATCHED_EDGE_CUT``), then on 2^22 under ``torch.profiler``:
-     8,192 gather launches plus one dense launch per chunk holding a row of
+ 20. ``cuttana-batched`` (k=8, edge balance, random order, seed 0,
+     ``sample_cap`` 512, ``use_refinement=False``) on the R-MAT of 2^20
+     vertices (a quarter of phase 2's), device="cuda" and "cpu" giving
+     identical assignments equal to the reference's edge cut
+     (``RMAT_BATCHED_EDGE_CUT``), then again under ``torch.profiler``:
+     2,048 gather launches plus one dense launch per chunk holding a row of
      degree above 512, the quality scan against a host recomputation,
      ``stream_seconds`` and the idle share;
  21. (runs after phase 20, while phase 2's graph is loaded) out-of-core
@@ -148,13 +160,15 @@ Phases:
      edge balance, random order, seed 0) resident and memory-mapped (and
      ``cuttana-parallel`` mapped with ``prefetch="off"``): the committed edge
      cuts, mapped assignments equal to resident ones, the mapped runs'
-     launches on the rows entries only; (b) phase 2's 2^22 R-MAT written
+     launches on the rows entries only; (b) phase 20's 2^20 R-MAT
+     partitioned resident with phase 2's spec (2,048 launches), written
      with ``convert_csr`` (v2), then a child process that only opens the
-     file runs phase 2's ``fennel`` on the card: its assignment equals phase
-     2's, its 8,192 launches are all on the rows entry and equal
-     ``kernel_calls``, and its peak device memory is below phase 2's by at
-     least the graph's device arrays (its peak RSS, ``decode_wall_s`` and
-     ``prefetch_hit_rate`` logged); (c) the rows entries against their plain
+     file runs the same ``fennel`` on the card: its assignment equals the
+     resident one, its 2,048 launches are all on the rows entry and equal
+     ``kernel_calls``, and its peak device memory is below the resident
+     run's by at least the graph's device arrays (its peak RSS,
+     ``decode_wall_s`` and ``prefetch_hit_rate`` logged); (c) the rows
+     entries against their plain
      versions at the mapped shapes (``mapped_chunk512_k8``: the first chunk
      of the random order, decoded from the file and packed as the engine
      packs it; ``mapped_superstep_s4x512_k8``: the first superstep at S=4),
@@ -216,6 +230,26 @@ Phases:
      ``place_experts`` on ``examples/moe_placement.py``'s trace (50,000
      tokens, E=160, top-6, 16 devices): the round-robin, contiguous and
      CUTTANA mean fanouts equal the reference's (``PLACEMENT_FANOUT``);
+ 26. (runs after phase 25) the slice-14 families at full width, bf16,
+     seeded, one model at a time: (a) gemma3-12b cut to one block (5 local
+     layers with window 1024, 1 global; Dh 256) through ``lm_phase``
+     (prefill B=1 T=8192: 6 ``wgmma_bf16`` launches; serve B=8 prompt 128
+     gen 32: 6 ``decode_split`` a step), then 8 ``decode_step``s at B=8
+     from the end of a seeded 8,192-long cache (the 1,024-slot rings warm
+     and wrapping; 6 ``decode_split`` a step), the last one held against
+     the same step with every attention call on the plain version (phase
+     17's bf16 gate on the logits); (b) hubert-xlarge at full depth (48
+     layers): ``forward`` on seeded frames at B=8, T=1500, 48
+     bidirectional ``wgmma_bf16`` launches at Dh 80; (c)
+     llama-3.2-vision-90b cut to one block (4 self-attention layers, 1
+     gated cross-attention layer, its gate seeded non-zero): prefill B=1
+     T=8192 with seeded ``image_embeds`` [1, 1024, 8192] (5
+     ``wgmma_bf16``, the cross one bidirectional), the image caches filled
+     as the reference's tests fill them (``img @ wk``, ``img @ wv``), the
+     serve loop at B=8 prompt 128 gen 32 (5 ``decode_split`` a step, the
+     cross one bidirectional over the image keys), the gate's effect on a
+     step's logits; each part with seconds, tokens a second, peak memory,
+     launches by variant and a profiled call's idle share;
  24. (runs last) LM training: (a) the attention wrapper's gradient (the
      kernel forward, the plain version's backward) against plain autograd
      at ``repro-100m``'s shape (B=8, T=256, H=10, Hkv=5, Dh=64, bf16) and a
@@ -249,7 +283,8 @@ power limit, and ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero before that line. Without a CUDA device (and without ``--tiny``)
 the script exits 2 and prints no result. ``--tiny`` runs phases 12-17 at
 the reduced configs and small kernel shapes, phase 25 at the reduced
-configs and small arctic rows, phase 19 on social-s (its constants
+configs and small arctic rows, phase 26 at the reduced configs, phase
+19 on social-s (its constants
 unchecked), phase 20 on the 2^12 and 2^14 graphs, phase 21's
 full-size part on a 2^12 R-MAT, phase 22(b) on phase 2's 2^14 partition
 (phase 22's committed rows and the CLI run unchanged, on the CPU), phase
@@ -322,7 +357,10 @@ GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 LM_ARCHS = ("qwen3-8b", "falcon-mamba-7b")
 MOE_ARCHS = ("jamba-v0.1-52b", "arctic-480b")  # phase 25(a), full width, one block
 DENSE_ARCHS = ("minitron-8b", "deepseek-coder-33b")  # phase 25(b), full width, two layers
-REDUCED_ARCHS = LM_ARCHS + DENSE_ARCHS + MOE_ARCHS  # phase 16
+# phase 26: gemma3-12b and llama-3.2-vision-90b at full width cut to one
+# block, hubert-xlarge at full depth
+FAMILY_ARCHS = ("gemma3-12b", "hubert-xlarge", "llama-3.2-vision-90b")
+REDUCED_ARCHS = LM_ARCHS + DENSE_ARCHS + MOE_ARCHS + FAMILY_ARCHS  # phase 16
 # examples/moe_placement.py's mean fanouts, computed with repro.core.placement
 # on the CPU (50,000 tokens, E=160, top-6, 16 devices, skew 0.7, seed 0)
 PLACEMENT_FANOUT = {"round_robin": 4.49486, "contiguous": 4.53496, "cuttana": 2.99758}
@@ -1135,6 +1173,93 @@ def sampled_chunks(np, graph, sample_cap: int, order: str = "random", seed: int 
     return int(np.logical_or.reduceat(over, np.arange(0, over.size, chunk)).sum())
 
 
+def cpu_result(np, res) -> dict:
+    """What phase 18 holds a card run against: the CPU run's assignment
+    (and a vertex cut's edge partition), its quality and its timings."""
+    out = {"assignment": np.asarray(res.assignment), "quality": res.quality(),
+           "timings": res.timings}
+    if res.is_vertex_cut:
+        out.update({f: np.asarray(getattr(res.edge_partition, f))
+                    for f in ("replicas", "masters", "edge_counts")})
+    return out
+
+
+def web_zoo_specs(tapi) -> list:
+    """Phase 18's specs in order: ``(key, PartitionSpec fields)``."""
+    specs = [(name, zoo_fields(tapi, name)) for name in sorted(WEB_S_ZOO)]
+    return specs + [(f"cuttana-parallel/{strategy}", zoo_fields(
+        tapi, "cuttana-parallel", num_shards=NUM_SHARDS, strategy=strategy))
+        for strategy in ("gain", "completeness")]
+
+
+def zoo_cpu_child(out: str) -> int:
+    """Phase 18's CPU side, in a child process the parent starts before
+    phase 9: every web-s spec on the CPU, pickled to ``out`` for the parent
+    to hold its card runs against (until PR 25 they ran one after the other
+    in the parent: 56 s of its phase 18's 115 s on the H100 80GB HBM3
+    (700 W) machine, run A24)."""
+    import pickle
+
+    import numpy as np
+
+    sys.path.insert(0, str(ROOT / "src"))
+    import repro_torch.api as tapi
+    from repro_torch.graph.generators import load_dataset
+
+    web = load_dataset("web-s", seed=0)
+    results = {key: cpu_result(np, tapi.partition(web, tapi.PartitionSpec(**fields),
+                                                  device="cpu"))
+               for key, fields in web_zoo_specs(tapi)}
+    with open(out, "wb") as f:
+        pickle.dump(results, f)
+    return 0
+
+
+class ZooCpuChild:
+    """The running ``--zoo-cpu-child`` process; killed at exit if a check
+    fails before phase 18 collects it."""
+
+    def __init__(self, tiny: bool):
+        import atexit
+        import tempfile
+
+        fd, self.path = tempfile.mkstemp(prefix="chip_smoke_zoo", suffix=".pkl")
+        os.close(fd)
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--zoo-cpu-child", self.path]
+            + (["--tiny"] if tiny else []), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+        atexit.register(self.proc.kill)
+
+    def results(self) -> dict:
+        """The child's results, waiting for it; logs how long it ran."""
+        import pickle
+
+        out, err = self.proc.communicate(timeout=900)
+        check(self.proc.returncode == 0, f"phase 18's CPU child failed:\n{out}\n{err}")
+        with open(self.path, "rb") as f:
+            results = pickle.load(f)
+        os.unlink(self.path)
+        log(json.dumps({"phase": 18, "cpu_child_seconds": time.perf_counter() - self.t0,
+                        "cpu_child_waited": True}))
+        return results
+
+
+def same_as_cpu(np, on_dev, on_cpu: dict, fields, device) -> dict:
+    """Checks that a card run's result (assignment, a vertex cut's edge
+    partition, quality) is the CPU run's ``cpu_result``; the row's fields."""
+    check(np.array_equal(on_dev.assignment, on_cpu["assignment"]),
+          f"{fields['algo']}: {device.type} and cpu results differ")
+    if on_dev.is_vertex_cut:
+        for f in ("replicas", "masters", "edge_counts"):
+            check(np.array_equal(getattr(on_dev.edge_partition, f), on_cpu[f]),
+                  f"{fields['algo']}: {device.type} and cpu {f} differ")
+    check(on_dev.quality() == on_cpu["quality"],
+          f"{fields['algo']}: {device.type} and cpu quality differ")
+    return {"identical_to_cpu": True, "timings_cpu": on_cpu["timings"]}
+
+
 def zoo_run(torch, np, tapi, ops, counters, graph, device, fields, expect_launches,
             cpu_too: bool = True) -> tuple:
     """One spec on ``device`` (and on the CPU): identical results, and the
@@ -1153,17 +1278,9 @@ def zoo_run(torch, np, tapi, ops, counters, graph, device, fields, expect_launch
            "kernel_calls": on_dev.telemetry.get("kernel_calls"), "launches": seq,
            "sharded_launches": sharded, "timings_device": on_dev.timings}
     if cpu_too:
-        on_cpu = tapi.partition(graph, spec, device="cpu")
-        check(np.array_equal(on_dev.assignment, on_cpu.assignment),
-              f"{fields['algo']}: {device.type} and cpu results differ")
-        if on_dev.is_vertex_cut:
-            for f in ("replicas", "masters", "edge_counts"):
-                check(np.array_equal(getattr(on_dev.edge_partition, f),
-                                     getattr(on_cpu.edge_partition, f)),
-                      f"{fields['algo']}: {device.type} and cpu {f} differ")
-        check(on_dev.quality() == on_cpu.quality(),
-              f"{fields['algo']}: {device.type} and cpu quality differ")
-        row.update(identical_to_cpu=True, timings_cpu=on_cpu.timings)
+        row.update(same_as_cpu(np, on_dev, cpu_result(np, tapi.partition(graph, spec,
+                                                                         device="cpu")),
+                               fields, device))
     return on_dev, row, (seq, sharded)
 
 
@@ -1183,10 +1300,11 @@ def profile_once(torch, fn, device, kernel_name: str) -> tuple:
 
 
 def zoo_phases(torch, np, tapi, ops, ref, counters, device, timer, floor, web, social, graph,
-               dataset: str, tiny: bool, ident: str, clock) -> tuple:
-    """Phases 18-20: the partitioner zoo on the card. Returns the launches of
-    each path and the kernel rows at the zoo's own shapes, for the summary
-    line."""
+               dataset: str, tiny: bool, ident: str, clock, zoo_cpu: ZooCpuChild) -> tuple:
+    """Phases 18-20: the partitioner zoo on the card, phase 18's CPU side
+    from ``zoo_cpu``. Returns the launches of each path and the kernel rows
+    at the zoo's own shapes, for the summary line, and phase 20's R-MAT (a
+    quarter of phase 2's), which phase 21 partitions memory-mapped."""
     from repro_torch.core.cluster import build_coarse_graph, streaming_cluster
     from repro_torch.core.incremental import IncrementalPartitioner
     from repro_torch.graph.churn import rmat_churn
@@ -1208,7 +1326,10 @@ def zoo_phases(torch, np, tapi, ops, ref, counters, device, timer, floor, web, s
         return -(-res.graph.num_vertices // res.spec.params.chunk)
 
     # ----------------------------------------------------------- phase 18
-    for name in sorted(WEB_S_ZOO):
+    dev_runs = []
+    for name, fields in web_zoo_specs(tapi):
+        if name.startswith("cuttana-parallel/"):
+            continue
         info = tapi.get_info(name)
         if name == "cuttana-batched":
             expect = batched_launches
@@ -1218,25 +1339,30 @@ def zoo_phases(torch, np, tapi, ops, ref, counters, device, timer, floor, web, s
             expect = engine_launches
         else:
             expect = lambda res: 0  # host loops: no partition-score launch  # noqa: E731
-        res, row, launched = zoo_run(torch, np, tapi, ops, counters, web, device,
-                                     zoo_fields(tapi, name), expect)
+        res, row, launched = zoo_run(torch, np, tapi, ops, counters, web, device, fields, expect,
+                                     cpu_too=False)
         check(row["value"] == WEB_S_ZOO[name],
               f"web-s {name}: {row['value']} != the reference's {WEB_S_ZOO[name]}")
         if name == "cuttana-batched":
             row["dense_launches"] = launched[0] - row["kernel_calls"] if device.type == "cuda" else 0
         paths[f"web-s {name}"] = launched
-        log(json.dumps({"phase": 18, "dataset": "web-s", "kind": info.kind, **row}))
+        dev_runs.append((name, fields, res, {"dataset": "web-s", "kind": info.kind}, row))
     for strategy in ("gain", "completeness"):
         name = f"cuttana-parallel/{strategy}"
-        res, row, launched = zoo_run(
-            torch, np, tapi, ops, counters, web, device,
-            zoo_fields(tapi, "cuttana-parallel", num_shards=NUM_SHARDS, strategy=strategy),
-            engine_launches)
+        fields = zoo_fields(tapi, "cuttana-parallel", num_shards=NUM_SHARDS, strategy=strategy)
+        res, row, launched = zoo_run(torch, np, tapi, ops, counters, web, device, fields,
+                                     engine_launches, cpu_too=False)
         check(launched[0] == 0, f"web-s {name}: the sequential entry launched")
         check(row["value"] == WEB_S_ZOO_PARALLEL[strategy],
               f"web-s {name}: {row['value']} != the reference's {WEB_S_ZOO_PARALLEL[strategy]}")
         paths[f"web-s {name} num_shards={NUM_SHARDS}"] = launched
-        log(json.dumps({"phase": 18, "dataset": "web-s", "num_shards": NUM_SHARDS, **row}))
+        dev_runs.append((name, fields, res, {"dataset": "web-s", "num_shards": NUM_SHARDS}, row))
+    # the CPU side, run by the child while the phases before this one ran:
+    # each card run's result identical to the CPU's
+    cpu = zoo_cpu.results()
+    for name, fields, res, head, row in dev_runs:
+        row.update(same_as_cpu(np, res, cpu[name], fields, device))
+        log(json.dumps({"phase": 18, **head, **row}))
 
     clock.mark(18)
 
@@ -1332,37 +1458,42 @@ def zoo_phases(torch, np, tapi, ops, ref, counters, device, timer, floor, web, s
                     "reference_edge_cut": RMAT_BATCHED_EDGE_CUT[ref_scale],
                     "rows_above_cap": int((small.degrees > 512).sum()),
                     "stream_seconds": res.timings["stream_seconds"], **row}))
-    del small, res
+    del res
+    # the same spec under torch.profiler, with the quality scan against a
+    # host recomputation (on phase 2's 2^22 graph until PR 25: a 22.8 s
+    # stream on the H100 80GB HBM3 (700 W) machine, run A24; its checks the
+    # same)
     if device.type == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     spec = tapi.PartitionSpec(**fields)
     reset_counts(*counters)
     res, prof_row = profile_once(
-        torch, lambda: tapi.partition(graph, spec, device=device), device, "score_path_kernel")
-    chunks = -(-graph.num_vertices // CHUNK)
-    dense = sampled_chunks(np, graph, 512)
+        torch, lambda: tapi.partition(small, spec, device=device), device, "score_path_kernel")
+    chunks = -(-small.num_vertices // CHUNK)
+    dense = sampled_chunks(np, small, 512)
     check(res.telemetry["kernel_calls"] == chunks,
           f"cuttana-batched: kernel_calls {res.telemetry['kernel_calls']} != {chunks} chunks")
     want = chunks + dense if device.type == "cuda" else 0
     check(ops.launches == want and ops.sharded_launches == 0,
           f"cuttana-batched: {ops.launches} launches, expected {chunks} gather + {dense} dense")
-    paths[f"rmat 2^{scale} cuttana-batched"] = (ops.launches, ops.sharded_launches)
+    paths[f"rmat 2^{ref_scale} cuttana-batched profiled"] = (ops.launches, ops.sharded_launches)
     launches = ops.launches
     q = res.quality()
-    check_quality(np, graph, res.assignment, q, 8, "cuttana-batched")
+    check_quality(np, small, res.assignment, q, 8, "cuttana-batched")
     log(json.dumps({
-        "phase": 20, "algo": "cuttana-batched", "params": fields["params"],
-        "graph": f"rmat 2^{scale} avg_degree 16", "edge_cut": q["edge_cut"],
+        "phase": 20, "algo": "cuttana-batched", "params": fields["params"], "profiled": True,
+        "graph": f"rmat 2^{ref_scale} avg_degree 16", "edge_cut": q["edge_cut"],
         "edge_imbalance": q["edge_imbalance"], "kernel_calls": res.telemetry["kernel_calls"],
         "gather_launches": chunks if device.type == "cuda" else 0,
         "dense_launches": launches - chunks if device.type == "cuda" else 0,
-        "rows_above_cap": int((graph.degrees > 512).sum()),
+        "rows_above_cap": int((small.degrees > 512).sum()),
         "stream_seconds": res.timings["stream_seconds"], "total_s": res.timings["total_s"],
         "max_memory_allocated": torch.cuda.max_memory_allocated() if device.type == "cuda" else None,
         "device": ident, **prof_row,
     }))
-    return paths, kernel_rows
+    del res
+    return paths, kernel_rows, small
 
 
 def main_spec(tapi):
@@ -1488,13 +1619,14 @@ def rows_row(torch, np, ops, ref, device, timer, floor, rng, name, graph, batche
     }
 
 
-def outofcore_phase(torch, np, tapi, ops, ref, counters, device, timer, floor, graph, main_res,
-                    main_peak, main_rss, tiny: bool, ident: str) -> tuple:
-    """Phase 21: out-of-core graphs on the card. ``main_peak`` is phase 2's
-    (peak device memory, memory allocated before the run), ``main_rss`` the
-    process's peak RSS after phase 2. Returns the kernel rows of the two rows
-    entries and the launches of their main paths (the mapped full-size
-    ``fennel``, the mapped ``cuttana-parallel``)."""
+def outofcore_phase(torch, np, tapi, ops, ref, counters, device, timer, floor, graph,
+                    main_rss, tiny: bool, ident: str) -> tuple:
+    """Phase 21: out-of-core graphs on the card. ``graph`` is phase 20's
+    R-MAT (2^20 vertices, a quarter of phase 2's), which (b) partitions
+    resident and memory-mapped; ``main_rss`` is the process's peak RSS after
+    phase 2 (logged). Returns the kernel rows of the two rows entries and the
+    launches of their main paths (the mapped ``fennel``, the mapped
+    ``cuttana-parallel``)."""
     import tempfile
 
     from repro_torch.graph.external import ExternalCSRGraph, convert_csr, convert_edge_list
@@ -1562,17 +1694,33 @@ def outofcore_phase(torch, np, tapi, ops, ref, counters, device, timer, floor, g
                 }))
         del mapped, results, small
 
-        # ------------------------------------------------- (b) full size
-        if tiny:
-            graph = rmat_graph(1 << 12, avg_degree=16, seed=0)
-            main_res = tapi.partition(graph, main_spec(tapi), device=device)
-            main_rss = None  # the rehearsal's process peak is not phase 2's
+        # ------------------------------------- (b) phase 20's R-MAT, resident
+        # and mapped (phase 2's graph until PR 25: its mapped child took 96 s
+        # on the H100 80GB HBM3 (700 W) machine, run A24)
         scale = int(np.log2(graph.num_vertices))
+        graph.to(device)  # the graph's arrays on the card before the run, as in phase 2
+        sync(torch, device)
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        main_base = torch.cuda.memory_allocated() if device.type == "cuda" else None
+        reset_counts(*counters)
+        main_res = tapi.partition(graph, main_spec(tapi), device=device)
+        main_q = main_res.quality()  # inside the peak's window, as in phase 2
+        sync(torch, device)
+        chunks = -(-graph.num_vertices // CHUNK)
+        check(main_res.telemetry["kernel_calls"] == chunks and ops.launches == chunks * (
+            device.type == "cuda"), f"resident fennel on 2^{scale}: {ops.launches} launches, "
+              f"{main_res.telemetry['kernel_calls']} kernel_calls, expected {chunks}")
         full_path = str(Path(td) / f"rmat{scale}.bin")
         t0 = time.perf_counter()
         convert_csr(graph, full_path)
         write_s = time.perf_counter() - t0
         graph_device_bytes = graph.indptr.nbytes + graph.indices.nbytes
+        # the resident run's own peak as phase 2 measures its: the graph's
+        # arrays and what the run and its quality scan allocated (this
+        # process holds other phases' tensors besides)
+        main_peak = (torch.cuda.max_memory_allocated() - main_base + graph_device_bytes
+                     if device.type == "cuda" else None)
         out = str(Path(td) / "assignment.npy")
         t0 = time.perf_counter()
         proc = subprocess.run(
@@ -1593,11 +1741,10 @@ def outofcore_phase(torch, np, tapi, ops, ref, counters, device, timer, floor, g
         check(child["launches"] == {"rows": expect_rows, "sharded_rows": 0, "gather": 0,
                                     "sharded": 0},
               f"mapped fennel: launches {child['launches']}, expected {expect_rows} rows launches")
-        check(child["quality"] == main_res.quality(),
-              f"rmat 2^{scale}: mapped quality scan differs from phase 2's")
+        check(child["quality"] == main_q,
+              f"rmat 2^{scale}: mapped quality scan differs from the resident one")
         launches["rows"] = child["launches"]["rows"]
         saved = None
-        main_peak, main_base = main_peak  # phase 2's peak and what it started from
         if device.type == "cuda":
             saved = main_peak - child["max_memory_allocated"]
             check(saved >= graph_device_bytes,
@@ -1608,7 +1755,7 @@ def outofcore_phase(torch, np, tapi, ops, ref, counters, device, timer, floor, g
             Path(full_path).stat().st_size, "write_seconds": write_s, "child_seconds": child_s,
             "resident_max_memory_allocated": main_peak,
             "resident_allocated_before": main_base, "graph_device_bytes": graph_device_bytes,
-            "device_bytes_saved": saved, "resident_peak_rss_bytes": main_rss,
+            "device_bytes_saved": saved, "phase2_peak_rss_bytes": main_rss,
             "resident_stream_seconds": main_res.timings["stream_seconds"],
             "mapped": child, "device": ident,
         }))
@@ -1975,6 +2122,18 @@ def flash_row(torch, np, F, fa, fa_ref, timer, name, b, hq, hkv, tq, tk, dh, dty
         n = max(2, reps[0] // 2)
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
             q, k, v, is_causal=library_causal, enable_gqa=True)
+        if window is not None or (library_causal and q_offset):
+            # a window, or a causal diagonal below the top-left one that
+            # is_causal draws: SDPA's boolean mask, the same function
+            qpos = torch.arange(tq, device=device)[:, None] + q_offset
+            kpos = torch.arange(tk, device=device)[None, :]
+            keep = torch.ones((tq, tk), dtype=torch.bool, device=device)
+            if causal:
+                keep &= kpos <= qpos
+            if window is not None:
+                keep &= kpos > qpos - window
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, attn_mask=keep, enable_gqa=True)
         _, lib_err = within(lib(), got, FLASH_TOL[tname])
         row.update({
             "call_ms": timer(call, reps=n, warmup=1),
@@ -2002,6 +2161,7 @@ def flash_kernel_checks(torch, np, F, fa, fa_ref, timer, tiny: bool):
             rows.append(flash_row(torch, np, F, fa, fa_ref, timer, f"qwen3_decode_tk32768_b{b}",
                                   b, 32, 8, 1, 32768, 128, torch.bfloat16, q_offset=32767,
                                   library_causal=False, reps=(5, 2)))
+    rows += family_flash_rows(torch, np, F, fa, fa_ref, timer, tiny)
     if timer.device.type == "cuda":
         torch.cuda.empty_cache()  # the plain version's scores at the prefill shape
     for dtype in (torch.float32, torch.bfloat16):
@@ -2026,6 +2186,54 @@ def flash_kernel_checks(torch, np, F, fa, fa_ref, timer, tiny: bool):
                               65536, 2, 1, 16, 16, 32, dtype, reps=(5, 1)))  # fma_short
     for row in rows:
         log(json.dumps({"phase": 12, **row}))
+    return rows
+
+
+# phase 12's rows at the slice-14 families' shapes: name, b, hq, hkv, tq, tk,
+# dh, dtype, causal, window, q_offset (the reduced widths with --tiny)
+FAMILY_FLASH_ROWS = (
+    # gemma3-12b (H 16/8, Dh 256): a local layer (window 1024) and the
+    # global one at prefill, a decode step over the 1,024-slot ring (warm:
+    # every slot) and over the global layer's 8,192 cache
+    ("gemma3_prefill_local_t8192", 1, 16, 8, 8192, 8192, 256, "bfloat16", True, 1024, 0),
+    ("gemma3_prefill_global_t8192", 1, 16, 8, 8192, 8192, 256, "bfloat16", True, None, 0),
+    ("gemma3_decode_ring_b8", 8, 16, 8, 1, 1024, 256, "bfloat16", True, None, 8195),
+    ("gemma3_decode_global_b8_8k", 8, 16, 8, 1, 8192, 256, "bfloat16", True, None, 8191),
+    # hubert-xlarge (H 16, Dh 80): 30 s of frames, bidirectional
+    ("hubert_b8_t1500", 8, 16, 16, 1500, 1500, 80, "bfloat16", False, None, 0),
+    # llama-3.2-vision-90b's cross layer (H 64/8) over 1,024 image tokens
+    ("cross_prefill_t8192_i1024", 1, 64, 8, 8192, 1024, 128, "bfloat16", False, None, 0),
+    ("cross_decode_b8_i1024", 8, 64, 8, 1, 1024, 128, "bfloat16", False, None, 0),
+    # float32 on the FMA kernel at both new head dims, both tilings
+    ("hubert_fma_f32_t1500", 1, 16, 16, 1500, 1500, 80, "float32", False, None, 0),
+    ("hubert_fma_short_f32_tq16", 8, 16, 4, 16, 1500, 80, "float32", False, None, 0),
+    ("gemma3_fma_f32_t2048", 1, 16, 8, 2048, 2048, 256, "float32", True, 1024, 0),
+    ("gemma3_fma_short_f32_tq16", 8, 16, 8, 16, 1024, 256, "float32", True, None, 1008),
+)
+FAMILY_FLASH_ROWS_TINY = (
+    ("gemma3_prefill_local_reduced", 1, 4, 2, 256, 256, 256, "bfloat16", True, 64, 0),
+    ("gemma3_decode_ring_reduced", 2, 4, 2, 1, 64, 256, "bfloat16", True, None, 100),
+    ("hubert_reduced", 2, 4, 4, 150, 150, 80, "bfloat16", False, None, 0),
+    ("cross_prefill_reduced", 1, 16, 2, 64, 128, 128, "bfloat16", False, None, 0),
+    ("hubert_fma_short_f32_reduced", 2, 8, 2, 16, 150, 80, "float32", False, None, 0),
+)
+
+
+def family_flash_rows(torch, np, F, fa, fa_ref, timer, tiny: bool) -> list:
+    """Phase 12's rows at gemma3-12b's, hubert-xlarge's and
+    llama-3.2-vision-90b's attention shapes (head dims 256 and 80, the
+    sliding window, the ring, bidirectional Tq != Tk), each with its
+    device time, bound, plain and SDPA times."""
+    rows = []
+    for name, b, hq, hkv, tq, tk, dh, dtype, causal, window, q_offset in (
+            FAMILY_FLASH_ROWS_TINY if tiny else FAMILY_FLASH_ROWS):
+        big = tq * tk * hq * b >= 1 << 30  # the plain version's float32 scores above 4 GB
+        rows.append(flash_row(torch, np, F, fa, fa_ref, timer, name, b, hq, hkv, tq, tk, dh,
+                              getattr(torch, dtype), causal, window, q_offset,
+                              library_causal=causal and q_offset + 1 < tk,
+                              reps=(3, 1) if tiny else ((3, 2) if big else (20, 2))))
+        if timer.device.type == "cuda":
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -2372,7 +2580,8 @@ def long_decode_phase(torch, np, counters, device, model, params, tiny: bool, id
 
 def long_cache_step(torch, cpu, params, card, dparams, toks) -> dict:
     """Phase 16: one decode step at the end of a seeded 8,192-long cache on
-    the card and on the CPU; on the card the decode kernel splits it."""
+    the card and on the CPU; on the card the decode kernel splits it (a
+    ring or an image cache, 16 entries, is one share)."""
     from repro_torch.kernels.flash_attention import ops as fa
 
     b, seq = toks.shape[0], 8192
@@ -2384,21 +2593,30 @@ def long_cache_step(torch, cpu, params, card, dparams, toks) -> dict:
     sync(torch, card.device)
     ran = {n: c - before.get(n, 0) for n, c in fa.split_launches.items()
            if c != before.get(n, 0)}
-    n_split = next(iter(ran)) if len(ran) == 1 else None
-    check(card.device.type != "cuda" or (n_split is not None and n_split > 1),
-          f"reduced decode at {seq}: the cache was not split into one count > 1 ({ran})")
+    # the layers over the whole cache split it; a ring (gemma3's 16 slots)
+    # or an image cache (llama's 16 tokens) is one share
+    whole = sum("k" in c and c["k"].shape[1] == seq for c in cache)
+    short = sum(("k" in c and c["k"].shape[1] < seq) or "k_img" in c for c in cache)
+    splits = {n: c for n, c in ran.items() if n > 1}
+    n_split = next(iter(splits)) if len(splits) == 1 else None
+    check(card.device.type != "cuda" or (n_split is not None and splits[n_split] == whole
+                                         and ran.get(1, 0) == short),
+          f"reduced decode at {seq}: {whole} layers' caches not split into one count > 1 "
+          f"and {short} short caches not one share ({ran})")
     want, _ = cpu.decode_step(params, cache, toks[:, :1], seq - 1)
     ok, err = within(got.cpu(), want, 1e-4)
     check(ok, f"reduced decode at a {seq} cache: card and cpu logits differ beyond 1e-4 ({err})")
     check(torch.equal(got.argmax(-1).cpu(), want.argmax(-1)),
           f"reduced decode at a {seq} cache: greedy tokens differ")
-    return {"cache_len": seq, "n_split": n_split, "max_abs_err": err, "greedy_tokens_equal": True}
+    return {"cache_len": seq, "n_split": n_split, "split_launches": ran, "max_abs_err": err,
+            "greedy_tokens_equal": True}
 
 
 def reduced_parity(torch, np, device) -> list:
     """Phase 16: each reduced config in float32 with the same weights on the
     card and on the CPU; with MoE layers also every layer's expert ids and
-    the router loss."""
+    the router loss. hubert-xlarge takes frames and runs ``forward`` only;
+    llama-3.2-vision-90b's forward reads image embeddings."""
     from repro_torch.configs import get_model_config
     from repro_torch.launch.serve import serve
     from repro_torch.models import Model
@@ -2418,13 +2636,21 @@ def reduced_parity(torch, np, device) -> list:
         params = cpu.init(torch.Generator().manual_seed(0))
         card = Model(cfg, device)
         dparams = tree_to(params, card.device)
-        toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 24)))
+        rng = np.random.default_rng(0)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 24)))
+        inputs = {"tokens": toks}
+        if cfg.frontend == "frames":  # hubert-xlarge: frames in place of tokens
+            inputs = {"frames": torch.from_numpy(rng.standard_normal(
+                (2, 24, cfg.d_model)).astype(np.float32))}
+        if cfg.n_img_tokens:  # llama-3.2-vision-90b: its cross layers read images
+            inputs["image_embeds"] = torch.from_numpy(rng.standard_normal(
+                (2, cfg.n_img_tokens, cfg.d_model)).astype(np.float32))
         layers.top_k = recording
         try:
-            got, got_aux = card.forward(dparams, {"tokens": toks.to(card.device)})
+            got, got_aux = card.forward(dparams, tree_to(inputs, card.device))
             ids_card = list(chosen)
             chosen.clear()
-            want, want_aux = cpu.forward(params, {"tokens": toks})
+            want, want_aux = cpu.forward(params, inputs)
             ids_cpu = list(chosen)
             chosen.clear()
         finally:
@@ -2437,12 +2663,17 @@ def reduced_parity(torch, np, device) -> list:
                                                    for s in cfg.layers())
               and all(torch.equal(a, b) for a, b in zip(ids_card, ids_cpu)),
               f"reduced {arch}: the card and the cpu chose other experts")
+        row = {"arch": f"reduced:{arch}", "dtype": "float32", "max_abs_err": err,
+               "aux": float(want_aux), "aux_abs_err": aux_err, "moe_layers": len(ids_cpu),
+               "expert_ids_equal": True}
+        if cfg.is_encoder_only:  # hubert-xlarge has no decode path
+            rows.append(row)
+            continue
+        # 8 + 8 tokens: gemma3's 16-slot rings (window 16) at init_cache(seq=16)
         g_card, _ = serve(card, dparams, toks[:, :8].to(card.device), 8)
         g_cpu, _ = serve(cpu, params, toks[:, :8], 8)
         check(torch.equal(g_card.cpu(), g_cpu), f"reduced {arch}: greedy tokens differ")
-        row = {"arch": f"reduced:{arch}", "dtype": "float32", "max_abs_err": err,
-               "aux": float(want_aux), "aux_abs_err": aux_err, "moe_layers": len(ids_cpu),
-               "expert_ids_equal": True, "greedy_tokens_equal": True}
+        row["greedy_tokens_equal"] = True
         if any(s.mixer == "attn" for s in cfg.layers()):
             row["long_cache_decode"] = long_cache_step(torch, cpu, params, card, dparams, toks)
         rows.append(row)
@@ -2598,6 +2829,333 @@ def moe_phase(torch, np, F, fa, fa_ref, counters, device, timer, tiny: bool, ide
                         "scores": scores, "seconds": out["seconds"]["c"]}
     log(json.dumps({"phase": 25, "part": "c", **out["placement"]}))
     log(json.dumps({"phase": 25, "part_seconds": out["seconds"]}))
+    return out
+
+
+def swapped_attention(fa_ref, calls: list | None = None):
+    """A context in which every attention call of the models runs the
+    kernel's plain version (``flash_attention_ref``) instead of the kernel,
+    or, given ``calls``, the kernel with each call held against the plain
+    version on its own inputs (phase 17's bf16 gate; each call's errors
+    appended to ``calls``)."""
+    import contextlib
+
+    from repro_torch.models import attention
+
+    kernel = attention.flash_attention
+
+    def checked(q, k, v, causal=True, window=None, q_offset=0):
+        got = kernel(q, k, v, causal=causal, window=window, q_offset=q_offset)
+        want = fa_ref.flash_attention_ref(q, k, v, causal, window, q_offset)
+        ok, err = within(got, want, FLASH_TOL[str(q.dtype).split(".")[1]])
+        row = worst_row_rel_l2(got, want)
+        check(ok and row <= FLASH_ROW_RTOL,
+              f"attention call {len(calls)} (k {tuple(k.shape)}, causal {causal}, q_offset "
+              f"{q_offset}) differs from the plain version ({err}, row relative L2 {row})")
+        calls.append({"tk": k.shape[2], "max_abs_err": err, "max_row_rel_l2": row})
+        return got
+
+    @contextlib.contextmanager
+    def swapped():
+        attention.flash_attention = fa_ref.flash_attention_ref if calls is None else checked
+        try:
+            yield
+        finally:
+            attention.flash_attention = kernel
+
+    return swapped()
+
+
+def clone_cache(cache: list) -> list:
+    return [{name: t.clone() for name, t in layer.items()} for layer in cache]
+
+
+def variant_counts(fa, n: int, variant: str, on_card: bool) -> dict:
+    return {name: n * on_card * (name == variant) for name in fa.VARIANTS}
+
+
+def fill_images(torch, model, params, cache: list, img) -> None:
+    """Each cross-attention layer's image keys and values from the image
+    embeddings ``img`` [B, N, D], as the reference's tests fill them
+    (``img @ wk``, ``img @ wv``)."""
+    cfg = model.cfg
+    b, n = img.shape[:2]
+    for spec, p, c in zip(cfg.layers(), params["layers"], cache):
+        if spec.mixer == "cross_attn":
+            c["k_img"].copy_((img @ p["attn"]["wk"]).reshape(b, n, cfg.n_kv_heads, cfg.head_dim))
+            c["v_img"].copy_((img @ p["attn"]["wv"]).reshape(b, n, cfg.n_kv_heads, cfg.head_dim))
+
+
+def ring_decode_part(torch, np, fa, fa_ref, counters, device, model, params,
+                     tiny: bool) -> dict:
+    """Phase 26(a)'s long decode: 8 ``decode_step``s at B=8 from the end of a
+    seeded 8,192-long cache (the local layers' 1,024-slot rings warm and
+    wrapping), then one more step held against the same step with every
+    attention call on the plain version."""
+    from repro_torch.kernels.mamba_scan import ops as scan
+
+    cfg = model.cfg
+    on_card = device.type == "cuda"
+    n_attn = cfg.num_layers
+    b, seq, steps = (2, 64, 4) if tiny else (8, 8192, 8)
+    cache = model.init_cache(b, seq)
+    rings = [c["k"].shape[1] for c, s in zip(cache, cfg.layers()) if s.window]
+    fill_cache(torch, cache, torch.Generator(device=model.device).manual_seed(26))
+    rng = np.random.default_rng(26)
+    tok = torch.as_tensor(rng.integers(2, cfg.vocab_size, (b, 1)), device=model.device)
+    sync(torch, device)
+    reset_counts(*counters)
+    t0 = time.perf_counter()
+    for i in range(steps):
+        if i == steps - 1:  # the last step's cache and token, for the plain version
+            spare, last = clone_cache(cache), tok
+        logits, cache = model.decode_step(params, cache, tok, seq - steps + i)
+        tok = logits[:, -1].argmax(-1)[:, None]
+    sync(torch, device)
+    decode_s = time.perf_counter() - t0
+    launches = {"flash_attention": fa.launches, "selective_scan": scan.launches}
+    variants = dict(fa.variant_launches)
+    check(launches == {"flash_attention": n_attn * steps * on_card, "selective_scan": 0}
+          and variants == variant_counts(fa, n_attn * steps, "decode_split", on_card),
+          f"{cfg.name} ring decode launched {launches}, variants {variants}")
+    check(bool(logits.isfinite().all()), f"{cfg.name} ring decode logits are not finite")
+    # the last step again from its cache: each attention call against the
+    # plain version on its own inputs (phase 17's bf16 gate: the rings, warm
+    # and wrapped, and the global cache), and the logits against the same
+    # step with every call on the plain version (each row within 1e-2
+    # relative L2; bf16 roundings compound over the layers and the head)
+    calls: list = []
+    with swapped_attention(fa_ref, calls):
+        got, _ = model.decode_step(params, clone_cache(spare), last, seq - 1)
+    with swapped_attention(fa_ref):
+        want, _ = model.decode_step(params, spare, last, seq - 1)
+    check(len(calls) == n_attn, f"{cfg.name}: {len(calls)} attention calls checked, "
+                                f"expected {n_attn}")
+    row_err = worst_row_rel_l2(got, want)
+    check(row_err <= FLASH_ROW_RTOL, f"{cfg.name} decode step at position {seq - 1}: logits "
+                                     f"differ from the plain version's by {row_err} relative L2")
+    gate = {"calls": calls, "logits_max_row_rel_l2": row_err,
+            "logits_max_abs_diff": float((got.float() - want.float()).abs().max()),
+            "same_as_timed_step": bool(torch.equal(got, logits))}
+    del cache, spare, logits, want, got
+    return {"batch": b, "cache_len": seq, "ring_slots": rings, "first_pos": seq - steps,
+            "steps": steps, "seconds": decode_s, "tokens_per_s": b * steps / decode_s,
+            "launches": launches, "flash_variants": variants,
+            "split_launches": dict(fa.split_launches), "plain_step": gate}
+
+
+def encoder_part(torch, np, counters, device, tiny: bool, ident: str) -> dict:
+    """Phase 26(b): hubert-xlarge at full depth (48 layers, about 0.95B
+    parameters): ``forward`` on seeded frames at B=8, T=1500 (30 s of audio
+    at 50 frames a second), a bidirectional ``wgmma_bf16`` launch a layer at
+    Dh 80; one forward under ``torch.profiler``."""
+    from repro_torch.configs import get_model_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.mamba_scan import ops as scan
+    from repro_torch.models import Model
+
+    cfg = get_model_config(("reduced:" if tiny else "") + "hubert-xlarge")
+    on_card = device.type == "cuda"
+    model = Model(cfg, device)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator(device=model.device).manual_seed(0))
+    b, t = (2, 150) if tiny else (8, 1500)
+    gen = torch.Generator(device=model.device).manual_seed(260)
+    frames = torch.randn((b, t, cfg.d_model), generator=gen, device=model.device)
+    with torch.no_grad():
+        reset_counts(*counters)
+        t0 = time.perf_counter()
+        logits, _ = model.forward(params, {"frames": frames})
+        sync(torch, device)
+        forward_s = time.perf_counter() - t0
+        launches = {"flash_attention": fa.launches, "selective_scan": scan.launches}
+        variants = dict(fa.variant_launches)
+        check(launches == {"flash_attention": cfg.num_layers * on_card, "selective_scan": 0}
+              and variants == variant_counts(fa, cfg.num_layers, "wgmma_bf16", on_card),
+              f"hubert forward launched {launches}, variants {variants}")
+        check(tuple(logits.shape) == (b, t, cfg.vocab_size) and bool(logits.isfinite().all()),
+              "hubert logits have the wrong shape or non-finite entries")
+        peak = torch.cuda.max_memory_allocated() if on_card else None
+        prof = profile_lm(torch, lambda: model.forward(params, {"frames": frames}), device,
+                          "attn_")
+    rec = {"arch": cfg.name, "params": tree_numel(params), "param_count": cfg.param_count(),
+           "layers": cfg.num_layers, "head_dim": cfg.head_dim, "causal": cfg.causal,
+           "dtype": cfg.dtype, "forward": {
+               "batch": b, "frames": t, "seconds": forward_s, "frames_per_s": b * t / forward_s,
+               "launches": launches, "flash_variants": variants, "max_memory_allocated": peak},
+           "profile": {"what": f"forward b={b} t={t}", **prof}, "device": ident}
+    del model, params, logits, frames
+    return rec
+
+
+def vision_part(torch, np, counters, device, tiny: bool, ident: str) -> dict:
+    """Phase 26(c): llama-3.2-vision-90b at full width cut to one block (4
+    self-attention layers and 1 gated cross-attention layer), its gate set
+    to a seeded non-zero value: ``make_prefill_step`` at B=1, T=8192 with
+    seeded ``image_embeds`` [1, 1024, D] (5 ``wgmma_bf16`` launches, the
+    cross one bidirectional over the image), then the serve loop at B=8
+    (prompt 128, 32 generated) with the image caches filled from the
+    images (``fill_images``): 5 ``decode_split`` launches a step, the cross
+    one bidirectional over 1,024 image keys; the gate's effect on a step's
+    logits; one decode step under ``torch.profiler``."""
+    from repro_torch.configs import get_model_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.mamba_scan import ops as scan
+    from repro_torch.launch.serve import prefill_into_cache
+    from repro_torch.models import Model
+    from repro_torch.serve.lm import make_prefill_step
+
+    cfg = get_model_config(("reduced:" if tiny else "") + "llama-3.2-vision-90b")
+    if not tiny:
+        cfg = dataclasses.replace(cfg, n_blocks=1)
+    on_card = device.type == "cuda"
+    n_layers = cfg.num_layers
+    model = Model(cfg, device)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=model.device).manual_seed(0)
+    params = model.init(gen)
+    cross = [p["attn"] for s, p in zip(cfg.layers(), params["layers"]) if s.mixer == "cross_attn"]
+    for attn in cross:  # the reference's init closes the gate: tanh(0) = 0
+        attn["gate"].uniform_(0.5, 1.0, generator=gen)
+    gates = [float(attn["gate"]) for attn in cross]
+    rng = np.random.default_rng(26)
+    seq = 64 if tiny else 8192
+    tokens = torch.as_tensor(rng.integers(2, cfg.vocab_size, (1, seq)), device=model.device)
+    img = torch.randn((1, cfg.n_img_tokens, cfg.d_model), generator=gen,
+                      device=model.device).to(model.dtype)
+    prefill = make_prefill_step(model)
+    with torch.no_grad():
+        reset_counts(*counters)
+        t0 = time.perf_counter()
+        logits = prefill(params, {"tokens": tokens, "image_embeds": img})
+        sync(torch, device)
+        prefill_s = time.perf_counter() - t0
+        pre_launches = {"flash_attention": fa.launches, "selective_scan": scan.launches}
+        pre_variants = dict(fa.variant_launches)
+        check(pre_launches == {"flash_attention": n_layers * on_card, "selective_scan": 0}
+              and pre_variants == variant_counts(fa, n_layers, "wgmma_bf16", on_card),
+              f"llama prefill launched {pre_launches}, variants {pre_variants}")
+        check(tuple(logits.shape) == (1, 1, cfg.vocab_size) and bool(logits.isfinite().all()),
+              "llama prefill logits have the wrong shape or non-finite entries")
+        prefill_peak = torch.cuda.max_memory_allocated() if on_card else None
+        del logits
+        # the serve loop over image caches filled from B=8 images
+        b, plen, n_gen = (2, 8, 4) if tiny else (8, 128, 32)
+        prompts = torch.as_tensor(rng.integers(2, cfg.vocab_size, (b, plen)),
+                                  device=model.device)
+        imgs = torch.randn((b, cfg.n_img_tokens, cfg.d_model), generator=gen,
+                           device=model.device).to(model.dtype)
+        cache = model.init_cache(b, plen + n_gen)
+        fill_images(torch, model, params, cache, imgs)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        reset_counts(*counters)
+        t0 = time.perf_counter()
+        logits, cache = prefill_into_cache(model, params, cache, prompts)
+        tok = logits[:, -1].argmax(-1)[:, None]
+        sync(torch, device)
+        t_prefill = time.perf_counter() - t0
+        out = [tok]
+        t0 = time.perf_counter()
+        for i in range(n_gen - 1):
+            logits, cache = model.decode_step(params, cache, tok, plen + i)
+            tok = logits[:, -1].argmax(-1)[:, None]
+            out.append(tok)
+        sync(torch, device)
+        t_decode = time.perf_counter() - t0
+        out = torch.cat(out, dim=1)
+        steps = plen + n_gen - 1
+        launches = {"flash_attention": fa.launches, "selective_scan": scan.launches}
+        variants = dict(fa.variant_launches)
+        check(launches == {"flash_attention": n_layers * steps * on_card, "selective_scan": 0}
+              and variants == variant_counts(fa, n_layers * steps, "decode_split", on_card),
+              f"llama serve launched {launches}, variants {variants}")
+        check(tuple(out.shape) == (b, n_gen) and int(out.min()) >= 0
+              and int(out.max()) < cfg.vocab_size, "llama serve ids of the wrong shape or range")
+        serve_peak = torch.cuda.max_memory_allocated() if on_card else None
+        # the cross path shows in the logits: the same step with the gates closed
+        pos = plen + n_gen - 1
+        step, _ = model.decode_step(params, clone_cache(cache), tok, pos)
+        for attn in cross:
+            attn["gate"].zero_()
+        closed, _ = model.decode_step(params, clone_cache(cache), tok, pos)
+        for attn, value in zip(cross, gates):
+            attn["gate"].fill_(value)
+        gate_effect = float((step.float() - closed.float()).norm() / step.float().norm())
+        check(gate_effect > 1e-3, f"llama: the gated cross path moved a step's logits by only "
+                                  f"{gate_effect} (relative L2)")
+        prof = profile_lm(torch, lambda: model.decode_step(params, cache, tok, pos - 1), device,
+                          "attn_")
+    rec = {
+        "arch": cfg.name, "params": tree_numel(params), "param_count": cfg.param_count(),
+        "layers": n_layers, "cross_layers": len(gates), "gates": gates,
+        "n_img_tokens": cfg.n_img_tokens, "dtype": cfg.dtype,
+        "prefill": {"batch": 1, "seq": seq, "seconds": prefill_s, "tokens_per_s": seq / prefill_s,
+                    "launches": pre_launches, "flash_variants": pre_variants,
+                    "max_memory_allocated": prefill_peak},
+        "serve": {"batch": b, "prompt_len": plen, "gen": n_gen, "prefill_s": t_prefill,
+                  "decode_s": t_decode, "decode_tok_per_s": b * (n_gen - 1) / t_decode,
+                  "launches": launches, "flash_variants": variants,
+                  "split_launches": dict(fa.split_launches), "max_memory_allocated": serve_peak,
+                  "first_ids": out[0, :8].tolist()},
+        "gate_effect_rel_l2": gate_effect,
+        "profile": {"what": f"decode_step b={b} pos={pos - 1}", **prof}, "device": ident,
+    }
+    del model, params, cache, imgs, img
+    return rec
+
+
+def families_phase(torch, np, fa, fa_ref, counters, device, tiny: bool, ident: str) -> dict:
+    """Phase 26: gemma3-12b, hubert-xlarge and llama-3.2-vision-90b at full
+    width on the card (the reduced configs with ``--tiny``), one model at a
+    time: (a) gemma3-12b cut to one block (5 local layers, window 1024, and
+    1 global; head dim 256) through ``lm_phase`` (prefill B=1 T=8192: 6
+    ``wgmma_bf16`` launches; serve B=8 prompt 128 gen 32: 6 ``decode_split``
+    a step), then ``ring_decode_part``; (b) ``encoder_part``; (c)
+    ``vision_part``. Each part logs its seconds, tokens a second, peak
+    memory, launches by variant and the card's idle share."""
+    out = {"seconds": {}, "launches": {"flash_attention": 0, "selective_scan": 0},
+           "flash_variants": dict.fromkeys(fa.VARIANTS, 0)}
+
+    def count(rec, paths):
+        for path in paths:
+            for name, n in rec[path]["launches"].items():
+                out["launches"][name] += n
+            for name, n in rec[path]["flash_variants"].items():
+                out["flash_variants"][name] += n
+
+    def free():
+        if device.type == "cuda":
+            torch.cuda.empty_cache()  # one big model at a time
+
+    t0 = time.perf_counter()
+    rec, model, params = lm_phase(torch, np, counters, device, "gemma3-12b", tiny, ident,
+                                  n_blocks=1)
+    with torch.no_grad():
+        rec["ring_decode"] = ring_decode_part(torch, np, fa, fa_ref, counters, device, model,
+                                              params, tiny)
+    del model, params
+    free()
+    count(rec, ("prefill", "serve", "ring_decode"))
+    rec["seconds"] = out["seconds"]["a"] = time.perf_counter() - t0
+    log(json.dumps({"phase": 26, "part": "a", **rec}))
+    t0 = time.perf_counter()
+    rec = encoder_part(torch, np, counters, device, tiny, ident)
+    free()
+    count(rec, ("forward",))
+    rec["seconds"] = out["seconds"]["b"] = time.perf_counter() - t0
+    log(json.dumps({"phase": 26, "part": "b", **rec}))
+    t0 = time.perf_counter()
+    rec = vision_part(torch, np, counters, device, tiny, ident)
+    free()
+    count(rec, ("prefill", "serve"))
+    rec["seconds"] = out["seconds"]["c"] = time.perf_counter() - t0
+    log(json.dumps({"phase": 26, "part": "c", **rec}))
+    log(json.dumps({"phase": 26, "part_seconds": out["seconds"]}))
     return out
 
 
@@ -3006,9 +3564,12 @@ def main() -> int:
                     help="rehearse every phase on the CPU at a tiny size (prints no result)")
     ap.add_argument("--mapped-child", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--child-out", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--zoo-cpu-child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.mapped_child:  # phase 21's child process
         return mapped_child(args.mapped_child, args.child_out, args.tiny)
+    if args.zoo_cpu_child:  # phase 18's CPU side
+        return zoo_cpu_child(args.zoo_cpu_child)
 
     # phase 24(b) runs the train driver under deterministic algorithms; cuBLAS
     # needs this before its first handle to give the same bits run to run
@@ -3121,9 +3682,9 @@ def main() -> int:
         "memory_allocated_before": main_base, "device": ident,
     }))
     main_res = res  # phase 10 runs the analytics on this assignment
-    # phase 21 holds the mapped run's peaks against these (the process's RSS
-    # so far: phases 0-2, the graph generated and partitioned resident)
-    main_peak, main_rss = (peak, main_base), rss.read()
+    # phase 21 logs the process's RSS so far (phases 0-2: the graph generated
+    # and partitioned resident)
+    main_rss = rss.read()
     clock.mark(2)
 
     # ------------------------------------------------------------ phase 3
@@ -3295,6 +3856,9 @@ def main() -> int:
         torch, tapi, social, device, "fennel-parallel", {"num_shards": NUM_SHARDS})}))
     clock.mark(8)
 
+    # phase 18's CPU runs start now, in a child, beside phases 9-11 and 23
+    zoo_cpu = ZooCpuChild(args.tiny)
+
     # ------------------------------------------------------------ phase 9
     lg = main_res.localized()
     t0 = time.perf_counter()
@@ -3391,14 +3955,16 @@ def main() -> int:
     # ------------------------------------------------------ phases 18-20
     del lg, on_cpu
     main_res._localized = None  # the analytics layout of phases 9-10
-    zoo_paths, zoo_rows = zoo_phases(torch, np, tapi, ops, ref, counters, device, timer, floor,
-                                     web, social, graph, dataset, args.tiny, ident, clock)
+    zoo_paths, zoo_rows, zoo_graph = zoo_phases(
+        torch, np, tapi, ops, ref, counters, device, timer, floor, web, social, graph, dataset,
+        args.tiny, ident, clock, zoo_cpu)
     clock.mark(20)
 
     # ----------------------------------------------------------- phase 21
     rows_shapes, rows_launches = outofcore_phase(
-        torch, np, tapi, ops, ref, counters, device, timer, floor, graph, main_res, main_peak,
-        main_rss, args.tiny, ident)
+        torch, np, tapi, ops, ref, counters, device, timer, floor, zoo_graph, main_rss,
+        args.tiny, ident)
+    del zoo_graph
     clock.mark(21)
 
     # ----------------------------------------------------------- phase 22
@@ -3456,6 +4022,14 @@ def main() -> int:
     for name, n in moe_rec["flash_variants"].items():
         flash_variants[name] += n
     clock.mark(25)
+
+    # ----------------------------------------------------------- phase 26
+    fam_rec = families_phase(torch, np, fa, fa_ref, counters, device, args.tiny, ident)
+    for name, n in fam_rec["launches"].items():
+        lm_launches[name] += n
+    for name, n in fam_rec["flash_variants"].items():
+        flash_variants[name] += n
+    clock.mark(26)
 
     # ----------------------------------------------------------- phase 24
     train_rec = training_phase(torch, np, F, counters, device, timer, args.tiny, ident)
@@ -3526,6 +4100,14 @@ def main() -> int:
                 # phase 25: the slice-13 families' launches (in ``launches``
                 # too) and the rows at arctic-480b's shapes (g = 7)
                 moe_family_launches=moe_rec["launches"],
+                # phase 26: the slice-14 families' launches (in ``launches``
+                # too), and phase 12's rows at their shapes (Dh 80 and 256)
+                family_launches=fam_rec["launches"],
+                family_variants=fam_rec["flash_variants"],
+                family_rows=[{key: r.get(key) for key in (
+                    "shape", "variant", "n_split", "dh", "dtype", "ms", "call_ms", "plain_ms",
+                    "library_ms", "bound_ms", "bound_by", "tflops", "max_abs_err",
+                    "max_row_rel_l2")} for r in flash_shapes if r["dh"] in (80, 256)],
                 g7_rows=[{key: r.get(key) for key in (
                     "shape", "variant", "n_split", "ms", "call_ms", "plain_ms", "library_ms",
                     "bound_ms", "bound_by", "tflops", "max_abs_err", "max_row_rel_l2")}

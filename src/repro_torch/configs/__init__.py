@@ -3,13 +3,15 @@ smoke-test variants and ``get_model_config`` (the launchers' name parser).
 
 The port serves and trains qwen3-8b (dense GQA with qk-norm),
 falcon-mamba-7b (attention-free Mamba-1), the dense minitron-8b (squared
-ReLU) and deepseek-coder-33b, and the MoE families jamba-v0.1-52b (Mamba and
+ReLU) and deepseek-coder-33b, the MoE families jamba-v0.1-52b (Mamba and
 attention 7:1, a 16-expert top-2 MoE every other layer) and arctic-480b (a
-dense FFN beside a 128-expert top-2 MoE in every layer);
-``launch/train.py`` adds the reference's ``repro-100m``. The reference's
-other four architectures need parts the port does not have yet (the
-sliding-window ring cache and head dim 256, MLA and prefix layers,
-cross-attention, frame inputs); asking for one raises
+dense FFN beside a 128-expert top-2 MoE in every layer), gemma3-12b (five
+sliding-window layers to one global, head dim 256, a ring cache), the
+encoder-only hubert-xlarge (frame inputs, bidirectional, head dim 80; no
+decode path) and llama-3.2-vision-90b (a gated cross-attention layer every
+fifth); ``launch/train.py`` adds the reference's ``repro-100m``. The
+reference's deepseek-v2-236b needs parts the port does not have yet (MLA,
+its absorbed decode and prefix layers); asking for it raises
 ``NotImplementedError`` naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
@@ -20,7 +22,7 @@ import importlib
 from repro_torch.models.config import LATER_ITEM, LayerSpec, ModelConfig
 
 ARCHS = ["qwen3_8b", "falcon_mamba_7b", "minitron_8b", "deepseek_coder_33b", "jamba_v01_52b",
-         "arctic_480b"]
+         "arctic_480b", "gemma3_12b", "hubert_xlarge", "llama32_vision_90b"]
 
 # canonical ids, as the reference names them
 ALIASES = {
@@ -30,15 +32,15 @@ ALIASES = {
     "deepseek-coder-33b": "deepseek_coder_33b",
     "jamba-v0.1-52b": "jamba_v01_52b",
     "arctic-480b": "arctic_480b",
+    "gemma3-12b": "gemma3_12b",
+    "hubert-xlarge": "hubert_xlarge",
+    "llama-3.2-vision-90b": "llama32_vision_90b",
 }
 
-# the reference's other architectures (by its canonical ids) and what they
-# wait for
+# the reference's other architecture (by its canonical id) and what it
+# waits for
 LATER = {
-    "gemma3-12b": "the sliding-window ring cache and head dim 256",
-    "hubert-xlarge": "frame inputs (encoder-only) and head dim 80",
-    "deepseek-v2-236b": "MLA's absorbed decode and prefix layers",
-    "llama-3.2-vision-90b": "gated cross-attention",
+    "deepseek-v2-236b": "MLA, its absorbed decode and prefix layers",
 }
 
 
@@ -89,6 +91,7 @@ def shrink(cfg: ModelConfig) -> ModelConfig:
         n_experts=8 if cfg.n_experts else 0,
         top_k=min(cfg.top_k, 2) if cfg.top_k else 0,
         n_shared_experts=min(cfg.n_shared_experts, 1),
+        n_img_tokens=16 if cfg.n_img_tokens else 0,
         remat=False,
     )
     return dataclasses.replace(cfg, **changes)

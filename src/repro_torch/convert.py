@@ -162,7 +162,8 @@ def lm_params_from_arrays(cfg, params: dict, device: str | torch.device | None =
     packages compute with the same weights. Nested leaves come along as they
     are: an MoE layer's ``moe`` dict (the float32 ``router`` ``[D, E]``,
     ``w_in``/``w_gate`` ``[E, D, F]``, ``w_out`` ``[E, F, D]`` and a
-    ``shared`` dense FFN) keeps its dtypes."""
+    ``shared`` dense FFN) keeps its dtypes, a cross-attention layer its
+    ``gate``. A frame-input model's tree has no ``embed``."""
     device = resolve_device(device)
     if cfg.prefix or params.get("prefix"):
         raise NotImplementedError(f"prefix layers are not ported yet (deepseek-v2); {LATER_ITEM}")
@@ -174,11 +175,11 @@ def lm_params_from_arrays(cfg, params: dict, device: str | torch.device | None =
         for i in range(cfg.n_blocks)
         for j in range(len(cfg.block))
     ]
-    out = {
-        "embed": _tensor(params["embed"], device),
-        "layers": layers,
-        "final_norm": _tree(params["final_norm"], lambda a: _tensor(a, device)),
-    }
+    out = {}
+    if "embed" in params:
+        out["embed"] = _tensor(params["embed"], device)
+    out["layers"] = layers
+    out["final_norm"] = _tree(params["final_norm"], lambda a: _tensor(a, device))
     if "unembed" in params:
         out["unembed"] = _tensor(params["unembed"], device)
     return out
@@ -189,7 +190,8 @@ def lm_params_to_reference(cfg, params: dict) -> dict:
     dict (or a tree of the same layout, such as AdamW's moments) in the
     reference's layout, ``{"blocks", "embed", "final_norm", "prefix",
     "unembed"}``, with the layers of each ``cfg.block`` position stacked on
-    a leading ``n_blocks`` axis, on the parameters' device. Flattened in
+    a leading ``n_blocks`` axis, on the parameters' device (no ``embed``
+    for a frame-input model). Flattened in
     JAX's leaf order (:mod:`repro_torch.train.pytree`) it gives the
     reference's leaves one by one (an MoE layer's ``moe`` leaves too, as
     ``[n_blocks, E, ...]``), which is what lets checkpoints cross."""
@@ -205,12 +207,11 @@ def lm_params_to_reference(cfg, params: dict) -> dict:
             return {key: stack([g[key] for g in group]) for key in group[0]}
         return torch.stack(group)
 
-    out = {
-        "blocks": tuple(stack(layers[j::width]) for j in range(width)),
-        "embed": params["embed"],
-        "final_norm": params["final_norm"],
-        "prefix": (),
-    }
+    out = {"blocks": tuple(stack(layers[j::width]) for j in range(width))}
+    if "embed" in params:
+        out["embed"] = params["embed"]
+    out["final_norm"] = params["final_norm"]
+    out["prefix"] = ()
     if "unembed" in params:
         out["unembed"] = params["unembed"]
     return out

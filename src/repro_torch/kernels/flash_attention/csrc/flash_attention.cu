@@ -49,7 +49,8 @@
 // consumer warpgroups of 64 query rows each (128 rows of one (batch, query
 // head)) and one producer warp. The producer has the tensor memory
 // accelerator (TMA) copy the Q tile once and then K/V tiles of 64 keys, as
-// bf16, into a ring of 4 stages, each stage guarded by a pair of mbarriers
+// bf16, into a ring of 4 stages (2 at Dh = 256, whose tiles are 32 KB), each
+// stage guarded by a pair of mbarriers
 // (full: the bytes landed; empty: every consumer warp is done with it), so
 // loads run ahead of the products; TMA writes the tiles in the swizzled
 // layout wgmma reads, reads the model's strided [B, T, H, Dh] views in place
@@ -101,6 +102,7 @@ constexpr int kPS = kBK + 1;   // padded row of the probability tile
 constexpr float kNegInf = -1.0e30f;
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int64_t kMaxGridY = 65535;
+constexpr int kMaxSmemBytes = 227 * 1024;  // the dynamic shared memory a block may have
 
 // the variants of ops.py's VARIANTS, in order
 enum Variant : int { kFma = 0, kFmaShort = 1, kDecodeSplit = 2, kWgmmaBf16 = 3 };
@@ -168,10 +170,13 @@ struct Smem {
   static constexpr int kKRegion = (kBK * kKS > BQ * kPS) ? kBK * kKS : BQ * kPS;
   static constexpr int kFloats = BQ * kQS + kKRegion + kBK * DH + 3 * BQ;
   static constexpr size_t kBytes = sizeof(float) * kFloats;
+  // two blocks an SM where their shared memory fits (<= 128 registers a
+  // thread); one at Dh = 256, whose tiles take 148-198 KB
+  static constexpr int kMinBlocks = 2 * kBytes <= kMaxSmemBytes ? 2 : 1;
 };
 
 template <class T, int DH, int BQ>
-__global__ void __launch_bounds__(kThreads, 2)  // <= 128 registers: two blocks an SM
+__global__ void __launch_bounds__(kThreads, (Smem<DH, BQ>::kMinBlocks))
 attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
             T* __restrict__ o, Strides sq, Strides sk, Strides sv, Strides so, int64_t hq,
             int64_t group, int64_t tq, int64_t tk, int causal, int64_t window, int64_t q_offset,
@@ -366,26 +371,32 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
 using bf16 = __nv_bfloat16;
 constexpr int kWgConsumers = 2;                      // consumer warpgroups, 64 query rows each
 constexpr int kWgBQ = 64 * kWgConsumers;             // query rows a block
-constexpr int kWgStages = 4;                         // K/V tiles in the ring
 constexpr int kWgThreads = 128 * kWgConsumers + 32;  // + one producer warp
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Shared memory of a block: the Q tile of kWgBQ rows, kWgStages K tiles and
-// kWgStages V tiles of kBK rows, then the barriers. A tile is stored as
+// Shared memory of a block: the Q tile of kWgBQ rows, kStages K tiles and
+// kStages V tiles of kBK rows, then the barriers. A tile is stored as
 // wgmma's swizzled descriptors read it and the tensor memory accelerator
-// writes it: rows of kRB bytes (128, or 64 at Dh = 32), the Dh columns in
-// blocks of kRB bytes one after another ([block][rows][kRB]), and inside each
-// 8-row atom the 16-byte chunk c of row r at c ^ (r % 8) (128-byte swizzle)
-// or c ^ (r / 2 % 4) (64-byte swizzle), which keeps the copies and wgmma's
-// reads free of bank conflicts. Atoms start on 1024 bytes.
+// writes it: rows of kRB bytes (the largest of 128, 64 and 32 that divides a
+// row: 128 at Dh = 64, 128 and 256, 64 at Dh = 32, 32 at Dh = 80, whose
+// 160-byte rows are five blocks), the Dh columns in blocks of kRB bytes one
+// after another ([block][rows][kRB]), and inside each 8-row atom the 16-byte
+// chunk c of row r at c ^ (r % 8) (128-byte swizzle), c ^ (r / 2 % 4)
+// (64-byte swizzle) or c ^ (r / 4 % 2) (32-byte swizzle), which keeps the
+// copies and wgmma's reads free of bank conflicts. Atoms start on 1024 bytes.
+// Dh = 256 keeps two stages: four would need 320 KB.
 template <int DH>
 struct WgSmem {
-  static constexpr int kRB = DH * 2 < 128 ? DH * 2 : 128;
-  static constexpr uint64_t kLayout = kRB == 128 ? 1 : 2;  // descriptor: 128B / 64B swizzle
+  static constexpr int kRB = DH * 2 % 128 == 0 ? 128 : (DH * 2 % 64 == 0 ? 64 : 32);
+  static_assert(DH * 2 % kRB == 0 && DH % 16 == 0, "a row is whole blocks of 16-column steps");
+  // descriptor and tensor-map swizzle: 1 = 128B, 2 = 64B, 3 = 32B
+  static constexpr uint64_t kLayout = kRB == 128 ? 1 : (kRB == 64 ? 2 : 3);
+  static constexpr int kStages = DH > 128 ? 2 : 4;  // K/V tiles in the ring
   static constexpr int kQBytes = kWgBQ * DH * 2;
   static constexpr int kTileBytes = kBK * DH * 2;
-  static constexpr int kBarBytes = 8 * (2 * kWgStages + 1);
-  static constexpr size_t kBytes = kQBytes + 2 * kWgStages * kTileBytes + kBarBytes + 1024;
+  static constexpr int kBarBytes = 8 * (2 * kStages + 1);
+  static constexpr size_t kBytes = kQBytes + 2 * kStages * kTileBytes + kBarBytes + 1024;
+  static_assert(kBytes <= kMaxSmemBytes, "the block's tiles fit in shared memory");
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -461,6 +472,19 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+// d (64 x 16, float32) (+)= a (64 x 16, registers) b (16 x 16, shared): bf16, b N-major
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
 // d (64 x 32, float32) (+)= a (64 x 16, registers) b (16 x 32, shared): bf16, b N-major
 __device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
                                          int scale_d) {
@@ -533,6 +557,34 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
+// the float32 accumulator registers of columns [C, C + N) of a wgmma fragment
+// (8 columns take 4 registers)
+template <int C, int N, int M>
+__device__ __forceinline__ float (&columns(float (&acc)[M]))[N / 2] {
+  static_assert(C % 8 == 0 && (C + N) / 2 <= M, "whole 8-column groups inside the fragment");
+  return *reinterpret_cast<float(*)[N / 2]>(acc + C / 2);
+}
+
+// O (64 x DH) += P (64 x 16, registers) V (16 x DH, shared, N-major; the
+// tile's block 0 at b0, blocks kBK rows of RB bytes apart): one instruction
+// up to 128 columns, two for Dh = 256 (128 each) and Dh = 80 (64 + 16)
+template <int DH, int RB>
+__device__ __forceinline__ void wgmma_pv(float (&acc)[DH / 2], const uint32_t (&a)[4],
+                                         uint32_t b0, uint64_t layout) {
+  auto desc = [&](int col) {  // the descriptor of the columns from col on
+    return wg_desc(b0 + col * 2 / RB * kBK * RB, kBK * RB, 8 * RB, layout);
+  };
+  if constexpr (DH == 256) {
+    wgmma_rs(columns<0, 128>(acc), a, desc(0), 1);
+    wgmma_rs(columns<128, 128>(acc), a, desc(128), 1);
+  } else if constexpr (DH == 80) {
+    wgmma_rs(columns<0, 64>(acc), a, desc(0), 1);
+    wgmma_rs(columns<64, 16>(acc), a, desc(64), 1);
+  } else {
+    wgmma_rs(acc, a, desc(0), 1);
+  }
+}
+
 // mbarriers in shared memory: a phase completes when its arrivals (and any
 // expected bytes of asynchronous copies) are in; waits name the phase parity
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
@@ -587,12 +639,12 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   const uint32_t qs_a = smem_addr(base);                       // [kWgBQ rows]
-  const uint32_t ks_a = qs_a + S::kQBytes;                     // [kWgStages][kBK rows]
-  const uint32_t vs_a = ks_a + kWgStages * S::kTileBytes;      // [kWgStages][kBK rows]
-  const uint32_t bar_a = vs_a + kWgStages * S::kTileBytes;     // full[S], empty[S], q_full
+  const uint32_t ks_a = qs_a + S::kQBytes;                     // [kStages][kBK rows]
+  const uint32_t vs_a = ks_a + S::kStages * S::kTileBytes;     // [kStages][kBK rows]
+  const uint32_t bar_a = vs_a + S::kStages * S::kTileBytes;    // full[S], empty[S], q_full
   auto full = [&](int s) { return bar_a + 8 * s; };
-  auto empty = [&](int s) { return bar_a + 8 * (kWgStages + s); };
-  const uint32_t q_full = bar_a + 8 * 2 * kWgStages;
+  auto empty = [&](int s) { return bar_a + 8 * (S::kStages + s); };
+  const uint32_t q_full = bar_a + 8 * 2 * S::kStages;
 
   const int tid = threadIdx.x, wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
   const bool producer = wg == kWgConsumers;
@@ -602,7 +654,7 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   const int64_t q_tiles = (tq + kWgBQ - 1) / kWgBQ;
 
   if (tid == 0) {
-    for (int s = 0; s < kWgStages; ++s) {
+    for (int s = 0; s < S::kStages; ++s) {
       mbar_init(full(s), 1);                  // the producer's expect-tx arrival
       mbar_init(empty(s), 4 * kWgConsumers);  // one arrival a consumer warp
     }
@@ -649,7 +701,7 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
             tma_load_4d(vd + cb * kBoxBytes, &v_map, full(stage), cb * (S::kRB / 2), row,
                         static_cast<int>(kvh), static_cast<int>(bi));
           }
-          if (++stage == kWgStages) {
+          if (++stage == S::kStages) {
             stage = 0;
             phase ^= 1;
           }
@@ -693,9 +745,7 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         const uint32_t vt = vs_a + st * S::kTileBytes;
 #pragma unroll
         for (int kk = 0; kk < kBK / 16; ++kk) {
-          const uint64_t db = wg_desc(vt + kk * 16 * S::kRB, kBK * S::kRB, 8 * S::kRB,
-                                      S::kLayout);
-          wgmma_rs(acc, p[kk], db, 1);
+          wgmma_pv<DH, S::kRB>(acc, p[kk], vt + kk * 16 * S::kRB, S::kLayout);
         }
         wgmma_commit();
       };
@@ -779,7 +829,7 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         }
       };
       auto advance = [&]() {
-        if (++stage == kWgStages) {
+        if (++stage == S::kStages) {
           stage = 0;
           phase ^= 1;
         }
@@ -863,35 +913,50 @@ constexpr int kDecRingBytes = 96 * 1024;          // the ring's size to aim for
 constexpr int kMergeWarps = 4;                    // merge kernel: warps a block
 
 constexpr int clamp_int(int x, int lo, int hi) { return x < lo ? lo : (x > hi ? hi : x); }
+// the largest power of two <= most that divides n
+constexpr int pow2_divisor(int n, int most) {
+  int p = 1;
+  while (p * 2 <= most && n % (p * 2) == 0) p *= 2;
+  return p;
+}
 
 // The decode kernel's layout for R query rows (a power of two, >= g * Tq) at
-// head dim DH. A key is taken by a group of kG lanes; lane gl of the group
-// holds elements (c * kG + gl) * kVW + [0, kVW) of a row for c < kNC (one
-// shared-memory load each), so a group reads a row as contiguous kCB-byte
-// pieces. K and V rows sit kRS bytes apart in the ring: when one load
-// instruction of a warp spans several rows (kG * kCB < 128 bytes a group),
-// the rows are padded so that their pieces fall on distinct banks.
+// head dim DH. A key is taken by a group of kG lanes (a power of two that
+// divides DH: 16 at most for Dh = 80); lane gl of the group holds elements
+// (c * kG + gl) * kVW + [0, kVW) of a row for c < kNC (one shared-memory load
+// each: kVW the largest power of two of at most 16 bytes that divides the
+// lane's kE elements, so Dh = 80 reads pieces of 1-4 elements), so a group
+// reads a row as contiguous kCB-byte pieces. K and V rows sit kRS bytes apart
+// in the ring: when one load instruction of a warp spans several rows (kG *
+// kCB < 128 bytes a group), the rows are padded so that their pieces fall on
+// distinct banks. The ring keeps 3-8 stages of about kDecRingBytes, fewer
+// where shared memory holds no 3 (float32 at Dh = 256: one 128 KB stage).
 template <class T, int DH, int R>
 struct Dec {
   static constexpr int kSize = static_cast<int>(sizeof(T));
-  static constexpr int kG = clamp_int(R * DH / 32, 4, 32);  // R x kE <= 32 where it can
+  // R x kE <= 32 where it can
+  static constexpr int kG = pow2_divisor(DH, clamp_int(R * DH / 32, 4, 32));
   static constexpr int kKW = 32 / kG;                       // keys a warp takes at once
   static constexpr int kSteps = kDecKeysPerWarp / kKW;      // such steps a tile
   static constexpr int kE = DH / kG;                        // elements a lane holds of a row
-  static constexpr int kVW = kE * kSize < 16 ? kE : 16 / kSize;
+  static constexpr int kVW = pow2_divisor(kE, 16 / kSize);
   static constexpr int kNC = kE / kVW;
   static constexpr int kCB = kVW * kSize;
   static constexpr int kRB = DH * kSize;
   static constexpr int kPad = kG * kCB >= 128 ? 0 : ((kG * kCB - kRB % 128) % 128 + 128) % 128;
-  static constexpr int kRS = kRB + kPad;
+  static constexpr int kRS = (kRB + kPad + 15) / 16 * 16;  // cp.async writes 16-byte pieces
+  static_assert(kG >= 4 && kG * kE == DH && kNC * kVW == kE, "a row splits over a lane group");
   // steps whose scores are held at once: at most 32 registers of them
   static constexpr int kChunk = clamp_int(32 / R, 1, kSteps);
   static constexpr int kTileBytes = kBK * kRS;
-  static constexpr int kStages = clamp_int(kDecRingBytes / (2 * kTileBytes), 3, 8);
-  static constexpr int kRing = kStages * 2 * kTileBytes;
   static constexpr int kMerge = kDecWarps * R * (DH + 2) * 4;  // the warps' partials
+  static constexpr int kStagesFit = (kMaxSmemBytes - 16 * 8) / (2 * kTileBytes);
+  static constexpr int kStagesWant = clamp_int(kDecRingBytes / (2 * kTileBytes), 3, 8);
+  static constexpr int kStages = kStagesWant < kStagesFit ? kStagesWant : kStagesFit;
+  static constexpr int kRing = kStages * 2 * kTileBytes;
   static constexpr int kBarOffset = kRing > kMerge ? kRing : kMerge;
   static constexpr size_t kBytes = kBarOffset + 16 * kStages;  // + full/empty barriers
+  static_assert(kStages >= 1 && kBytes <= kMaxSmemBytes, "the ring fits in shared memory");
 };
 
 // N elements of T at p (shared memory, N * sizeof(T) <= 16 bytes, aligned to
@@ -902,11 +967,15 @@ __device__ __forceinline__ void lds(const unsigned char* p, float* out) {
     if constexpr (N == 4) {
       const float4 x = *reinterpret_cast<const float4*>(p);
       out[0] = x.x, out[1] = x.y, out[2] = x.z, out[3] = x.w;
-    } else {
-      static_assert(N == 2, "float32 pieces are 8 or 16 bytes");
+    } else if constexpr (N == 2) {
       const float2 x = *reinterpret_cast<const float2*>(p);
       out[0] = x.x, out[1] = x.y;
+    } else {
+      static_assert(N == 1, "float32 pieces are 4, 8 or 16 bytes");
+      out[0] = *reinterpret_cast<const float*>(p);
     }
+  } else if constexpr (N == 1) {  // one bf16: the high half of a float32
+    out[0] = __uint_as_float(static_cast<unsigned>(*reinterpret_cast<const uint16_t*>(p)) << 16);
   } else {
     unsigned w[N / 2];
     if constexpr (N == 8) {
@@ -916,7 +985,7 @@ __device__ __forceinline__ void lds(const unsigned char* p, float* out) {
       const uint2 x = *reinterpret_cast<const uint2*>(p);
       w[0] = x.x, w[1] = x.y;
     } else {
-      static_assert(N == 2, "bf16 pieces are 4, 8 or 16 bytes");
+      static_assert(N == 2, "bf16 pieces are 2, 4, 8 or 16 bytes");
       w[0] = *reinterpret_cast<const unsigned*>(p);
     }
 #pragma unroll
@@ -1221,7 +1290,7 @@ template <class T, int DH>
 __global__ void __launch_bounds__(32 * kMergeWarps)
 attn_merge_kernel(const float* __restrict__ ws, T* __restrict__ o, Strides so, int64_t hkv,
                   int64_t group, int64_t tq, int64_t rows_total, int n_split) {
-  constexpr int kPer = DH / 32;  // output columns a lane
+  constexpr int kPer = (DH + 31) / 32;  // output columns a lane (the last ones past Dh = 80)
   const int64_t row = static_cast<int64_t>(blockIdx.x) * kMergeWarps + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows_total) return;
@@ -1238,7 +1307,9 @@ attn_merge_kernel(const float* __restrict__ ws, T* __restrict__ o, Strides so, i
     const float a = wm[s] == -INFINITY ? 0.0f : exp2f(wm[s] - m);
     l += a * wl[s];
 #pragma unroll
-    for (int j = 0; j < kPer; ++j) acc[j] += a * wo[s * DH + lane + 32 * j];
+    for (int j = 0; j < kPer; ++j) {
+      if (lane + 32 * j < DH) acc[j] += a * wo[s * DH + lane + 32 * j];
+    }
   }
   const int64_t rows = group * tq;
   const int64_t pair = row / rows, r = row % rows;
@@ -1246,7 +1317,9 @@ attn_merge_kernel(const float* __restrict__ ws, T* __restrict__ o, Strides so, i
   T* op = o + bi * so.b + head * so.h + t * so.t;
   const float denom = fmaxf(l, 1e-30f);
 #pragma unroll
-  for (int j = 0; j < kPer; ++j) op[lane + 32 * j] = from_float<T>(acc[j] / denom);
+  for (int j = 0; j < kPer; ++j) {
+    if (lane + 32 * j < DH) op[lane + 32 * j] = from_float<T>(acc[j] / denom);
+  }
 }
 
 // ---------------------------------------------------------------- launchers
@@ -1374,8 +1447,12 @@ int decode_occupancy_dh(int dh, int64_t rows, int* blocks) {
       return decode_occupancy_rows<T, 32>(rows, blocks);
     case 64:
       return decode_occupancy_rows<T, 64>(rows, blocks);
+    case 80:
+      return decode_occupancy_rows<T, 80>(rows, blocks);
     case 128:
       return decode_occupancy_rows<T, 128>(rows, blocks);
+    case 256:
+      return decode_occupancy_rows<T, 256>(rows, blocks);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1401,7 +1478,7 @@ EncodeTiled tensor_map_encoder() {
 }
 
 // a [B, H, T, DH] bf16 view (element strides st[0..2]: batch, head, row) as a
-// 4-D tensor map of boxes of box_rows rows x min(DH, 64) columns, swizzled like WgSmem
+// 4-D tensor map of boxes of box_rows rows x kRB / 2 columns, swizzled like WgSmem
 template <int DH>
 bool make_map(CUtensorMap* map, const void* ptr, const int64_t* st, int64_t batch,
               int64_t heads, int64_t rows, uint32_t box_rows) {
@@ -1417,7 +1494,9 @@ bool make_map(CUtensorMap* map, const void* ptr, const int64_t* st, int64_t batc
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
                 box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                S::kRB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                S::kRB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                              : (S::kRB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                              : CU_TENSOR_MAP_SWIZZLE_32B),
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -1485,8 +1564,14 @@ int launch_dh(int variant, int dh, const void* q, const void* k, const void* v, 
     case 64:
       return launch_variant<T, 64>(variant, q, k, v, o, st, batch, hq, hkv, tq, tk, causal,
                                    window, q_offset, sm_scale, workspace, n_split, stream);
+    case 80:
+      return launch_variant<T, 80>(variant, q, k, v, o, st, batch, hq, hkv, tq, tk, causal,
+                                   window, q_offset, sm_scale, workspace, n_split, stream);
     case 128:
       return launch_variant<T, 128>(variant, q, k, v, o, st, batch, hq, hkv, tq, tk, causal,
+                                    window, q_offset, sm_scale, workspace, n_split, stream);
+    case 256:
+      return launch_variant<T, 256>(variant, q, k, v, o, st, batch, hq, hkv, tq, tk, causal,
                                     window, q_offset, sm_scale, workspace, n_split, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -1503,7 +1588,7 @@ extern "C" {
 // (needs g * Tq <= 16; n_split >= 1 contiguous shares of the key tiles, and
 // with n_split > 1 a float32 workspace of B * Hkv * g * Tq * n_split *
 // (Dh + 2) elements); 3 = tensor cores (bf16 only, 16-byte aligned bases and
-// strides). dtype 0 = float32, 1 = bfloat16; dh in {32, 64, 128}; Hq a
+// strides). dtype 0 = float32, 1 = bfloat16; dh in {32, 64, 80, 128, 256}; Hq a
 // multiple of Hkv; window <= 0 means none. Returns the CUDA error code of the
 // launch (or of the first failed one).
 int flash_attention_fwd(int variant, int dtype, int dh, const void* q, const void* k,
@@ -1529,8 +1614,14 @@ int flash_attention_fwd(int variant, int dtype, int dh, const void* q, const voi
       case 64:
         return launch_wgmma<64>(q, k, v, o, strides, batch, hq, hkv, tq, tk, causal, window,
                                 q_offset, sm_scale, s);
+      case 80:
+        return launch_wgmma<80>(q, k, v, o, strides, batch, hq, hkv, tq, tk, causal, window,
+                                q_offset, sm_scale, s);
       case 128:
         return launch_wgmma<128>(q, k, v, o, strides, batch, hq, hkv, tq, tk, causal, window,
+                                 q_offset, sm_scale, s);
+      case 256:
+        return launch_wgmma<256>(q, k, v, o, strides, batch, hq, hkv, tq, tk, causal, window,
                                  q_offset, sm_scale, s);
       default:
         return static_cast<int>(cudaErrorInvalidValue);

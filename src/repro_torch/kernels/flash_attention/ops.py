@@ -52,7 +52,7 @@ __all__ = ["DTYPES", "HEAD_DIMS", "VARIANTS", "decode_blocks_per_sm", "decode_sp
            "split_launches", "variant_launches"]
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 128, 256)  # every variant is built at each
 # the kernel's variants, in the order of their codes in csrc/flash_attention.cu
 VARIANTS = ("fma", "fma_short", "decode_split", "wgmma_bf16")
 TILE_KEYS = 64  # keys a tile of every variant

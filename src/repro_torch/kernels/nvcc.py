@@ -24,9 +24,11 @@ from pathlib import Path
 __all__ = ["BUILD_DIR", "NVCC_FLAGS", "KernelLibrary"]
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+# -split-compile=0: the device code's optimisation runs on every host core,
+# not one (the attention library builds 85 kernel instances)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-split-compile=0",
 )
 
 

@@ -10,9 +10,10 @@ mesh-sharding knobs (``activation_partitioning`` and the
 the port runs on one card, so they stay out until a mesh exists (ROADMAP
 Queue 1 item 8d); on one card the reference's weight-stationary MoE
 (``moe_ffn_fshard``) does ``moe_ffn``'s arithmetic, so the port has the one
-layer. MoE routing (``top_k``, ``capacity_factor``) is here; MLA's decode,
-cross-attention and image tokens come with the families that read them
-(item 8c).
+layer. MoE routing (``top_k``, ``capacity_factor``), a cross-attention
+model's image tokens (``n_img_tokens``) and its tanh gate
+(``cross_attn_gated``) are here; MLA's fields are copied, but MLA itself
+waits for deepseek-v2 (item 8c).
 """
 from __future__ import annotations
 
@@ -69,6 +70,8 @@ class ModelConfig:
     mamba_expand: int = 2
     # ---- frontends
     frontend: str = "tokens"  # tokens | frames (audio stub) | tokens+image (vlm)
+    n_img_tokens: int = 0
+    cross_attn_gated: bool = True
     # ---- misc
     embed_scale: bool = False  # gemma-style sqrt(d) embedding multiplier
     tie_embeddings: bool = False

@@ -11,6 +11,8 @@ reference's arithmetic and order.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -34,11 +36,21 @@ def rope_freqs(dh: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** (torch.arange(0, dh, 2, dtype=torch.float32, device=device) / dh))
 
 
+@functools.lru_cache(maxsize=None)
+def _rope_freqs_on(dh: int, theta: float, device: torch.device) -> torch.Tensor:
+    """``rope_freqs`` computed on the host and copied to ``device`` once: a
+    card's ``pow`` may round a frequency an ulp away from the host's, and
+    the angle ``pos * freq`` multiplies that ulp by the position, so at a
+    long cache the card's logits would leave the CPU's by more than the
+    float32 tolerance (1e-4)."""
+    return rope_freqs(dh, theta).to(device)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """x: [..., T, H, Dh]; positions: [..., T]. Rotates the two halves of
     the head (``x1, x2 = split``), not interleaved pairs."""
     dh = x.shape[-1]
-    freqs = rope_freqs(dh, theta, x.device)  # [Dh/2]
+    freqs = _rope_freqs_on(dh, float(theta), x.device)  # [Dh/2]
     angles = positions[..., None].float() * freqs  # [..., T, Dh/2]
     cos = torch.cos(angles)[..., None, :]
     sin = torch.sin(angles)[..., None, :]

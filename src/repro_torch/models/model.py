@@ -30,11 +30,22 @@ layer order, as the reference's scan carry does. An arctic-style
 ``"moe_dense"`` FFN adds the dense FFN and the MoE on the same normed input
 into one residual (``x + (dense + moe)``, the reference's order).
 
-Supported: token inputs, GQA self-attention (qk-norm, full attention and
-sliding windows at prefill), Mamba-1 mixers, dense, MoE and dense + MoE
-FFNs. MLA, cross-attention, frame inputs, ``prefix`` layers and the
-sliding-window ring cache raise ``NotImplementedError`` naming the ROADMAP
-item that brings them.
+Supported: token inputs and precomputed frame inputs (``frontend ==
+"frames"``: ``inputs["frames"]`` [B, S, D] in place of the embedding, no
+``embed`` parameter; an encoder-only model has no decode path), GQA
+self-attention (qk-norm, full attention and sliding windows, causal or
+bidirectional), gated cross-attention layers over ``inputs["image_embeds"]``
+[B, N, D], Mamba-1 mixers, dense, MoE and dense + MoE FFNs. MLA and
+``prefix`` layers raise ``NotImplementedError`` naming the ROADMAP item
+that brings them.
+
+Decode caches as in the reference: a sliding-window layer keeps a ring of
+``min(seq, window)`` slots (position ``pos`` in slot ``pos % window`` once
+the cache is a whole window long, keys RoPE'd as they are written); a
+cross-attention layer keeps the image's keys and values ``k_img``/``v_img``
+[B, n_img_tokens, Hkv, Dh], which the caller fills (``img @ wk``, ``img @
+wv``, as the reference's tests do; ``init_cache`` gives zeros, as the
+reference's serve loop uses them).
 """
 from __future__ import annotations
 
@@ -46,7 +57,7 @@ import torch.utils.checkpoint as checkpoint
 from torch import nn
 
 from repro_torch.device import resolve_device
-from repro_torch.models.attention import gqa_flash_decode, gqa_forward
+from repro_torch.models.attention import gqa_cross_decode, gqa_flash_decode, gqa_forward
 from repro_torch.models.config import LATER_ITEM, LayerSpec, ModelConfig
 from repro_torch.models.layers import apply_rope, dense_ffn, moe_ffn, qk_head_norm, rms_norm
 from repro_torch.models.mamba import mamba_decode_step, mamba_forward
@@ -56,15 +67,15 @@ def _check_supported(cfg: ModelConfig) -> None:
     def later(what: str):
         raise NotImplementedError(f"{cfg.name}: {what} is not ported yet; {LATER_ITEM}")
 
-    if cfg.frontend != "tokens":
-        later(f"the {cfg.frontend!r} frontend")
+    if cfg.frontend not in ("tokens", "frames"):
+        raise ValueError(f"{cfg.name}: unknown frontend {cfg.frontend!r}")
     if cfg.prefix:
         later("a prefix layer stack")
     if cfg.use_mla:
         later("MLA")
     for spec in cfg.layers():
-        if spec.mixer not in ("attn", "mamba"):
-            later(f"the {spec.mixer!r} mixer")
+        if spec.mixer not in ("attn", "cross_attn", "mamba"):
+            raise ValueError(f"{cfg.name}: unknown mixer {spec.mixer!r}")
         if spec.ffn not in ("dense", "moe", "moe_dense", "none"):
             raise ValueError(f"{cfg.name}: unknown FFN {spec.ffn!r}")
     if cfg.remat and cfg.remat_policy not in ("dots", "nothing", "save_moe"):
@@ -143,7 +154,7 @@ class Model(nn.Module):
 
         def layer(spec: LayerSpec) -> dict:
             p: dict = {"norm1": {"scale": ones(d)}}
-            if spec.mixer == "attn":
+            if spec.mixer in ("attn", "cross_attn"):
                 h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
                 s = d**-0.5
                 p["attn"] = {
@@ -155,6 +166,8 @@ class Model(nn.Module):
                 if cfg.qk_norm:
                     p["attn"]["q_scale"] = ones(dh)
                     p["attn"]["k_scale"] = ones(dh)
+                if spec.mixer == "cross_attn" and cfg.cross_attn_gated:
+                    p["attn"]["gate"] = zeros(1)  # tanh(0): the image path starts closed
             else:  # mamba
                 di, n = cfg.mamba_expand * d, cfg.ssm_state
                 dt_rank = max(d // 16, 1)
@@ -187,7 +200,9 @@ class Model(nn.Module):
                     p["moe"]["shared"] = dense(cfg.n_shared_experts * f)
             return p
 
-        params: dict = {"embed": normal((cfg.vocab_size, d), 0.02)}
+        params: dict = {}
+        if cfg.frontend != "frames":  # frame embeddings arrive at d_model width
+            params["embed"] = normal((cfg.vocab_size, d), 0.02)
         params["layers"] = [layer(spec) for spec in cfg.layers()]
         params["final_norm"] = {"scale": ones(d)}
         if not cfg.tie_embeddings:
@@ -208,11 +223,19 @@ class Model(nn.Module):
         return x @ params["unembed"]
 
     def forward(self, params: dict, inputs: dict):
-        """Full-sequence forward. inputs: ``{"tokens": [B, S]}``. Returns
-        ``(logits [B, S, V], aux_loss)``; ``aux_loss`` is the MoE router
-        loss summed over the layers (float32; zero without MoE layers)."""
+        """Full-sequence forward. inputs: ``{"tokens": [B, S]}`` (or
+        ``{"frames": [B, S, D]}``, cast to the model's dtype) and optionally
+        ``"image_embeds"`` [B, N, D], the source of every cross-attention
+        layer (without it such a layer attends to its own input, as the
+        reference's does). Returns ``(logits [B, S, V], aux_loss)``;
+        ``aux_loss`` is the MoE router loss summed over the layers (float32;
+        zero without MoE layers)."""
         cfg = self.cfg
-        x = self._embed(params, inputs["tokens"])
+        if cfg.frontend == "frames":
+            x = inputs["frames"].to(self.dtype)
+        else:
+            x = self._embed(params, inputs["tokens"])
+        img = inputs.get("image_embeds")
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for spec, p in zip(cfg.layers(), params["layers"]):
             if cfg.remat and _needs_grad(x, p):
@@ -221,10 +244,10 @@ class Model(nn.Module):
                     context = functools.partial(
                         checkpoint.create_selective_checkpoint_contexts,
                         _POLICIES[cfg.remat_policy])
-                x, a = checkpoint.checkpoint(self._layer, x, p, spec, use_reentrant=False,
+                x, a = checkpoint.checkpoint(self._layer, x, p, spec, img, use_reentrant=False,
                                              context_fn=context)
             else:
-                x, a = self._layer(x, p, spec)
+                x, a = self._layer(x, p, spec, img)
             aux = aux + a
         return self._head(params, x), aux
 
@@ -245,34 +268,40 @@ class Model(nn.Module):
             out = mo if out is None else out + mo
         return x + out, aux
 
-    def _layer(self, x: torch.Tensor, p: dict, spec: LayerSpec):
-        """One layer of the full-sequence forward: ``(x, aux)``."""
+    def _layer(self, x: torch.Tensor, p: dict, spec: LayerSpec, img=None):
+        """One layer of the full-sequence forward: ``(x, aux)``; ``img`` the
+        image embeddings a cross-attention layer reads."""
         cfg = self.cfg
         h = rms_norm(x, p["norm1"])
         if spec.mixer == "attn":
             y, _ = gqa_forward(h, p["attn"], cfg, window=spec.window)
+        elif spec.mixer == "cross_attn":
+            y, _ = gqa_forward(h, p["attn"], cfg, window=None, kv_x=img)
         else:
             y, _ = mamba_forward(h, p["mamba"], cfg)
         return self._ffn(x + y, p, spec)
 
     # ----------------------------------------------------------------- cache
     def init_cache(self, batch: int, seq: int, dtype: torch.dtype | None = None) -> list:
-        """One dict per layer: ``{"k", "v"}`` ``[B, seq, Hkv, Dh]`` for
-        attention, ``{"conv" [B, d_conv-1, di], "ssm" [B, di, N] float32}``
-        for Mamba."""
+        """One dict per layer: ``{"k", "v"}`` ``[B, L, Hkv, Dh]`` for
+        attention (``L = seq``, or ``min(seq, window)`` for a sliding-window
+        layer: a ring once ``seq >= window``), ``{"k_img", "v_img"}`` ``[B,
+        n_img_tokens, Hkv, Dh]`` for cross-attention (zeros until the
+        caller writes the image's keys and values), ``{"conv" [B, d_conv-1,
+        di], "ssm" [B, di, N] float32}`` for Mamba."""
         cfg, dev = self.cfg, self.device
         dt = dtype or self.dtype
         di = cfg.mamba_expand * cfg.d_model
         cache = []
         for spec in cfg.layers():
-            if spec.mixer == "attn":
-                if spec.window is not None and seq >= spec.window:
-                    raise NotImplementedError(
-                        f"{cfg.name}: the sliding-window ring cache is not ported yet; "
-                        f"{LATER_ITEM}")
-                shape = (batch, seq, cfg.n_kv_heads, cfg.head_dim)
-                cache.append({"k": torch.zeros(shape, dtype=dt, device=dev),
-                              "v": torch.zeros(shape, dtype=dt, device=dev)})
+            if spec.mixer in ("attn", "cross_attn"):
+                if spec.mixer == "cross_attn":
+                    names, length = ("k_img", "v_img"), cfg.n_img_tokens
+                else:
+                    names = ("k", "v")
+                    length = seq if spec.window is None else min(seq, spec.window)
+                shape = (batch, length, cfg.n_kv_heads, cfg.head_dim)
+                cache.append({n: torch.zeros(shape, dtype=dt, device=dev) for n in names})
             else:
                 cache.append({
                     "conv": torch.zeros((batch, cfg.d_conv - 1, di), dtype=dt, device=dev),
@@ -295,10 +324,23 @@ class Model(nn.Module):
         posv = torch.full((b, 1), pos, device=x.device)
         q = apply_rope(q, posv, cfg.rope_theta)
         k = apply_rope(k, posv, cfg.rope_theta)
-        # the slot is written before attending, as in the reference
-        cache["k"][:, pos] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][:, pos] = v[:, 0].to(cache["v"].dtype)
-        out = gqa_flash_decode(q[:, 0], cache["k"], cache["v"], pos, spec.window)  # [B, H, Dh]
+        # the slot is written before attending, as in the reference: a
+        # window-long cache is a ring (slot pos % window), a shorter one is
+        # written at pos
+        length = cache["k"].shape[1]
+        ring = spec.window is not None and length == spec.window
+        slot = pos % length if ring else pos
+        cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+        # The reference attends the ring's slot s where s <= pos or pos >=
+        # length: a cold ring the slots written so far, a warm one every
+        # slot (RoPE was applied at write time, so slot order does not
+        # matter). That is the key set of a causal launch over the ring at
+        # q_offset = pos with no window (slot s kept iff s <= pos, which
+        # holds for every slot once pos >= length - 1); the kernel sums the
+        # slots in slot order, not position order, a float-order difference.
+        out = gqa_flash_decode(q[:, 0], cache["k"], cache["v"], pos,
+                               None if ring else spec.window)  # [B, H, Dh]
         return x + out.reshape(b, 1, hq * dh) @ p["wo"]
 
     def _decode_layer(self, x, p, spec: LayerSpec, cache: dict, pos: int):
@@ -306,6 +348,8 @@ class Model(nn.Module):
         h = rms_norm(x, p["norm1"])
         if spec.mixer == "attn":
             x = self._decode_gqa(x, h, p["attn"], cache, pos, spec)
+        elif spec.mixer == "cross_attn":
+            x = x + gqa_cross_decode(h, p["attn"], self.cfg, cache["k_img"], cache["v_img"])
         else:
             y, (cache["conv"], cache["ssm"]) = mamba_decode_step(
                 h, p["mamba"], self.cfg, cache["conv"], cache["ssm"])
@@ -317,6 +361,8 @@ class Model(nn.Module):
         """One decode step. tokens: [B, 1]; ``pos`` the position being
         written. Returns ``(logits [B, 1, V], cache)``, the cache updated in
         place."""
+        if self.cfg.is_encoder_only:
+            raise ValueError(f"{self.cfg.name} is encoder-only: it has no decode path")
         x = self._embed(params, tokens)
         for spec, p, c in zip(self.cfg.layers(), params["layers"], cache):
             x = self._decode_layer(x, p, spec, c, pos)

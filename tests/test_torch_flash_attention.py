@@ -22,6 +22,7 @@ and are tested here too.
 """
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -38,6 +39,11 @@ KERNEL_SHAPES = [  # tests/test_kernels.py: b, hq, hkv, tq, tk, dh, causal, wind
     (1, 2, 1, 256, 256, 32, False, None),  # bidirectional
     (1, 2, 2, 128, 128, 64, True, 32),     # sliding window
     (2, 2, 2, 64, 64, 128, True, None),    # small seq
+    # the slice-14 families' head dims and cross-attention shapes
+    (1, 4, 2, 96, 96, 80, False, None),     # hubert-xlarge: Dh 80, bidirectional
+    (1, 2, 1, 128, 128, 256, True, 64),     # gemma3-12b's local layers: Dh 256, a window
+    (1, 8, 2, 8, 1024, 128, False, None),   # cross-attention: Tq 8 over 1,024 image tokens
+    (2, 8, 2, 1, 1024, 128, False, None),   # its decode step: Tq 1
 ]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -186,10 +192,27 @@ def test_wrapper_checks_and_counts_no_cpu_launch():
     (torch.bfloat16, 16, 2, 64, True, "fma_short"),
     (torch.bfloat16, 8192, 4, 128, False, "fma"),      # unaligned rows
     (torch.bfloat16, 100, 1, 32, False, "fma"),
+    (torch.bfloat16, 8192, 2, 256, True, "wgmma_bf16"),  # gemma3-12b prefill
+    (torch.bfloat16, 1500, 1, 80, True, "wgmma_bf16"),   # hubert-xlarge, 30 s of frames
+    (torch.bfloat16, 8192, 8, 128, True, "wgmma_bf16"),  # llama's cross prefill over Tk 1024
+    (torch.bfloat16, 1, 2, 256, True, "decode_split"),   # gemma3 decode, the ring too
+    (torch.bfloat16, 1, 8, 128, True, "decode_split"),   # llama's cross decode, g = 8
+    (torch.float32, 8, 4, 80, True, "fma_short"),
+    (torch.float32, 1500, 1, 80, True, "fma"),
+    (torch.float32, 64, 2, 256, True, "fma"),
 ])
 def test_kernel_variant_dispatch(dtype, tq, group, dh, aligned, variant):
     assert ops.kernel_variant(dtype, tq, group, dh, aligned) == variant
     assert variant in ops.VARIANTS
+
+
+def test_every_variant_takes_every_head_dim():
+    """Dh 80 (hubert-xlarge) and 256 (gemma3-12b) are built for every
+    variant; a head dim that is not built raises before any launch."""
+    assert ops.HEAD_DIMS == (32, 64, 80, 128, 256)
+    for dh in ops.HEAD_DIMS:
+        assert ops.kernel_variant(torch.bfloat16, 64, 1, dh, True) == "wgmma_bf16"
+    assert ops.kernel_variant(torch.bfloat16, 64, 1, 96, True) == "fma"
 
 
 def test_alignment_of_views():
@@ -356,6 +379,10 @@ SPLIT_DECODE_CASES = [  # b, hq, hkv, tq, tk, dh, causal, window, q_offset, n_sp
     (2, 8, 2, 1, 1, 32, True, None, 0, 2),          # Tk = 1: one share empty
     (1, 16, 1, 1, 2048, 64, True, None, 2047, 7),   # g * Tq = 16
     (1, 8, 2, 4, 2048, 32, True, 33, 2040, 2),      # g * Tq = 16 under a window
+    (8, 16, 8, 1, 1024, 256, True, None, 8195, 1),  # gemma3's warm ring: every slot
+    (2, 16, 8, 1, 1024, 256, True, None, 700, 2),   # a cold ring: the slots <= pos
+    (2, 16, 16, 1, 2100, 80, True, None, 2099, 7),  # Dh 80
+    (2, 64, 8, 1, 1024, 128, False, None, 0, 1),    # cross decode: g = 8, 1,024 image keys
 ]
 
 
@@ -417,3 +444,33 @@ def test_decode_splits_never_exceed_the_tiles(sms):
                     assert 1 <= n <= tiles
                     assert n == 1 or tiles // n >= ops.DECODE_MIN_TILES_PER_SPLIT
                     assert n == 1 or batch * hkv * n <= sms * blocks_per_sm
+
+
+# ------------------------------------------------------ the sliding-window ring
+@pytest.mark.parametrize("dh", [32, 256])
+@pytest.mark.parametrize("pos", [0, 5, 15, 16, 40, 1023])
+def test_ring_decode_matches_the_reference_ring(pos, dh):
+    """A decode step over a 16-slot ring (gemma3's local layers, reduced):
+    the port's causal launch at ``q_offset = pos`` with no window against
+    the reference's ring attention (``repro/models/model.py``'s
+    ``_decode_gqa``: slot s counts if ``s <= pos or pos >= length``), and
+    against the split decode model. Both sum the slots in slot order."""
+    from repro_torch.models.attention import gqa_flash_decode
+
+    b, hq, hkv, length = 2, 4, 2, 16
+    rng = np.random.default_rng(pos * 10 + dh)
+    q = rng.standard_normal((b, hq, dh)).astype(np.float32)
+    k, v = (rng.standard_normal((b, length, hkv, dh)).astype(np.float32) for _ in range(2))
+    g = hq // hkv
+    qg = jnp.asarray(q).reshape(b, hkv, g, dh) * dh**-0.5
+    scores = jnp.einsum("bhgd,bshd->bhgs", qg, jnp.asarray(k))
+    slots = jnp.arange(length)
+    scores = jnp.where(((slots <= pos) | (pos >= length))[None, None, None], scores, -1e30)
+    probs = jax.nn.softmax(scores, axis=-1)
+    want = jnp.einsum("bhgs,bshd->bhgd", probs, jnp.asarray(v)).reshape(b, hq, dh)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    got = gqa_flash_decode(tq, tk, tv, pos, None)
+    _assert_close(got, want, TOL["float32"])
+    model = _split_decode_model(tq[:, :, None], tk.transpose(1, 2), tv.transpose(1, 2),
+                                causal=True, q_offset=pos)
+    _assert_close(model[:, :, 0], want, TOL["float32"])

@@ -796,7 +796,7 @@ def test_tensor_core_kernel_head_dims_ragged_and_masked(cuda_device, dh, tq, tk,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("dh", [32, 64, 80, 128, 256])
 def test_tensor_core_kernel_gqa_in_model_layout(cuda_device, dh):
     """g = 4 query heads a KV head, [B, T, H, Dh] read in place, the output
     written in the model's layout."""
@@ -916,7 +916,7 @@ def test_decode_kernel_splits_long_caches(cuda_device, b, hq, hkv, tq, tk, dh, d
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("dh", [32, 64, 80, 128, 256])
 @pytest.mark.parametrize("hq,hkv,tq", [(2, 2, 1), (4, 2, 1), (8, 2, 1), (8, 2, 2), (16, 1, 1)])
 def test_decode_kernel_every_row_capacity(cuda_device, hq, hkv, tq, dh, dtype):
     """g * Tq = 1, 2, 4, 8 and 16 rows: each compiled instance of the decode
@@ -946,13 +946,60 @@ def test_decode_kernel_masks_and_offsets(cuda_device, tq, tk, causal, window, q_
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("dh", [32, 64, 80, 128, 256])
 def test_decode_kernel_unaligned_rows(cuda_device, dh, dtype):
     """K/V rows that are not 16-byte aligned take the same variant's element
     loads, with and without a split."""
     for tk in (300, 4096):
         _decode_case(cuda_device, dtype, 2, 8, 2, 1, tk, dh, tk + dh, unaligned=True,
                      causal=True, q_offset=tk - 1)
+
+
+# every variant at head dims 80 (hubert-xlarge) and 256 (gemma3-12b), with the
+# slice-14 shapes: bidirectional Tq != Tk (cross-attention over 1,024 image
+# tokens), the sliding window, and a ring cache read past its length
+# (causal, q_offset >= Tk: every slot counts)
+NEW_DIM_CASES = [  # variant, dtype, b, hq, hkv, tq, tk, causal, window, q_offset
+    ("fma", torch.float32, 1, 4, 2, 100, 150, True, None, 50),
+    ("fma", torch.float32, 1, 8, 2, 64, 1024, False, None, 0),
+    ("fma", torch.float32, 1, 4, 2, 70, 300, True, 64, 230),
+    ("fma_short", torch.float32, 1, 8, 2, 8, 1024, False, None, 0),
+    ("fma_short", torch.bfloat16, 2, 16, 2, 16, 200, True, 40, 184),
+    ("decode_split", torch.float32, 2, 16, 8, 1, 1024, True, None, 2000),
+    ("decode_split", torch.bfloat16, 8, 16, 8, 1, 1024, True, None, 8195),
+    ("decode_split", torch.bfloat16, 2, 16, 2, 1, 1024, False, None, 0),
+    ("decode_split", torch.bfloat16, 1, 8, 8, 1, 1024, True, None, 500),
+    ("wgmma_bf16", torch.bfloat16, 1, 4, 2, 200, 333, True, 64, 133),
+    ("wgmma_bf16", torch.bfloat16, 1, 8, 2, 300, 1024, False, None, 0),
+    ("wgmma_bf16", torch.bfloat16, 2, 4, 4, 150, 150, False, None, 0),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [80, 256])
+@pytest.mark.parametrize("variant,dtype,b,hq,hkv,tq,tk,causal,window,q_offset", NEW_DIM_CASES)
+def test_flash_kernel_at_the_new_head_dims(cuda_device, dh, variant, dtype, b, hq, hkv, tq, tk,
+                                          causal, window, q_offset):
+    """Each variant at Dh 80 and 256 against ``flash_attention_ref``, in
+    the model's layout (transposed views, as the model hands them over)."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    rng = np.random.default_rng(dh * 100 + tq + tk)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda_device, dtype)
+               .transpose(1, 2) for s in ((b, tq, hq, dh), (b, tk, hkv, dh), (b, tk, hkv, dh)))
+    assert fa.kernel_variant(dtype, tq, hq // hkv, dh, fa.is_aligned(q, k, v)) == variant
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    before = dict(fa.variant_launches)
+    got = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert {n: fa.variant_launches[n] - before[n] for n in fa.VARIANTS} == \
+        {n: int(n == variant) for n in fa.VARIANTS}
+    want = flash_attention_ref(*(t.contiguous() for t in (q, k, v)), **kw)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        assert _row_rel_l2(got, want) <= 1e-2
 
 
 @pytest.mark.gpu
