@@ -6,7 +6,9 @@
 
 Phases:
   0. set-up: card name and power limit, torch/CUDA versions, kernel build
-     (phase 1's graph is generated on the host while nvcc runs);
+     (five libraries, one nvcc each, all started together: the attention
+     kernels at Dqk = Dv and at MLA's pairs are two; phase 1's graph is
+     generated on the host while nvcc runs);
   1. the partition-score kernel against its plain PyTorch version on the card
      at the main path's shapes (C=512 chunks of the phase-2 graph at K=8 and
      K=64, the chunk holding the highest-degree vertex, the dense entry),
@@ -86,7 +88,14 @@ Phases:
      hubert-xlarge at B=8, T=1500 (Dh=80, bidirectional),
      llama-3.2-vision-90b's cross layer at T=8192 and at a decode step
      over 1,024 image tokens (Hq=64, Hkv=8, bidirectional), and float32
-     ``fma`` / ``fma_short`` rows at Dh 80 and 256;
+     ``fma`` / ``fma_short`` rows at Dh 80 and 256; and deepseek-v2-236b's
+     MLA pairs (``MLA_FLASH_ROWS``): prefill at (Dqk, Dv) = (192, 128), B=1,
+     T=8192, 128 heads in the model's layout on ``wgmma_bf16`` (the plain
+     version 16 heads at a time), the absorbed decode at (576, 512), 128
+     query heads on one latent KV head whose first 512 columns are the
+     value, over a 32k cache at B=8 and the serve loop's 160 keys on
+     ``decode_latent``, a 16-token prompt, float32 rows, and the reduced
+     config's (48, 32);
      ``library_ms`` being ``F.scaled_dot_product_attention`` (with a
      boolean mask where a window or an offset diagonal needs one); each row
      names the variant that ran, and decode rows their split count;
@@ -106,10 +115,10 @@ Phases:
  15. falcon-mamba-7b the same way: prefill with 64 scan launches, serve
      with none (decode is the plain recurrence, as in the reference), and
      one prefill under ``torch.profiler``;
- 16. the nine reduced configs (qwen3-8b, falcon-mamba-7b, minitron-8b,
+ 16. the ten reduced configs (qwen3-8b, falcon-mamba-7b, minitron-8b,
      deepseek-coder-33b, jamba-v0.1-52b, arctic-480b, gemma3-12b,
-     hubert-xlarge, llama-3.2-vision-90b) in float32 with the same weights
-     on the card and on the CPU: logits and the router loss within 1e-4,
+     hubert-xlarge, llama-3.2-vision-90b, deepseek-v2-236b) in float32
+     with the same weights on the card and on the CPU: logits and the router loss within 1e-4,
      every MoE layer's expert ids and the greedy tokens equal (gemma3's
      serve of 8 + 8 tokens runs its 16-slot rings; hubert takes frames and
      runs ``forward`` only; llama's forward reads image embeddings); for
@@ -250,6 +259,16 @@ Phases:
      cross one bidirectional over the image keys), the gate's effect on a
      step's logits; each part with seconds, tokens a second, peak memory,
      launches by variant and a profiled call's idle share;
+ 27. (runs after phase 26) deepseek-v2-236b at full width, bf16, seeded,
+     cut to its dense prefix layer and one MoE block of the 59 (5.36B
+     parameters; ``reduced`` says why): through ``lm_phase``, prefill B=1
+     T=8192 (2 ``wgmma_bf16`` launches at (192, 128), MLA's expanded form)
+     and the serve loop at B=8 prompt 128 gen 32 (2 ``decode_latent``
+     launches a step at (576, 512), the absorbed form over the latent
+     cache), both profiled with the MoE ranges' share; then 8
+     ``decode_step``s at B=8 from the end of a seeded 8,192-long latent
+     cache (split into shares), the last held against the same step with
+     every attention call on the plain version (phase 17's bf16 gate);
  24. (runs last) LM training: (a) the attention wrapper's gradient (the
      kernel forward, the plain version's backward) against plain autograd
      at ``repro-100m``'s shape (B=8, T=256, H=10, Hkv=5, Dh=64, bf16) and a
@@ -283,8 +302,8 @@ power limit, and ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero before that line. Without a CUDA device (and without ``--tiny``)
 the script exits 2 and prints no result. ``--tiny`` runs phases 12-17 at
 the reduced configs and small kernel shapes, phase 25 at the reduced
-configs and small arctic rows, phase 26 at the reduced configs, phase
-19 on social-s (its constants
+configs and small arctic rows, phases 26 and 27 at the reduced configs,
+phase 19 on social-s (its constants
 unchecked), phase 20 on the 2^12 and 2^14 graphs, phase 21's
 full-size part on a 2^12 R-MAT, phase 22(b) on phase 2's 2^14 partition
 (phase 22's committed rows and the CLI run unchanged, on the CPU), phase
@@ -312,7 +331,10 @@ TPU_KERNEL_SHARDED = "src/repro/kernels/partition_score/partition_score.py:68"
 SPMV_SOURCE = "src/repro_torch/kernels/ell_spmv/csrc/ell_spmv.cu"
 TPU_KERNEL_SPMV = "src/repro/kernels/ell_spmv/ell_spmv.py:33"
 SPMV_VARIANT = "merge_path"  # the design of csrc/ell_spmv.cu, named in phase 9's rows
-FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+# the attention kernels' templates; flash_attention.cu builds them at Dqk = Dv,
+# FLASH_MLA_LIBRARY at MLA's pairs
+FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cuh"
+FLASH_MLA_LIBRARY = "src/repro_torch/kernels/flash_attention/csrc/flash_attention_mla.cu"
 TPU_KERNEL_FLASH = "src/repro/kernels/flash_attention/flash_attention.py:89"
 SCAN_SOURCE = "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu"
 TPU_KERNEL_SCAN = "src/repro/kernels/mamba_scan/mamba_scan.py:46"
@@ -360,7 +382,8 @@ DENSE_ARCHS = ("minitron-8b", "deepseek-coder-33b")  # phase 25(b), full width, 
 # phase 26: gemma3-12b and llama-3.2-vision-90b at full width cut to one
 # block, hubert-xlarge at full depth
 FAMILY_ARCHS = ("gemma3-12b", "hubert-xlarge", "llama-3.2-vision-90b")
-REDUCED_ARCHS = LM_ARCHS + DENSE_ARCHS + MOE_ARCHS + FAMILY_ARCHS  # phase 16
+MLA_ARCH = "deepseek-v2-236b"  # phase 27, full width, its prefix layer and one block
+REDUCED_ARCHS = LM_ARCHS + DENSE_ARCHS + MOE_ARCHS + FAMILY_ARCHS + (MLA_ARCH,)  # phase 16
 # examples/moe_placement.py's mean fanouts, computed with repro.core.placement
 # on the CPU (50,000 tokens, E=160, top-6, 16 devices, skew 0.7, seed 0)
 PLACEMENT_FANOUT = {"round_robin": 4.49486, "contiguous": 4.53496, "cuttana": 2.99758}
@@ -2073,20 +2096,48 @@ def worst_row_rel_l2(got, want) -> float:
 
 
 def flash_row(torch, np, F, fa, fa_ref, timer, name, b, hq, hkv, tq, tk, dh, dtype,
-              causal=True, window=None, q_offset=0, library_causal=None, reps=(100, 5)):
+              causal=True, window=None, q_offset=0, library_causal=None, reps=(100, 5), dv=None,
+              latent=False, plain_heads=None):
     """Phase 12: one shape of the attention kernel against its plain version
     (``tests/test_kernels.py``'s tolerances), its device time and its bound;
     with ``library_causal`` set (the main shapes) also the per-call, plain
-    and ``scaled_dot_product_attention`` times."""
+    and ``scaled_dot_product_attention`` times. ``dv`` (an MLA pair, Dv <
+    Dqk = ``dh``) takes the model's prefill layout (q and k transposed
+    ``[B, T, H, Dqk]``, v a view of a ``[B, T, H, 2 Dv]`` tensor); with
+    ``latent`` (Hkv = 1) k is a ``[B, S, Dqk]`` latent buffer and v its first
+    Dv columns, as the absorbed decode reads its cache. ``plain_heads`` runs
+    the plain version that many KV heads at a time (its float32 scores at
+    128 heads and T=8192 would not fit the card at once)."""
     device = timer.device
+    dv = dh if dv is None else dv
     gen = torch.Generator(device=device).manual_seed(tq * 7 + tk + dh)
-    q, k, v = (torch.randn(s, generator=gen, device=device, dtype=torch.float32).to(dtype)
-               for s in ((b, hq, tq, dh), (b, hkv, tk, dh), (b, hkv, tk, dh)))
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device, dtype=torch.float32).to(dtype)
+
+    if latent:
+        q, buf = randn(b, hq, tq, dh), randn(b, tk, dh)
+        k, v = buf[:, None], buf[:, None, :, :dv]
+    elif dv != dh:
+        q, k = randn(b, tq, hq, dh).transpose(1, 2), randn(b, tk, hkv, dh).transpose(1, 2)
+        v = randn(b, tk, hkv, 2 * dv)[..., dv:].transpose(1, 2)
+    else:
+        q, k, v = randn(b, hq, tq, dh), randn(b, hkv, tk, dh), randn(b, hkv, tk, dh)
     kw = dict(causal=causal, window=window, q_offset=q_offset)
-    variant = fa.kernel_variant(dtype, tq, hq // hkv, dh, fa.is_aligned(q, k, v))
+    g = hq // hkv
+
+    def plain():
+        if plain_heads is None:
+            return fa_ref.flash_attention_ref(q, k, v, **kw)
+        return torch.cat([fa_ref.flash_attention_ref(q[:, h * g:(h + plain_heads) * g],
+                                                     k[:, h:h + plain_heads],
+                                                     v[:, h:h + plain_heads], **kw)
+                          for h in range(0, hkv, plain_heads)], dim=1)
+
+    variant = fa.kernel_variant(dtype, tq, g, dh, fa.is_aligned(q, k, v), dv)
     before, splits_before = dict(fa.variant_launches), dict(fa.split_launches)
     got = fa.flash_attention(q, k, v, **kw)
-    want = fa_ref.flash_attention_ref(q, k, v, **kw)
+    want = plain()
     sync(torch, device)
     ran = {n: fa.variant_launches[n] - before[n] for n in fa.VARIANTS}
     check(ran == {n: int(n == variant and device.type == "cuda") for n in fa.VARIANTS},
@@ -2104,15 +2155,17 @@ def flash_row(torch, np, F, fa, fa_ref, timer, name, b, hq, hkv, tq, tk, dh, dty
     del want
     call = lambda: fa.flash_attention(q, k, v, **kw)  # noqa: E731
     pairs = attention_pairs(np, tq, tk, causal, window, q_offset) * b * hq
-    flops = 4 * pairs * dh
-    nbytes = (2 * b * hq * tq * dh + 2 * b * hkv * tk * dh) * q.element_size()
+    flops = 2 * pairs * (dh + dv)  # q k^T over Dqk, p v over Dv
+    # q and o, k and (unless it is k's own columns) v, each once
+    nbytes = (b * hq * tq * (dh + dv) + b * hkv * tk * (dh + (0 if latent else dv))) * \
+        q.element_size()
     rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = max(flops / rate, pairs / EXP_PER_S) * 1e3  # the products, or one exp a pair
     ms = timer.device_ms(call, reps=reps[0], replays=reps[1])
     row = {
         "shape": name, "variant": variant, "n_split": n_split, "b": b, "hq": hq, "hkv": hkv,
-        "tq": tq, "tk": tk, "dh": dh, "dtype": tname, "causal": causal, "window": window,
+        "tq": tq, "tk": tk, "dh": dh, "dv": dv, "dtype": tname, "causal": causal, "window": window,
         "q_offset": q_offset,
         "max_abs_err": err, "max_row_rel_l2": row_err, "ms": ms,
         "tflops": flops / ms / 1e9, "flops": flops, "exps": pairs, "bytes": nbytes,
@@ -2122,7 +2175,13 @@ def flash_row(torch, np, F, fa, fa_ref, timer, name, b, hq, hkv, tq, tk, dh, dty
         n = max(2, reps[0] // 2)
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
             q, k, v, is_causal=library_causal, enable_gqa=True)
-        if window is not None or (library_causal and q_offset):
+        if latent:
+            # the absorbed decode with every key visible: the query heads as
+            # the query rows of the one latent head, the same function
+            check(not causal or q_offset + 1 >= tk, f"flash {name}: SDPA row needs every key")
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q.transpose(1, 2), k, v).transpose(1, 2)
+        elif window is not None or (library_causal and q_offset):
             # a window, or a causal diagonal below the top-left one that
             # is_causal draws: SDPA's boolean mask, the same function
             qpos = torch.arange(tq, device=device)[:, None] + q_offset
@@ -2137,7 +2196,7 @@ def flash_row(torch, np, F, fa, fa_ref, timer, name, b, hq, hkv, tq, tk, dh, dty
         _, lib_err = within(lib(), got, FLASH_TOL[tname])
         row.update({
             "call_ms": timer(call, reps=n, warmup=1),
-            "plain_ms": timer(lambda: fa_ref.flash_attention_ref(q, k, v, **kw), reps=2, warmup=1),
+            "plain_ms": timer(plain, reps=2, warmup=1),
             "library_ms": timer(lib, reps=n, warmup=1), "library_max_abs_diff": lib_err,
         })
     return row
@@ -2162,6 +2221,7 @@ def flash_kernel_checks(torch, np, F, fa, fa_ref, timer, tiny: bool):
                                   b, 32, 8, 1, 32768, 128, torch.bfloat16, q_offset=32767,
                                   library_causal=False, reps=(5, 2)))
     rows += family_flash_rows(torch, np, F, fa, fa_ref, timer, tiny)
+    rows += mla_flash_rows(torch, np, F, fa, fa_ref, timer, tiny)
     if timer.device.type == "cuda":
         torch.cuda.empty_cache()  # the plain version's scores at the prefill shape
     for dtype in (torch.float32, torch.bfloat16):
@@ -2217,6 +2277,52 @@ FAMILY_FLASH_ROWS_TINY = (
     ("cross_prefill_reduced", 1, 16, 2, 64, 128, 128, "bfloat16", False, None, 0),
     ("hubert_fma_short_f32_reduced", 2, 8, 2, 16, 150, 80, "float32", False, None, 0),
 )
+
+
+# phase 12's rows at deepseek-v2-236b's MLA pairs: name, b, hq, hkv, tq, tk,
+# (dqk, dv), dtype, q_offset, latent (v the first Dv columns of the latent
+# cache), plain_heads (the plain version's KV heads at a time); all causal
+MLA_FLASH_ROWS = (
+    # prefill at (192, 128), 128 heads, in the model's layout: wgmma_bf16
+    ("mla_prefill_t8192", 1, 128, 128, 8192, 8192, (192, 128), "bfloat16", 0, False, 16),
+    # the absorbed decode at (576, 512), 128 query heads on one latent head:
+    # a 32k cache at B=8 (302 MB of latent rows) and the serve loop's cache
+    ("mla_decode_latent_b8_tk32768", 8, 128, 1, 1, 32768, (576, 512), "bfloat16", 32767, True,
+     None),
+    ("mla_decode_latent_b8_tk160", 8, 128, 1, 1, 160, (576, 512), "bfloat16", 159, True, None),
+    # a 16-token prompt (decode_latent at (192, 128)), float32 on fma and
+    # decode_latent, and the reduced config's (48, 32) on both
+    ("mla_prefill_t16", 1, 128, 128, 16, 16, (192, 128), "bfloat16", 0, False, None),
+    ("mla_prefill_fma_f32_t2048", 1, 16, 16, 2048, 2048, (192, 128), "float32", 0, False, None),
+    ("mla_decode_latent_f32_b8_tk4096", 8, 128, 1, 1, 4096, (576, 512), "float32", 4095, True,
+     None),
+    ("mla_reduced_prefill_f32_t24", 2, 4, 4, 24, 24, (48, 32), "float32", 0, False, None),
+    ("mla_reduced_decode_f32_tk8192", 2, 4, 1, 1, 8192, (48, 32), "float32", 8191, True, None),
+)
+MLA_FLASH_ROWS_TINY = (
+    ("mla_prefill_reduced_heads", 1, 4, 4, 64, 64, (192, 128), "bfloat16", 0, False, 2),
+    ("mla_decode_latent_reduced", 2, 4, 1, 1, 256, (48, 32), "bfloat16", 255, True, None),
+    ("mla_decode_latent_full_width_tk64", 2, 128, 1, 1, 64, (576, 512), "bfloat16", 63, True,
+     None),
+)
+
+
+def mla_flash_rows(torch, np, F, fa, fa_ref, timer, tiny: bool) -> list:
+    """Phase 12's rows at MLA's (Dqk, Dv) pairs: deepseek-v2-236b's prefill
+    at (192, 128) and its absorbed decode at (576, 512), the float32 and
+    short-prompt instances, the reduced config's (48, 32); each with its
+    device time, bound, plain and SDPA times."""
+    rows = []
+    for name, b, hq, hkv, tq, tk, (dqk, dv), dtype, q_offset, latent, heads in (
+            MLA_FLASH_ROWS_TINY if tiny else MLA_FLASH_ROWS):
+        big = tq * tk * hq * b >= 1 << 30
+        rows.append(flash_row(torch, np, F, fa, fa_ref, timer, name, b, hq, hkv, tq, tk, dqk,
+                              getattr(torch, dtype), True, None, q_offset,
+                              library_causal=tq > 1, dv=dv, latent=latent, plain_heads=heads,
+                              reps=(3, 1) if tiny else ((3, 2) if big else (10, 2))))
+        if timer.device.type == "cuda":
+            torch.cuda.empty_cache()
+    return rows
 
 
 def family_flash_rows(torch, np, F, fa, fa_ref, timer, tiny: bool) -> list:
@@ -2425,8 +2531,11 @@ def lm_phase(torch, np, counters, device, arch: str, tiny: bool, ident: str,
     expect = {"flash_attention": n_attn * (plen + gen - 1), "selective_scan": 0} if on_card \
         else {"flash_attention": 0, "selective_scan": 0}
     check(serve_launches == expect, f"{arch} serve launched {serve_launches}, expected {expect}")
-    serve_variants = dict(fa.variant_launches)  # a decode step: g * Tq = 4 <= 16
-    expect = {n: serve_launches["flash_attention"] * (n == "decode_split") for n in fa.VARIANTS}
+    # a decode step: g * Tq = 4 <= 16 on decode_split; MLA's absorbed step
+    # (128 query heads on the latent head) on decode_latent
+    serve_variants = dict(fa.variant_launches)
+    decode_variant = "decode_latent" if cfg.use_mla else "decode_split"
+    expect = {n: serve_launches["flash_attention"] * (n == decode_variant) for n in fa.VARIANTS}
     check(serve_variants == expect,
           f"{arch} serve ran the attention variants {serve_variants}, expected {expect}")
     # the serve loop's short cache is one share: one kernel a call, no merge
@@ -2593,10 +2702,13 @@ def long_cache_step(torch, cpu, params, card, dparams, toks) -> dict:
     sync(torch, card.device)
     ran = {n: c - before.get(n, 0) for n, c in fa.split_launches.items()
            if c != before.get(n, 0)}
-    # the layers over the whole cache split it; a ring (gemma3's 16 slots)
-    # or an image cache (llama's 16 tokens) is one share
-    whole = sum("k" in c and c["k"].shape[1] == seq for c in cache)
-    short = sum(("k" in c and c["k"].shape[1] < seq) or "k_img" in c for c in cache)
+    # the layers over the whole cache split it (MLA's latent cache too); a
+    # ring (gemma3's 16 slots) or an image cache (llama's 16 tokens) is one
+    # share
+    length = [c["k"].shape[1] if "k" in c else c["ckv"].shape[1] for c in cache
+              if "k" in c or "ckv" in c]
+    whole = sum(n == seq for n in length)
+    short = sum(n < seq for n in length) + sum("k_img" in c for c in cache)
     splits = {n: c for n, c in ran.items() if n > 1}
     n_split = next(iter(splits)) if len(splits) == 1 else None
     check(card.device.type != "cuda" or (n_split is not None and splits[n_split] == whole
@@ -3159,6 +3271,106 @@ def families_phase(torch, np, fa, fa_ref, counters, device, tiny: bool, ident: s
     return out
 
 
+def latent_decode_part(torch, np, fa, fa_ref, counters, device, model, params,
+                       tiny: bool) -> dict:
+    """Phase 27's long decode: 8 ``decode_step``s at B=8 from the end of a
+    seeded 8,192-long latent cache (one ``decode_latent`` launch an MLA layer
+    a step, the cache split into shares), then the last step again held
+    against the same step with every attention call on the plain version
+    (phase 17's bf16 gate, as phase 26 holds gemma3's)."""
+    from repro_torch.kernels.mamba_scan import ops as scan
+
+    cfg = model.cfg
+    on_card = device.type == "cuda"
+    n_attn = cfg.num_layers
+    b, seq, steps = (2, 64, 4) if tiny else (8, 8192, 8)
+    cache = model.init_cache(b, seq)
+    fill_cache(torch, cache, torch.Generator(device=model.device).manual_seed(27))
+    rng = np.random.default_rng(27)
+    tok = torch.as_tensor(rng.integers(2, cfg.vocab_size, (b, 1)), device=model.device)
+    sync(torch, device)
+    reset_counts(*counters)
+    step_s = []
+    for i in range(steps):
+        if i == steps - 1:  # the last step's cache and token, for the plain version
+            spare, last = clone_cache(cache), tok
+        t0 = time.perf_counter()
+        logits, cache = model.decode_step(params, cache, tok, seq - steps + i)
+        tok = logits[:, -1].argmax(-1)[:, None]
+        sync(torch, device)
+        step_s.append(time.perf_counter() - t0)
+    launches = {"flash_attention": fa.launches, "selective_scan": scan.launches}
+    variants = dict(fa.variant_launches)
+    splits = dict(fa.split_launches)
+    check(launches == {"flash_attention": n_attn * steps * on_card, "selective_scan": 0}
+          and variants == variant_counts(fa, n_attn * steps, "decode_latent", on_card),
+          f"{cfg.name} latent decode launched {launches}, variants {variants}")
+    n_split = next(iter(splits)) if len(splits) == 1 else None
+    check(not on_card or (n_split is not None and n_split > 1),
+          f"{cfg.name}: a {seq}-long latent cache at B={b} was not split into one count > 1: "
+          f"{splits}")
+    check(bool(logits.isfinite().all()), f"{cfg.name} latent decode logits are not finite")
+    calls: list = []
+    with swapped_attention(fa_ref, calls):
+        got, _ = model.decode_step(params, clone_cache(spare), last, seq - 1)
+    with swapped_attention(fa_ref):
+        want, _ = model.decode_step(params, spare, last, seq - 1)
+    check(len(calls) == n_attn, f"{cfg.name}: {len(calls)} attention calls checked, "
+                                f"expected {n_attn}")
+    row_err = worst_row_rel_l2(got, want)
+    check(row_err <= FLASH_ROW_RTOL, f"{cfg.name} decode step at position {seq - 1}: logits "
+                                     f"differ from the plain version's by {row_err} relative L2")
+    gate = {"calls": calls, "logits_max_row_rel_l2": row_err,
+            "logits_max_abs_diff": float((got.float() - want.float()).abs().max())}
+    per_step = sum(step_s[1:]) / (steps - 1)  # the first step warms the caches up
+    latent_bytes = n_attn * b * seq * (cfg.kv_lora_rank + cfg.qk_rope_dim) * \
+        torch.finfo(model.dtype).bits // 8
+    del cache, spare, logits, want, got
+    return {"batch": b, "cache_len": seq, "first_pos": seq - steps, "steps": steps,
+            "step_seconds": step_s, "seconds_per_step": per_step, "tokens_per_s": b / per_step,
+            "latent_cache_bytes": latent_bytes,
+            "attention_bound_ms_per_step": latent_bytes / HBM_BYTES_PER_S * 1e3,
+            "launches": launches, "flash_variants": variants, "split_launches": splits,
+            "n_split": n_split,
+            "blocks_per_sm": fa.latent_blocks_per_sm(
+                device, model.dtype, cfg.kv_lora_rank + cfg.qk_rope_dim, cfg.kv_lora_rank)
+            if on_card else None,
+            "plain_step": gate}
+
+
+def mla_phase(torch, np, fa, fa_ref, counters, device, tiny: bool, ident: str) -> dict:
+    """Phase 27: deepseek-v2-236b at full width (the reduced config with
+    ``--tiny``), bf16, seeded: its dense prefix layer and one MoE block of
+    the 59 (5.36B parameters; all 60 layers are 236B, 472 GB in bf16, which
+    no one card holds) through ``lm_phase`` (prefill B=1 T=8192: 2
+    ``wgmma_bf16`` launches at (192, 128); serve B=8 prompt 128 gen 32: 2
+    ``decode_latent`` launches a step at (576, 512); both profiled with the
+    MoE ranges' share), then ``latent_decode_part``. Logs its seconds."""
+    t0 = time.perf_counter()
+    rec, model, params = lm_phase(torch, np, counters, device, MLA_ARCH, tiny, ident,
+                                  n_blocks=1)
+    with torch.no_grad():
+        rec["latent_decode"] = latent_decode_part(torch, np, fa, fa_ref, counters, device, model,
+                                                  params, tiny)
+    del model, params
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    rec["reduced"] = {"n_blocks": {"published": 59, "run": 1},
+                      "why": "236B parameters (472 GB in bf16) do not fit one 80 GB card; the "
+                             "prefix layer and one block are 5.36B (10.7 GB)"} if not tiny else \
+        {"config": f"reduced:{MLA_ARCH}"}
+    out = {"launches": {"flash_attention": 0, "selective_scan": 0},
+           "flash_variants": dict.fromkeys(fa.VARIANTS, 0), "record": rec}
+    for path in ("prefill", "serve", "latent_decode"):
+        for name, n in rec[path]["launches"].items():
+            out["launches"][name] += n
+        for name, n in rec[path]["flash_variants"].items():
+            out["flash_variants"][name] += n
+    rec["seconds"] = out["seconds"] = time.perf_counter() - t0
+    log(json.dumps({"phase": 27, **rec}))
+    return out
+
+
 def sharded_phase(torch, np, spmv, spmv_ref, lg, sim_values: dict, device, timer, floor,
                   ident: str) -> tuple:
     """Phase 23: the analytics engine's sharded mode on phase 2's partition:
@@ -3619,7 +3831,8 @@ def main() -> int:
     # one nvcc per kernel source, all started together; phase 1's graph is
     # generated on the host while they compile
     libraries = [] if args.tiny else [
-        build.LIBRARY, spmv_build.LIBRARY, fa_build.LIBRARY, scan_build.LIBRARY]
+        build.LIBRARY, spmv_build.LIBRARY, fa_build.LIBRARY, fa_build.MLA_LIBRARY,
+        scan_build.LIBRARY]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libraries) + 1) as pool:
         floor_job = None if args.tiny else pool.submit(score_ablation.floor_library)
@@ -4031,6 +4244,14 @@ def main() -> int:
         flash_variants[name] += n
     clock.mark(26)
 
+    # ----------------------------------------------------------- phase 27
+    mla_rec = mla_phase(torch, np, fa, fa_ref, counters, device, args.tiny, ident)
+    for name, n in mla_rec["launches"].items():
+        lm_launches[name] += n
+    for name, n in mla_rec["flash_variants"].items():
+        flash_variants[name] += n
+    clock.mark(27)
+
     # ----------------------------------------------------------- phase 24
     train_rec = training_phase(torch, np, F, counters, device, timer, args.tiny, ident)
     clock.mark(24)
@@ -4053,6 +4274,14 @@ def main() -> int:
             "library_ms": main_shape["library_ms"], **extra,
         }
 
+    # phase 12's rows at MLA's pairs, by the kernel they ran; the latent
+    # kernel's launches on phase 27's main path (the serve loop and the long
+    # decode)
+    mla_shapes = [r for r in flash_shapes if r["dv"] != r["dh"]]
+    mla_prefill = [r for r in mla_shapes if r["variant"] == "wgmma_bf16"]
+    mla_latent = [r for r in mla_shapes if r["variant"] == "decode_latent"]
+    mla_latent_launches = sum(mla_rec["record"][path]["flash_variants"]["decode_latent"]
+                              for path in ("serve", "latent_decode"))
     # the zoo's kernel shapes (phases 1 and 19): 4,096-row chunks, a sampled
     # dense matrix, the longest coarse row's chunk; and phase 22's chunk of
     # the served cuttana stream
@@ -4121,6 +4350,22 @@ def main() -> int:
                 tb_per_s=decode_shapes[0]["bytes"] / decode_shapes[0]["ms"] / 1e9,
                 second_shape={key: decode_shapes[1].get(key) for key in (
                     "shape", "n_split", "ms", "bound_ms", "library_ms", "plain_ms")}),
+        # MLA (phase 27, deepseek-v2-236b): the tensor-core prefill at
+        # (Dqk, Dv) = (192, 128) and the absorbed decode's latent kernel at
+        # (576, 512), timed at phase 12's MLA rows
+        summary("flash_attention_mla_prefill", mla_prefill,
+                mla_rec["record"]["prefill"]["flash_variants"]["wgmma_bf16"], TPU_KERNEL_FLASH,
+                FLASH_SOURCE, variant="wgmma_bf16", dqk_dv=[192, 128],
+                library=FLASH_MLA_LIBRARY, tflops=mla_prefill[0]["tflops"]),
+        summary("flash_attention_decode_latent", mla_latent, mla_latent_launches,
+                TPU_KERNEL_FLASH, FLASH_SOURCE, variant="decode_latent", dqk_dv=[576, 512],
+                library=FLASH_MLA_LIBRARY, n_split=mla_latent[0]["n_split"],
+                main_path_n_split=mla_rec["record"]["latent_decode"]["n_split"],
+                tb_per_s=mla_latent[0]["bytes"] / mla_latent[0]["ms"] / 1e9,
+                rows=[{key: r.get(key) for key in (
+                    "shape", "variant", "n_split", "dh", "dv", "dtype", "ms", "call_ms",
+                    "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err",
+                    "max_row_rel_l2")} for r in mla_shapes]),
         summary("selective_scan", scan_shapes, lm_launches["selective_scan"],
                 TPU_KERNEL_SCAN, SCAN_SOURCE, variant=scan_shapes[0]["variant"],
                 exp_bound_share=scan_shapes[0]["exp_bound_share"],

@@ -2,7 +2,8 @@
 """Where the attention kernel spends its time, on one CUDA card.
 
 Builds ``src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu``
-as it is and with parts of a kernel's main loop taken out. The prefill
+as it is and with parts of a kernel's main loop (in the templates of
+``flash_attention.cuh``, which the copy includes) taken out. The prefill
 part times the tensor-core kernel at one qwen3-8b prefill layer (B=1,
 Hq=32, Hkv=8, T=8192, Dh=128, bf16, causal):
 
@@ -34,7 +35,9 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-SOURCE = ROOT / "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+CSRC = ROOT / "src/repro_torch/kernels/flash_attention/csrc"
+SOURCE = CSRC / "flash_attention.cu"
+HEADER = CSRC / "flash_attention.cuh"  # the kernels' code: what the cuts edit
 OUT = ROOT / "build" / "ablation"
 
 # exact lines of the kernel's main loop (with their indentation, from the
@@ -58,12 +61,16 @@ def cut(text: str, edits) -> str:
     return text
 
 
-def build(name: str, text: str) -> Path:
+def build(name: str, header: str) -> Path:
+    """The library built from the source beside a copy of the header."""
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels.nvcc import NVCC_FLAGS, _nvcc
 
-    src, lib = OUT / f"{name}.cu", OUT / f"lib{name}.so"
-    src.write_text(text)
+    where = OUT / name
+    where.mkdir(parents=True, exist_ok=True)
+    (where / HEADER.name).write_text(header)
+    src, lib = where / SOURCE.name, OUT / f"lib{name}.so"
+    src.write_text(SOURCE.read_text())
     proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(lib), str(src)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
@@ -176,7 +183,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ops as fa
 
     OUT.mkdir(parents=True, exist_ok=True)
-    text = SOURCE.read_text()
+    text = HEADER.read_text()
     cuts = {}
     if args.part in ("prefill", "both"):
         cuts.update(CUTS)

@@ -9,10 +9,12 @@ dense FFN beside a 128-expert top-2 MoE in every layer), gemma3-12b (five
 sliding-window layers to one global, head dim 256, a ring cache), the
 encoder-only hubert-xlarge (frame inputs, bidirectional, head dim 80; no
 decode path) and llama-3.2-vision-90b (a gated cross-attention layer every
-fifth); ``launch/train.py`` adds the reference's ``repro-100m``. The
-reference's deepseek-v2-236b needs parts the port does not have yet (MLA,
-its absorbed decode and prefix layers); asking for it raises
-``NotImplementedError`` naming the ROADMAP item that brings it.
+fifth) and deepseek-v2-236b (MLA with its absorbed decode, a dense prefix
+layer before 59 blocks of a 160-expert top-6 MoE with 2 shared experts): all
+ten of the reference's configs. ``launch/train.py`` adds the reference's
+``repro-100m``. An architecture the port is to run later goes into ``LATER``,
+and asking for it raises ``NotImplementedError`` naming the ROADMAP item
+that brings it.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import importlib
 from repro_torch.models.config import LATER_ITEM, LayerSpec, ModelConfig
 
 ARCHS = ["qwen3_8b", "falcon_mamba_7b", "minitron_8b", "deepseek_coder_33b", "jamba_v01_52b",
-         "arctic_480b", "gemma3_12b", "hubert_xlarge", "llama32_vision_90b"]
+         "arctic_480b", "gemma3_12b", "hubert_xlarge", "llama32_vision_90b", "deepseek_v2_236b"]
 
 # canonical ids, as the reference names them
 ALIASES = {
@@ -35,13 +37,12 @@ ALIASES = {
     "gemma3-12b": "gemma3_12b",
     "hubert-xlarge": "hubert_xlarge",
     "llama-3.2-vision-90b": "llama32_vision_90b",
+    "deepseek-v2-236b": "deepseek_v2_236b",
 }
 
-# the reference's other architecture (by its canonical id) and what it
-# waits for
-LATER = {
-    "deepseek-v2-236b": "MLA, its absorbed decode and prefix layers",
-}
+# the reference's architectures (by canonical id) that the port does not run
+# yet, and what each waits for: none since deepseek-v2-236b
+LATER: dict[str, str] = {}
 
 
 def _module(arch: str):
@@ -94,4 +95,9 @@ def shrink(cfg: ModelConfig) -> ModelConfig:
         n_img_tokens=16 if cfg.n_img_tokens else 0,
         remat=False,
     )
+    if cfg.use_mla:
+        changes.update(
+            kv_lora_rank=32, q_lora_rank=48 if cfg.q_lora_rank else None,
+            qk_rope_dim=16, qk_nope_dim=32, v_head_dim=32,
+        )
     return dataclasses.replace(cfg, **changes)

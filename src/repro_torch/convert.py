@@ -14,7 +14,6 @@ from repro_torch.analytics.localize import LocalizedGraph
 from repro_torch.core.base import PartitionState
 from repro_torch.device import resolve_device
 from repro_torch.graph.csr import CSRGraph
-from repro_torch.models.config import LATER_ITEM
 
 __all__ = [
     "graph_from_arrays",
@@ -156,21 +155,24 @@ def _tree(tree, fn):
 def lm_params_from_arrays(cfg, params: dict, device: str | torch.device | None = None) -> dict:
     """The port's parameter dict (``Model.init``'s layout) from the
     reference's parameter pytree as numpy arrays (``jax.tree.map(np.asarray,
-    params)``) or tensors (a restored checkpoint): ``blocks``, whose leaves
-    carry a leading ``n_blocks`` axis,
-    is unstacked into one dict per layer in ``cfg.layers()`` order, so both
-    packages compute with the same weights. Nested leaves come along as they
-    are: an MoE layer's ``moe`` dict (the float32 ``router`` ``[D, E]``,
-    ``w_in``/``w_gate`` ``[E, D, F]``, ``w_out`` ``[E, F, D]`` and a
-    ``shared`` dense FFN) keeps its dtypes, a cross-attention layer its
-    ``gate``. A frame-input model's tree has no ``embed``."""
+    params)``) or tensors (a restored checkpoint): the ``prefix`` layers (a
+    tuple of per-layer dicts) come first, then ``blocks``, whose leaves
+    carry a leading ``n_blocks`` axis, unstacked into one dict per layer, in
+    ``cfg.layers()`` order, so both packages compute with the same weights.
+    Nested leaves come along as they are: an MoE layer's ``moe`` dict (the
+    float32 ``router`` ``[D, E]``, ``w_in``/``w_gate`` ``[E, D, F]``,
+    ``w_out`` ``[E, F, D]`` and a ``shared`` dense FFN) keeps its dtypes, a
+    cross-attention layer its ``gate``, an MLA layer its ``wq_a``,
+    ``q_norm``, ``wq_b``, ``wkv_a``, ``kv_norm``, ``wkv_b`` and ``wo``. A
+    frame-input model's tree has no ``embed``."""
     device = resolve_device(device)
-    if cfg.prefix or params.get("prefix"):
-        raise NotImplementedError(f"prefix layers are not ported yet (deepseek-v2); {LATER_ITEM}")
+    prefix = tuple(params.get("prefix", ()))
+    if len(prefix) != len(cfg.prefix):
+        raise ValueError(f"params hold {len(prefix)} prefix layers, cfg has {len(cfg.prefix)}")
     blocks = params["blocks"]
     if len(blocks) != len(cfg.block):
         raise ValueError(f"params hold {len(blocks)} block layers, cfg has {len(cfg.block)}")
-    layers = [
+    layers = [_tree(p, lambda a: _tensor(a, device)) for p in prefix] + [
         _tree(blocks[j], lambda a, i=i: _tensor(a[i], device))
         for i in range(cfg.n_blocks)
         for j in range(len(cfg.block))
@@ -189,18 +191,18 @@ def lm_params_to_reference(cfg, params: dict) -> dict:
     """The inverse of :func:`lm_params_from_arrays`: the port's parameter
     dict (or a tree of the same layout, such as AdamW's moments) in the
     reference's layout, ``{"blocks", "embed", "final_norm", "prefix",
-    "unembed"}``, with the layers of each ``cfg.block`` position stacked on
-    a leading ``n_blocks`` axis, on the parameters' device (no ``embed``
-    for a frame-input model). Flattened in
+    "unembed"}``: the first ``len(cfg.prefix)`` layers as the ``prefix``
+    tuple of per-layer dicts, the rest with the layers of each ``cfg.block``
+    position stacked on a leading ``n_blocks`` axis, on the parameters'
+    device (no ``embed`` for a frame-input model). Flattened in
     JAX's leaf order (:mod:`repro_torch.train.pytree`) it gives the
     reference's leaves one by one (an MoE layer's ``moe`` leaves too, as
     ``[n_blocks, E, ...]``), which is what lets checkpoints cross."""
-    if cfg.prefix:
-        raise NotImplementedError(f"prefix layers are not ported yet; {LATER_ITEM}")
-    layers = params["layers"]
-    width = len(cfg.block)
-    if len(layers) != cfg.n_blocks * width:
-        raise ValueError(f"params hold {len(layers)} layers, cfg has {cfg.n_blocks * width}")
+    n_prefix, width = len(cfg.prefix), len(cfg.block)
+    if len(params["layers"]) != n_prefix + cfg.n_blocks * width:
+        raise ValueError(f"params hold {len(params['layers'])} layers, cfg has "
+                         f"{n_prefix + cfg.n_blocks * width}")
+    prefix, layers = params["layers"][:n_prefix], params["layers"][n_prefix:]
 
     def stack(group: list):
         if isinstance(group[0], dict):
@@ -211,7 +213,7 @@ def lm_params_to_reference(cfg, params: dict) -> dict:
     if "embed" in params:
         out["embed"] = params["embed"]
     out["final_norm"] = params["final_norm"]
-    out["prefix"] = ()
+    out["prefix"] = tuple(prefix)
     if "unembed" in params:
         out["unembed"] = params["unembed"]
     return out

@@ -22,6 +22,17 @@ the position), so the launch configuration stays the same from one decode
 step to the next. A wrapper call counts one launch whether or not the merge
 runs; ``split_launches`` counts the decode launches by their split count.
 
+MLA (deepseek-v2-236b) attends with a query and key wider than the value:
+``k`` is ``[B, Hkv, Tk, Dqk]`` and ``v`` ``[B, Hkv, Tk, Dv]`` (``v`` may be a
+view of ``k``), and the output is ``[B, Hq, Tq, Dv]``. Those pairs are built
+in a library of their own (``csrc/flash_attention_mla.cu``), only in the
+variants their calls take (``MLA_PAIRS``): the tensor-core and FMA prefill at
+(192, 128), and ``decode_latent`` for every call with ``Tq <= 16``: the
+absorbed decode step (128 query heads on one latent KV head at (576, 512);
+all ``g * Tq`` rows of a KV head in one block, the latent cache read once
+per block, the output columns cut into slices of ``LATENT_COLS``) and short
+prefills. A pair or variant that is not built raises before any launch.
+
 The inputs may be any views whose last dimension is contiguous: the kernel
 reads them through their strides, so the model hands it ``[B, T, H, Dh]``
 activations and its ``[B, S, Hkv, Dh]`` cache transposed, with no copy. The
@@ -47,20 +58,32 @@ from torch.autograd.function import once_differentiable
 from repro_torch.kernels.flash_attention import build
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-__all__ = ["DTYPES", "HEAD_DIMS", "VARIANTS", "decode_blocks_per_sm", "decode_splits",
-           "flash_attention", "is_aligned", "kernel_variant", "launches", "reset", "sm_count",
+__all__ = ["DTYPES", "HEAD_DIMS", "MLA_PAIRS", "VARIANTS", "decode_blocks_per_sm",
+           "decode_splits", "flash_attention", "is_aligned", "kernel_variant",
+           "latent_blocks", "latent_blocks_per_sm", "launches", "reset", "sm_count",
            "split_launches", "variant_launches"]
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 80, 128, 256)  # every variant is built at each
-# the kernel's variants, in the order of their codes in csrc/flash_attention.cu
-VARIANTS = ("fma", "fma_short", "decode_split", "wgmma_bf16")
+HEAD_DIMS = (32, 64, 80, 128, 256)  # every variant is built at each, Dqk = Dv
+# MLA's (Dqk, Dv) pairs and the variants built at each, in both dtypes
+# (wgmma_bf16 in bf16): deepseek-v2-236b's prefill and absorbed decode, and
+# its reduced config's pair for both
+MLA_PAIRS = {
+    (192, 128): ("fma", "wgmma_bf16", "decode_latent"),
+    (576, 512): ("decode_latent",),
+    (48, 32): ("fma", "decode_latent"),
+}
+# the kernel's variants, in the order of their codes in csrc/flash_attention.cuh
+VARIANTS = ("fma", "fma_short", "decode_split", "wgmma_bf16", "decode_latent")
 TILE_KEYS = 64  # keys a tile of every variant
+# decode_latent: query rows and output columns a block (kLatBR, kLatDVS)
+LATENT_ROWS = 64
+LATENT_COLS = 128
 # decode_split: every share gets at least this many tiles
 DECODE_MIN_TILES_PER_SPLIT = 16
 launches = 0
 variant_launches = dict.fromkeys(VARIANTS, 0)
-split_launches: dict[int, int] = {}  # decode_split launches by their n_split
+split_launches: dict[int, int] = {}  # decode_split/_latent launches by their n_split
 
 
 def reset() -> None:
@@ -111,6 +134,33 @@ def decode_blocks_per_sm(device: torch.device, dtype: torch.dtype, dh: int, rows
     return _decode_blocks_per_sm(index, dtype, dh, rows)
 
 
+@functools.lru_cache(maxsize=None)
+def _latent_blocks_per_sm(index: int, dtype: torch.dtype, dqk: int, dv: int) -> int:
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = build.mla_library().flash_latent_blocks_per_sm(DTYPES[dtype], dqk, dv,
+                                                             ctypes.byref(blocks))
+    if err != 0 or blocks.value < 1:
+        raise RuntimeError(f"decode_latent occupancy query failed: CUDA error {err}, "
+                           f"{blocks.value} blocks an SM")
+    return blocks.value
+
+
+def latent_blocks_per_sm(device: torch.device, dtype: torch.dtype, dqk: int, dv: int) -> int:
+    """The ``decode_latent`` blocks that one SM of a CUDA device holds at once
+    at this dtype and (Dqk, Dv) pair (the CUDA occupancy query), read once per
+    device and instance."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return _latent_blocks_per_sm(index, dtype, dqk, dv)
+
+
+def latent_blocks(rows: int, dv: int) -> int:
+    """The ``decode_latent`` blocks of one (batch, KV head) and share: its
+    ``rows = g * Tq`` query rows in tiles of ``LATENT_ROWS``, times its ``dv``
+    output columns in slices of ``LATENT_COLS``."""
+    return -(-rows // LATENT_ROWS) * (dv // min(dv, LATENT_COLS))
+
+
 def decode_splits(batch: int, hkv: int, tk: int, sm_count: int, blocks_per_sm: int) -> int:
     """How many contiguous shares of the key tiles ``decode_split`` gives a
     (batch, KV head), from the shapes alone: as many as one round of
@@ -122,13 +172,25 @@ def decode_splits(batch: int, hkv: int, tk: int, sm_count: int, blocks_per_sm: i
     return max(1, min(most, sm_count * blocks_per_sm // max(batch * hkv, 1)))
 
 
-def kernel_variant(dtype: torch.dtype, tq: int, group: int, dh: int, aligned: bool) -> str:
-    """The kernel variant for these inputs: ``decode_split`` when ``g * Tq <=
-    16`` (a decode step: the g query heads of a KV head in one block, the
-    cache split over blocks), ``fma_short`` when ``Tq <= 16`` (16-row
-    tiles), ``wgmma_bf16`` (tensor cores) for bf16 with 16-byte aligned
-    pointers and strides, else ``fma`` (float32 FMA, 64-row tiles).
-    ``decode_split`` takes unaligned rows too, with element loads."""
+def kernel_variant(dtype: torch.dtype, tq: int, group: int, dh: int, aligned: bool,
+                   dv: int | None = None) -> str:
+    """The kernel variant for these inputs (``dh`` the query/key width,
+    ``dv`` the value's, ``dh`` when None): at ``dh == dv``, ``decode_split``
+    when ``g * Tq <= 16`` (a decode step: the g query heads of a KV head in
+    one block, the cache split over blocks), ``fma_short`` when ``Tq <= 16``
+    (16-row tiles), ``wgmma_bf16`` (tensor cores) for bf16 with 16-byte
+    aligned pointers and strides, else ``fma`` (float32 FMA, 64-row tiles);
+    ``decode_split`` takes unaligned rows too, with element loads. At an MLA
+    pair: ``decode_latent`` when ``Tq <= 16`` (the absorbed decode step, g =
+    128, and short prefills), else ``wgmma_bf16`` where the pair has it and
+    the inputs are bf16 and aligned, else ``fma``."""
+    if dv is not None and dv != dh:
+        if tq <= 16:
+            return "decode_latent"
+        built = MLA_PAIRS.get((dh, dv), ())
+        if dtype == torch.bfloat16 and aligned and "wgmma_bf16" in built:
+            return "wgmma_bf16"
+        return "fma"
     if group * tq <= 16:
         return "decode_split"
     if tq <= 16:
@@ -148,9 +210,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window) -> None:
             raise ValueError(f"q, k and v must share dtype and device; {name} is "
                              f"{t.dtype} on {t.device}, q {q.dtype} on {q.device}")
     b, hq, _, dh = q.shape
-    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != dh:
-        raise ValueError(f"k and v must be [B, Hkv, Tk, {dh}] with B = {b}, got "
-                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    if k.shape[:3] != v.shape[:3] or k.shape[0] != b or k.shape[3] != dh:
+        raise ValueError(f"k must be [B, Hkv, Tk, {dh}] and v [B, Hkv, Tk, Dv], with B = {b}, "
+                         f"got {tuple(k.shape)} and {tuple(v.shape)}")
     if k.shape[1] < 1 or hq % k.shape[1]:
         raise ValueError(f"Hq = {hq} must be a multiple of Hkv = {k.shape[1]}")
     if window is not None and window < 1:
@@ -158,9 +220,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window) -> None:
 
 
 def flash_attention(
-    q: torch.Tensor,  # [B, Hq, Tq, Dh]
-    k: torch.Tensor,  # [B, Hkv, Tk, Dh]
-    v: torch.Tensor,  # [B, Hkv, Tk, Dh]
+    q: torch.Tensor,  # [B, Hq, Tq, Dqk]
+    k: torch.Tensor,  # [B, Hkv, Tk, Dqk]
+    v: torch.Tensor,  # [B, Hkv, Tk, Dv]
     causal: bool = True,
     window: int | None = None,
     q_offset: int = 0,
@@ -168,9 +230,10 @@ def flash_attention(
     """Softmax attention of query row ``i`` (absolute position ``q_offset +
     i``) over the keys that the masks keep: causal ``kpos <= qpos``, a
     sliding ``window`` ``kpos > qpos - window``; ``Hq / Hkv`` query heads
-    share a key/value head. Returns ``[B, Hq, Tq, Dh]`` in ``q``'s dtype
-    (float32 statistics inside). On a CUDA tensor that needs a gradient the
-    output carries one (the plain version's, recomputed)."""
+    share a key/value head; scores scaled by ``Dqk ** -0.5``. Returns ``[B,
+    Hq, Tq, Dv]`` in ``q``'s dtype (float32 statistics inside). On a CUDA
+    tensor that needs a gradient the output carries one (the plain
+    version's, recomputed)."""
     _check(q, k, v, window)
     device = q.device
     if device.type == "cpu":
@@ -179,8 +242,12 @@ def flash_attention(
         raise ValueError(f"unsupported device {device}")
     if q.dtype not in DTYPES:
         raise TypeError(f"the kernel takes {sorted(map(str, DTYPES))}, got {q.dtype}")
-    if q.shape[3] not in HEAD_DIMS:
-        raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, got {q.shape[3]}")
+    dqk, dv = q.shape[3], v.shape[3]
+    if dqk == dv and dqk not in HEAD_DIMS:
+        raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, got {dqk}")
+    if dqk != dv and (dqk, dv) not in MLA_PAIRS:
+        raise ValueError(f"the kernel takes (Dqk, Dv) pairs {sorted(MLA_PAIRS)} where Dqk != Dv, "
+                         f"got {(dqk, dv)}")
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("q, k and v need a contiguous last dimension")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
@@ -214,30 +281,42 @@ def _launch(q, k, v, causal, window, q_offset) -> torch.Tensor:
     global launches
     device = q.device
     b, hq, tq, dh = q.shape
-    out = torch.empty((b, tq, hq, dh), dtype=q.dtype, device=device).transpose(1, 2)
+    dv = v.shape[3]
+    out = torch.empty((b, tq, hq, dv), dtype=q.dtype, device=device).transpose(1, 2)
     if tq == 0:
         return out
     hkv, tk = k.shape[1], k.shape[2]
-    variant = kernel_variant(q.dtype, tq, hq // hkv, dh, is_aligned(q, k, v, out))
+    g = hq // hkv
+    variant = kernel_variant(q.dtype, tq, g, dh, is_aligned(q, k, v, out), dv)
+    if dh != dv and variant not in MLA_PAIRS[(dh, dv)]:
+        raise ValueError(f"the {variant} variant is not built at (Dqk, Dv) = {(dh, dv)} "
+                         f"({q.dtype}, Tq = {tq}); it has {MLA_PAIRS[(dh, dv)]}")
     n_split, workspace = 1, None
-    if variant == "decode_split":
-        n_split = decode_splits(b, hkv, tk, sm_count(device),
-                                decode_blocks_per_sm(device, q.dtype, dh, hq // hkv * tq))
+    if variant in ("decode_split", "decode_latent"):
+        if variant == "decode_split":
+            blocks, per_sm = b, decode_blocks_per_sm(device, q.dtype, dh, g * tq)
+        else:
+            blocks, per_sm = b * latent_blocks(g * tq, dv), latent_blocks_per_sm(device, q.dtype,
+                                                                                 dh, dv)
+        n_split = decode_splits(blocks, hkv, tk, sm_count(device), per_sm)
         if n_split > 1:  # each share's (o, m, l) per query row, merged by a second kernel
-            workspace = torch.empty(b * hq * tq * n_split * (dh + 2), dtype=torch.float32,
+            workspace = torch.empty(b * hq * tq * n_split * (dv + 2), dtype=torch.float32,
                                     device=device)
     strides = (ctypes.c_int64 * 12)(*(s for t in (q, k, v, out) for s in t.stride()[:3]))
-    err = build.library().flash_attention_fwd(
-        VARIANTS.index(variant), DTYPES[q.dtype], dh, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), strides,
-        b, hq, hkv, tq, tk, int(bool(causal)), window or 0, int(q_offset),
-        dh**-0.5, None if workspace is None else workspace.data_ptr(), n_split,
-        torch.cuda.current_stream(device).cuda_stream,
-    )
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
+            b, hq, hkv, tq, tk, int(bool(causal)), window or 0, int(q_offset),
+            dh**-0.5, None if workspace is None else workspace.data_ptr(), n_split,
+            torch.cuda.current_stream(device).cuda_stream)
+    if dh == dv:
+        err = build.library().flash_attention_fwd(VARIANTS.index(variant), DTYPES[q.dtype], dh,
+                                                  *args)
+    else:
+        err = build.mla_library().flash_attention_mla_fwd(VARIANTS.index(variant),
+                                                          DTYPES[q.dtype], dh, dv, *args)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel ({variant}) launch failed: CUDA error {err}")
     launches += 1
     variant_launches[variant] += 1
-    if variant == "decode_split":
+    if variant in ("decode_split", "decode_latent"):
         split_launches[n_split] = split_launches.get(n_split, 0) + 1
     return out

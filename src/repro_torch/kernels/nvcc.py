@@ -2,8 +2,9 @@
 
 ``nvcc`` compiles one ``csrc/*.cu`` file into a shared library on first use
 (never at import) and :mod:`ctypes` loads it. Libraries go to
-``build/kernels/`` at the repository root and are rebuilt when their source
-is newer than them. Each kernel package declares its library once::
+``build/kernels/`` at the repository root and are rebuilt when their source,
+or a header it names in ``depends``, is newer than them. Each kernel package
+declares its library once::
 
     LIBRARY = KernelLibrary(SOURCE, "ell_spmv", {"ell_spmv_ell": [p, p, ...]})
     LIBRARY.load().ell_spmv_ell(...)
@@ -45,10 +46,12 @@ def _nvcc() -> str:
 class KernelLibrary:
     """One ``.cu`` source, its shared library and the C signatures of its
     entry points (``name -> argtypes``; every entry returns a CUDA error
-    code as a C int)."""
+    code as a C int); ``depends``: the headers the source includes."""
 
-    def __init__(self, source: Path, name: str, signatures: dict[str, list]):
+    def __init__(self, source: Path, name: str, signatures: dict[str, list],
+                 depends: tuple = ()):
         self.source = Path(source)
+        self.depends = tuple(Path(d) for d in depends)
         self.path = BUILD_DIR / f"lib{name}.so"
         self.signatures = dict(signatures)
         # what the last build printed (ptxas register/shared-memory report)
@@ -65,7 +68,8 @@ class KernelLibrary:
             return self._build()
 
     def _build(self) -> Path:
-        if self.path.exists() and self.path.stat().st_mtime >= self.source.stat().st_mtime:
+        newest = max(f.stat().st_mtime for f in (self.source, *self.depends))
+        if self.path.exists() and self.path.stat().st_mtime >= newest:
             return self.path
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = self.path.with_name(f"{self.path.name}.{os.getpid()}.tmp")

@@ -4,6 +4,12 @@
         --batch 8 --prompt-len 128 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch reduced:qwen3-8b \
         --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b \
+        --n-blocks 1 --batch 8 --prompt-len 128 --gen 32
+
+``--n-blocks`` cuts the depth at full width, for a model that does not fit
+one card (deepseek-v2-236b: its dense prefix layer and one MoE block of the
+59 are 5.36B parameters).
 
 Serves a model with seeded random weights (``torch.Generator`` seed 0) on
 one card, or on the CPU when asked. As in the reference's launcher, the prompt
@@ -13,6 +19,7 @@ is prefilled through one decode step per token (correct for every mixer);
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -72,9 +79,13 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--n-blocks", type=int, default=None,
+                    help="cut the depth to this many blocks, at full width")
     args = ap.parse_args(argv)
 
     cfg = get_model_config(args.arch)
+    if args.n_blocks is not None:
+        cfg = dataclasses.replace(cfg, n_blocks=args.n_blocks)
     if cfg.is_encoder_only:
         raise SystemExit("encoder-only arch has no decode path")
     model = Model(cfg, args.device)

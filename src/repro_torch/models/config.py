@@ -12,15 +12,16 @@ Queue 1 item 8d); on one card the reference's weight-stationary MoE
 (``moe_ffn_fshard``) does ``moe_ffn``'s arithmetic, so the port has the one
 layer. MoE routing (``top_k``, ``capacity_factor``), a cross-attention
 model's image tokens (``n_img_tokens``) and its tanh gate
-(``cross_attn_gated``) are here; MLA's fields are copied, but MLA itself
-waits for deepseek-v2 (item 8c).
+(``cross_attn_gated``) and MLA's widths (``q_lora_rank``, ``kv_lora_rank``,
+``qk_rope_dim``, ``qk_nope_dim``, ``v_head_dim``; deepseek-v2-236b) are here.
 """
 from __future__ import annotations
 
 import dataclasses
 
 # where the parts of the reference the port does not run yet are queued
-LATER_ITEM = "ROADMAP Queue 1 item 8c (the other LM families)"
+# (the mesh and sharding analogs: item 8d)
+LATER_ITEM = "ROADMAP Queue 1"
 
 
 @dataclasses.dataclass(frozen=True)

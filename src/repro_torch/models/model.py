@@ -1,9 +1,10 @@
 """Model assembly: embed -> layers -> final norm -> head, for one card.
 
-The reference stacks its layers' parameters on a leading ``n_blocks`` axis
-and walks them with ``lax.scan``; the port keeps one parameter dict per layer
-(``params["layers"]``, in ``cfg.layers()`` order, each with the reference's
-key names) and walks them with a loop. ``repro_torch.convert.
+The reference keeps its ``prefix`` layers' parameters one dict a layer and
+stacks its blocks' on a leading ``n_blocks`` axis, walked with ``lax.scan``;
+the port keeps one parameter dict per layer (``params["layers"]``, in
+``cfg.layers()`` order, the prefix first, each with the reference's key
+names) and walks them with a loop. ``repro_torch.convert.
 lm_params_from_arrays`` unstacks the reference's pytree into this layout.
 
 The decode cache is a list with one dict per layer; ``decode_step`` writes
@@ -35,9 +36,9 @@ Supported: token inputs and precomputed frame inputs (``frontend ==
 ``embed`` parameter; an encoder-only model has no decode path), GQA
 self-attention (qk-norm, full attention and sliding windows, causal or
 bidirectional), gated cross-attention layers over ``inputs["image_embeds"]``
-[B, N, D], Mamba-1 mixers, dense, MoE and dense + MoE FFNs. MLA and
-``prefix`` layers raise ``NotImplementedError`` naming the ROADMAP item
-that brings them.
+[B, N, D], MLA (deepseek-v2-236b: the expanded form in the forward, the
+absorbed form in the decode step), Mamba-1 mixers, dense, MoE and dense +
+MoE FFNs, and ``prefix`` layers of any of them before the blocks.
 
 Decode caches as in the reference: a sliding-window layer keeps a ring of
 ``min(seq, window)`` slots (position ``pos`` in slot ``pos % window`` once
@@ -45,7 +46,10 @@ the cache is a whole window long, keys RoPE'd as they are written); a
 cross-attention layer keeps the image's keys and values ``k_img``/``v_img``
 [B, n_img_tokens, Hkv, Dh], which the caller fills (``img @ wk``, ``img @
 wv``, as the reference's tests do; ``init_cache`` gives zeros, as the
-reference's serve loop uses them).
+reference's serve loop uses them); an MLA layer keeps the compressed latent
+``ckv`` [B, L, kv_lora_rank] and the RoPE'd key ``kpe`` [B, L, qk_rope_dim],
+here two views of one ``[B, L, kv_lora_rank + qk_rope_dim]`` buffer, which
+the absorbed decode reads in one launch with no copy.
 """
 from __future__ import annotations
 
@@ -57,22 +61,21 @@ import torch.utils.checkpoint as checkpoint
 from torch import nn
 
 from repro_torch.device import resolve_device
-from repro_torch.models.attention import gqa_cross_decode, gqa_flash_decode, gqa_forward
-from repro_torch.models.config import LATER_ITEM, LayerSpec, ModelConfig
+from repro_torch.models.attention import (
+    gqa_cross_decode,
+    gqa_flash_decode,
+    gqa_forward,
+    mla_flash_decode,
+    mla_forward,
+)
+from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.layers import apply_rope, dense_ffn, moe_ffn, qk_head_norm, rms_norm
 from repro_torch.models.mamba import mamba_decode_step, mamba_forward
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    def later(what: str):
-        raise NotImplementedError(f"{cfg.name}: {what} is not ported yet; {LATER_ITEM}")
-
     if cfg.frontend not in ("tokens", "frames"):
         raise ValueError(f"{cfg.name}: unknown frontend {cfg.frontend!r}")
-    if cfg.prefix:
-        later("a prefix layer stack")
-    if cfg.use_mla:
-        later("MLA")
     for spec in cfg.layers():
         if spec.mixer not in ("attn", "cross_attn", "mamba"):
             raise ValueError(f"{cfg.name}: unknown mixer {spec.mixer!r}")
@@ -152,9 +155,29 @@ class Model(nn.Module):
                 p["w_gate"] = normal((d, f), d**-0.5)
             return p
 
+        def mla() -> dict:
+            h, r, qr = cfg.n_heads, cfg.kv_lora_rank, cfg.q_lora_rank
+            nope, rope_d, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+            s = d**-0.5
+            p = {
+                "wkv_a": normal((d, r + rope_d), s),
+                "kv_norm": ones(r),
+                "wkv_b": normal((r, h * (nope + vd)), r**-0.5),
+                "wo": normal((h * vd, d), (h * vd) ** -0.5),
+            }
+            if qr:
+                p["wq_a"] = normal((d, qr), s)
+                p["q_norm"] = ones(qr)
+                p["wq_b"] = normal((qr, h * (nope + rope_d)), qr**-0.5)
+            else:
+                p["wq"] = normal((d, h * (nope + rope_d)), s)
+            return p
+
         def layer(spec: LayerSpec) -> dict:
             p: dict = {"norm1": {"scale": ones(d)}}
-            if spec.mixer in ("attn", "cross_attn"):
+            if spec.mixer == "attn" and cfg.use_mla:
+                p["attn"] = mla()
+            elif spec.mixer in ("attn", "cross_attn"):
                 h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
                 s = d**-0.5
                 p["attn"] = {
@@ -273,7 +296,9 @@ class Model(nn.Module):
         image embeddings a cross-attention layer reads."""
         cfg = self.cfg
         h = rms_norm(x, p["norm1"])
-        if spec.mixer == "attn":
+        if spec.mixer == "attn" and cfg.use_mla:
+            y, _ = mla_forward(h, p["attn"], cfg, window=spec.window)
+        elif spec.mixer == "attn":
             y, _ = gqa_forward(h, p["attn"], cfg, window=spec.window)
         elif spec.mixer == "cross_attn":
             y, _ = gqa_forward(h, p["attn"], cfg, window=None, kv_x=img)
@@ -285,16 +310,23 @@ class Model(nn.Module):
     def init_cache(self, batch: int, seq: int, dtype: torch.dtype | None = None) -> list:
         """One dict per layer: ``{"k", "v"}`` ``[B, L, Hkv, Dh]`` for
         attention (``L = seq``, or ``min(seq, window)`` for a sliding-window
-        layer: a ring once ``seq >= window``), ``{"k_img", "v_img"}`` ``[B,
-        n_img_tokens, Hkv, Dh]`` for cross-attention (zeros until the
-        caller writes the image's keys and values), ``{"conv" [B, d_conv-1,
-        di], "ssm" [B, di, N] float32}`` for Mamba."""
+        layer: a ring once ``seq >= window``), ``{"ckv" [B, L, r], "kpe"
+        [B, L, rope]}`` for MLA (views of one ``[B, L, r + rope]`` buffer),
+        ``{"k_img", "v_img"}`` ``[B, n_img_tokens, Hkv, Dh]`` for
+        cross-attention (zeros until the caller writes the image's keys and
+        values), ``{"conv" [B, d_conv-1, di], "ssm" [B, di, N] float32}``
+        for Mamba."""
         cfg, dev = self.cfg, self.device
         dt = dtype or self.dtype
         di = cfg.mamba_expand * cfg.d_model
         cache = []
         for spec in cfg.layers():
-            if spec.mixer in ("attn", "cross_attn"):
+            if spec.mixer == "attn" and cfg.use_mla:
+                length = seq if spec.window is None else min(seq, spec.window)
+                r = cfg.kv_lora_rank
+                latent = torch.zeros((batch, length, r + cfg.qk_rope_dim), dtype=dt, device=dev)
+                cache.append({"ckv": latent[..., :r], "kpe": latent[..., r:]})
+            elif spec.mixer in ("attn", "cross_attn"):
                 if spec.mixer == "cross_attn":
                     names, length = ("k_img", "v_img"), cfg.n_img_tokens
                 else:
@@ -343,10 +375,47 @@ class Model(nn.Module):
                                None if ring else spec.window)  # [B, H, Dh]
         return x + out.reshape(b, 1, hq * dh) @ p["wo"]
 
+    def _decode_mla(self, x, h, p, cache: dict, pos: int):
+        """The absorbed-form MLA step, as the reference's ``_decode_mla``: the
+        new latent row (``c_kv``, the RoPE'd ``k_pe``) written at ``pos``,
+        ``q_nope`` taken into the latent space by ``w_uk``, one launch over
+        the latent cache, the context taken back out by ``w_uv``. The
+        absorbed projections are einsums, as the reference computes them
+        outside any kernel. They split ``wkv_b``'s columns into a first
+        ``H * nope`` (keys) and a last ``H * v_head_dim`` (values), where the
+        forward reads it per head (``[nope + v_head_dim]`` a head): the
+        reference's own layouts, copied."""
+        cfg = self.cfg
+        b = x.shape[0]
+        nh = cfg.n_heads
+        nope, rope_d, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+        r = cfg.kv_lora_rank
+        if cfg.q_lora_rank:
+            qa = rms_norm(h @ p["wq_a"], {"scale": p["q_norm"]})
+            q = (qa @ p["wq_b"]).reshape(b, 1, nh, nope + rope_d)
+        else:
+            q = (h @ p["wq"]).reshape(b, 1, nh, nope + rope_d)
+        q_nope, q_pe = q[..., :nope], q[..., nope:]
+        posv = torch.full((b, 1), pos, device=x.device)
+        q_pe = apply_rope(q_pe, posv, cfg.rope_theta)
+        kv_a = h @ p["wkv_a"]  # [B, 1, r + rope]
+        c_kv = rms_norm(kv_a[..., :r], {"scale": p["kv_norm"]})
+        k_pe = apply_rope(kv_a[..., None, r:], posv, cfg.rope_theta)[:, :, 0]
+        cache["ckv"][:, pos] = c_kv[:, 0].to(cache["ckv"].dtype)
+        cache["kpe"][:, pos] = k_pe[:, 0].to(cache["kpe"].dtype)
+        w_uk = p["wkv_b"][:, : nh * nope].reshape(r, nh, nope)
+        w_uv = p["wkv_b"][:, nh * nope :].reshape(r, nh, vd)
+        q_lat = torch.einsum("bhn,rhn->bhr", q_nope[:, 0], w_uk)
+        ctx_lat = mla_flash_decode(q_lat, q_pe[:, 0], cache["ckv"], cache["kpe"], pos)
+        out = torch.einsum("bhr,rhv->bhv", ctx_lat, w_uv)
+        return x + out.reshape(b, 1, nh * vd) @ p["wo"]
+
     def _decode_layer(self, x, p, spec: LayerSpec, cache: dict, pos: int):
         """One-token step for one layer. x: [B, 1, D]; ``cache`` is updated."""
         h = rms_norm(x, p["norm1"])
-        if spec.mixer == "attn":
+        if spec.mixer == "attn" and self.cfg.use_mla:
+            x = self._decode_mla(x, h, p["attn"], cache, pos)
+        elif spec.mixer == "attn":
             x = self._decode_gqa(x, h, p["attn"], cache, pos, spec)
         elif spec.mixer == "cross_attn":
             x = x + gqa_cross_decode(h, p["attn"], self.cfg, cache["k_img"], cache["v_img"])

@@ -2,9 +2,8 @@
 attention. The implementations live in their natural homes
 (:mod:`repro_torch.train.step`, :mod:`repro_torch.models.attention`; see
 ``launch/serve.py`` for the serve loop); this module is the public LM-serving
-namespace, as ``repro.serve.lm`` is. The reference's ``mla_flash_decode``
-waits for MLA (deepseek-v2-236b, ROADMAP Queue 1 item 8c)."""
-from repro_torch.models.attention import gqa_flash_decode
+namespace, as ``repro.serve.lm`` is."""
+from repro_torch.models.attention import gqa_flash_decode, mla_flash_decode
 from repro_torch.train.step import make_decode_step, make_prefill_step
 
-__all__ = ["make_prefill_step", "make_decode_step", "gqa_flash_decode"]
+__all__ = ["make_prefill_step", "make_decode_step", "gqa_flash_decode", "mla_flash_decode"]

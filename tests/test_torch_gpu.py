@@ -1030,6 +1030,119 @@ def test_decode_split_counts_one_launch_per_call(cuda_device):
         assert n_split == 1 if tk == 160 else n_split > 1
 
 
+
+# ------------------------------------------------------------------ MLA pairs
+# every instance built at MLA's (Dqk, Dv) pairs: variant, dtype, (dqk, dv), b,
+# hq, hkv, tq, tk, causal, q_offset, latent (v the first Dv columns of a
+# [B, S, Dqk] latent buffer, Hkv = 1, as the absorbed decode reads its cache;
+# otherwise the model's prefill layout, v a view of a wider kv tensor)
+MLA_CASES = [
+    ("wgmma_bf16", torch.bfloat16, (192, 128), 1, 4, 4, 200, 200, True, 0, False),
+    ("wgmma_bf16", torch.bfloat16, (192, 128), 2, 8, 8, 130, 333, True, 203, False),
+    ("wgmma_bf16", torch.bfloat16, (192, 128), 1, 2, 2, 70, 90, False, 0, False),
+    ("fma", torch.float32, (192, 128), 1, 4, 4, 100, 100, True, 0, False),
+    ("fma", torch.float32, (192, 128), 2, 2, 2, 65, 200, True, 135, False),
+    ("fma", torch.float32, (48, 32), 2, 4, 4, 24, 24, True, 0, False),
+    ("fma", torch.bfloat16, (48, 32), 2, 4, 4, 40, 40, True, 0, False),
+    ("decode_latent", torch.bfloat16, (192, 128), 1, 4, 4, 16, 16, True, 0, False),
+    ("decode_latent", torch.float32, (192, 128), 2, 8, 8, 7, 40, True, 33, False),
+    ("decode_latent", torch.float32, (192, 128), 1, 4, 4, 1, 1, True, 0, False),
+    ("decode_latent", torch.float32, (576, 512), 2, 128, 1, 1, 160, True, 159, True),
+    ("decode_latent", torch.bfloat16, (576, 512), 8, 128, 1, 1, 160, True, 100, True),
+    ("decode_latent", torch.float32, (576, 512), 1, 128, 1, 1, 8192, True, 5000, True),
+    ("decode_latent", torch.bfloat16, (576, 512), 2, 128, 1, 1, 8192, True, 8191, True),
+    ("decode_latent", torch.float32, (48, 32), 2, 4, 1, 1, 8192, True, 8191, True),
+    ("decode_latent", torch.bfloat16, (48, 32), 3, 4, 1, 1, 300, True, 17, True),
+]
+
+
+def _mla_inputs(cuda_device, dtype, pair, b, hq, hkv, tq, tk, latent, seed):
+    dqk, dv = pair
+    rng = np.random.default_rng(seed)
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda_device,
+                                                                                 dtype)
+
+    q = randn(b, tq, hq, dqk).transpose(1, 2)
+    if latent:
+        buf = randn(b, tk, dqk)
+        return q, buf[:, None], buf[:, None, :, :dv]
+    kv = randn(b, tk, hkv, 2 * dv)
+    return q, randn(b, tk, hkv, dqk).transpose(1, 2), kv[..., dv:].transpose(1, 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant,dtype,pair,b,hq,hkv,tq,tk,causal,q_offset,latent", MLA_CASES)
+def test_flash_kernel_at_the_mla_pairs(cuda_device, variant, dtype, pair, b, hq, hkv, tq, tk,
+                                       causal, q_offset, latent):
+    """Each variant built at an MLA pair against ``flash_attention_ref``
+    (Dqk^-0.5 scale, a [B, Hq, Tq, Dv] output), with the inputs as the model
+    hands them over: no copy of the strided value."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    q, k, v = _mla_inputs(cuda_device, dtype, pair, b, hq, hkv, tq, tk, latent,
+                          sum(pair) + tq + tk)
+    assert fa.kernel_variant(dtype, tq, hq // hkv, pair[0], fa.is_aligned(q, k, v),
+                             pair[1]) == variant
+    kw = dict(causal=causal, q_offset=q_offset)
+    fa.reset()
+    got = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.variant_launches == {n: int(n == variant) for n in fa.VARIANTS}
+    assert got.shape == (b, hq, tq, pair[1])
+    if variant == "decode_latent" and tk >= 8192:  # a long cache is split
+        assert list(fa.split_launches) != [1]
+    want = flash_attention_ref(q, k, v, **kw)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        assert _row_rel_l2(got, want) <= 1e-2
+
+
+@pytest.mark.gpu
+def test_flash_kernel_refuses_what_the_mla_library_lacks(cuda_device):
+    """A pair that is not built, and a variant that its pair lacks, raise
+    before any launch."""
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    fa.reset()
+    q = torch.randn(1, 2, 32, 96, device=cuda_device)
+    with pytest.raises(ValueError, match="pairs"):
+        fa.flash_attention(q, q, q[..., :64])
+    q = torch.randn(1, 2, 32, 576, device=cuda_device).bfloat16()  # Tq = 32: no prefill there
+    with pytest.raises(ValueError, match="not built"):
+        fa.flash_attention(q, q, q[..., :512])
+    assert fa.launches == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mla_flash_decode_on_card_matches_cpu(cuda_device, dtype):
+    """The absorbed decode at deepseek-v2-236b's widths (128 heads, r = 512,
+    rope 64) over the model's latent cache (one [B, S, 576] buffer, ``ckv``
+    and ``kpe`` its views) against the same call on the CPU, at pos 0, 1, the
+    middle and the last slot; one ``decode_latent`` launch each."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models.attention import mla_flash_decode
+
+    rng = np.random.default_rng(7)
+    b, s, h, r, rope = 4, 2048, 128, 512, 64
+    ql, qp = (torch.from_numpy(rng.standard_normal((b, h, d)).astype(np.float32)).to(dtype)
+              for d in (r, rope))
+    buf = torch.from_numpy(rng.standard_normal((b, s, r + rope)).astype(np.float32)).to(dtype)
+    dbuf = buf.to(cuda_device)
+    for pos in (0, 1, s // 2, s - 1):
+        fa.reset()
+        got = mla_flash_decode(ql.to(cuda_device), qp.to(cuda_device), dbuf[..., :r],
+                               dbuf[..., r:], pos)
+        torch.cuda.synchronize()
+        assert fa.variant_launches == {n: int(n == "decode_latent") for n in fa.VARIANTS}
+        want = mla_flash_decode(ql, qp, buf[..., :r], buf[..., r:], pos)
+        tol = FLASH_TOL[dtype]
+        torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol, atol=tol)
+
 # --------------------------------------------------------------- mamba scan
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1404,11 +1517,13 @@ def _record_expert_ids(monkeypatch):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "arctic-480b", "deepseek-coder-33b",
-                                  "minitron-8b"])
+                                  "minitron-8b", "deepseek-v2-236b"])
 def test_reduced_family_on_card_matches_cpu(cuda_device, arch, monkeypatch):
     """float32, the same weights on both devices: logits and the router loss
     within 1e-4, every MoE layer's expert ids equal, greedy tokens equal;
-    the forward launches one kernel per attention and per Mamba layer."""
+    the forward launches one kernel per attention and per Mamba layer
+    (deepseek-v2-236b: MLA's prefill at (48, 32), its dense prefix layer,
+    then the absorbed decode on ``decode_latent`` in the serve loop)."""
     import dataclasses
 
     from repro_torch.configs import get_reduced_config

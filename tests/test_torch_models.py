@@ -7,7 +7,10 @@ arctic-480b (a dense FFN beside the MoE in every layer); since slice 14
 also gemma3-12b and llama-3.2-vision-90b through the same fixtures (hubert-
 xlarge, encoder-only, only in the config checks: its frame inputs,
 gradients and checkpoints are ``tests/test_torch_families.py``'s, with the
-other two families' ring cache, image caches and gates).
+other two families' ring cache, image caches and gates); since slice 15
+also deepseek-v2-236b (MLA and a dense prefix layer before the MoE blocks;
+its attention paths, gradients and checkpoints are
+``tests/test_torch_mla.py``'s).
 
 Both packages compute with the same weights: the reference's
 ``Model.init(jax.random.key(0))``, carried over by
@@ -55,7 +58,8 @@ from repro_torch.models import mamba as tmamba
 from repro_torch.serve.lm import make_decode_step, make_prefill_step
 
 ARCHS = ["qwen3-8b", "falcon-mamba-7b", "minitron-8b", "deepseek-coder-33b", "jamba-v0.1-52b",
-         "arctic-480b", "gemma3-12b", "llama-3.2-vision-90b", "hubert-xlarge"]
+         "arctic-480b", "gemma3-12b", "llama-3.2-vision-90b", "hubert-xlarge",
+         "deepseek-v2-236b"]
 DECODE_ARCHS = [a for a in ARCHS if a != "hubert-xlarge"]  # token inputs, a decode path
 MOE_ARCHS = ("jamba-v0.1-52b", "arctic-480b")
 TOL = 1e-4
@@ -117,21 +121,39 @@ def test_configs_equal_the_reference(arch):
 
 @pytest.mark.parametrize("arch", ["deepseek-v2-236b"])
 def test_other_architectures_name_their_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8c"):
-        tconfigs.get_config(arch)
+    """Every architecture of the reference now runs in the port: the last
+    one waiting (deepseek-v2-236b) is a config like the others, nothing is
+    left in ``LATER``, and a name the reference does not have still raises."""
+    assert tconfigs.LATER == {}
+    assert sorted(tconfigs.ALIASES) == sorted(jconfigs.ALIASES)
+    cfg = tconfigs.get_config(arch)
+    assert cfg.use_mla and cfg.prefix and cfg == tconfigs.get_model_config(arch)
     with pytest.raises(ValueError, match="unknown architecture"):
         tconfigs.get_config("no-such-model")
 
 
 def test_unported_layers_raise():
-    base = tconfigs.get_reduced_config("qwen3-8b")
-    for change in (dict(use_mla=True), dict(prefix=(LayerSpec("attn", "moe"),))):
-        with pytest.raises(NotImplementedError, match="item 8c"):
-            Model(dataclasses.replace(base, **change), "cpu")
+    """MLA and prefix layers, which raised before slice 15, now build and
+    run on any base: reduced qwen3-8b with MLA in its blocks, and with an
+    MoE prefix layer, each through a forward and a decode step; and the
+    sliding-window ring cache's slots."""
+    base = dataclasses.replace(tconfigs.get_reduced_config("qwen3-8b"), dtype="float32")
+    mla = dict(use_mla=True, kv_lora_rank=32, q_lora_rank=None, qk_rope_dim=16, qk_nope_dim=32,
+               v_head_dim=32)
+    for change in (mla, dict(prefix=(LayerSpec("attn", "moe"),), n_experts=4, top_k=2)):
+        model = Model(dataclasses.replace(base, **change), "cpu")
+        params = model.init(torch.Generator().manual_seed(0))
+        toks = torch.tensor([[3, 5, 7]])
+        logits, _ = model.forward(params, {"tokens": toks})
+        step, _ = model.decode_step(params, model.init_cache(1, 4), toks[:, :1], 0)
+        assert logits.shape == (1, 3, 512) and bool(step.isfinite().all())
+        assert len(params["layers"]) == model.cfg.num_layers
+        if "use_mla" in change:
+            assert "wq" in params["layers"][0]["attn"]  # no q_lora_rank: one query projection
     windowed = dataclasses.replace(base, block=(LayerSpec("attn", "dense", window=8),
                                                 LayerSpec("attn", "dense")))
     # the sliding-window ring cache: a window-long ring, the reference's slots
-    model = Model(dataclasses.replace(windowed, dtype="float32"), "cpu")
+    model = Model(windowed, "cpu")
     assert [c["k"].shape[1] for c in model.init_cache(1, 16)] == [8, 16] * 2
     assert [c["k"].shape[1] for c in model.init_cache(1, 5)] == [5, 5] * 2
     params = model.init(torch.Generator().manual_seed(0))

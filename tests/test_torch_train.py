@@ -238,7 +238,8 @@ def _assert_step(tcfg, got, want):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-8b", "falcon-mamba-7b", "repro-100m", "minitron-8b",
-                                  "deepseek-coder-33b", "jamba-v0.1-52b", "arctic-480b"])
+                                  "deepseek-coder-33b", "jamba-v0.1-52b", "arctic-480b",
+                                  "deepseek-v2-236b"])
 def test_train_step_matches_reference(arch):
     """Two steps (warm-up 1: the first at lr 0, the second at the peak);
     one for jamba (the module's docstring says why)."""
