@@ -94,8 +94,9 @@ Phases:
      version 16 heads at a time), the absorbed decode at (576, 512), 128
      query heads on one latent KV head whose first 512 columns are the
      value, over a 32k cache at B=8 and the serve loop's 160 keys on
-     ``decode_latent``, a 16-token prompt, float32 rows, and the reduced
-     config's (48, 32);
+     ``latent_wgmma`` (tensor cores), the same 160 keys over a latent
+     buffer one element off 16 bytes on ``decode_latent``'s bf16 instance,
+     a 16-token prompt, float32 rows, and the reduced config's (48, 32);
      ``library_ms`` being ``F.scaled_dot_product_attention`` (with a
      boolean mask where a window or an offset diagonal needs one); each row
      names the variant that ran, and decode rows their split count;
@@ -124,6 +125,8 @@ Phases:
      runs ``forward`` only; llama's forward reads image embeddings); for
      each with a decode path and attention also one decode step over a
      seeded 8,192-long cache, where the decode kernel splits the cache;
+     the card's serve loop of reduced deepseek-v2 runs ``decode_latent``
+     (float32 at (48, 32)) on every attention call;
  17. qwen3-8b long-context decode at full width and depth, with phase 14's
      weights: B=8, a 32,768-position bf16 cache filled from a seeded
      generator, 8 ``decode_step``s from position 32,760 (36 launches a step,
@@ -263,9 +266,9 @@ Phases:
      cut to its dense prefix layer and one MoE block of the 59 (5.36B
      parameters; ``reduced`` says why): through ``lm_phase``, prefill B=1
      T=8192 (2 ``wgmma_bf16`` launches at (192, 128), MLA's expanded form)
-     and the serve loop at B=8 prompt 128 gen 32 (2 ``decode_latent``
+     and the serve loop at B=8 prompt 128 gen 32 (2 ``latent_wgmma``
      launches a step at (576, 512), the absorbed form over the latent
-     cache), both profiled with the MoE ranges' share; then 8
+     cache, on the tensor cores), both profiled with the MoE ranges' share; then 8
      ``decode_step``s at B=8 from the end of a seeded 8,192-long latent
      cache (split into shares), the last held against the same step with
      every attention call on the plain version (phase 17's bf16 gate);
@@ -2105,7 +2108,8 @@ def flash_row(torch, np, F, fa, fa_ref, timer, name, b, hq, hkv, tq, tk, dh, dty
     Dqk = ``dh``) takes the model's prefill layout (q and k transposed
     ``[B, T, H, Dqk]``, v a view of a ``[B, T, H, 2 Dv]`` tensor); with
     ``latent`` (Hkv = 1) k is a ``[B, S, Dqk]`` latent buffer and v its first
-    Dv columns, as the absorbed decode reads its cache. ``plain_heads`` runs
+    Dv columns, as the absorbed decode reads its cache (``"offset"``: the
+    buffer starts one element past 16 bytes). ``plain_heads`` runs
     the plain version that many KV heads at a time (its float32 scores at
     128 heads and T=8192 would not fit the card at once)."""
     device = timer.device
@@ -2117,6 +2121,8 @@ def flash_row(torch, np, F, fa, fa_ref, timer, name, b, hq, hkv, tq, tk, dh, dty
 
     if latent:
         q, buf = randn(b, hq, tq, dh), randn(b, tk, dh)
+        if latent == "offset":  # the buffer one element past a 16-byte boundary
+            buf = randn(b * tk * dh + 1)[1:].view(b, tk, dh)
         k, v = buf[:, None], buf[:, None, :, :dv]
     elif dv != dh:
         q, k = randn(b, tq, hq, dh).transpose(1, 2), randn(b, tk, hkv, dh).transpose(1, 2)
@@ -2178,9 +2184,11 @@ def flash_row(torch, np, F, fa, fa_ref, timer, name, b, hq, hkv, tq, tk, dh, dty
         if latent:
             # the absorbed decode with every key visible: the query heads as
             # the query rows of the one latent head, the same function
+            # (SDPA refuses a buffer off 16 bytes: it reads an aligned copy)
             check(not causal or q_offset + 1 >= tk, f"flash {name}: SDPA row needs every key")
+            kl, vl = (k, v) if latent is True else (k.clone(), v.clone())
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                q.transpose(1, 2), k, v).transpose(1, 2)
+                q.transpose(1, 2), kl, vl).transpose(1, 2)
         elif window is not None or (library_causal and q_offset):
             # a window, or a causal diagonal below the top-left one that
             # is_causal draws: SDPA's boolean mask, the same function
@@ -2290,6 +2298,10 @@ MLA_FLASH_ROWS = (
     ("mla_decode_latent_b8_tk32768", 8, 128, 1, 1, 32768, (576, 512), "bfloat16", 32767, True,
      None),
     ("mla_decode_latent_b8_tk160", 8, 128, 1, 1, 160, (576, 512), "bfloat16", 159, True, None),
+    # the FMA kernel's bf16 instance at (576, 512): a latent buffer one
+    # element off 16 bytes, which latent_wgmma's TMA cannot read
+    ("mla_decode_latent_unaligned_b8_tk160", 8, 128, 1, 1, 160, (576, 512), "bfloat16", 159,
+     "offset", None),
     # a 16-token prompt (decode_latent at (192, 128)), float32 on fma and
     # decode_latent, and the reduced config's (48, 32) on both
     ("mla_prefill_t16", 1, 128, 128, 16, 16, (192, 128), "bfloat16", 0, False, None),
@@ -2303,6 +2315,8 @@ MLA_FLASH_ROWS_TINY = (
     ("mla_prefill_reduced_heads", 1, 4, 4, 64, 64, (192, 128), "bfloat16", 0, False, 2),
     ("mla_decode_latent_reduced", 2, 4, 1, 1, 256, (48, 32), "bfloat16", 255, True, None),
     ("mla_decode_latent_full_width_tk64", 2, 128, 1, 1, 64, (576, 512), "bfloat16", 63, True,
+     None),
+    ("mla_decode_latent_unaligned_tk64", 2, 128, 1, 1, 64, (576, 512), "bfloat16", 63, "offset",
      None),
 )
 
@@ -2532,9 +2546,10 @@ def lm_phase(torch, np, counters, device, arch: str, tiny: bool, ident: str,
         else {"flash_attention": 0, "selective_scan": 0}
     check(serve_launches == expect, f"{arch} serve launched {serve_launches}, expected {expect}")
     # a decode step: g * Tq = 4 <= 16 on decode_split; MLA's absorbed step
-    # (128 query heads on the latent head) on decode_latent
+    # (128 query heads on the latent head) on latent_wgmma in bf16 at
+    # (576, 512), on decode_latent at the reduced pair
     serve_variants = dict(fa.variant_launches)
-    decode_variant = "decode_latent" if cfg.use_mla else "decode_split"
+    decode_variant = mla_decode_variant(fa, cfg, model.dtype) if cfg.use_mla else "decode_split"
     expect = {n: serve_launches["flash_attention"] * (n == decode_variant) for n in fa.VARIANTS}
     check(serve_variants == expect,
           f"{arch} serve ran the attention variants {serve_variants}, expected {expect}")
@@ -2728,8 +2743,11 @@ def reduced_parity(torch, np, device) -> list:
     """Phase 16: each reduced config in float32 with the same weights on the
     card and on the CPU; with MoE layers also every layer's expert ids and
     the router loss. hubert-xlarge takes frames and runs ``forward`` only;
-    llama-3.2-vision-90b's forward reads image embeddings."""
+    llama-3.2-vision-90b's forward reads image embeddings. The card's serve
+    loop records its attention variants: reduced deepseek-v2's runs MLA's
+    float32 FMA kernel, ``decode_latent``, at (48, 32) on every call."""
     from repro_torch.configs import get_model_config
+    from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.launch.serve import serve
     from repro_torch.models import Model
     from repro_torch.models import layers
@@ -2782,7 +2800,12 @@ def reduced_parity(torch, np, device) -> list:
             rows.append(row)
             continue
         # 8 + 8 tokens: gemma3's 16-slot rings (window 16) at init_cache(seq=16)
+        fa.reset()
         g_card, _ = serve(card, dparams, toks[:, :8].to(card.device), 8)
+        row["serve_flash_variants"] = {n: c for n, c in fa.variant_launches.items() if c}
+        check(device.type != "cuda" or not cfg.use_mla
+              or set(row["serve_flash_variants"]) == {"decode_latent"},
+              f"reduced {arch}: serve ran the attention variants {row['serve_flash_variants']}")
         g_cpu, _ = serve(cpu, params, toks[:, :8], 8)
         check(torch.equal(g_card.cpu(), g_cpu), f"reduced {arch}: greedy tokens differ")
         row["greedy_tokens_equal"] = True
@@ -2984,6 +3007,14 @@ def clone_cache(cache: list) -> list:
 
 def variant_counts(fa, n: int, variant: str, on_card: bool) -> dict:
     return {name: n * on_card * (name == variant) for name in fa.VARIANTS}
+
+
+def mla_decode_variant(fa, cfg, dtype) -> str:
+    """The attention variant of an MLA model's absorbed decode step: 128
+    query heads on the one latent head, the value the key's first
+    ``kv_lora_rank`` columns (the model's cache buffers are aligned)."""
+    r = cfg.kv_lora_rank
+    return fa.kernel_variant(dtype, 1, cfg.n_heads, r + cfg.qk_rope_dim, True, r)
 
 
 def fill_images(torch, model, params, cache: list, img) -> None:
@@ -3274,7 +3305,7 @@ def families_phase(torch, np, fa, fa_ref, counters, device, tiny: bool, ident: s
 def latent_decode_part(torch, np, fa, fa_ref, counters, device, model, params,
                        tiny: bool) -> dict:
     """Phase 27's long decode: 8 ``decode_step``s at B=8 from the end of a
-    seeded 8,192-long latent cache (one ``decode_latent`` launch an MLA layer
+    seeded 8,192-long latent cache (one ``latent_wgmma`` launch an MLA layer
     a step, the cache split into shares), then the last step again held
     against the same step with every attention call on the plain version
     (phase 17's bf16 gate, as phase 26 holds gemma3's)."""
@@ -3283,6 +3314,7 @@ def latent_decode_part(torch, np, fa, fa_ref, counters, device, model, params,
     cfg = model.cfg
     on_card = device.type == "cuda"
     n_attn = cfg.num_layers
+    variant = mla_decode_variant(fa, cfg, model.dtype)
     b, seq, steps = (2, 64, 4) if tiny else (8, 8192, 8)
     cache = model.init_cache(b, seq)
     fill_cache(torch, cache, torch.Generator(device=model.device).manual_seed(27))
@@ -3303,7 +3335,7 @@ def latent_decode_part(torch, np, fa, fa_ref, counters, device, model, params,
     variants = dict(fa.variant_launches)
     splits = dict(fa.split_launches)
     check(launches == {"flash_attention": n_attn * steps * on_card, "selective_scan": 0}
-          and variants == variant_counts(fa, n_attn * steps, "decode_latent", on_card),
+          and variants == variant_counts(fa, n_attn * steps, variant, on_card),
           f"{cfg.name} latent decode launched {launches}, variants {variants}")
     n_split = next(iter(splits)) if len(splits) == 1 else None
     check(not on_card or (n_split is not None and n_split > 1),
@@ -3330,11 +3362,11 @@ def latent_decode_part(torch, np, fa, fa_ref, counters, device, model, params,
             "step_seconds": step_s, "seconds_per_step": per_step, "tokens_per_s": b / per_step,
             "latent_cache_bytes": latent_bytes,
             "attention_bound_ms_per_step": latent_bytes / HBM_BYTES_PER_S * 1e3,
-            "launches": launches, "flash_variants": variants, "split_launches": splits,
-            "n_split": n_split,
+            "launches": launches, "variant": variant, "flash_variants": variants,
+            "split_launches": splits, "n_split": n_split,
             "blocks_per_sm": fa.latent_blocks_per_sm(
-                device, model.dtype, cfg.kv_lora_rank + cfg.qk_rope_dim, cfg.kv_lora_rank)
-            if on_card else None,
+                device, model.dtype, cfg.kv_lora_rank + cfg.qk_rope_dim, cfg.kv_lora_rank,
+                variant) if on_card else None,
             "plain_step": gate}
 
 
@@ -3344,7 +3376,7 @@ def mla_phase(torch, np, fa, fa_ref, counters, device, tiny: bool, ident: str) -
     the 59 (5.36B parameters; all 60 layers are 236B, 472 GB in bf16, which
     no one card holds) through ``lm_phase`` (prefill B=1 T=8192: 2
     ``wgmma_bf16`` launches at (192, 128); serve B=8 prompt 128 gen 32: 2
-    ``decode_latent`` launches a step at (576, 512); both profiled with the
+    ``latent_wgmma`` launches a step at (576, 512); both profiled with the
     MoE ranges' share), then ``latent_decode_part``. Logs its seconds."""
     t0 = time.perf_counter()
     rec, model, params = lm_phase(torch, np, counters, device, MLA_ARCH, tiny, ident,
@@ -3850,7 +3882,7 @@ def main() -> int:
         for lib in libraries:
             log(f"phase 0: {lib.path.name}: nvcc {lib.build_seconds:.3f} s")
             for line in lib.build_log.splitlines():
-                if "registers" in line or "Compiling entry" in line:
+                if "registers" in line or "Compiling entry" in line or "spill" in line:
                     log(f"phase 0: ptxas: {line.strip()}")
 
     # ------------------------------------------------------------ phase 1
@@ -4225,7 +4257,7 @@ def main() -> int:
             torch.cuda.empty_cache()
 
     # ----------------------------------------------------------- phase 16
-    reduced_parity(torch, np, device)
+    reduced_rows = reduced_parity(torch, np, device)
     clock.mark(16)
 
     # ----------------------------------------------------------- phase 25
@@ -4275,13 +4307,24 @@ def main() -> int:
         }
 
     # phase 12's rows at MLA's pairs, by the kernel they ran; the latent
-    # kernel's launches on phase 27's main path (the serve loop and the long
-    # decode)
+    # kernels' launches on their main paths: latent_wgmma on phase 27's (the
+    # serve loop and the long decode, bf16 at (576, 512)), decode_latent on
+    # phase 16's reduced deepseek-v2 serve loop (float32 at (48, 32)) and any
+    # of phase 27's
     mla_shapes = [r for r in flash_shapes if r["dv"] != r["dh"]]
     mla_prefill = [r for r in mla_shapes if r["variant"] == "wgmma_bf16"]
     mla_latent = [r for r in mla_shapes if r["variant"] == "decode_latent"]
-    mla_latent_launches = sum(mla_rec["record"][path]["flash_variants"]["decode_latent"]
-                              for path in ("serve", "latent_decode"))
+    mla_wgmma = [r for r in mla_shapes if r["variant"] == "latent_wgmma"]
+    mla_wgmma_launches = {path: mla_rec["record"][path]["flash_variants"]["latent_wgmma"]
+                          for path in ("serve", "latent_decode")}
+    mla_reduced = next(r for r in reduced_rows if r["arch"] == f"reduced:{MLA_ARCH}")
+    mla_latent_launches = {
+        "phase16_reduced_serve": mla_reduced["serve_flash_variants"].get("decode_latent", 0),
+        **{f"phase27_{path}": mla_rec["record"][path]["flash_variants"]["decode_latent"]
+           for path in ("serve", "latent_decode")}}
+    mla_row_keys = ("shape", "variant", "n_split", "dh", "dv", "dtype", "ms", "call_ms",
+                    "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err",
+                    "max_row_rel_l2")
     # the zoo's kernel shapes (phases 1 and 19): 4,096-row chunks, a sampled
     # dense matrix, the longest coarse row's chunk; and phase 22's chunk of
     # the served cuttana stream
@@ -4357,15 +4400,25 @@ def main() -> int:
                 mla_rec["record"]["prefill"]["flash_variants"]["wgmma_bf16"], TPU_KERNEL_FLASH,
                 FLASH_SOURCE, variant="wgmma_bf16", dqk_dv=[192, 128],
                 library=FLASH_MLA_LIBRARY, tflops=mla_prefill[0]["tflops"]),
-        summary("flash_attention_decode_latent", mla_latent, mla_latent_launches,
-                TPU_KERNEL_FLASH, FLASH_SOURCE, variant="decode_latent", dqk_dv=[576, 512],
-                library=FLASH_MLA_LIBRARY, n_split=mla_latent[0]["n_split"],
+        # the absorbed decode on the tensor cores (bf16, (576, 512)): its
+        # main shape phase 12's B=8 over a 32k latent cache, then 160 keys
+        summary("flash_attention_latent_wgmma", mla_wgmma, sum(mla_wgmma_launches.values()),
+                TPU_KERNEL_FLASH, FLASH_SOURCE, variant="latent_wgmma", dqk_dv=[576, 512],
+                library=FLASH_MLA_LIBRARY, path_launches=mla_wgmma_launches,
+                n_split=mla_wgmma[0]["n_split"],
                 main_path_n_split=mla_rec["record"]["latent_decode"]["n_split"],
+                blocks_per_sm=mla_rec["record"]["latent_decode"]["blocks_per_sm"],
+                tb_per_s=mla_wgmma[0]["bytes"] / mla_wgmma[0]["ms"] / 1e9,
+                rows=[{key: r.get(key) for key in mla_row_keys} for r in mla_wgmma]),
+        # MLA's FMA latent kernel: float32, unaligned bf16, short prompts at
+        # (192, 128) and the reduced pair; its main shape phase 12's
+        # unaligned bf16 row at (576, 512)
+        summary("flash_attention_decode_latent", mla_latent, sum(mla_latent_launches.values()),
+                TPU_KERNEL_FLASH, FLASH_SOURCE, variant="decode_latent", dqk_dv=[576, 512],
+                library=FLASH_MLA_LIBRARY, path_launches=mla_latent_launches,
+                n_split=mla_latent[0]["n_split"],
                 tb_per_s=mla_latent[0]["bytes"] / mla_latent[0]["ms"] / 1e9,
-                rows=[{key: r.get(key) for key in (
-                    "shape", "variant", "n_split", "dh", "dv", "dtype", "ms", "call_ms",
-                    "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err",
-                    "max_row_rel_l2")} for r in mla_shapes]),
+                rows=[{key: r.get(key) for key in mla_row_keys} for r in mla_latent]),
         summary("selective_scan", scan_shapes, lm_launches["selective_scan"],
                 TPU_KERNEL_SCAN, SCAN_SOURCE, variant=scan_shapes[0]["variant"],
                 exp_bound_share=scan_shapes[0]["exp_bound_share"],

@@ -32,7 +32,7 @@ MLA_LIBRARY = KernelLibrary(
     {
         "flash_attention_mla_fwd": [_i, _i, _i, _i, _p, _p, _p, _p, _p, _l, _l, _l, _l, _l,
                                     _i, _l, _l, _f, _p, _i, _p],
-        "flash_latent_blocks_per_sm": [_i, _i, _i, ctypes.POINTER(_i)],
+        "flash_latent_blocks_per_sm": [_i, _i, _i, _i, ctypes.POINTER(_i)],
     },
     depends=(HEADER,),
 )

@@ -26,7 +26,7 @@
 // bound it. One decode step at 32k context (B=32, Tq=1, Tk=32768): the K/V
 // reads (4.3 GB) take 1.28 ms and bound it.
 //
-// Three kernels. The wrapper (ops.py kernel_variant) picks one before launch
+// Five kernels. The wrapper (ops.py kernel_variant) picks one before launch
 // from the dtype, Tq, g, Dh and the 16-byte alignment of the pointers and
 // strides alone, never from a failed build or launch.
 //
@@ -98,7 +98,41 @@
 // float32 accumulator a block; the slices recompute the same scores). Split-KV
 // shares and attn_merge_kernel as in decode_split. Both products in float32
 // FMA: the bytes (the cache, 1,152 bytes a key in bf16) bound this step, but
-// the FMA rate bounds this kernel (PERF.md).
+// the FMA rate bounds this kernel (PERF.md). It keeps the float32 calls, the
+// unaligned bf16 ones and the (192, 128) and (48, 32) pairs.
+//
+// attn_latent_wgmma_kernel (latent_wgmma), MLA's absorbed decode in bf16 at
+// (576, 512) with 16-byte aligned inputs and the value a view of the key's
+// first 512 columns (Tq <= 16). Replaces, as attn_latent_kernel does,
+// repro/models/attention.py::mla_flash_decode, a jnp einsum with no Pallas
+// kernel. Bound, at B=8 over a 32k latent cache: 302 MB of latent rows, 0.0908
+// ms at 3.35 TB/s; the necessary products (a 576-wide QK^T and a 512-wide P V
+// for 128 heads) are 73 GFLOP, 0.074 ms at 989 TFLOP/s; so bytes bound it, and
+// barely. The design reads each latent row once a block and feeds both
+// products from that one read: a producer warpgroup has TMA copy each 64-key tile
+// (9 boxes of 64 columns, 128-byte swizzle) into a ring of 2 stages guarded by
+// full/empty mbarriers; S = Q K^T reads the tile K-major (9 k64 blocks of
+// wgmma_ss) and P V reads its first 512 columns N-major, as the prefill
+// kernel reads V. A block owns 64 query rows (g * Tq rows of a (batch, KV
+// head) in tiles of 64, Q resident in shared memory) and all 512 output
+// columns: two consumer warpgroups, 256 columns each (a 64 x 256 float32
+// accumulator, two m64n128k16 wgmma_rs a 16-key step and part of P, P from
+// the S registers). Each warpgroup takes S of the tile itself (1.5x the necessary
+// QK work, still under the byte time). So a (batch, share) is 2 blocks where
+// attn_latent_kernel had 8, the cache is read twice (the two row tiles sit on
+// adjacent blocks, so the second read tends to hit L2), and the split count
+// (ops.py decode_splits) fills the card with shares. setmaxnreg moves
+// registers from the producer warpgroup (24) to the consumers (240): the
+// launch leaves 168 a thread, and a consumer holds 208 in accumulators and
+// operands alone. (A lone producer warp gives back too few: the consumers'
+// setmaxnreg.inc would wait for ever.)
+// Same semantics as attn_latent_kernel: the Pallas tile bounds, base-2 scores,
+// -1e30 for masked ones, float32 row statistics, split shares merged by
+// attn_merge_kernel. P enters wgmma as three bf16 operands that sum to the
+// float32 P (24 bits), so P V runs three times: with P in bf16 alone a row's
+// error was 4x the output's own bf16 rounding, and with one or two parts a
+// deepseek-v2 decode step's logits left the plain version's by more than
+// chip_smoke.py's 1e-2 (a router near-tie flipped; PERF.md).
 //
 // All kernels read q, k, v and write o through element strides, so the
 // model's [B, T, H, Dh] tensors and its [B, S, Hkv, Dh] cache are read in
@@ -126,7 +160,14 @@ constexpr int64_t kMaxGridY = 65535;
 constexpr int kMaxSmemBytes = 227 * 1024;  // the dynamic shared memory a block may have
 
 // the variants of ops.py's VARIANTS, in order
-enum Variant : int { kFma = 0, kFmaShort = 1, kDecodeSplit = 2, kWgmmaBf16 = 3, kDecodeLatent = 4 };
+enum Variant : int {
+  kFma = 0,
+  kFmaShort = 1,
+  kDecodeSplit = 2,
+  kWgmmaBf16 = 3,
+  kDecodeLatent = 4,
+  kLatentWgmma = 5
+};
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -1581,6 +1622,305 @@ attn_latent_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   }
 }
 
+// --------------------------------------------- latent decode on the tensor cores
+
+constexpr int kLwBR = 64;                            // query rows a block: one wgmma M tile
+constexpr int kLwConsumers = 2;                      // consumer warpgroups, Dv / 2 columns each
+constexpr int kLwThreads = 128 * (kLwConsumers + 1);  // + one producer warpgroup
+constexpr int kLwStages = 2;                           // latent tiles in the ring
+constexpr int kLwPParts = 3;  // bf16 wgmma operands that sum to P: its 24 bits
+// setmaxnreg: the launch gives every thread 168 registers (12 warps, 3 on
+// each sub-partition's 16,384); the consumers take from the pool only what
+// the producer gives back: 128 x (168 - 24) = 256 x (240 - 168)
+constexpr int kLwProducerRegs = 24;
+constexpr int kLwConsumerRegs = 240;
+
+// The latent_wgmma kernel's shared memory at (DQK, DV): the block's Q tile
+// (kLwBR rows) and kLwStages latent tiles of kBK keys, all DQK wide in
+// WgRow<DQK>'s layout (column blocks of 64 columns one after another, 128-byte
+// swizzle), then the full/empty barriers. The value is the tile's first DV
+// columns, whole column blocks: each consumer warpgroup reads kCols of them.
+template <int DQK, int DV>
+struct LatWg {
+  using R = WgRow<DQK>;
+  static constexpr int kCols = DV / kLwConsumers;  // output columns a warpgroup
+  static constexpr int kQBytes = kLwBR * DQK * 2;
+  static constexpr int kTileBytes = kBK * DQK * 2;
+  static constexpr int kBlockBytes = kBK * R::kRB;  // one column block (TMA box) of a tile
+  static constexpr size_t kBytes = kQBytes + kLwStages * kTileBytes + 8 * 2 * kLwStages + 1024;
+  static_assert(R::kRB == 128 && kCols == 256,
+                "128-byte rows; P V as wgmma_pv<256>'s two n128 a warpgroup");
+  static_assert(kBytes <= kMaxSmemBytes, "Q and the latent ring fit in shared memory");
+};
+
+// One block: query rows [rt * 64, rt * 64 + 64) of the g * Tq rows of one
+// (batch, KV head) (row r is head kvh * g + r / Tq, query row r % Tq), all DV
+// output columns, key tiles [s_lo, s_hi) (the split's share of the Pallas
+// bounds, as in attn_decode_kernel). Grid x: ((pair * n_split + split) *
+// row_tiles + rt), so a share's row tiles run on adjacent blocks. The key is
+// the latent row (k_map, DQK wide), the value its first DV columns. Scores
+// stay in their own units (masked ones -1e30), scale_log2 folded into the
+// exponent; with n_split > 1 the split's (m in base 2, l, unnormalised o) go
+// to the workspace in attn_decode_kernel's layout, for attn_merge_kernel.
+template <int DQK, int DV>
+__global__ void __launch_bounds__(kLwThreads, 1)
+attn_latent_wgmma_kernel(const bf16* __restrict__ q, const __grid_constant__ CUtensorMap k_map,
+                         bf16* __restrict__ o, float* __restrict__ ws, Strides sq, Strides so,
+                         int64_t hkv, int64_t group, int64_t tq, int64_t tk, int causal,
+                         int64_t window, int64_t q_offset, float scale_log2, int n_split) {
+  using L = LatWg<DQK, DV>;
+  using R = typename L::R;
+  constexpr int KT = kBK / 8;  // 8-key column tiles of S
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const uint32_t qs_a = smem_addr(base);                      // [kLwBR rows]
+  const uint32_t ks_a = qs_a + L::kQBytes;                    // [kLwStages][kBK rows]
+  const uint32_t bar_a = ks_a + kLwStages * L::kTileBytes;    // full[S], empty[S]
+  auto full = [&](int s) { return bar_a + 8 * s; };
+  auto empty = [&](int s) { return bar_a + 8 * (kLwStages + s); };
+
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+  const int grp = lane / 4, tig = lane % 4;
+  const int64_t rows = group * tq;
+  const int64_t row_tiles = (rows + kLwBR - 1) / kLwBR;
+  const int64_t rt = blockIdx.x % row_tiles;
+  const int64_t split = (blockIdx.x / row_tiles) % n_split;
+  const int64_t pair = blockIdx.x / row_tiles / n_split;
+  const int64_t bi = pair / hkv, kvh = pair % hkv;
+  const int64_t row0 = rt * kLwBR;
+
+  int64_t lo, hi;
+  tile_bounds(q_offset, tq, tk, causal, window, lo, hi);
+  const int64_t n_vis = hi > lo ? hi - lo : 0;
+  const int64_t s_lo = lo + n_vis * split / n_split;
+  const int64_t s_hi = lo + n_vis * (split + 1) / n_split;
+
+  // the Q tile, 16 bytes a thread, written as TMA would write it (chunk c of
+  // row r of a column block at c ^ (r % 8)); zero past the g * Tq rows
+  constexpr int kPieces = DQK / 8;  // 16-byte pieces of a row
+  for (int i = tid; i < kLwBR * kPieces; i += kLwThreads) {
+    const int r = i / kPieces, c = i % kPieces;
+    const int64_t row = row0 + r;
+    uint4 x = make_uint4(0u, 0u, 0u, 0u);
+    if (row < rows) {
+      const int64_t head = kvh * group + row / tq, t = row % tq;
+      x = __ldg(reinterpret_cast<const uint4*>(q + bi * sq.b + head * sq.h + t * sq.t + c * 8));
+    }
+    *reinterpret_cast<uint4*>(base + (c / 8) * (kLwBR * R::kRB) + r * R::kRB +
+                              ((c % 8) ^ (r % 8)) * 16) = x;
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma's reads
+  if (tid == 0) {
+    for (int s = 0; s < kLwStages; ++s) {
+      mbar_init(full(s), 1);                  // the producer's expect-tx arrival
+      mbar_init(empty(s), 4 * kLwConsumers);  // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the roles never meet again, so setmaxnreg can move the registers
+  if (wg == kLwConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kLwProducerRegs));
+    // one thread: the share's latent tiles into the ring as fast as the
+    // consumers free stages; TMA zero-fills rows past Tk
+    if (tid == kLwConsumers * 128) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int64_t tile = s_lo; tile < s_hi; ++tile) {
+        mbar_wait(empty(stage), phase ^ 1);  // a fresh ring passes the first lap
+        mbar_expect_tx(full(stage), L::kTileBytes);
+        const uint32_t dst = ks_a + stage * L::kTileBytes;
+        for (int cb = 0; cb < R::kBoxes; ++cb) {
+          tma_load_4d(dst + cb * L::kBlockBytes, &k_map, full(stage), cb * (R::kRB / 2),
+                      static_cast<int>(tile * kBK), static_cast<int>(kvh), static_cast<int>(bi));
+        }
+        if (++stage == kLwStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kLwConsumerRegs));
+    float acc[L::kCols / 2];  // O, 64 x kCols: rows grp (+8) of each warp's 16
+    float s[KT * 4];          // S of one tile, then its probabilities
+    // P as kLwPParts bf16 wgmma A fragments that sum to it (8 bits each)
+    uint32_t p[kLwPParts][kBK / 16][4];
+#pragma unroll
+    for (int i = 0; i < L::kCols / 2; ++i) acc[i] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < KT * 4; ++i) s[i] = 0.0f;
+    float m_row[2] = {kNegInf, kNegInf};  // running max of rows grp, grp + 8 (raw scores)
+    float l_row[2] = {0.0f, 0.0f};        // this thread's part of the running sums
+    float alpha[2];
+    const int r0 = warp * 16 + grp;  // the thread's first row in the block
+    const int64_t qpos0 = q_offset + (row0 + r0) % tq;
+    const int64_t qpos1 = q_offset + (row0 + r0 + 8) % tq;
+    // the warpgroup's value columns: column blocks [wg * kCols / 64, ...) of the tile
+    const uint32_t v_off = wg * (L::kCols / 64) * L::kBlockBytes;
+
+    auto issue_qk = [&](int st) {  // S = Q K^T over the 576 columns, 16 a step
+      const uint32_t kt = ks_a + st * L::kTileBytes;
+#pragma unroll
+      for (int kk = 0; kk < DQK / 16; ++kk) {
+        const uint32_t col = (kk * 32) / R::kRB, within = (kk * 32) % R::kRB;
+        const uint64_t da =
+            wg_desc(qs_a + col * kLwBR * R::kRB + within, 16, 8 * R::kRB, R::kLayout);
+        const uint64_t db = wg_desc(kt + col * L::kBlockBytes + within, 16, 8 * R::kRB,
+                                    R::kLayout);
+        wgmma_ss(s, da, db, kk > 0);
+      }
+      wgmma_commit();
+    };
+    auto issue_pv = [&](int st) {  // O += P V, 16 keys a step, the tile's columns N-major
+      const uint32_t vt = ks_a + st * L::kTileBytes + v_off;
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+        for (int part = 0; part < kLwPParts; ++part) {
+          wgmma_pv<L::kCols, R::kRB>(acc, p[part][kk], vt + kk * 16 * R::kRB, R::kLayout);
+        }
+      wgmma_commit();
+    };
+    // the masks, the online softmax of the tile (trees for the maxima and
+    // sums), O rescaled (skipped while no row of the thread saw a new
+    // maximum) and P split into its bf16 parts
+    auto softmax = [&](int64_t tile) {
+      const int64_t kbase = tile * kBK;
+      const bool edge = kbase + kBK > tk || (causal && kbase + kBK - 1 > q_offset) ||
+                        (window > 0 && kbase <= q_offset + tq - 1 - window);
+      if (edge) {
+#pragma unroll
+        for (int i = 0; i < KT * 4; ++i) {
+          const int64_t kpos = kbase + (i / 4) * 8 + 2 * tig + (i & 1);
+          const int64_t qpos = (i & 2) ? qpos1 : qpos0;
+          bool keep = kpos < tk;
+          if (causal) keep = keep && kpos <= qpos;
+          if (window > 0) keep = keep && kpos > qpos - window;
+          if (!keep) s[i] = kNegInf;
+        }
+      }
+      float mx[2][KT];
+#pragma unroll
+      for (int j = 0; j < KT; ++j) {
+        mx[0][j] = fmaxf(s[4 * j], s[4 * j + 1]);
+        mx[1][j] = fmaxf(s[4 * j + 2], s[4 * j + 3]);
+      }
+#pragma unroll
+      for (int w = KT / 2; w > 0; w /= 2)
+#pragma unroll
+        for (int j = 0; j < w; ++j) {
+          mx[0][j] = fmaxf(mx[0][j], mx[0][j + w]);
+          mx[1][j] = fmaxf(mx[1][j], mx[1][j + w]);
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float m = fmaxf(m_row[r], mx[r][0]);
+        m = fmaxf(m, __shfl_xor_sync(kFullMask, m, 1));
+        m = fmaxf(m, __shfl_xor_sync(kFullMask, m, 2));
+        alpha[r] = fast_exp2((m_row[r] - m) * scale_log2);
+        m_row[r] = m;
+      }
+      float sm[2][KT];
+#pragma unroll
+      for (int j = 0; j < KT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[4 * j + e] = fast_exp2((s[4 * j + e] - m_row[e >> 1]) * scale_log2);
+        }
+        sm[0][j] = s[4 * j] + s[4 * j + 1];
+        sm[1][j] = s[4 * j + 2] + s[4 * j + 3];
+      }
+#pragma unroll
+      for (int w = KT / 2; w > 0; w /= 2)
+#pragma unroll
+        for (int j = 0; j < w; ++j) {
+          sm[0][j] += sm[0][j + w];
+          sm[1][j] += sm[1][j + w];
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l_row[r] = l_row[r] * alpha[r] + sm[r][0];
+      if (alpha[0] != 1.0f || alpha[1] != 1.0f) {
+#pragma unroll
+        for (int i = 0; i < L::kCols / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      }
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float a = s[8 * kk + 2 * e], b = s[8 * kk + 2 * e + 1];
+#pragma unroll
+          for (int part = 0; part < kLwPParts; ++part) {
+            // a in the low half; a bf16 is the top half of a float
+            const uint32_t w = pack_bf16(a, b);
+            p[part][kk][e] = w;
+            a -= __uint_as_float(w << 16);
+            b -= __uint_as_float(w & 0xffff0000u);
+          }
+        }
+    };
+
+    // a tile: S, its softmax, P V, then the stage goes back to the producer;
+    // the ring's other stage is loading the next tile meanwhile
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int64_t tile = s_lo; tile < s_hi; ++tile) {
+      mbar_wait(full(stage), phase);
+      wgmma_fence();
+      issue_qk(stage);
+      wgmma_wait<0>();
+      fence_regs(s);
+      softmax(tile);
+      wgmma_fence();
+      issue_pv(stage);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(stage));
+      if (++stage == kLwStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+    const int64_t pairs = static_cast<int64_t>(gridDim.x) / (row_tiles * n_split);
+    const int64_t parts = pairs * rows * n_split;  // (pair, row, split)s of the workspace
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float l = l_row[r];
+      l += __shfl_xor_sync(kFullMask, l, 1);
+      l += __shfl_xor_sync(kFullMask, l, 2);
+      const int64_t row = row0 + r0 + 8 * r;
+      if (row >= rows) continue;
+      if (n_split == 1) {
+        const int64_t head = kvh * group + row / tq, t = row % tq;
+        bf16* orow = o + bi * so.b + head * so.h + t * so.t + wg * L::kCols;
+        const float denom = fmaxf(l, 1e-30f);
+#pragma unroll
+        for (int j = 0; j < L::kCols / 8; ++j) {
+          *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + 2 * tig) = __floats2bfloat162_rn(
+              acc[4 * j + 2 * r] / denom, acc[4 * j + 2 * r + 1] / denom);
+        }
+      } else {  // the split's partial: [pair][row][split] (m, l) and [..][DV] o
+        const int64_t at = (pair * rows + row) * n_split + split;
+        float* wrow = ws + at * DV + wg * L::kCols;
+#pragma unroll
+        for (int j = 0; j < L::kCols / 8; ++j) {
+          *reinterpret_cast<float2*>(wrow + j * 8 + 2 * tig) =
+              make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+        }
+        if (wg == 0 && tig == 0) {
+          // m in base 2, as the merge takes it; an empty share weighs 0
+          ws[parts * DV + at] = s_hi > s_lo ? m_row[r] * scale_log2 : -INFINITY;
+          ws[parts * (DV + 1) + at] = l;
+        }
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------- launchers
 
 dim3 grid_of(int64_t head_blocks, int64_t q_tiles) {
@@ -1824,6 +2164,66 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, const int
       q_map, k_map, v_map, static_cast<bf16*>(o), Strides{st[9], st[10], st[11]}, hq, hq / hkv,
       tq, tk, causal, window, q_offset, sm_scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the latent_wgmma kernel's shared memory size, set once
+template <int DQK, int DV>
+cudaError_t configure_latent_wgmma() {
+  static const cudaError_t configured =
+      cudaFuncSetAttribute(attn_latent_wgmma_kernel<DQK, DV>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(LatWg<DQK, DV>::kBytes));
+  return configured;
+}
+
+// blocks of the latent_wgmma kernel that one SM holds at once
+template <int DQK, int DV>
+int latent_wgmma_occupancy(int* blocks) {
+  const cudaError_t configured = configure_latent_wgmma<DQK, DV>();
+  if (configured != cudaSuccess) return static_cast<int>(configured);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, attn_latent_wgmma_kernel<DQK, DV>, kLwThreads, LatWg<DQK, DV>::kBytes));
+}
+
+// the latent decode on the tensor cores: (batch, KV head) x splits x row
+// tiles of 64 on grid x; with n_split > 1 the merge on the same stream. v must
+// be the first DV columns of k (the same base and strides): the kernel reads
+// the value from the key's tile
+template <int DQK, int DV>
+int launch_latent_wgmma(const void* q, const void* k, const void* v, void* o, const int64_t* st,
+                        int64_t batch, int64_t hq, int64_t hkv, int64_t tq, int64_t tk,
+                        int causal, int64_t window, int64_t q_offset, float sm_scale,
+                        float* workspace, int n_split, cudaStream_t stream) {
+  using L = LatWg<DQK, DV>;
+  const cudaError_t configured = configure_latent_wgmma<DQK, DV>();
+  if (configured != cudaSuccess) return static_cast<int>(configured);
+  if (v != k || st[6] != st[3] || st[7] != st[4] || st[8] != st[5]) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(o);
+  int64_t strides = 0;
+  for (int i = 0; i < 12; ++i) strides |= st[i];
+  if (bases % 16 != 0 || strides % 8 != 0) return static_cast<int>(cudaErrorMisalignedAddress);
+  const int64_t group = hq / hkv;
+  const int64_t row_tiles = (group * tq + kLwBR - 1) / kLwBR;
+  const int64_t blocks = batch * hkv * n_split * row_tiles;
+  if (blocks > 0x7fffffff || tk > 0x7fffffff || batch > 0x7fffffff || hkv > 0x7fffffff) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  CUtensorMap k_map;
+  if (!make_map<DQK>(&k_map, k, st + 3, batch, hkv, tk > 0 ? tk : 1, kBK)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Strides so{st[9], st[10], st[11]};
+  attn_latent_wgmma_kernel<DQK, DV><<<static_cast<unsigned>(blocks), kLwThreads, L::kBytes,
+                                      stream>>>(
+      static_cast<const bf16*>(q), k_map, static_cast<bf16*>(o), workspace,
+      Strides{st[0], st[1], st[2]}, so, hkv, group, tq, tk, causal, window, q_offset,
+      sm_scale * kLog2e, n_split);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);
+  return launch_merge<bf16, DV>(workspace, o, so, batch, hkv, group, tq, n_split, stream);
 }
 
 }  // namespace

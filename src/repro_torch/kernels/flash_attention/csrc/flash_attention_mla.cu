@@ -10,13 +10,16 @@
 //               and decode_latent (prompts of Tq <= 16);
 //   (576, 512)  the absorbed decode step: 128 query heads on one latent KV
 //               head, a 512 latent + 64 rope key whose first 512 columns are
-//               the value: decode_latent;
+//               the value: latent_wgmma (bf16, aligned, the value a view of
+//               the key; tensor cores, one TMA-staged tile for both
+//               products) and decode_latent (float32, unaligned bf16);
 //   (48, 32)    the reduced config's pair, for both: fma and decode_latent.
 //
-// decode_latent in float32 and bf16 at each of its pairs, fma likewise.
-// Bound: a latent decode step over a 32k cache at B=8 reads 302 MB of cache
-// (0.09 ms at 3.35 TB/s); the kernel's float32 FMA products cost far more
-// (PERF.md).
+// decode_latent in float32 and bf16 at each of its pairs, fma likewise;
+// latent_wgmma in bf16 at (576, 512) alone. Bound: a latent decode step over a
+// 32k cache at B=8 reads 302 MB of cache (0.09 ms at 3.35 TB/s); latent_wgmma
+// takes its 73 GFLOP of products on the tensor cores (0.074 ms at 989
+// TFLOP/s), decode_latent in float32 FMA, which cost far more (PERF.md).
 #include "flash_attention.cuh"
 
 namespace {
@@ -78,7 +81,9 @@ extern "C" {
 // 3 = tensor cores (bf16, (192, 128) only, 16-byte aligned bases and
 // strides); 4 = latent decode (n_split >= 1 contiguous shares of the key
 // tiles, and with n_split > 1 a float32 workspace of B * Hkv * g * Tq *
-// n_split * (Dv + 2) elements). dtype 0 = float32, 1 = bfloat16; (dqk, dv) in
+// n_split * (Dv + 2) elements); 5 = latent decode on the tensor cores (bf16,
+// (576, 512) only, 16-byte aligned, v the first Dv columns of k; shares and
+// workspace as 4). dtype 0 = float32, 1 = bfloat16; (dqk, dv) in
 // {(192, 128), (576, 512), (48, 32)}; Hq a multiple of Hkv; window <= 0 means
 // none. Returns the CUDA error code of the launch (or of the first failed
 // one); a variant not built at the pair returns cudaErrorInvalidValue.
@@ -90,11 +95,17 @@ int flash_attention_mla_fwd(int variant, int dtype, int dqk, int dv, const void*
   if (batch <= 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0 || tq <= 0 || tk < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (variant == kDecodeLatent && (n_split < 1 || (n_split > 1 && workspace == nullptr))) {
+  if ((variant == kDecodeLatent || variant == kLatentWgmma) &&
+      (n_split < 1 || (n_split > 1 && workspace == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* ws = static_cast<float*>(workspace);
+  if (variant == kLatentWgmma) {
+    if (dtype != 1 || dqk != 576 || dv != 512) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_latent_wgmma<576, 512>(q, k, v, o, strides, batch, hq, hkv, tq, tk, causal,
+                                         window, q_offset, sm_scale, ws, n_split, s);
+  }
   if (variant == kWgmmaBf16) {
     if (dtype != 1 || dqk != 192 || dv != 128) return static_cast<int>(cudaErrorInvalidValue);
     return launch_wgmma<192, 128>(q, k, v, o, strides, batch, hq, hkv, tq, tk, causal, window,
@@ -112,9 +123,15 @@ int flash_attention_mla_fwd(int variant, int dtype, int dqk, int dv, const void*
 }
 
 // *blocks = the latent decode kernel's blocks that one SM of the current
-// device holds at once, for dtype (0 = float32, 1 = bfloat16) and (dqk, dv):
-// what its shared memory and registers allow. Returns the CUDA error code.
-int flash_latent_blocks_per_sm(int dtype, int dqk, int dv, int* blocks) {
+// device holds at once, for variant (4 = decode_latent, 5 = latent_wgmma),
+// dtype (0 = float32, 1 = bfloat16) and (dqk, dv): what its shared memory and
+// registers allow. Returns the CUDA error code.
+int flash_latent_blocks_per_sm(int variant, int dtype, int dqk, int dv, int* blocks) {
+  if (variant == kLatentWgmma) {
+    if (dtype != 1 || dqk != 576 || dv != 512) return static_cast<int>(cudaErrorInvalidValue);
+    return latent_wgmma_occupancy<576, 512>(blocks);
+  }
+  if (variant != kDecodeLatent) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0) return latent_occupancy_pair<float>(dqk, dv, blocks);
   if (dtype == 1) return latent_occupancy_pair<__nv_bfloat16>(dqk, dv, blocks);
   return static_cast<int>(cudaErrorInvalidValue);

@@ -27,11 +27,15 @@ MLA (deepseek-v2-236b) attends with a query and key wider than the value:
 view of ``k``), and the output is ``[B, Hq, Tq, Dv]``. Those pairs are built
 in a library of their own (``csrc/flash_attention_mla.cu``), only in the
 variants their calls take (``MLA_PAIRS``): the tensor-core and FMA prefill at
-(192, 128), and ``decode_latent`` for every call with ``Tq <= 16``: the
-absorbed decode step (128 query heads on one latent KV head at (576, 512);
-all ``g * Tq`` rows of a KV head in one block, the latent cache read once
-per block, the output columns cut into slices of ``LATENT_COLS``) and short
-prefills. A pair or variant that is not built raises before any launch.
+(192, 128), and for every call with ``Tq <= 16`` (the absorbed decode step,
+128 query heads on one latent KV head at (576, 512), and short prefills) a
+latent kernel: ``latent_wgmma`` for bf16 at (576, 512) with aligned inputs
+and the value a view of the key's first ``Dv`` columns (tensor cores; one
+TMA-staged latent tile feeds both products; a block owns ``LATENT_WGMMA_ROWS``
+query rows and all 512 output columns), else ``decode_latent`` (float32 FMA;
+``LATENT_ROWS`` rows a block, the output columns cut into slices of
+``LATENT_COLS``). A pair or variant that is not built raises before any
+launch.
 
 The inputs may be any views whose last dimension is contiguous: the kernel
 reads them through their strides, so the model hands it ``[B, T, H, Dh]``
@@ -61,7 +65,7 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 __all__ = ["DTYPES", "HEAD_DIMS", "MLA_PAIRS", "VARIANTS", "decode_blocks_per_sm",
            "decode_splits", "flash_attention", "is_aligned", "kernel_variant",
            "latent_blocks", "latent_blocks_per_sm", "launches", "reset", "sm_count",
-           "split_launches", "variant_launches"]
+           "split_launches", "value_in_key", "variant_launches"]
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 80, 128, 256)  # every variant is built at each, Dqk = Dv
@@ -70,20 +74,24 @@ HEAD_DIMS = (32, 64, 80, 128, 256)  # every variant is built at each, Dqk = Dv
 # its reduced config's pair for both
 MLA_PAIRS = {
     (192, 128): ("fma", "wgmma_bf16", "decode_latent"),
-    (576, 512): ("decode_latent",),
+    (576, 512): ("decode_latent", "latent_wgmma"),
     (48, 32): ("fma", "decode_latent"),
 }
 # the kernel's variants, in the order of their codes in csrc/flash_attention.cuh
-VARIANTS = ("fma", "fma_short", "decode_split", "wgmma_bf16", "decode_latent")
+VARIANTS = ("fma", "fma_short", "decode_split", "wgmma_bf16", "decode_latent", "latent_wgmma")
+# the variants that split the cache into shares (n_split) and merge them
+SPLIT_VARIANTS = ("decode_split", "decode_latent", "latent_wgmma")
 TILE_KEYS = 64  # keys a tile of every variant
 # decode_latent: query rows and output columns a block (kLatBR, kLatDVS)
 LATENT_ROWS = 64
 LATENT_COLS = 128
+# latent_wgmma: query rows a block (kLwBR); every block holds all Dv columns
+LATENT_WGMMA_ROWS = 64
 # decode_split: every share gets at least this many tiles
 DECODE_MIN_TILES_PER_SPLIT = 16
 launches = 0
 variant_launches = dict.fromkeys(VARIANTS, 0)
-split_launches: dict[int, int] = {}  # decode_split/_latent launches by their n_split
+split_launches: dict[int, int] = {}  # SPLIT_VARIANTS' launches by their n_split
 
 
 def reset() -> None:
@@ -135,30 +143,43 @@ def decode_blocks_per_sm(device: torch.device, dtype: torch.dtype, dh: int, rows
 
 
 @functools.lru_cache(maxsize=None)
-def _latent_blocks_per_sm(index: int, dtype: torch.dtype, dqk: int, dv: int) -> int:
+def _latent_blocks_per_sm(index: int, dtype: torch.dtype, dqk: int, dv: int,
+                          variant: str) -> int:
     blocks = ctypes.c_int(0)
     with torch.cuda.device(index):
-        err = build.mla_library().flash_latent_blocks_per_sm(DTYPES[dtype], dqk, dv,
-                                                             ctypes.byref(blocks))
+        err = build.mla_library().flash_latent_blocks_per_sm(
+            VARIANTS.index(variant), DTYPES[dtype], dqk, dv, ctypes.byref(blocks))
     if err != 0 or blocks.value < 1:
-        raise RuntimeError(f"decode_latent occupancy query failed: CUDA error {err}, "
+        raise RuntimeError(f"{variant} occupancy query failed: CUDA error {err}, "
                            f"{blocks.value} blocks an SM")
     return blocks.value
 
 
-def latent_blocks_per_sm(device: torch.device, dtype: torch.dtype, dqk: int, dv: int) -> int:
-    """The ``decode_latent`` blocks that one SM of a CUDA device holds at once
-    at this dtype and (Dqk, Dv) pair (the CUDA occupancy query), read once per
-    device and instance."""
+def latent_blocks_per_sm(device: torch.device, dtype: torch.dtype, dqk: int, dv: int,
+                         variant: str = "decode_latent") -> int:
+    """The ``variant`` (``decode_latent`` or ``latent_wgmma``) blocks that
+    one SM of a CUDA device holds at once at this dtype and (Dqk, Dv) pair
+    (the CUDA occupancy query), read once per device and instance."""
     index = device.index if device.index is not None else torch.cuda.current_device()
-    return _latent_blocks_per_sm(index, dtype, dqk, dv)
+    return _latent_blocks_per_sm(index, dtype, dqk, dv, variant)
 
 
-def latent_blocks(rows: int, dv: int) -> int:
-    """The ``decode_latent`` blocks of one (batch, KV head) and share: its
-    ``rows = g * Tq`` query rows in tiles of ``LATENT_ROWS``, times its ``dv``
-    output columns in slices of ``LATENT_COLS``."""
+def latent_blocks(rows: int, dv: int, variant: str = "decode_latent") -> int:
+    """The blocks of one (batch, KV head) and share: ``decode_latent`` cuts
+    its ``rows = g * Tq`` query rows into tiles of ``LATENT_ROWS`` and its
+    ``dv`` output columns into slices of ``LATENT_COLS``; ``latent_wgmma``
+    cuts the rows into tiles of ``LATENT_WGMMA_ROWS`` and keeps every column
+    in each block."""
+    if variant == "latent_wgmma":
+        return -(-rows // LATENT_WGMMA_ROWS)
     return -(-rows // LATENT_ROWS) * (dv // min(dv, LATENT_COLS))
+
+
+def value_in_key(k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether ``v`` is the first ``Dv`` columns of ``k`` (the same base and
+    batch, head and row strides), as MLA's absorbed decode hands over its
+    latent cache: what ``latent_wgmma`` reads the value from."""
+    return v.data_ptr() == k.data_ptr() and v.stride()[:3] == k.stride()[:3]
 
 
 def decode_splits(batch: int, hkv: int, tk: int, sm_count: int, blocks_per_sm: int) -> int:
@@ -173,7 +194,7 @@ def decode_splits(batch: int, hkv: int, tk: int, sm_count: int, blocks_per_sm: i
 
 
 def kernel_variant(dtype: torch.dtype, tq: int, group: int, dh: int, aligned: bool,
-                   dv: int | None = None) -> str:
+                   dv: int | None = None, shared_value: bool = True) -> str:
     """The kernel variant for these inputs (``dh`` the query/key width,
     ``dv`` the value's, ``dh`` when None): at ``dh == dv``, ``decode_split``
     when ``g * Tq <= 16`` (a decode step: the g query heads of a KV head in
@@ -181,14 +202,20 @@ def kernel_variant(dtype: torch.dtype, tq: int, group: int, dh: int, aligned: bo
     (16-row tiles), ``wgmma_bf16`` (tensor cores) for bf16 with 16-byte
     aligned pointers and strides, else ``fma`` (float32 FMA, 64-row tiles);
     ``decode_split`` takes unaligned rows too, with element loads. At an MLA
-    pair: ``decode_latent`` when ``Tq <= 16`` (the absorbed decode step, g =
-    128, and short prefills), else ``wgmma_bf16`` where the pair has it and
-    the inputs are bf16 and aligned, else ``fma``."""
+    pair, when ``Tq <= 16`` (the absorbed decode step, g = 128, and short
+    prefills): ``latent_wgmma`` where the pair has it (576, 512) and the
+    inputs are bf16, aligned and ``shared_value`` (v a view of k's first
+    columns, :func:`value_in_key`), else ``decode_latent``; for longer
+    prompts ``wgmma_bf16`` where the pair has it and the inputs are bf16 and
+    aligned, else ``fma``."""
     if dv is not None and dv != dh:
-        if tq <= 16:
-            return "decode_latent"
         built = MLA_PAIRS.get((dh, dv), ())
-        if dtype == torch.bfloat16 and aligned and "wgmma_bf16" in built:
+        bf16_aligned = dtype == torch.bfloat16 and aligned
+        if tq <= 16:
+            if bf16_aligned and shared_value and "latent_wgmma" in built:
+                return "latent_wgmma"
+            return "decode_latent"
+        if bf16_aligned and "wgmma_bf16" in built:
             return "wgmma_bf16"
         return "fma"
     if group * tq <= 16:
@@ -287,17 +314,18 @@ def _launch(q, k, v, causal, window, q_offset) -> torch.Tensor:
         return out
     hkv, tk = k.shape[1], k.shape[2]
     g = hq // hkv
-    variant = kernel_variant(q.dtype, tq, g, dh, is_aligned(q, k, v, out), dv)
+    variant = kernel_variant(q.dtype, tq, g, dh, is_aligned(q, k, v, out), dv,
+                             value_in_key(k, v))
     if dh != dv and variant not in MLA_PAIRS[(dh, dv)]:
         raise ValueError(f"the {variant} variant is not built at (Dqk, Dv) = {(dh, dv)} "
                          f"({q.dtype}, Tq = {tq}); it has {MLA_PAIRS[(dh, dv)]}")
     n_split, workspace = 1, None
-    if variant in ("decode_split", "decode_latent"):
+    if variant in SPLIT_VARIANTS:
         if variant == "decode_split":
             blocks, per_sm = b, decode_blocks_per_sm(device, q.dtype, dh, g * tq)
         else:
-            blocks, per_sm = b * latent_blocks(g * tq, dv), latent_blocks_per_sm(device, q.dtype,
-                                                                                 dh, dv)
+            blocks = b * latent_blocks(g * tq, dv, variant)
+            per_sm = latent_blocks_per_sm(device, q.dtype, dh, dv, variant)
         n_split = decode_splits(blocks, hkv, tk, sm_count(device), per_sm)
         if n_split > 1:  # each share's (o, m, l) per query row, merged by a second kernel
             workspace = torch.empty(b * hq * tq * n_split * (dv + 2), dtype=torch.float32,
@@ -317,6 +345,6 @@ def _launch(q, k, v, causal, window, q_offset) -> torch.Tensor:
         raise RuntimeError(f"flash_attention kernel ({variant}) launch failed: CUDA error {err}")
     launches += 1
     variant_launches[variant] += 1
-    if variant in ("decode_split", "decode_latent"):
+    if variant in SPLIT_VARIANTS:
         split_launches[n_split] = split_launches.get(n_split, 0) + 1
     return out

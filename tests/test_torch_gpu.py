@@ -1048,9 +1048,16 @@ MLA_CASES = [
     ("decode_latent", torch.float32, (192, 128), 2, 8, 8, 7, 40, True, 33, False),
     ("decode_latent", torch.float32, (192, 128), 1, 4, 4, 1, 1, True, 0, False),
     ("decode_latent", torch.float32, (576, 512), 2, 128, 1, 1, 160, True, 159, True),
-    ("decode_latent", torch.bfloat16, (576, 512), 8, 128, 1, 1, 160, True, 100, True),
+    ("latent_wgmma", torch.bfloat16, (576, 512), 8, 128, 1, 1, 160, True, 100, True),
     ("decode_latent", torch.float32, (576, 512), 1, 128, 1, 1, 8192, True, 5000, True),
-    ("decode_latent", torch.bfloat16, (576, 512), 2, 128, 1, 1, 8192, True, 8191, True),
+    ("latent_wgmma", torch.bfloat16, (576, 512), 2, 128, 1, 1, 8192, True, 8191, True),
+    # latent_wgmma: a ragged last tile (4,097 keys), one key at pos 0
+    ("latent_wgmma", torch.bfloat16, (576, 512), 1, 128, 1, 1, 4097, True, 4096, True),
+    ("latent_wgmma", torch.bfloat16, (576, 512), 2, 128, 1, 1, 1, True, 0, True),
+    # latent_wgmma's rows mixing heads and query rows: 60 (a ragged row
+    # tile) and 128 (16 rows a head, each with its own causal limit)
+    ("latent_wgmma", torch.bfloat16, (576, 512), 2, 20, 1, 3, 300, True, 250, True),
+    ("latent_wgmma", torch.bfloat16, (576, 512), 1, 8, 1, 16, 1000, True, 984, True),
     ("decode_latent", torch.float32, (48, 32), 2, 4, 1, 1, 8192, True, 8191, True),
     ("decode_latent", torch.bfloat16, (48, 32), 3, 4, 1, 1, 300, True, 17, True),
 ]
@@ -1092,7 +1099,7 @@ def test_flash_kernel_at_the_mla_pairs(cuda_device, variant, dtype, pair, b, hq,
     torch.cuda.synchronize()
     assert fa.variant_launches == {n: int(n == variant) for n in fa.VARIANTS}
     assert got.shape == (b, hq, tq, pair[1])
-    if variant == "decode_latent" and tk >= 8192:  # a long cache is split
+    if variant in ("decode_latent", "latent_wgmma") and tk >= 8192:  # a long cache is split
         assert list(fa.split_launches) != [1]
     want = flash_attention_ref(q, k, v, **kw)
     tol = FLASH_TOL[dtype]
@@ -1123,10 +1130,12 @@ def test_mla_flash_decode_on_card_matches_cpu(cuda_device, dtype):
     """The absorbed decode at deepseek-v2-236b's widths (128 heads, r = 512,
     rope 64) over the model's latent cache (one [B, S, 576] buffer, ``ckv``
     and ``kpe`` its views) against the same call on the CPU, at pos 0, 1, the
-    middle and the last slot; one ``decode_latent`` launch each."""
+    middle and the last slot; one launch each, of ``latent_wgmma`` in bf16
+    and of ``decode_latent`` in float32."""
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.models.attention import mla_flash_decode
 
+    variant = "latent_wgmma" if dtype == torch.bfloat16 else "decode_latent"
     rng = np.random.default_rng(7)
     b, s, h, r, rope = 4, 2048, 128, 512, 64
     ql, qp = (torch.from_numpy(rng.standard_normal((b, h, d)).astype(np.float32)).to(dtype)
@@ -1138,10 +1147,46 @@ def test_mla_flash_decode_on_card_matches_cpu(cuda_device, dtype):
         got = mla_flash_decode(ql.to(cuda_device), qp.to(cuda_device), dbuf[..., :r],
                                dbuf[..., r:], pos)
         torch.cuda.synchronize()
-        assert fa.variant_launches == {n: int(n == "decode_latent") for n in fa.VARIANTS}
+        assert fa.variant_launches == {n: int(n == variant) for n in fa.VARIANTS}
         want = mla_flash_decode(ql, qp, buf[..., :r], buf[..., r:], pos)
         tol = FLASH_TOL[dtype]
         torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["offset_view", "own_value"])
+def test_latent_decode_without_the_tensor_core_layout(cuda_device, layout):
+    """bf16 at (576, 512) that ``latent_wgmma`` cannot read: a latent buffer
+    one element off 16 bytes (v still its view), or a value that is not a
+    view of the key. Both take ``decode_latent`` and agree with the plain
+    version at the bf16 tolerances."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    b, hq, tk, pos = 2, 128, 300, 250
+    rng = np.random.default_rng(11)
+
+    def randn(n):
+        return torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(cuda_device,
+                                                                              torch.bfloat16)
+
+    q = randn(b * hq * 576).view(b, hq, 1, 576)
+    if layout == "offset_view":
+        k = randn(b * tk * 576 + 1)[1:].view(b, tk, 576)[:, None]
+        v = k[..., :512]
+    else:
+        k = randn(b * tk * 576).view(b, 1, tk, 576)
+        v = randn(b * tk * 512).view(b, 1, tk, 512)
+    assert fa.is_aligned(q, k, v) == (layout == "own_value")
+    assert fa.value_in_key(k, v) == (layout == "offset_view")
+    fa.reset()
+    got = fa.flash_attention(q, k, v, causal=True, q_offset=pos)
+    torch.cuda.synchronize()
+    assert fa.variant_launches == {n: int(n == "decode_latent") for n in fa.VARIANTS}
+    want = flash_attention_ref(q, k, v, causal=True, q_offset=pos)
+    tol = FLASH_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert _row_rel_l2(got, want) <= 1e-2
 
 # --------------------------------------------------------------- mamba scan
 @pytest.mark.gpu

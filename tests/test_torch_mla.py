@@ -162,17 +162,47 @@ def test_plain_attention_at_mla_pairs_matches_chunked_sdpa():
     (torch.bfloat16, 8192, 1, 192, 128, False, "fma"),       # unaligned rows
     (torch.float32, 8192, 1, 192, 128, True, "fma"),
     (torch.bfloat16, 16, 1, 192, 128, True, "decode_latent"),  # a short prompt
-    (torch.bfloat16, 1, 128, 576, 512, True, "decode_latent"),  # the absorbed decode step
+    (torch.bfloat16, 1, 128, 576, 512, True, "latent_wgmma"),  # the absorbed decode step
+    (torch.bfloat16, 16, 8, 576, 512, True, "latent_wgmma"),   # 16 query rows a head
+    (torch.bfloat16, 1, 128, 576, 512, False, "decode_latent"),  # unaligned
+    (torch.float32, 1, 128, 576, 512, True, "decode_latent"),  # float32: the FMA kernel
     (torch.float32, 1, 128, 576, 512, False, "decode_latent"),
+    (torch.bfloat16, 16, 1, 192, 128, False, "decode_latent"),
+    (torch.float32, 16, 1, 192, 128, True, "decode_latent"),
     (torch.float32, 24, 1, 48, 32, True, "fma"),               # reduced prefill
     (torch.bfloat16, 24, 1, 48, 32, True, "fma"),              # no tensor-core build there
     (torch.float32, 1, 4, 48, 32, True, "decode_latent"),      # reduced decode step
+    (torch.bfloat16, 1, 4, 48, 32, True, "decode_latent"),     # no latent_wgmma there
 ])
 def test_kernel_variant_routes_mla_pairs(dtype, tq, group, dqk, dv, aligned, variant):
     assert ops.kernel_variant(dtype, tq, group, dqk, aligned, dv) == variant
     assert variant in ops.MLA_PAIRS[(dqk, dv)]
     assert ops.kernel_variant(dtype, tq, group, dqk, aligned, dqk) == \
         ops.kernel_variant(dtype, tq, group, dqk, aligned)
+
+
+@pytest.mark.parametrize("dtype,aligned", [(torch.bfloat16, True), (torch.bfloat16, False),
+                                           (torch.float32, True)])
+def test_latent_wgmma_needs_the_value_in_the_key(dtype, aligned):
+    """``latent_wgmma`` reads the value from the key's tile: a value that is
+    not a view of the key's first columns routes to ``decode_latent``."""
+    assert ops.kernel_variant(dtype, 1, 128, 576, aligned, 512, shared_value=False) == \
+        "decode_latent"
+    assert ops.kernel_variant(dtype, 1, 128, 576, aligned, 512, shared_value=True) == \
+        ("latent_wgmma" if dtype == torch.bfloat16 and aligned else "decode_latent")
+
+
+def test_value_in_key_reads_views():
+    """``ops.value_in_key``: the model's latent views (the value the key's
+    first 512 columns, in place) are; a copy, another buffer or an offset
+    view are not."""
+    buf = torch.zeros(2, 40, 576)
+    k = buf[:, None]
+    assert ops.value_in_key(k, k[..., :512])
+    assert not ops.value_in_key(k, k[..., :512].clone())
+    assert not ops.value_in_key(k, torch.zeros(2, 1, 40, 512))
+    assert not ops.value_in_key(k, k[..., 64:])
+    assert not ops.value_in_key(k, buf[:, None, 1:, :512])
 
 
 def test_latent_decode_constants_match_the_kernel():
@@ -189,6 +219,57 @@ def test_latent_decode_constants_match_the_kernel():
     # B = 8 over a 32k cache: 64 blocks, so 2 shares fill 132 SMs at one block an SM
     assert ops.decode_splits(8 * ops.latent_blocks(128, 512), 1, 32768, 132, 1) == 2
     assert ops.decode_splits(8 * ops.latent_blocks(128, 512), 1, 160, 132, 1) == 1
+
+
+def test_latent_wgmma_constants_match_the_kernel():
+    """``ops.LATENT_WGMMA_ROWS`` is the tensor-core kernel's row tile, its
+    variant code is ``VARIANTS``' index, and a block holds all 512 output
+    columns: 2 blocks a (batch, share) at 128 rows, so B = 8 over a 32k
+    cache splits into 8 shares (128 blocks on 132 SMs) and over 160 keys
+    into 1."""
+    from pathlib import Path
+
+    text = (Path(ops.__file__).parent / "csrc" / "flash_attention.cuh").read_text()
+    assert f"constexpr int kLwBR = {ops.LATENT_WGMMA_ROWS};" in text
+    assert f"kLatentWgmma = {ops.VARIANTS.index('latent_wgmma')}" in text
+    assert "latent_wgmma" in ops.MLA_PAIRS[(576, 512)]
+    assert ops.latent_blocks(128, 512, "latent_wgmma") == 2
+    assert ops.latent_blocks(16, 512, "latent_wgmma") == 1
+    assert ops.latent_blocks(129, 512, "latent_wgmma") == 3
+    blocks = 8 * ops.latent_blocks(128, 512, "latent_wgmma")
+    assert ops.decode_splits(blocks, 1, 32768, 132, 1) == 8
+    assert ops.decode_splits(blocks, 1, 160, 132, 1) == 1
+
+
+def _bf16_parts(p: torch.Tensor, parts: int) -> list:
+    """``latent_wgmma``'s split of its float32 probabilities into bf16 wgmma
+    operands: each part the residual rounded to bf16 (nearest even), the
+    residual taken in float32."""
+    out, rest = [], p.clone()
+    for _ in range(parts):
+        part = rest.bfloat16()
+        out.append(part)
+        rest = rest - part.float()
+    return out
+
+
+@pytest.mark.parametrize("parts,bits", [(1, 8), (2, 16), (3, 24)])
+def test_latent_wgmma_splits_p_into_bf16_parts(parts, bits):
+    """The kernel's P V takes P as ``kLwPParts`` bf16 operands: their sum
+    keeps 8 bits of each probability a part, and three parts (the kernel's)
+    give back every float32 probability to its last bit or so."""
+    from pathlib import Path
+
+    text = (Path(ops.__file__).parent / "csrc" / "flash_attention.cuh").read_text()
+    assert "constexpr int kLwPParts = 3;" in text
+    rng = np.random.default_rng(parts)
+    p = torch.from_numpy(np.exp2(-rng.exponential(4.0, 100_000)).astype(np.float32))
+    p[:4] = torch.tensor([1.0, 0.0, 0.5, 2.0**-30])
+    total = sum(x.double() for x in _bf16_parts(p, parts))
+    rel = ((total - p.double()).abs() / p.double().clamp_min(1e-300)).max().item()
+    assert rel <= 2.0 ** -bits
+    if parts == 3:
+        assert rel <= 2.0 ** -23  # within float32's own rounding of the sum
 
 
 # ------------------------------------------------------------------- layers
