@@ -169,10 +169,11 @@ Phases:
      the R-MAT of 40,000 vertices, average degree 12, seed 0, written as an
      ``.npy`` edge list and converted with ``convert_edge_list`` (1,172,517
      bytes), then ``fennel``, ``cuttana`` and ``cuttana-parallel`` S=4 (k=8,
-     edge balance, random order, seed 0) resident and memory-mapped (and
-     ``cuttana-parallel`` mapped with ``prefetch="off"``): the committed edge
-     cuts, mapped assignments equal to resident ones, the mapped runs'
-     launches on the rows entries only; (b) phase 20's 2^20 R-MAT
+     edge balance, random order, seed 0) resident and memory-mapped: the
+     committed edge cuts (phase 28(b)'s out-of-core smoke run holds the
+     mapped ``cuttana-parallel`` with ``prefetch="off"``), mapped
+     assignments equal to resident ones, the mapped runs' launches on the
+     rows entries only; (b) phase 20's 2^20 R-MAT
      partitioned resident with phase 2's spec (2,048 launches), written
      with ``convert_csr`` (v2), then a child process that only opens the
      file runs the same ``fennel`` on the card: its assignment equals the
@@ -211,6 +212,34 @@ Phases:
      the committed ``qps_sim`` and RPCs; ``partition`` on fennel, run in
      this process, gives (a)'s quality and launches the kernel once per
      ``kernel_calls`` (16);
+ 28. the reference's public surface on the port: (a) (runs after
+     phase 22, while phase 2's graph and partition are loaded) the metric
+     functions of ``repro_torch.graph.metrics`` (``edge_cut``,
+     ``communication_volume``, ``vertex_imbalance``, ``edge_imbalance``,
+     ``partition_vertex_counts``, ``partition_edge_counts``) on phase 2's
+     2^22 partition on the card, each ``==`` the same function on the CPU
+     and the card's ``quality_report`` field, with its ms; ``check_balance``
+     of the edge counts at the spec's epsilon true; ``cuttana`` with
+     ``return_detail=True`` on web-s on the card == the CPU (every field but
+     the seconds, the edge-cut phase 3's); ``refine_with_swaps`` on that
+     run's coarsened graph (W built on the card, and on the CPU) gives the
+     same moves, swaps, improvement and sub-partition placement, with its
+     seconds; (b) (runs last, after phase 24) every file of
+     ``examples/torch/`` as a child process on the card
+     (``--example-child``, the example run as ``__main__``; ``serve_lm`` with
+     its default ``reduced:qwen3-8b`` and with ``reduced:jamba-v0.1-52b``
+     (whose prompt, prefilled through decode steps, launches no scan),
+     ``train_lm`` at 20 steps into a temp checkpoint directory), started
+     together: each exits 0 with no ``jax`` or ``repro`` module loaded and
+     prints its wrappers' launch counts (``EXAMPLE_RUNS`` names the ones
+     that must be non-zero); meanwhile the four ``scripts/torch/*_smoke.py``
+     modules' ``run()`` on the card in this process (churn and serving at
+     their default sizes, out-of-core and threaded cut: ``SMOKE_ARGS``),
+     with their deterministic gates (churn's cut and work ratios, serving's
+     sim ordering, replication and determinism, out-of-core's compression
+     and bit parity, and threaded's parallel runs == the same specs on one
+     thread); the two host-timing ratios (threaded's parallel/sequential,
+     out-of-core's prefetch on/off) are logged, not gated;
  23. (runs after phase 11, while phase 2's layout is loaded) the analytics
      engine's sharded mode: ``run_sharded`` on phase 2's partition, one
      process a partition (8 gloo ranks, all on the one card, the halo
@@ -1683,9 +1712,6 @@ def outofcore_phase(torch, np, tapi, ops, ref, counters, device, timer, floor, g
             spec = tapi.PartitionSpec(algo=algo, k=8, balance_mode="edge", order="random",
                                       seed=0, params=params)
             variants = [("resident", small, spec), ("mapped", mapped, spec)]
-            if params:
-                variants.append(("mapped-sync", mapped,
-                                 spec.replace(params={**params, "prefetch": "off"})))
             results = {}
             for backing, g, vspec in variants:
                 reset_counts(*counters)
@@ -3802,7 +3828,251 @@ def training_phase(torch, np, F, counters, device, timer, tiny: bool, ident: str
     return record
 
 
+# phase 28(b): each example of examples/torch (name, extra arguments) and the
+# launch counts its run on the card must show (> 0)
+EXAMPLE_RUNS = (
+    ("quickstart", (), ("partition_score", "ell_spmv")),
+    ("analytics_pagerank", (), ("ell_spmv",)),
+    ("moe_placement", (), ()),
+    ("serve_lm", (), ("decode_split",)),
+    # the launcher prefills through decode steps, as the reference's does, so
+    # jamba's Mamba layers take their recurrent step and the scan no launch
+    ("serve_lm", ("--arch", "reduced:jamba-v0.1-52b"), ("decode_split",)),
+    ("train_lm", ("--steps", "20"), ("wgmma_bf16",)),
+)
+SMOKE_SCRIPTS = ("churn", "serving", "outofcore", "threaded")
+# the smoke scripts' sizes in phase 28(b): churn and serving at their
+# defaults; out-of-core and threaded cut (standalone at their defaults they
+# took 123 s and 27 s on an H100 machine's 8 host cores; the gates applied
+# here do not depend on size); --tiny at
+# tests/test_torch_surface.py's small sizes
+SMOKE_ARGS = {"churn": [], "serving": [], "outofcore": ["--n", "8000"],
+              "threaded": ["--n", "10000"]}
+SMOKE_TINY_ARGS = {"churn": ["--n", "3000"], "serving": ["--n", "2000", "--queries", "200"],
+                   "outofcore": ["--n", "4000"], "threaded": ["--n", "3000"]}
+
+
+def wrapper_launches(ops, spmv, fa, scan) -> dict:
+    """Every wrapper's launch count, the attention kernel's by variant too."""
+    return {"partition_score": ops.launches + ops.sharded_launches + ops.rows_launches
+            + ops.sharded_rows_launches, "ell_spmv": spmv.launches,
+            "flash_attention": fa.launches, "selective_scan": scan.launches,
+            **fa.variant_launches}
+
+
+def example_child(path: str, args: list) -> int:
+    """Phase 28(b)'s child: runs ``path`` (a file of ``examples/torch``) as
+    ``__main__`` with ``args``, then prints on its last line the wrappers'
+    launch counts and every ``jax`` or ``repro`` module it loaded (none)."""
+    import runpy
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels.ell_spmv import ops as spmv
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.mamba_scan import ops as scan
+    from repro_torch.kernels.partition_score import ops
+
+    sys.argv = [path, *args]
+    t0 = time.perf_counter()
+    runpy.run_path(str(ROOT / path), run_name="__main__")
+    bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+    print(json.dumps({"example": path, "args": args, "seconds": time.perf_counter() - t0,
+                      "launches": wrapper_launches(ops, spmv, fa, scan), "forbidden": bad}),
+          flush=True)
+    return 1 if bad else 0
+
+
+def surface_phase(torch, np, tapi, graph, main_res, web, device, ident: str) -> dict:
+    """Phase 28(a): the metric functions on phase 2's partition, card == CPU
+    == ``quality_report``; ``cuttana(return_detail=True)`` and
+    ``refine_with_swaps`` on web-s, card == CPU."""
+    from repro_torch.core import cuttana
+    from repro_torch.core.refinement import Refiner, build_subpartition_graph, refine_with_swaps
+    from repro_torch.graph import metrics
+
+    part, k = main_res.assignment, main_res.k
+    q = main_res.quality()
+    calls = {
+        "edge_cut": lambda d: metrics.edge_cut(graph, part, device=d),
+        "communication_volume": lambda d: metrics.communication_volume(graph, part, k, device=d),
+        "vertex_imbalance": lambda d: metrics.vertex_imbalance(part, k, device=d),
+        "edge_imbalance": lambda d: metrics.edge_imbalance(graph, part, k, device=d),
+        "partition_vertex_counts": lambda d: metrics.partition_vertex_counts(part, k, device=d),
+        "partition_edge_counts": lambda d: metrics.partition_edge_counts(graph, part, k, device=d),
+    }
+    got, rows = {}, {}
+    for name, fn in calls.items():
+        fn(device)  # warm: the caching allocator, the graph's sources
+        sync(torch, device)
+        t0 = time.perf_counter()
+        got[name] = fn(device)
+        sync(torch, device)
+        ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        want = fn("cpu")
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        check(np.array_equal(got[name], want)
+              and np.asarray(got[name]).dtype == np.asarray(want).dtype,
+              f"phase 28: {name} on {device.type} != on the cpu")
+        rows[name] = {"ms": ms, "cpu_ms": cpu_ms}
+    for name, field in (("edge_cut", "edge_cut"), ("communication_volume", "comm_volume"),
+                        ("vertex_imbalance", "vertex_imbalance"),
+                        ("edge_imbalance", "edge_imbalance")):
+        check(got[name] == q[field], f"phase 28: {name} {got[name]} != quality_report {q[field]}")
+    eps = main_spec(tapi).epsilon
+    balanced = metrics.check_balance(got["partition_edge_counts"], float(graph.indices.shape[0]),
+                                     k, eps)
+    check(balanced, "phase 28: phase 2's edge counts break the balance condition")
+    log(json.dumps({"phase": "28a", "graph": graph.num_vertices, "edges": graph.num_edges,
+                    "k": k, "metrics": {n: (v if np.ndim(v) == 0 else np.asarray(v).tolist())
+                                        for n, v in got.items()},
+                    "ms": rows, "check_balance": balanced, "epsilon": eps,
+                    "identical_to_cpu": True, "identical_to_quality_report": True,
+                    "device": ident}))
+
+    # cuttana's detail on web-s (phase 3's spec), card and CPU
+    t0 = time.perf_counter()
+    det = {d: cuttana.partition(web, 8, balance_mode="edge", order="random", seed=0,
+                                return_detail=True, device=d) for d in (device, "cpu")}
+    detail_s = time.perf_counter() - t0
+    a, b = det[device], det["cpu"]
+    for field in ("part", "sub_of", "sub_part"):
+        check(np.array_equal(getattr(a, field), getattr(b, field)),
+              f"phase 28: cuttana detail {field} differs between {device.type} and cpu")
+    check((a.refine_moves, a.refine_improvement) == (b.refine_moves, b.refine_improvement),
+          "phase 28: cuttana detail refinement stats differ")
+    cut = metrics.edge_cut(web, a.part, device=device)
+    check(cut == WEB_S_EDGE_CUT["cuttana"], f"phase 28: web-s cuttana detail edge_cut {cut}")
+    # refine_with_swaps over the run's coarsened graph, from the home placement
+    kp = a.sub_part.shape[0]
+    size = np.bincount(a.sub_of, weights=web.degrees.astype(np.float64), minlength=kp)
+    swaps = {}
+    for d in (device, "cpu"):
+        t0 = time.perf_counter()
+        w = build_subpartition_graph(web, a.sub_of, kp, d).cpu().numpy()
+        r = Refiner(w, np.repeat(np.arange(8), kp // 8), size, 8, 0.05,
+                    total_mass=float(web.indices.shape[0]))
+        w_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = refine_with_swaps(r)
+        swaps[d] = (res, r.sub_part.copy(), w_s, time.perf_counter() - t0, r.current_cut())
+    check(swaps[device][0] == swaps["cpu"][0]
+          and np.array_equal(swaps[device][1], swaps["cpu"][1]),
+          f"phase 28: refine_with_swaps differs: {swaps[device][0]} vs {swaps['cpu'][0]}")
+    rec = {"phase": "28a", "dataset": "web-s", "algo": "cuttana", "return_detail": True,
+           "subpartitions": kp, "refine_moves": a.refine_moves,
+           "refine_improvement": a.refine_improvement, "edge_cut": cut,
+           "phase1_seconds": a.phase1_seconds, "phase2_seconds": a.phase2_seconds,
+           "detail_seconds_both": detail_s, "swaps": swaps[device][0],
+           "coarse_cut_after_swaps": swaps[device][4], "w_seconds": swaps[device][2],
+           "refine_with_swaps_seconds": swaps[device][3],
+           "cpu_refine_with_swaps_seconds": swaps["cpu"][3], "identical_to_cpu": True}
+    log(json.dumps(rec))
+    return {"metrics_ms": rows, **rec}
+
+
+def smoke_scripts(np, tapi, device, tiny: bool, tmp: str) -> dict:
+    """Phase 28(b): the four smoke scripts' ``run()`` in this process, their
+    deterministic gates applied; host-timing ratios logged only."""
+    import importlib.util
+
+    out = {}
+    for name in SMOKE_SCRIPTS:
+        spec = importlib.util.spec_from_file_location(
+            f"port_{name}_smoke", ROOT / "scripts" / "torch" / f"{name}_smoke.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        argv = ["--device", device.type, "--out", os.path.join(tmp, f"{name}.json")]
+        args = mod.parser().parse_args(argv + (SMOKE_TINY_ARGS if tiny else SMOKE_ARGS)[name])
+        t0 = time.perf_counter()
+        report = mod.run(args)
+        run_s = time.perf_counter() - t0
+        rec = {"run_seconds": run_s}
+        if name == "threaded":
+            # the bound is host timing: logged; the gate is the thread pool's
+            # invariance, the parallel runs == the same specs on one thread
+            for algo, base in mod.ALGOS:
+                _, par_spec = mod.specs(args, algo, base)
+                one = tapi.partition(report["_graph"], par_spec.replace(
+                    params={"num_shards": args.num_shards, "max_workers": 1}), device=device)
+                check(np.array_equal(one.assignment, report["_assignments"][algo]),
+                      f"phase 28: threaded smoke {algo} differs from one thread")
+                rec[algo] = {key: report[algo][key] for key in (
+                    "sequential_s", "parallel_s", "ratio", "max_workers", "boundary_conflicts")}
+                rec[algo]["one_thread_s"] = mod.stream_seconds(one)
+            failures = []
+        elif name == "outofcore":
+            failures = mod.gates(report, args, timing=False)
+            rec.update(file_ratio=report["file_ratio"], parity=report["_parity"],
+                       prefetch_ratio=report["_prefetch_ratio"],
+                       prefetch_on_s=report["stream"]["prefetch_on_s"],
+                       prefetch_off_s=report["stream"]["prefetch_off_s"])
+        else:
+            failures = mod.gates(report, args)
+            if name == "churn":
+                rec.update(cut_ratio=report["cut_ratio"], work_ratio=report["work_ratio"])
+            else:
+                rec.update(qps_sim={a: report[a]["qps_sim"] for a in ("cuttana", "random")},
+                           replication=report["replication"])
+        check(not failures, f"phase 28: scripts/torch/{name}_smoke.py gates failed: {failures}")
+        out[name] = rec
+    return out
+
+
+def examples_phase(torch, np, tapi, counters, device, tiny: bool, ident: str) -> dict:
+    """Phase 28(b): every example of ``examples/torch`` as a child process on
+    the card, all started together, beside the smoke scripts' runs here."""
+    import atexit
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_examples")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    children = []
+    t0 = time.perf_counter()
+    for i, (name, extra, need) in enumerate(EXAMPLE_RUNS):
+        args = [*extra, "--device", device.type]
+        if name == "train_lm":
+            args += ["--ckpt-dir", os.path.join(tmp, "ckpt")]
+            if tiny:
+                args[args.index("--steps") + 1] = "2"
+        log_path = os.path.join(tmp, f"example{i}.log")
+        with open(log_path, "w") as fh:
+            proc = subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--example-child",
+                 f"examples/torch/{name}.py", *args],
+                env=env, cwd=ROOT, stdout=fh, stderr=subprocess.STDOUT, text=True)
+        atexit.register(proc.kill)
+        children.append((name, args, need, proc, log_path))
+    reset_counts(*counters)
+    scripts = smoke_scripts(np, tapi, device, tiny, tmp)
+    scripts_s = time.perf_counter() - t0
+    runs = []
+    for name, args, need, proc, log_path in children:
+        rc = proc.wait(timeout=900)
+        with open(log_path) as fh:
+            lines = fh.read().splitlines()
+        check(rc == 0 and lines, f"phase 28: examples/torch/{name}.py {args} exited {rc}:\n"
+              + "\n".join(lines[-30:]))
+        rec = json.loads(lines[-1])
+        check(rec["forbidden"] == [], f"phase 28: {name} loaded {rec['forbidden']}")
+        if device.type == "cuda":
+            for key in need:
+                check(rec["launches"][key] > 0, f"phase 28: {name} {args} launched no {key}")
+        runs.append({"example": name, "args": args, "seconds": rec["seconds"],
+                     "launches": {key: n for key, n in rec["launches"].items() if n},
+                     "printed": lines[-6:-1]})
+    shutil.rmtree(tmp, ignore_errors=True)
+    out = {"phase": "28b", "examples": runs, "smoke_scripts": scripts,
+           "scripts_seconds": scripts_s, "wall_seconds": time.perf_counter() - t0,
+           "device": ident}
+    log(json.dumps(out))
+    return out
+
+
 def main() -> int:
+    if len(sys.argv) > 2 and sys.argv[1] == "--example-child":  # phase 28(b)'s child
+        return example_child(sys.argv[2], sys.argv[3:])
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tiny", action="store_true",
                     help="rehearse every phase on the CPU at a tiny size (prints no result)")
@@ -4218,6 +4488,10 @@ def main() -> int:
         ident)
     clock.mark(22)
 
+    # ---------------------------------------------------------- phase 28(a)
+    surface_phase(torch, np, tapi, graph, main_res, web, device, ident)
+    clock.mark("28a")
+
     # ----------------------------------------------------------- phase 12
     del graph, main_res, social_res, social, web_res
     if device.type == "cuda":
@@ -4287,6 +4561,10 @@ def main() -> int:
     # ----------------------------------------------------------- phase 24
     train_rec = training_phase(torch, np, F, counters, device, timer, args.tiny, ident)
     clock.mark(24)
+
+    # ---------------------------------------------------------- phase 28(b)
+    examples_phase(torch, np, tapi, counters, device, args.tiny, ident)
+    clock.mark("28b")
 
     # ------------------------------------------------------------ summary
     def stream_summary(row):

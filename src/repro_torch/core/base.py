@@ -109,6 +109,12 @@ class PartitionState:
     def edge_capacity(self) -> float:
         return (1.0 + self.epsilon) * self.total_degree / self.k
 
+    def at_capacity(self) -> np.ndarray:
+        """bool[k]: partitions that cannot accept more (by active balance mode)."""
+        if self.balance_mode == "vertex":
+            return self.v_counts >= self.vertex_capacity
+        return self.e_counts >= self.edge_capacity
+
     def would_overflow(self, deg: int) -> np.ndarray:
         """bool[k]: placing a degree-``deg`` vertex would break the condition."""
         if self.balance_mode == "vertex":

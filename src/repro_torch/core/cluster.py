@@ -245,7 +245,7 @@ def partition_cluster(
         for v in range(n):
             nbrs = indices[indptr[v] : indptr[v + 1]]
             subp.assign(v, int(part[v]), nbrs, nbrs.size)
-        part, moves, improvement = _phase2_refine(
+        part, _, moves, improvement = _phase2_refine(
             graph, subp, k, epsilon, balance_mode, thresh, None, device
         )
     project_s = time.perf_counter() - t1

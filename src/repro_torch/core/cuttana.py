@@ -19,6 +19,7 @@ inherit their sub-partition's final partition.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
@@ -49,7 +50,8 @@ def _phase2_refine(
     device: torch.device,
 ):
     """Merge + coarsen + refine (paper §III-B). Returns
-    ``(part, moves, cut_improvement)``."""
+    ``(part, sub_part, moves, cut_improvement)``, ``sub_part`` the final
+    partition of each sub-partition."""
     w = build_subpartition_graph(graph, subp.sub_of, subp.kp, device).cpu().numpy()
     sub_part = np.repeat(np.arange(k, dtype=np.int64), subp.s)
     if balance_mode == "edge":
@@ -60,8 +62,27 @@ def _phase2_refine(
         total = float(graph.num_vertices)
     refiner = Refiner(w, sub_part, size, k, epsilon, total_mass=total)
     stats = refiner.refine(thresh=thresh, max_moves=max_moves)
-    part = refiner.sub_part[subp.sub_of].astype(np.int32)
-    return part, stats.moves, stats.cut_improvement
+    sub_part = refiner.sub_part.copy()
+    part = sub_part[subp.sub_of].astype(np.int32)
+    return part, sub_part, stats.moves, stats.cut_improvement
+
+
+@dataclasses.dataclass
+class CuttanaResult:
+    """Compat container for ``return_detail=True`` callers.
+
+    Deprecated: the canonical surface is :func:`repro_torch.api.partition`,
+    which folds these fields into ``PartitionResult.telemetry`` /
+    ``.timings`` so every algorithm returns one uniform type.
+    """
+
+    part: np.ndarray
+    sub_of: np.ndarray
+    sub_part: np.ndarray  # final partition of each sub-partition
+    refine_moves: int
+    refine_improvement: float
+    phase1_seconds: float
+    phase2_seconds: float
 
 
 def partition(
@@ -80,17 +101,19 @@ def partition(
     fennel_params: FennelParams | None = None,
     order: str = "natural",
     seed: int = 0,
+    return_detail: bool = False,
     chunk: int = 512,
     prefetch: str = "auto",
     strategy: str = "eq6",
     telemetry: dict | None = None,
     *,
     device: str | torch.device | None = None,
-) -> np.ndarray:
+):
     """Full CUTTANA partitioner. ``use_buffer=False`` /
     ``use_refinement=False`` are the paper's Table III ablations.
     ``telemetry`` (if given) receives engine counters, phase wall times and
-    refinement stats."""
+    refinement stats; ``return_detail=True`` is the compat flag that instead
+    returns the legacy :class:`CuttanaResult`."""
     device = resolve_device(device)
     n = graph.num_vertices
     if max_qsize is None:
@@ -109,8 +132,9 @@ def partition(
     )
     state = PartitionState.create(graph, k, epsilon, balance_mode, seed, device=device)
     refine = use_refinement and k > 1
+    # the detail reports the sub-placement even when phase 2 does not run
     subp = phase2_subpartitioner(
-        graph, k, subparts_per_partition, refine, epsilon, balance_mode, seed
+        graph, k, subparts_per_partition, refine or return_detail, epsilon, balance_mode, seed
     )
     t0 = time.perf_counter()
     engine = StreamEngine(
@@ -129,8 +153,9 @@ def partition(
     part = finalize(state)
     t1 = time.perf_counter()
     moves, improvement = 0, 0.0
+    sub_part = None
     if refine:
-        part, moves, improvement = _phase2_refine(
+        part, sub_part, moves, improvement = _phase2_refine(
             graph, subp, k, epsilon, balance_mode, thresh, max_moves, device
         )
     phase2_s = time.perf_counter() - t1
@@ -143,6 +168,18 @@ def partition(
             refine_moves=moves,
             refine_improvement=improvement,
             subpartitions=k * int(subparts_per_partition),
+        )
+    if return_detail:
+        if sub_part is None:
+            sub_part = np.repeat(np.arange(k, dtype=np.int64), subp.s)
+        return CuttanaResult(
+            part=part,
+            sub_of=subp.sub_of.copy(),
+            sub_part=sub_part,
+            refine_moves=moves,
+            refine_improvement=improvement,
+            phase1_seconds=phase1_s,
+            phase2_seconds=phase2_s,
         )
     return part
 
@@ -175,7 +212,7 @@ def refine_any(
     for v in range(n):
         nbrs = indices[indptr[v] : indptr[v + 1]]
         subp.assign(v, int(part[v]), nbrs, nbrs.size)
-    refined, _, _ = _phase2_refine(
+    refined, _, _, _ = _phase2_refine(
         graph, subp, k, epsilon, balance_mode, thresh, None, device
     )
     return refined

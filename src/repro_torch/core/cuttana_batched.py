@@ -73,7 +73,7 @@ def partition_batched(
     moves, improvement = 0, 0.0
     t1 = time.perf_counter()
     if refine:
-        part, moves, improvement = _phase2_refine(
+        part, _, moves, improvement = _phase2_refine(
             graph, subp, k, epsilon, balance_mode, thresh, None, device
         )
     if telemetry is not None:

@@ -65,6 +65,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from concurrent.futures import ThreadPoolExecutor
+from typing import Protocol, runtime_checkable
 
 import numpy as np
 import torch
@@ -88,8 +89,10 @@ from repro_torch.kernels.partition_score.ops import (
 )
 
 __all__ = [
+    "Scorer",
     "FennelScorer",
     "LDGScorer",
+    "PlacementPolicy",
     "ImmediatePolicy",
     "BufferedPolicy",
     "ShardedImmediatePolicy",
@@ -100,6 +103,25 @@ __all__ = [
 
 
 # ------------------------------------------------------------------ scorers
+@runtime_checkable
+class Scorer(Protocol):
+    """Per-vertex scoring rule. ``scores`` is called once per placement with
+    the vertex's assigned-neighbour histogram; implementations may cache the
+    balance penalty and must keep it fresh through ``on_assign`` /
+    ``on_unassign`` (if outside code mutates the state - e.g. an FM pass -
+    call ``begin`` again). The engine's chunked loops drive a scorer through
+    its affine contract (``affine`` / ``affine_update`` / ``affine_arrays``),
+    which both built-in scorers provide."""
+
+    def begin(self, state: PartitionState) -> None: ...
+
+    def scores(self, state: PartitionState, hist: np.ndarray) -> np.ndarray: ...
+
+    def on_assign(self, state: PartitionState, p: int, deg: int) -> None: ...
+
+    def on_unassign(self, state: PartitionState, p: int, deg: int) -> None: ...
+
+
 class FennelScorer:
     """FENNEL Eq. 7: ``hist_i - alpha*gamma*size_i^(gamma-1)`` with
     ``size_i = |V_i|`` (vertex mode) or the PowerLyra hybrid mass
@@ -138,7 +160,7 @@ class FennelScorer:
     def scores(self, state: PartitionState, hist: np.ndarray) -> np.ndarray:
         return hist - self._penalty
 
-    def on_assign(self, state: PartitionState, p: int, deg: int) -> None:
+    def _update(self, state: PartitionState, p: int) -> None:
         if self.hybrid:
             size = 0.5 * (state.v_counts[p] + self.mu * state.e_counts[p])
         else:
@@ -146,6 +168,12 @@ class FennelScorer:
         self._penalty[p] = self.alpha * self.gamma * np.power(
             np.maximum(size, 0.0), self.gamma - 1.0
         )
+
+    def on_assign(self, state: PartitionState, p: int, deg: int) -> None:
+        self._update(state, p)
+
+    def on_unassign(self, state: PartitionState, p: int, deg: int) -> None:
+        self._update(state, p)
 
     # ------------------------------------------------------ affine fast path
     def affine(self, state: PartitionState):
@@ -200,8 +228,14 @@ class LDGScorer:
     def scores(self, state: PartitionState, hist: np.ndarray) -> np.ndarray:
         return hist * self._factor - 1e-9 * self._loads(state)
 
-    def on_assign(self, state: PartitionState, p: int, deg: int) -> None:
+    def _update(self, state: PartitionState, p: int) -> None:
         self._factor[p] = np.maximum(1.0 - self._loads(state)[p] / self._cap, 0.0)
+
+    def on_assign(self, state: PartitionState, p: int, deg: int) -> None:
+        self._update(state, p)
+
+    def on_unassign(self, state: PartitionState, p: int, deg: int) -> None:
+        self._update(state, p)
 
     # ------------------------------------------------------ affine fast path
     def affine(self, state: PartitionState):
@@ -290,6 +324,11 @@ def _resolve_prefetch(mode: str, graph) -> tuple[bool, bool]:
 
 
 # ----------------------------------------------------------------- policies
+@runtime_checkable
+class PlacementPolicy(Protocol):
+    def run(self, engine: "StreamEngine") -> None: ...
+
+
 class ImmediatePolicy:
     """Place every stream vertex as soon as it arrives (FENNEL / LDG /
     CUTTANA without its buffer), scoring each chunk with one kernel call.

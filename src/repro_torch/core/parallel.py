@@ -138,7 +138,7 @@ def partition_parallel(
     if refine:
         # merge + coarsen + refine: the trade pass that reconciles the
         # shard-boundary vertices the relaxed supersteps mis-scored
-        part, moves, improvement = _phase2_refine(
+        part, _, moves, improvement = _phase2_refine(
             graph, subp, k, epsilon, balance_mode, thresh, max_moves, device
         )
     phase2_s = time.perf_counter() - t1

@@ -246,3 +246,85 @@ class Refiner:
             i, dst, _ = mv
             stats.moves += 1
             stats.cut_improvement += self.apply_move(i, dst)
+
+    # ------------------------------------------------------------- debugging
+    def current_cut(self) -> float:
+        """Edge-cut of the coarsened graph (Prop. 1)."""
+        same = self.sub_part[:, None] == self.sub_part[None, :]
+        return float(self.w[~same].sum() / 2.0)
+
+    def check_invariants(self) -> None:
+        onehot = np.zeros((self.kp, self.k))
+        onehot[np.arange(self.kp), self.sub_part] = 1.0
+        np.testing.assert_allclose(self.m, self.w @ onehot, atol=1e-6)
+        loads = np.bincount(self.sub_part, weights=self.size, minlength=self.k)
+        np.testing.assert_allclose(self.part_load, loads, atol=1e-6)
+        for src in range(self.k):
+            for dst in range(self.k):
+                if src == dst:
+                    continue
+                t = self.tree[src, dst]
+                for slot in range(self.cap2):
+                    i = self.owner[src, slot]
+                    expect = (
+                        self.m[i, dst] - self.m[i, src] if i >= 0 else NEG_INF
+                    )
+                    got = t[self.cap2 + slot]
+                    if i >= 0:
+                        assert abs(got - expect) < 1e-6, (src, dst, slot, got, expect)
+                    else:
+                        assert got == NEG_INF
+
+
+# --------------------------------------------------------------------- swaps
+def best_swap(r: Refiner) -> tuple[int, int, float] | None:
+    """Paper §VI future work: when single trades are balance-blocked, a
+    *pairwise swap* <S_i in V_a, S_j in V_b> can still improve quality while
+    keeping both partitions within capacity. Returns the best (i, j, gain)
+    with gain = DEC_i(a->b) + DEC_j(b->a) - 2*W(S_i,S_j), or None.
+
+    The reference scans the pairs in a Python loop (``i`` ascending, ``j``
+    over ``flatnonzero(w[i])`` ascending, ``j > i``) and keeps a pair only
+    when its gain is strictly larger; here every pair is formed at once in
+    that same row-major order with the same double operations, and
+    ``argmax`` picks the first maximum, so ties pick the same pair."""
+    i, j = np.nonzero(r.w)  # row-major: i ascending, then j ascending
+    keep = j > i
+    i, j = i[keep], j[keep]
+    a, b = r.sub_part[i], r.sub_part[j]
+    keep = a != b
+    i, j, a, b = i[keep], j[keep], a[keep], b[keep]
+    # they stop being cut towards each other... twice-counted
+    gain = (r.m[i, b] - r.m[i, a]) + (r.m[j, a] - r.m[j, b]) - 2.0 * r.w[i, j]
+    # balance: dest gains size[x] - size[y]
+    ok = (
+        (gain > 1e-9)
+        & ~(r.part_load[b] + r.size[i] - r.size[j] > r.cap + 1e-9)
+        & ~(r.part_load[a] + r.size[j] - r.size[i] > r.cap + 1e-9)
+    )
+    if not ok.any():
+        return None
+    gain = gain[ok]
+    best = int(np.argmax(gain))
+    return int(i[ok][best]), int(j[ok][best]), float(gain[best])
+
+
+def refine_with_swaps(r: Refiner, thresh: float = 0.0,
+                      max_rounds: int = 50) -> dict:
+    """Alternate greedy single trades with pairwise swaps until neither
+    improves (a strictly larger move class than the paper's maximality)."""
+    moves = swaps = 0
+    improvement = 0.0
+    for _ in range(max_rounds):
+        stats = r.refine(thresh=thresh)
+        moves += stats.moves
+        improvement += stats.cut_improvement
+        sw = best_swap(r)
+        if sw is None:
+            break
+        i, j, gain = sw
+        a, b = int(r.sub_part[i]), int(r.sub_part[j])
+        got = r.apply_move(i, b) + r.apply_move(j, a)
+        improvement += got
+        swaps += 1
+    return {"moves": moves, "swaps": swaps, "improvement": improvement}

@@ -10,6 +10,7 @@ and the quality scans read that copy. A memory-mapped graph
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterator, Sequence
 
 import numpy as np
 import torch
@@ -76,6 +77,14 @@ class CSRGraph:
     def degree(self, v: int) -> int:
         return int(self.indptr[v + 1] - self.indptr[v])
 
+    def iter_adjacency(
+        self, order: Sequence[int] | None = None
+    ) -> Iterator[tuple[int, np.ndarray]]:
+        """Yield ``(v, N(v))`` in the given stream order (default: natural)."""
+        ids = range(self.num_vertices) if order is None else order
+        for v in ids:
+            yield int(v), self.neighbors(int(v))
+
     def edges_array(self) -> np.ndarray:
         """(|E|, 2) array with each undirected edge listed once (u < v), in
         CSR order - the order vertex-cut ``edge_part`` arrays index."""
@@ -83,6 +92,18 @@ class CSRGraph:
         dst = self.indices.astype(np.int64)
         mask = src < dst
         return np.stack([src[mask], dst[mask]], axis=1)
+
+    def subgraph_edge_count(self, mask: np.ndarray) -> int:
+        """Number of edges with both endpoints inside ``mask`` (bool[|V|])."""
+        src = np.repeat(np.arange(self.num_vertices, dtype=np.int64), self.degrees)
+        both = mask[src] & mask[self.indices]
+        return int(both.sum() // 2)
+
+    def permute(self, perm: np.ndarray) -> "CSRGraph":
+        """Relabel vertices: new id of old vertex v is ``perm[v]``."""
+        edges = self.edges_array()
+        new_edges = np.stack([perm[edges[:, 0]], perm[edges[:, 1]]], axis=1)
+        return CSRGraph.from_edges(new_edges, num_vertices=self.num_vertices)
 
     # ---------------------------------------------------------------- device
     def to(self, device: torch.device) -> DeviceCSR:

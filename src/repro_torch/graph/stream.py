@@ -52,6 +52,14 @@ def _traversal_order(graph: CSRGraph, dfs: bool, seed: int) -> np.ndarray:
     return out
 
 
+def vertex_stream(
+    graph: CSRGraph, order: str = "natural", seed: int = 0
+) -> Iterator[tuple[int, np.ndarray]]:
+    """Yield ``(v, N(v))`` in the stream order ``order``."""
+    for v in stream_order(graph, order, seed):
+        yield int(v), graph.neighbors(int(v))
+
+
 @dataclasses.dataclass(frozen=True)
 class ShardedStream:
     """``S`` interleaved shard cursors over one base stream order.

@@ -51,6 +51,7 @@ __all__ = [
     "fennel_scores_sharded_rows",
     "group_rows",
     "launches",
+    "neighbor_histograms_host",
     "reset",
     "rows_launches",
     "sharded_launches",
@@ -73,6 +74,26 @@ MAX_K = 12288
 # rows are indexed by a C int, and the grid (CLUSTER_BLOCKS blocks a group)
 # must fit grid x
 _MAX_ROWS = 2**31 - 1
+
+
+def neighbor_histograms_host(
+    rows: np.ndarray,  # int[NNZ] batch-row index of each neighbour slot
+    parts: np.ndarray,  # int[NNZ] neighbour partition ids, -1 = unassigned
+    num_rows: int,
+    k: int,
+    out: np.ndarray | None = None,  # float64[num_rows, K] to fill in place
+) -> np.ndarray:
+    """hist[B, K] of assigned-neighbour counts from flat (row, part) pairs,
+    in numpy on the host: one ``bincount`` over the chunk's edges (the
+    reference's host companion of its kernel, the same bits). ``out`` lets
+    a caller fill its disjoint rows of a preallocated histogram."""
+    mask = parts >= 0
+    idx = rows[mask] * np.int64(k) + parts[mask]
+    hist = np.bincount(idx, minlength=num_rows * k).reshape(num_rows, k)
+    if out is None:
+        return hist.astype(np.float64)
+    out[:] = hist
+    return out
 
 
 def group_rows(num_rows: int, k: int, width: int | None = None) -> int:

@@ -38,10 +38,8 @@ def test_import_loads_neither_jax_nor_reference():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-def test_no_jax_or_reference_import_in_sources():
+def _offenders(files) -> list:
     offenders = []
-    files = sorted(PORT.rglob("*.py"))
-    assert len(files) >= 15
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
@@ -52,7 +50,21 @@ def test_no_jax_or_reference_import_in_sources():
             else:
                 continue
             offenders += [f"{path.name}:{node.lineno} {n}" for n in names if _forbidden(n)]
-    assert offenders == []
+    return offenders
+
+
+def test_no_jax_or_reference_import_in_sources():
+    files = sorted(PORT.rglob("*.py"))
+    assert len(files) >= 15
+    assert _offenders(files) == []
+
+
+def test_no_jax_or_reference_import_in_examples_and_scripts():
+    """The port's examples and CI smoke scripts, and the chip smoke."""
+    files = sorted([*(ROOT / "examples" / "torch").glob("*.py"),
+                    *(ROOT / "scripts" / "torch").glob("*.py"), ROOT / "chip_smoke.py"])
+    assert len(files) == 10
+    assert _offenders(files) == []
 
 
 def test_partition_without_device_raises_without_a_card():

@@ -1691,3 +1691,68 @@ def test_bf16_moe_layer_on_card_matches_cpu(cuda_device, b, s, cap, monkeypatch)
     assert got.dtype == torch.bfloat16
     torch.testing.assert_close(got.cpu().float(), want.float(), rtol=2e-2, atol=2e-2)
     torch.testing.assert_close(got_aux.cpu(), want_aux, rtol=1e-5, atol=1e-7)
+
+
+# ------------------------------------------------------- the public surface
+@pytest.mark.gpu
+@pytest.mark.parametrize("backing", ["resident", "mapped"])
+def test_metric_functions_on_card_equal_cpu(cuda_device, hub_graph, backing, tmp_path):
+    """Every metric function on the card == the same function on the CPU ==
+    the card's ``quality_report`` field, bit for bit."""
+    from repro_torch.graph import metrics
+    from repro_torch.graph.external import ExternalCSRGraph, write_external_csr
+
+    g = hub_graph
+    if backing == "mapped":
+        path = tmp_path / "g.bin"
+        write_external_csr(path, g.indptr, g.indices, version=2)
+        g = ExternalCSRGraph(path)
+    k = 8
+    part = np.random.default_rng(5).integers(0, k, g.num_vertices).astype(np.int32)
+    calls = {
+        "edge_cut": lambda d: metrics.edge_cut(g, part, device=d),
+        "communication_volume": lambda d: metrics.communication_volume(g, part, k, device=d),
+        "vertex_imbalance": lambda d: metrics.vertex_imbalance(part, k, device=d),
+        "edge_imbalance": lambda d: metrics.edge_imbalance(g, part, k, device=d),
+        "partition_vertex_counts": lambda d: metrics.partition_vertex_counts(part, k, device=d),
+        "partition_edge_counts": lambda d: metrics.partition_edge_counts(g, part, k, device=d),
+    }
+    got = {name: fn(cuda_device) for name, fn in calls.items()}
+    for name, fn in calls.items():
+        want = fn("cpu")
+        assert np.array_equal(got[name], want) and np.asarray(got[name]).dtype == \
+            np.asarray(want).dtype, name
+    q = metrics.quality_report(g, part, k, cuda_device)
+    assert q == metrics.quality_report(g, part, k, "cpu")
+    assert q["edge_cut"] == got["edge_cut"] and q["comm_volume"] == got["communication_volume"]
+    assert q["vertex_imbalance"] == got["vertex_imbalance"]
+    assert q["edge_imbalance"] == got["edge_imbalance"]
+
+
+@pytest.mark.gpu
+def test_cuttana_detail_and_swaps_on_card_equal_cpu(cuda_device):
+    """``cuttana(return_detail=True)`` and ``refine_with_swaps`` over the
+    run's coarsened graph (its W built on the card) == the CPU's."""
+    from repro_torch.core import cuttana
+    from repro_torch.core.refinement import Refiner, build_subpartition_graph, refine_with_swaps
+
+    g = rmat_graph(6000, avg_degree=12, seed=4)
+    k = 8
+    runs = {d: cuttana.partition(g, k, order="random", seed=0, return_detail=True, device=d)
+            for d in (cuda_device, "cpu")}
+    a, b = runs[cuda_device], runs["cpu"]
+    for field in ("part", "sub_of", "sub_part"):
+        assert np.array_equal(getattr(a, field), getattr(b, field)), field
+    assert (a.refine_moves, a.refine_improvement) == (b.refine_moves, b.refine_improvement)
+    kp = a.sub_part.shape[0]
+    size = np.bincount(a.sub_of, weights=g.degrees.astype(np.float64), minlength=kp)
+    out = {}
+    for d in (cuda_device, "cpu"):
+        w = build_subpartition_graph(g, a.sub_of, kp, d).cpu().numpy()
+        r = Refiner(w, np.repeat(np.arange(k), kp // k), size, k, 0.05,
+                    total_mass=float(g.indices.shape[0]))
+        out[d] = (refine_with_swaps(r), r.sub_part.copy())
+        r.check_invariants()
+    assert out[cuda_device][0] == out["cpu"][0]
+    assert np.array_equal(out[cuda_device][1], out["cpu"][1])
+    assert out["cpu"][0]["moves"] >= a.refine_moves
