@@ -320,6 +320,20 @@ Phases:
      one step under ``torch.profiler`` (busy time, idle share), and one
      checkpoint of the state saved and restored (bytes, seconds).
 
+Phase 29 (after phase 24): the mesh path. (a) ``launch.train``
+at repro-100m on meshes 2x1 and 1x2, two gloo ranks sharing the card, to
+step 5 against phase 24's 1x1 losses (``MESH_LOSS_RTOL``), 10
+``wgmma_bf16`` a step in each rank, each rank's step ms and bytes gathered
+and reduced a step; the 2x1 checkpoint resumed at 1x2 and 1x1 for a step;
+(b) ``launch.serve --mesh 1x2`` of reduced qwen3-8b and reduced jamba with
+``moe_weight_shard="f"``: the 1x1 loop's tokens, ``decode_split`` in each
+rank; (c) in the parent beside them, two dry-run cells at full width on
+the fake group (qwen3-8b ``train_4k`` 16x16, deepseek-v2-236b
+``decode_32k`` 2x16x16). Phase 7's ``cuttana-parallel`` runs on social-s,
+and phase 21's two children (``--mapped-child`` for (b),
+``--mapped-rows-child`` for (a)'s mapped runs) run beside its resident
+runs.
+
 Every phase logs its seconds (``phase_seconds``).
 
 Kernel times: ``ms`` is device time per launch (launches captured in a CUDA
@@ -439,7 +453,9 @@ OUTOFCORE_EDGE_CUT = {
     "cuttana-parallel": 0.7905363837141883,
 }
 SOCIAL_M_CUTTANA_EDGE_CUT = 0.8217978285092379
-SOCIAL_M_CUTTANA_PARALLEL_EDGE_CUT = 0.7972897394038334
+# phase 7's cuttana-parallel at S=4 on social-s (20,000 vertices), the
+# reference's value (repro on the CPU)
+SOCIAL_S_CUTTANA_PARALLEL_EDGE_CUT = 0.7986736565468532
 # the reference's values for the zoo (repro.api.partition on web-s, the spec
 # of the committed quality rows: k=8, seed 0, edge balance and random order
 # where the algorithm takes them): edge cut, or (replication factor, edge
@@ -1610,6 +1626,55 @@ def mapped_child(path: str, out: str, tiny: bool) -> int:
     return 0
 
 
+OUTOFCORE_ALGOS = ("fennel", "cuttana", "cuttana-parallel")
+
+
+def outofcore_spec(tapi, algo: str):
+    """Phase 21(a)'s spec of ``algo`` (BENCH_partition.json's
+    outofcore/rmat40000 rows)."""
+    params = {"num_shards": NUM_SHARDS} if algo == "cuttana-parallel" else None
+    return tapi.PartitionSpec(algo=algo, k=8, balance_mode="edge", order="random", seed=0,
+                              params=params)
+
+
+def mapped_rows_child(path: str, out: str, tiny: bool) -> int:
+    """The child of phase 21(a): each of ``OUTOFCORE_ALGOS`` on the mapped
+    rmat40000 file, beside the parent's resident runs; saves each
+    assignment to ``<out>_<algo>.npy`` and prints one JSON line with each
+    run's launches (this process's counts), quality and telemetry."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    import repro_torch.api as tapi
+    from repro_torch.graph.external import ExternalCSRGraph
+    from repro_torch.kernels.partition_score import build, ops
+
+    device = torch.device("cpu" if tiny else "cuda")
+    if device.type == "cuda":
+        build.LIBRARY.load()  # built by the parent's phase 0
+    mapped = ExternalCSRGraph(path)
+    runs = {}
+    for algo in OUTOFCORE_ALGOS:
+        spec = outofcore_spec(tapi, algo)
+        reset_counts(ops)
+        res = tapi.partition(mapped, spec, device=device)
+        sync(torch, device)
+        counts = (ops.launches, ops.sharded_launches, ops.rows_launches,
+                  ops.sharded_rows_launches)
+        np.save(f"{out}_{algo}.npy", res.assignment)
+        tel = res.telemetry
+        runs[algo] = {
+            "edge_cut": res.quality()["edge_cut"], "timings": res.timings,
+            "prefetch": spec.params.prefetch, "kernel_calls": tel.get("kernel_calls"),
+            "launches": list(counts),
+            **{key: tel.get(key) for key in (
+                "peak_graph_bytes", "mapped_graph_bytes", "compressed_graph_bytes",
+                "decode_wall_s", "prefetch_hit_rate", "prefetch_wait_s")}}
+    print(json.dumps(runs), flush=True)
+    return 0
+
+
 def rows_row(torch, np, ops, ref, device, timer, floor, rng, name, graph, batches, k):
     """One rows-entry row at a mapped shape: the rows of ``batches`` (one
     batch: a chunk; several: a superstep's shards) decoded from the mapped
@@ -1691,6 +1756,19 @@ def outofcore_phase(torch, np, tapi, ops, ref, counters, device, timer, floor, g
     t_phase = time.perf_counter()
     launches = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ooc") as td:
+        # (b)'s child starts first and runs beside (a): phase 20's graph
+        # written, then partitioned memory-mapped in a process of its own
+        scale = int(np.log2(graph.num_vertices))
+        full_path = str(Path(td) / f"rmat{scale}.bin")
+        t0 = time.perf_counter()
+        convert_csr(graph, full_path)
+        write_s = time.perf_counter() - t0
+        out = str(Path(td) / "assignment.npy")
+        t_child = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--mapped-child", full_path,
+             "--child-out", out] + (["--tiny"] if tiny else []),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         # ------------------------------------------------- (a) rmat40000
         n = 40_000
         small = rmat_graph(n, avg_degree=12, seed=0)
@@ -1706,50 +1784,62 @@ def outofcore_phase(torch, np, tapi, ops, ref, counters, device, timer, floor, g
         log(json.dumps({"phase": 21, "graph": "rmat40000 avg_degree 12", "convert_seconds":
                         convert_s, **{k_: stats[k_] for k_ in (
                             "file_bytes", "raw_bytes", "compression_ratio", "num_edges")}}))
-        mapped = ExternalCSRGraph(bin_path)
-        for algo in ("fennel", "cuttana", "cuttana-parallel"):
-            params = {"num_shards": NUM_SHARDS} if algo == "cuttana-parallel" else None
-            spec = tapi.PartitionSpec(algo=algo, k=8, balance_mode="edge", order="random",
-                                      seed=0, params=params)
-            variants = [("resident", small, spec), ("mapped", mapped, spec)]
-            results = {}
-            for backing, g, vspec in variants:
-                reset_counts(*counters)
-                res = tapi.partition(g, vspec, device=device)
-                sync(torch, device)
-                counts = (ops.launches, ops.sharded_launches, ops.rows_launches,
-                          ops.sharded_rows_launches)
-                calls = res.telemetry.get("kernel_calls", 0) if device.type == "cuda" else 0
-                gather_i = 1 if params else 0
+        # the mapped runs in a child beside the resident runs here
+        rows_out = str(Path(td) / "rows")
+        rows_proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--mapped-rows-child", bin_path,
+             "--child-out", rows_out] + (["--tiny"] if tiny else []),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        resident = {}
+        for algo in OUTOFCORE_ALGOS:
+            spec = outofcore_spec(tapi, algo)
+            reset_counts(*counters)
+            res = tapi.partition(small, spec, device=device)
+            sync(torch, device)
+            resident[algo] = (res, (ops.launches, ops.sharded_launches, ops.rows_launches,
+                                    ops.sharded_rows_launches))
+        rows_stdout, rows_err = rows_proc.communicate(timeout=900)
+        check(rows_proc.returncode == 0, f"mapped rows child failed:\n{rows_stdout}\n{rows_err}")
+        mapped_runs = json.loads(rows_stdout.strip().splitlines()[-1])
+        for algo in OUTOFCORE_ALGOS:
+            res, counts = resident[algo]
+            sharded = algo == "cuttana-parallel"
+            for backing in ("resident", "mapped"):
+                if backing == "resident":
+                    tel = res.telemetry
+                    run = {"edge_cut": res.quality()["edge_cut"], "timings": res.timings,
+                           "prefetch": outofcore_spec(tapi, algo).params.prefetch,
+                           "kernel_calls": tel.get("kernel_calls"), "launches": list(counts),
+                           **{key: tel.get(key) for key in (
+                               "peak_graph_bytes", "mapped_graph_bytes",
+                               "compressed_graph_bytes", "decode_wall_s",
+                               "prefetch_hit_rate", "prefetch_wait_s")}}
+                    assignment = res.assignment
+                else:
+                    run = mapped_runs[algo]
+                    assignment = np.load(f"{rows_out}_{algo}.npy")
                 want = [0, 0, 0, 0]
-                want[gather_i + (2 if backing != "resident" else 0)] = calls
-                check(list(counts) == want,
-                      f"rmat40000 {algo} {backing}: launches {counts}, expected {want}")
-                if backing == "mapped" and params:
-                    launches["sharded_rows"] = counts[3]
-                results[backing] = res
-                q = res.quality()
-                check(q["edge_cut"] == OUTOFCORE_EDGE_CUT[algo],
-                      f"rmat40000 {algo} {backing}: edge_cut {q['edge_cut']} != "
+                want[int(sharded) + (2 if backing == "mapped" else 0)] = (
+                    run["kernel_calls"] or 0) if device.type == "cuda" else 0
+                check(run["launches"] == want,
+                      f"rmat40000 {algo} {backing}: launches {run['launches']}, expected {want}")
+                if backing == "mapped" and sharded:
+                    launches["sharded_rows"] = run["launches"][3]
+                check(run["edge_cut"] == OUTOFCORE_EDGE_CUT[algo],
+                      f"rmat40000 {algo} {backing}: edge_cut {run['edge_cut']} != "
                       f"{OUTOFCORE_EDGE_CUT[algo]}")
-                check(np.array_equal(res.assignment, results["resident"].assignment),
+                check(np.array_equal(assignment, res.assignment),
                       f"rmat40000 {algo}: {backing} and resident assignments differ")
-                tel = res.telemetry
                 log(json.dumps({
                     "phase": 21, "graph": "rmat40000", "algo": algo, "backing": backing,
-                    "prefetch": vspec.params.prefetch, "edge_cut": q["edge_cut"],
-                    "timings": res.timings, "kernel_calls": tel.get("kernel_calls"),
-                    "launches": dict(zip(("gather", "sharded", "rows", "sharded_rows"), counts)),
-                    **{key: tel.get(key) for key in (
-                        "peak_graph_bytes", "mapped_graph_bytes", "compressed_graph_bytes",
-                        "decode_wall_s", "prefetch_hit_rate", "prefetch_wait_s")},
-                }))
-        del mapped, results, small
+                    **{key: value for key, value in run.items() if key != "launches"},
+                    "launches": dict(zip(("gather", "sharded", "rows", "sharded_rows"),
+                                         run["launches"]))}))
+        del resident, small
 
         # ------------------------------------- (b) phase 20's R-MAT, resident
         # and mapped (phase 2's graph until PR 25: its mapped child took 96 s
         # on the H100 80GB HBM3 (700 W) machine, run A24)
-        scale = int(np.log2(graph.num_vertices))
         graph.to(device)  # the graph's arrays on the card before the run, as in phase 2
         sync(torch, device)
         if device.type == "cuda":
@@ -1763,26 +1853,16 @@ def outofcore_phase(torch, np, tapi, ops, ref, counters, device, timer, floor, g
         check(main_res.telemetry["kernel_calls"] == chunks and ops.launches == chunks * (
             device.type == "cuda"), f"resident fennel on 2^{scale}: {ops.launches} launches, "
               f"{main_res.telemetry['kernel_calls']} kernel_calls, expected {chunks}")
-        full_path = str(Path(td) / f"rmat{scale}.bin")
-        t0 = time.perf_counter()
-        convert_csr(graph, full_path)
-        write_s = time.perf_counter() - t0
         graph_device_bytes = graph.indptr.nbytes + graph.indices.nbytes
         # the resident run's own peak as phase 2 measures its: the graph's
         # arrays and what the run and its quality scan allocated (this
         # process holds other phases' tensors besides)
         main_peak = (torch.cuda.max_memory_allocated() - main_base + graph_device_bytes
                      if device.type == "cuda" else None)
-        out = str(Path(td) / "assignment.npy")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, str(Path(__file__).resolve()), "--mapped-child", full_path,
-             "--child-out", out] + (["--tiny"] if tiny else []),
-            capture_output=True, text=True, timeout=900,
-        )
-        child_s = time.perf_counter() - t0
-        check(proc.returncode == 0, f"mapped child failed:\n{proc.stdout}\n{proc.stderr}")
-        child = json.loads(proc.stdout.strip().splitlines()[-1])
+        child_out, child_err = proc.communicate(timeout=900)
+        child_s = time.perf_counter() - t_child  # beside (a) and the resident run
+        check(proc.returncode == 0, f"mapped child failed:\n{child_out}\n{child_err}")
+        child = json.loads(child_out.strip().splitlines()[-1])
         got = np.load(out)
         chunks = -(-graph.num_vertices // CHUNK)
         expect_rows = chunks if device.type == "cuda" else 0
@@ -3715,8 +3795,11 @@ def training_phase(torch, np, F, counters, device, timer, tiny: bool, ident: str
             check(latest_step(ck) == steps, f"the resumed run ended at {latest_step(ck)}")
             elastic_dir = os.path.join(tmp, "elastic")
             t0 = time.perf_counter()
+            # the demo resumes on 1x1 here: phase 29 resumes a mesh's
+            # checkpoint on 1x2 and 1x1
             elastic_loss = elastic.main(["--ckpt-dir", elastic_dir, "--steps", "20",
-                                         "--arch", arch, "--device", str(device.type)])
+                                         "--arch", arch, "--device", str(device.type),
+                                         "--resume-mesh", "1x1"])
             elastic_s = time.perf_counter() - t0
             check(np.isfinite(elastic_loss) and latest_step(elastic_dir) == 20,
                   "the elastic demo did not finish at step 20 with a finite loss")
@@ -3825,6 +3908,245 @@ def training_phase(torch, np, F, counters, device, timer, tiny: bool, ident: str
     del state, params, opt, model, batches
     if on_card:
         torch.cuda.empty_cache()
+    return record
+
+
+# phase 29 (meshes): sharded training at repro-100m's full width on
+# two gloo ranks sharing the card, against phase 24's 1x1 run of the same
+# seed; the mesh serve loop; two dry-run cells at full width
+MESH_TRAIN = ("2x1", "1x2")
+MESH_STEPS = 5  # each mesh's steps, then the checkpoint of step 5
+MESH_RESUME_TO = 6  # the resumed runs take step 6
+# bf16 losses of a mesh against phase 24's 1x1 run: halving the batch changes
+# cuBLAS's kernels for the products, and the gradients' shards are summed in
+# bf16 by the reduce-scatter, so bits differ; 1e-2 relative (the prediction in
+# PERF.md: within 5e-3)
+MESH_LOSS_RTOL = 1e-2
+MESH_SERVE = (("reduced:qwen3-8b", None), ("reduced:jamba-v0.1-52b", "moe_weight_shard=f"))
+MESH_PROMPT, MESH_GEN = 8, 8
+MESH_SERVE_ARGS = ["--batch", "4", "--prompt-len", str(MESH_PROMPT), "--gen", str(MESH_GEN)]
+DRYRUN_CELLS = (("qwen3-8b", "train_4k", False, None), ("deepseek-v2-236b", "decode_32k", True,
+                                                        None))
+DRYRUN_CELLS_TINY = (("reduced:qwen3-8b", "train_4k", False, (2, 2)),
+                     ("reduced:deepseek-v2-236b", "decode_32k", True, (2, 2, 2)))
+
+
+def mesh_train_args(tiny: bool, device) -> list:
+    """Phase 24's train-launcher arguments (its whole run: 30 steps, the schedule
+    those steps give), the steps cut by ``--fail-at``."""
+    base = ["--arch", "reduced:qwen3-8b" if tiny else "repro-100m", "--steps", "30",
+            "--log-every", "10", "--device", str(device.type)]
+    return base + (["--global-batch", "2", "--seq-len", "32"] if tiny else [])
+
+
+def mesh_rank(rank: int, world: int, store: str, work: str, tiny: bool) -> None:
+    """Phase 29's spawned rank (two share the card over gloo): the train launcher at
+    2x1 and 1x2 to step 5 (each run's collectives counted), the 2x1
+    checkpoint resumed at 1x2 for a step, the serve loop at 1x2. Writes
+    ``rank<r>.json``."""
+    import shutil
+
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.op_analysis import OpCounter
+    from repro_torch.launch.ranks import join
+
+    import torch.distributed as dist
+
+    device = torch.device("cpu" if tiny else "cuda")
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // world))  # AdamW runs on the host
+    join(rank, world, str(device.type), store)
+    out = {"rank": rank, "train": {}, "serve": {}}
+    try:
+        base = mesh_train_args(tiny, device)
+        for mesh in MESH_TRAIN:
+            fa.reset()
+            history, counter = [], OpCounter(sources=True)
+            with counter:
+                try:
+                    train_mod.main(base + ["--mesh", mesh, "--fail-at", str(MESH_STEPS),
+                                           "--ckpt-dir", os.path.join(work, f"ck_{mesh}"),
+                                           "--ckpt-every", str(MESH_STEPS)], history)
+                except RuntimeError as err:
+                    check("injected failure" in str(err), f"mesh {mesh} raised {err}")
+            steps = [r for r in counter.records if " save" not in (r[3] or "")]
+            per_step: dict = {}
+            for kind, nbytes, _, _, times in steps:
+                per_step[kind] = per_step.get(kind, 0) + nbytes * times / len(history)
+            out["train"][mesh] = {
+                "history": history, "launches": fa.launches,
+                "variants": dict(fa.variant_launches),
+                "collective_bytes_per_step": per_step,
+                "checkpoint_gather_bytes": sum(r[1] * r[4] for r in counter.records
+                                               if " save" in (r[3] or ""))}
+        if rank == 0:
+            shutil.copytree(os.path.join(work, "ck_2x1"), os.path.join(work, "ck_resume_1x2"))
+        dist.barrier()
+        fa.reset()
+        history = []
+        try:
+            train_mod.main(base + ["--mesh", "1x2", "--fail-at", str(MESH_RESUME_TO),
+                                   "--ckpt-dir", os.path.join(work, "ck_resume_1x2"),
+                                   "--ckpt-every", str(MESH_STEPS)], history)
+        except RuntimeError as err:
+            check("injected failure" in str(err), f"resume at 1x2 raised {err}")
+        out["resume_1x2"] = {"history": history, "launches": fa.launches,
+                             "variants": dict(fa.variant_launches)}
+        for arch, opt in MESH_SERVE:
+            fa.reset()
+            argv = ["--arch", arch, *MESH_SERVE_ARGS, "--mesh", "1x2", "--device",
+                    str(device.type), *(["--opt", opt] if opt else [])]
+            gen, timing = serve_mod.run(serve_mod._parser().parse_args(argv))
+            out["serve"][arch] = {"gen": gen.cpu().tolist(), "timings": timing,
+                                  "launches": fa.launches,
+                                  "variants": dict(fa.variant_launches)}
+    finally:
+        with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        dist.destroy_process_group()
+
+
+def mesh_phase(torch, np, counters, device, tiny: bool, ident: str, train_rec: dict) -> dict:
+    """Phase 29: the mesh path. (a) ``launch.train`` at repro-100m (bf16,
+    B=8, T=256) on meshes 2x1 and 1x2, two gloo ranks sharing the card:
+    steps 1-5 against phase 24's 1x1 losses, ``wgmma_bf16`` 10 launches a
+    step in each rank, each rank's step ms and bytes gathered and reduced a
+    step; the 2x1 checkpoint of step 5 resumed at 1x1 (here) and at 1x2
+    for a step. (b) ``launch.serve --mesh 1x2`` of reduced qwen3-8b and of
+    reduced jamba with ``moe_weight_shard="f"`` (``moe_ffn_fshard``): the
+    1x1 loop's tokens, ``decode_split`` in each rank. (c) beside (a) and
+    (b): two dry-run cells at full width on the fake group, qwen3-8b
+    ``train_4k`` on 16x16 and deepseek-v2-236b ``decode_32k`` on 2x16x16,
+    ``status: ok`` and the analytic MODEL_FLOPS the port's own."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import train as train_mod
+
+    base = mesh_train_args(tiny, device)
+    cfg = train_mod.get_model_config(base[1])
+    n_attn = sum(s.mixer == "attn" for s in cfg.layers())
+    want = train_rec["driver"]["losses"]  # phase 24's 1x1 run, steps 1-30
+    on_card = device.type == "cuda"
+    variant = "wgmma_bf16" if on_card else None
+    record = {"device": ident}
+    with tempfile.TemporaryDirectory(prefix="smoke_mesh_") as work:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(mesh_rank, args=(2, (Path(work) / "store").as_uri(), work, tiny),
+                                 nprocs=2, join=False, start_method="spawn")
+        # (c) in this process while the ranks run
+        cells = []
+        for arch, shape, multi, mesh_shape in (DRYRUN_CELLS_TINY if tiny else DRYRUN_CELLS):
+            res = dryrun.run_cell(arch, shape, multi, peak=False, mesh_shape=mesh_shape)
+            check(res["status"] == "ok", f"dry run {arch} {shape}: {res.get('error')}")
+            model_cfg = dryrun._config(arch, None)[0]
+            want_flops = dryrun.analytic_model_flops(model_cfg, SHAPES[shape],
+                                                     SHAPES[shape]["kind"])["model_flops"]
+            check(res["model_flops"] == want_flops,
+                  f"dry run {arch} {shape}: model_flops {res['model_flops']} != {want_flops}")
+            cells.append({key: res.get(key) for key in (
+                "arch", "shape", "mesh", "status", "chips", "accum", "wall_s", "lower_s",
+                "trace_s", "dot_flops_per_shard", "total_collective_bytes_per_shard",
+                "collective_bytes_per_shard", "collective_counts", "model_flops", "memory")})
+            log(json.dumps({"phase": 29, "part": "c", **cells[-1]}))
+        cells_s = time.perf_counter() - t0
+        while not ctx.join():
+            pass
+        ranks_s = time.perf_counter() - t0
+        ranks = [json.loads((Path(work) / f"rank{r}.json").read_text()) for r in range(2)]
+        # the 2x1 checkpoint of step 5 resumed here, at 1x1
+        history = []
+        reset_counts(*counters)
+        shutil.copytree(os.path.join(work, "ck_2x1"), os.path.join(work, "ck_resume_1x1"))
+        try:
+            train_mod.main(base + ["--mesh", "1x1", "--fail-at", str(MESH_RESUME_TO),
+                                   "--ckpt-dir", os.path.join(work, "ck_resume_1x1"),
+                                   "--ckpt-every", str(MESH_STEPS)], history)
+        except RuntimeError as err:
+            check("injected failure" in str(err), f"resume at 1x1 raised {err}")
+        resume_11 = {"history": history, "launches": fa.launches}
+        # the 1x1 serve loops the mesh's tokens are held against
+        serve_11 = {}
+        for arch, opt in MESH_SERVE:
+            argv = ["--arch", arch, *MESH_SERVE_ARGS, "--mesh", "1x1", "--device",
+                    str(device.type), *(["--opt", opt] if opt else [])]
+            gen, _ = serve_mod.run(serve_mod._parser().parse_args(argv))
+            serve_11[arch] = gen.cpu().tolist()
+
+    def close(got: list, steps: range, what: str) -> float:
+        worst = 0.0
+        for h, step in zip(got, steps):
+            ref = want[step - 1]
+            rel = abs(h["loss"] - ref) / abs(ref)
+            worst = max(worst, rel)
+            check(h["step"] == step, f"{what}: step {h['step']} where {step} was due")
+            check(np.isfinite(h["loss"]) and rel <= MESH_LOSS_RTOL,
+                  f"{what}: step {step} loss {h['loss']} against phase 24's {ref} "
+                  f"({rel:.3g} relative > {MESH_LOSS_RTOL})")
+        check(len(got) == len(steps), f"{what}: {len(got)} steps, expected {len(steps)}")
+        return worst
+
+    mesh_launches = 0
+    train = {}
+    for mesh in MESH_TRAIN:
+        runs = [r["train"][mesh] for r in ranks]
+        worst = close(runs[0]["history"], range(1, MESH_STEPS + 1), f"mesh {mesh}")
+        for r, run in enumerate(runs):
+            if on_card:
+                check(run["variants"][variant] == n_attn * MESH_STEPS,
+                      f"mesh {mesh} rank {r}: {run['variants'][variant]} {variant} launches, "
+                      f"expected {n_attn} a step")
+            mesh_launches += run["launches"]
+        train[mesh] = {
+            "losses": [h["loss"] for h in runs[0]["history"]], "worst_rel_loss": worst,
+            "launches_per_rank": [run["launches"] for run in runs],
+            "step_ms_per_rank": [[1e3 * h["step_s"] for h in run["history"]] for run in runs],
+            "collective_bytes_per_step_per_rank": [run["collective_bytes_per_step"]
+                                                   for run in runs],
+            "checkpoint_gather_bytes": [run["checkpoint_gather_bytes"] for run in runs]}
+        log(json.dumps({"phase": 29, "part": "a", "mesh": mesh, **train[mesh]}))
+    resume = {"1x2": close(ranks[0]["resume_1x2"]["history"],
+                           range(MESH_STEPS + 1, MESH_RESUME_TO + 1), "resume 2x1 -> 1x2"),
+              "1x1": close(resume_11["history"], range(MESH_STEPS + 1, MESH_RESUME_TO + 1),
+                           "resume 2x1 -> 1x1")}
+    for r in ranks:
+        mesh_launches += r["resume_1x2"]["launches"]
+    log(json.dumps({"phase": 29, "part": "a", "resume_from": "2x1 step 5",
+                    "worst_rel_loss": resume,
+                    "losses_1x2": [h["loss"] for h in ranks[0]["resume_1x2"]["history"]],
+                    "losses_1x1": [h["loss"] for h in resume_11["history"]]}))
+    serve = {}
+    for arch, opt in MESH_SERVE:
+        scfg = train_mod.get_model_config(arch)
+        expect = sum(s.mixer == "attn" for s in scfg.layers()) * (MESH_PROMPT + MESH_GEN - 1)
+        for r, rank in enumerate(ranks):
+            got = rank["serve"][arch]
+            check(got["gen"] == serve_11[arch],
+                  f"serve {arch} ({opt}) at 1x2, rank {r}: tokens differ from the 1x1 loop's")
+            if on_card:
+                check(got["variants"]["decode_split"] == expect,
+                      f"serve {arch} rank {r}: {got['variants']['decode_split']} decode_split "
+                      f"launches, expected {expect}")
+            mesh_launches += got["launches"]
+        serve[arch] = {"opt": opt, "tokens_equal_1x1": True,
+                       "decode_split_per_rank": [rk["serve"][arch]["variants"]["decode_split"]
+                                                 for rk in ranks],
+                       "decode_tok_per_s_rank0": ranks[0]["serve"][arch]["timings"][
+                           "decode_tok_per_s"]}
+        log(json.dumps({"phase": 29, "part": "b", "arch": arch, **serve[arch]}))
+    record.update(train=train, resume=resume, serve=serve, cells=cells,
+                  cells_seconds=cells_s, ranks_seconds=ranks_s, launches=mesh_launches)
+    log(json.dumps({"phase": 29, "launches": mesh_launches, "cells_seconds": cells_s,
+                    "ranks_seconds": ranks_s, "device": ident}))
     return record
 
 
@@ -4077,11 +4399,14 @@ def main() -> int:
     ap.add_argument("--tiny", action="store_true",
                     help="rehearse every phase on the CPU at a tiny size (prints no result)")
     ap.add_argument("--mapped-child", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--mapped-rows-child", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--child-out", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--zoo-cpu-child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
-    if args.mapped_child:  # phase 21's child process
+    if args.mapped_child:  # phase 21(b)'s child process
         return mapped_child(args.mapped_child, args.child_out, args.tiny)
+    if args.mapped_rows_child:  # phase 21(a)'s child process
+        return mapped_rows_child(args.mapped_rows_child, args.child_out, args.tiny)
     if args.zoo_cpu_child:  # phase 18's CPU side
         return zoo_cpu_child(args.zoo_cpu_child)
 
@@ -4339,22 +4664,22 @@ def main() -> int:
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     reset_counts(*counters)
-    res = tapi.partition(social, tapi.PartitionSpec(
+    # on social-s (on social-m its refinement took 35-52 s of host time)
+    res = tapi.partition(tapi.PartitionSpec(
         algo="cuttana-parallel", k=8, balance_mode="edge", order="random", seed=0,
-        params={"num_shards": NUM_SHARDS}), device=device)
+        source="dataset:social-s", params={"num_shards": NUM_SHARDS}), device=device)
     if device.type == "cuda":
         torch.cuda.synchronize()
     q = res.quality()
     tel = res.telemetry
     expect = tel["kernel_calls"] if device.type == "cuda" else 0
     check(ops.sharded_launches == expect,
-          f"{dataset} cuttana-parallel: {ops.sharded_launches} launches, expected {expect}")
-    if not args.tiny:
-        check(q["edge_cut"] == SOCIAL_M_CUTTANA_PARALLEL_EDGE_CUT,
-              f"social-m cuttana-parallel: edge_cut {q['edge_cut']} != "
-              f"{SOCIAL_M_CUTTANA_PARALLEL_EDGE_CUT}")
+          f"social-s cuttana-parallel: {ops.sharded_launches} launches, expected {expect}")
+    check(q["edge_cut"] == SOCIAL_S_CUTTANA_PARALLEL_EDGE_CUT,
+          f"social-s cuttana-parallel: edge_cut {q['edge_cut']} != "
+          f"{SOCIAL_S_CUTTANA_PARALLEL_EDGE_CUT}")
     log(json.dumps({
-        "phase": 7, "dataset": dataset, "algo": "cuttana-parallel", "num_shards": NUM_SHARDS,
+        "phase": 7, "dataset": "social-s", "algo": "cuttana-parallel", "num_shards": NUM_SHARDS,
         "edge_cut": q["edge_cut"], "comm_volume": q["comm_volume"],
         "phase1_seconds": res.timings["phase1_seconds"],
         "phase2_seconds": res.timings["phase2_seconds"],
@@ -4562,6 +4887,10 @@ def main() -> int:
     train_rec = training_phase(torch, np, F, counters, device, timer, args.tiny, ident)
     clock.mark(24)
 
+    # ----------------------------------------------------------- phase 29
+    mesh_rec = mesh_phase(torch, np, counters, device, args.tiny, ident, train_rec)
+    clock.mark(29)
+
     # ---------------------------------------------------------- phase 28(b)
     examples_phase(torch, np, tapi, counters, device, args.tiny, ident)
     clock.mark("28b")
@@ -4639,8 +4968,12 @@ def main() -> int:
                     key: sharded_row.get(key) for key in (
                         "shape", "rows", "nnz", "ms", "call_ms", "plain_ms", "library_ms",
                         "bound_ms", "bound_by", "floor_ms", "gb_per_s", "max_abs_err")}),
-        summary("flash_attention", flash_shapes + moe_rec["rows"], lm_launches["flash_attention"],
+        summary("flash_attention", flash_shapes + moe_rec["rows"],
+                lm_launches["flash_attention"] + mesh_rec["launches"],
                 TPU_KERNEL_FLASH, FLASH_SOURCE, variant=flash_shapes[0]["variant"],
+                # phase 29: both ranks' launches on the mesh path (in
+                # ``launches`` too)
+                mesh_launches=mesh_rec["launches"],
                 tflops=flash_shapes[0]["tflops"], variant_launches=flash_variants,
                 # phase 24: the training path (the driver's three runs and
                 # the elastic demo) and the gradient rows

@@ -101,3 +101,27 @@ def shrink(cfg: ModelConfig) -> ModelConfig:
             qk_rope_dim=16, qk_nope_dim=32, v_head_dim=32,
         )
     return dataclasses.replace(cfg, **changes)
+
+
+# the dry run's input shapes (the reference's)
+SHAPES = {
+    "train_4k": dict(seq_len=4096, global_batch=256, kind="train"),
+    "prefill_32k": dict(seq_len=32768, global_batch=32, kind="prefill"),
+    "decode_32k": dict(seq_len=32768, global_batch=128, kind="decode"),
+    "long_500k": dict(seq_len=524288, global_batch=1, kind="decode"),
+}
+
+
+def cells_for(arch: str, cfg: ModelConfig | None = None) -> dict[str, str]:
+    """shape -> ``"run"`` or the reason the cell is skipped (the
+    reference's rules and strings)."""
+    cfg = cfg or get_config(arch)
+    out = {}
+    for shape, spec in SHAPES.items():
+        if spec["kind"] == "decode" and cfg.is_encoder_only:
+            out[shape] = "skip: encoder-only arch has no decode step"
+        elif shape == "long_500k" and not cfg.supports_long_context:
+            out[shape] = "skip: pure full-attention arch (needs sub-quadratic)"
+        else:
+            out[shape] = "run"
+    return out

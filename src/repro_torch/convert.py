@@ -20,6 +20,8 @@ __all__ = [
     "lm_params_from_arrays",
     "lm_params_to_reference",
     "localized_from_arrays",
+    "stack_layers",
+    "stacked_spec",
     "state_from_arrays",
 ]
 
@@ -187,33 +189,53 @@ def lm_params_from_arrays(cfg, params: dict, device: str | torch.device | None =
     return out
 
 
-def lm_params_to_reference(cfg, params: dict) -> dict:
+def stack_layers(cfg, layers: list, stack=None) -> tuple[tuple, tuple]:
+    """``(prefix, blocks)`` of a per-layer list in ``cfg.layers()`` order:
+    the first ``len(cfg.prefix)`` layers as they are, then the layers of
+    each ``cfg.block`` position stacked over the ``n_blocks`` repeats with
+    ``stack`` (a list of leaves -> one leaf; ``torch.stack`` by default, or
+    :func:`stacked_spec` for a tree of sharding specs)."""
+    stack = stack or torch.stack
+    n_prefix, width = len(cfg.prefix), len(cfg.block)
+    if len(layers) != n_prefix + cfg.n_blocks * width:
+        raise ValueError(f"params hold {len(layers)} layers, cfg has "
+                         f"{n_prefix + cfg.n_blocks * width}")
+    prefix, rest = layers[:n_prefix], layers[n_prefix:]
+
+    def stacked(group: list):
+        if isinstance(group[0], dict):
+            return {key: stacked([g[key] for g in group]) for key in group[0]}
+        return stack(group)
+
+    return tuple(prefix), tuple(stacked(rest[j::width]) for j in range(width))
+
+
+def stacked_spec(group: list):
+    """The spec of a leaf stacked over the blocks: the reference's ``P(None,
+    *spec)`` (a leading, unsharded ``n_blocks`` dim)."""
+    from repro_torch.launch.mesh import P
+
+    return P(None, *group[0])
+
+
+def lm_params_to_reference(cfg, params: dict, stack=None) -> dict:
     """The inverse of :func:`lm_params_from_arrays`: the port's parameter
-    dict (or a tree of the same layout, such as AdamW's moments) in the
-    reference's layout, ``{"blocks", "embed", "final_norm", "prefix",
-    "unembed"}``: the first ``len(cfg.prefix)`` layers as the ``prefix``
-    tuple of per-layer dicts, the rest with the layers of each ``cfg.block``
-    position stacked on a leading ``n_blocks`` axis, on the parameters'
-    device (no ``embed`` for a frame-input model). Flattened in
+    dict (or a tree of the same layout, such as AdamW's moments or
+    ``Model.param_specs()`` with ``stack=stacked_spec``) in the reference's
+    layout, ``{"blocks", "embed", "final_norm", "prefix", "unembed"}``: the
+    first ``len(cfg.prefix)`` layers as the ``prefix`` tuple of per-layer
+    dicts, the rest with the layers of each ``cfg.block`` position stacked
+    on a leading ``n_blocks`` axis (:func:`stack_layers`), on the
+    parameters' device (no ``embed`` for a frame-input model). Flattened in
     JAX's leaf order (:mod:`repro_torch.train.pytree`) it gives the
     reference's leaves one by one (an MoE layer's ``moe`` leaves too, as
     ``[n_blocks, E, ...]``), which is what lets checkpoints cross."""
-    n_prefix, width = len(cfg.prefix), len(cfg.block)
-    if len(params["layers"]) != n_prefix + cfg.n_blocks * width:
-        raise ValueError(f"params hold {len(params['layers'])} layers, cfg has "
-                         f"{n_prefix + cfg.n_blocks * width}")
-    prefix, layers = params["layers"][:n_prefix], params["layers"][n_prefix:]
-
-    def stack(group: list):
-        if isinstance(group[0], dict):
-            return {key: stack([g[key] for g in group]) for key in group[0]}
-        return torch.stack(group)
-
-    out = {"blocks": tuple(stack(layers[j::width]) for j in range(width))}
+    prefix, blocks = stack_layers(cfg, params["layers"], stack)
+    out = {"blocks": blocks}
     if "embed" in params:
         out["embed"] = params["embed"]
     out["final_norm"] = params["final_norm"]
-    out["prefix"] = tuple(prefix)
+    out["prefix"] = prefix
     if "unembed" in params:
         out["unembed"] = params["unembed"]
     return out

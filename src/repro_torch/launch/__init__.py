@@ -1,2 +1,3 @@
-"""Launchers of the port (``python -m repro_torch.launch.serve``,
-``python -m repro_torch.launch.convert_graph``)."""
+"""Launchers of the port (``python -m repro_torch.launch.train``,
+``.serve``, ``.elastic``, ``.dryrun``, ``.convert_graph``) and the mesh
+machinery they share (``mesh``, ``specs``, ``ranks``, ``op_analysis``)."""

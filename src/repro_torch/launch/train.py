@@ -2,26 +2,39 @@
 ``repro.launch.train``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch repro-100m --steps 200
-    PYTHONPATH=src python -m repro_torch.launch.train --arch reduced:qwen3-8b \\
+    PYTHONPATH=src python -m repro_torch.launch.train --arch reduced:qwen3-8b \
         --steps 30 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch reduced:qwen3-8b \
+        --mesh 2x1 --device cpu              # two ranks over gloo
 
 What it exercises:
   * seeded parameters (``torch.Generator`` seed 0 on the device) and AdamW
     state in ``cfg.opt_state_dtype``,
   * ``make_train_step`` with the attention and scan kernels in the forward,
+  * any ``--mesh`` ``DxM`` or ``PxDxM`` (axes ``data, model`` or ``pod,
+    data, model``): parameters and AdamW state are DTensors placed by
+    ``Model.param_specs``, each rank trains on its batch rows with each
+    layer's weights gathered (``repro_torch.models.model``). With more than
+    one rank the command starts its own ranks (spawned processes joined
+    through a file store) or, under ``torchrun`` or an initialised process
+    group, runs as one of them. Ranks that each have a card join over NCCL
+    on a ``cuda`` mesh; ranks that share a card (or the CPU) join over gloo
+    and keep their DTensors on a host mesh, each gathered layer copied to
+    the card (gloo's CUDA support is partial),
   * async atomic checkpoints every ``--ckpt-every`` steps, keep-N, in the
     reference's file format and leaf order (a checkpoint of either package
-    resumes in the other),
+    resumes in the other, and one written on any mesh resumes on any other:
+    the ranks gather the state whole and rank 0 writes it),
   * crash-restart: ``--fail-at N`` raises after step N; rerunning with the
     same ``--ckpt-dir`` resumes from the latest checkpoint, the data
     pipeline included (``TokenPipeline.skip_to``).
-
-The port runs on one card: ``--mesh`` takes ``1x1`` only; a device mesh
-(and the reference's sharding specs) waits for ROADMAP Queue 1 item 8d.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import math
+import sys
 import time
 
 import torch
@@ -29,15 +42,16 @@ import torch
 from repro_torch.configs import get_model_config as _get_config
 from repro_torch.convert import lm_params_from_arrays, lm_params_to_reference
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import P, gather_tree, make_mesh, shard, shard_tree
+from repro_torch.launch.ranks import rank_device, run_in_group
 from repro_torch.models.config import LayerSpec, ModelConfig
+from repro_torch.models.layers import Axes
 from repro_torch.models.model import Model
 from repro_torch.train.checkpoint import AsyncCheckpointer, latest_step, restore_checkpoint
 from repro_torch.train.data import TokenPipeline
 from repro_torch.train.optimizer import AdamWState, adamw_init
 from repro_torch.train.pytree import tree_map
 from repro_torch.train.step import make_train_step
-
-MESH_ITEM = "ROADMAP Queue 1 item 8d (meshes and the sharding specs)"
 
 
 def repro_100m() -> ModelConfig:
@@ -64,11 +78,27 @@ def get_model_config(name: str) -> ModelConfig:
     return _get_config(name)
 
 
-def check_mesh(spec: str) -> None:
-    """The port trains on one device: only ``1x1`` is accepted."""
-    if spec != "1x1":
-        raise NotImplementedError(
-            f"--mesh {spec}: the port trains on one device (1x1); meshes wait for {MESH_ITEM}")
+def mesh_dims(spec: str) -> tuple[tuple[int, ...], tuple[str, ...]]:
+    """``(shape, axis names)`` of ``"DxM"`` or ``"PxDxM"``."""
+    try:
+        dims = tuple(int(x) for x in spec.split("x"))
+    except ValueError:
+        dims = ()
+    if len(dims) not in (2, 3) or min(dims) < 1:
+        raise ValueError(f"--mesh takes DxM or PxDxM with positive sizes, got {spec!r}")
+    return dims, (("data", "model") if len(dims) == 2 else ("pod", "data", "model"))
+
+
+def build_mesh(spec: str, device_type: str = "cpu"):
+    """The ``DeviceMesh`` of ``spec`` over the process group (whose size
+    must be the mesh's), or ``None`` for a one-rank mesh with no group (the
+    one-device path)."""
+    import torch.distributed as dist
+
+    dims, names = mesh_dims(spec)
+    if math.prod(dims) == 1 and not dist.is_initialized():
+        return None
+    return make_mesh(dims, names, device_type)
 
 
 def checkpoint_tree(cfg: ModelConfig, params: dict, opt: AdamWState):
@@ -90,10 +120,7 @@ def restore(directory: str, cfg: ModelConfig, params: dict, opt: AdamWState,
     return params, opt, step
 
 
-def main(argv=None, history: list | None = None):
-    """Train; returns the last step's loss. ``history``, when given, gets
-    each step's metrics as floats (``step``, ``loss``, ``ce``, ``aux``,
-    ``grad_norm``, ``lr``)."""
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="repro-100m")
     ap.add_argument("--steps", type=int, default=100)
@@ -108,12 +135,56 @@ def main(argv=None, history: list | None = None):
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; exits with an error without a card) or cpu")
-    args = ap.parse_args(argv)
+    ap.add_argument("--dtype", default=None,
+                    help="the parameters' dtype in place of the config's (e.g. float32)")
+    return ap
 
-    check_mesh(args.mesh)
+
+def main(argv=None, history: list | None = None):
+    """Train; returns the last step's loss. ``history``, when given, gets
+    each step's metrics as floats (``step``, ``loss``, ``ce``, ``aux``,
+    ``grad_norm``, ``lr``, and the step's host seconds ``step_s``); with
+    ranks, rank 0's."""
+    import torch.distributed as dist
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = _parser().parse_args(argv)
+    dims, _ = mesh_dims(args.mesh)
+    if math.prod(dims) == 1 or dist.is_initialized():  # one device, or a rank of a group
+        return train(args, history)
+    out = run_in_group(_train_rank, argv, args.device, math.prod(dims))
+    if history is not None:
+        history.extend(out.get("history", []))
+    if "error" in out:
+        raise RuntimeError(out["error"])
+    return out["loss"]
+
+
+def _train_rank(argv: list, out: dict) -> None:
+    """One rank's run: ``out`` gets its history and loss."""
+    out["history"] = []
+    out["loss"] = train(_parser().parse_args(argv), out["history"])
+
+
+def train(args, history: list | None = None):
+    """The training loop of one rank (or of the one device): ``args`` as
+    :func:`main` parses them."""
+    import torch.distributed as dist
+
     device = resolve_device(args.device)
+    mesh, rank = None, 0
+    if dist.is_initialized():
+        rank = dist.get_rank()
+        device = rank_device(args.device, rank, dist.get_world_size())
+        mesh = build_mesh(args.mesh, "cuda" if dist.get_backend() == "nccl" else "cpu")
+    else:
+        build_mesh(args.mesh)  # a mesh of more than one rank needs a group: raises
+    main_rank = rank == 0
     cfg = get_model_config(args.arch)
-    model = Model(cfg, device)
+    if args.dtype:
+        cfg = dataclasses.replace(cfg, dtype=args.dtype)
+    dp = ("pod", "data") if mesh is not None and "pod" in mesh.mesh_dim_names else ("data",)
+    model = Model(cfg, device, ax=Axes(dp=dp, tp="model"), mesh=mesh)
     train_step = make_train_step(
         model, peak_lr=args.lr, warmup=min(100, args.steps // 10 + 1),
         total_steps=args.steps,
@@ -122,10 +193,27 @@ def main(argv=None, history: list | None = None):
     opt_state = adamw_init(params, cfg.opt_state_dtype)
 
     start_step = 0
-    ckpt = AsyncCheckpointer(args.ckpt_dir) if args.ckpt_dir else None
+    ckpt = AsyncCheckpointer(args.ckpt_dir) if args.ckpt_dir and main_rank else None
     if args.ckpt_dir and latest_step(args.ckpt_dir) is not None:
         params, opt_state, start_step = restore(args.ckpt_dir, cfg, params, opt_state, device)
-        print(f"[restore] resumed from step {start_step}")
+        if main_rank:
+            print(f"[restore] resumed from step {start_step}")
+    if mesh is not None:  # every rank holds the whole state; keep its shards
+        specs = model.param_specs()
+        params = shard_tree(params, specs, mesh)
+        # the step counter beside the shards (a host mesh keeps them off the card)
+        opt_state = AdamWState(step=opt_state.step.to(mesh.device_type),
+                               m=shard_tree(opt_state.m, specs, mesh),
+                               v=shard_tree(opt_state.v, specs, mesh))
+
+    def save(step: int) -> None:
+        tree = (params, opt_state)
+        if mesh is not None:  # every rank takes part in the gathers
+            tree = (gather_tree(params), AdamWState(step=opt_state.step,
+                                                    m=gather_tree(opt_state.m),
+                                                    v=gather_tree(opt_state.v)))
+        if ckpt:
+            ckpt.save(step, checkpoint_tree(cfg, *tree))
 
     pipe = TokenPipeline(
         cfg.vocab_size, args.seq_len, args.global_batch, seed=1234
@@ -136,21 +224,26 @@ def main(argv=None, history: list | None = None):
     tokens_done = 0
     metrics = None
     for step in range(start_step, args.steps):
-        batch = {k: torch.from_numpy(v).to(device, torch.int64) for k, v in next(pipe).items()}
+        t_step = time.perf_counter()
+        batch = {k: torch.from_numpy(v).to(torch.int64) for k, v in next(pipe).items()}
+        if mesh is None:
+            batch = {k: v.to(device) for k, v in batch.items()}
+        else:
+            batch = {k: shard(v, P(dp, None), mesh) for k, v in batch.items()}
         params, opt_state, metrics = train_step(params, opt_state, batch)
         tokens_done += args.global_batch * args.seq_len
+        m = {k: float(v) for k, v in metrics.items()}
         if history is not None:
-            history.append({"step": step + 1, **{k: float(v) for k, v in metrics.items()}})
-        if (step + 1) % args.log_every == 0 or step + 1 == args.steps:
-            m = {k: float(v) for k, v in metrics.items()}
+            history.append({"step": step + 1, **m, "step_s": time.perf_counter() - t_step})
+        if main_rank and ((step + 1) % args.log_every == 0 or step + 1 == args.steps):
             tps = tokens_done / max(time.time() - t0, 1e-9)
             print(
                 f"step {step+1:5d} loss={m['loss']:.4f} ce={m['ce']:.4f} "
                 f"gnorm={m['grad_norm']:.3f} lr={m['lr']:.2e} tok/s={tps:,.0f}",
                 flush=True,
             )
-        if ckpt and (step + 1) % args.ckpt_every == 0:
-            ckpt.save(step + 1, checkpoint_tree(cfg, params, opt_state))
+        if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
+            save(step + 1)
         if args.fail_at is not None and step + 1 == args.fail_at:
             if ckpt:
                 ckpt.wait()
@@ -159,11 +252,13 @@ def main(argv=None, history: list | None = None):
                 f"[injected failure] node died at step {step+1}; "
                 f"rerun with the same --ckpt-dir to resume"
             )
-    if ckpt:
-        ckpt.save(args.steps, checkpoint_tree(cfg, params, opt_state))
-        ckpt.wait()
+    if args.ckpt_dir:
+        save(args.steps)
+        if ckpt:
+            ckpt.wait()
     pipe.close()
-    print("[done]")
+    if main_rank:
+        print("[done]")
     return float(metrics["loss"])
 
 

@@ -21,14 +21,78 @@ query and key are wider than the value: prefill in the expanded form
 columns a head, one launch a layer), the decode step in the absorbed form
 (``mla_flash_decode``: all 128 query heads against the one latent KV head,
 576 key columns of which the first 512 are the value, one launch over the
-latent cache). The reference's sequence-parallel mode waits for a mesh.
+latent cache). The reference's sequence-parallel mode waits for ROADMAP
+Queue 1 item 8e.
+
+``init_attention`` and ``specs_attention`` give a layer's parameters and
+their sharding specs (the GQA, cross and MLA variants).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.models.layers import apply_rope, qk_head_norm, rms_norm
+from repro_torch.launch.mesh import P
+from repro_torch.models.layers import Axes, Init, apply_rope, qk_head_norm, rms_norm
+
+
+def init_attention(init: Init, cfg, dtype: torch.dtype, cross: bool = False) -> dict:
+    d = cfg.d_model
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    s = d**-0.5
+    if cfg.use_mla and not cross:
+        r, qr = cfg.kv_lora_rank, cfg.q_lora_rank
+        nope, rope_d, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+        p = {
+            "wkv_a": init.normal((d, r + rope_d), s, dtype),
+            "kv_norm": init.ones(r, dtype),
+            "wkv_b": init.normal((r, h * (nope + vd)), r**-0.5, dtype),
+            "wo": init.normal((h * vd, d), (h * vd) ** -0.5, dtype),
+        }
+        if qr:
+            p["wq_a"] = init.normal((d, qr), s, dtype)
+            p["q_norm"] = init.ones(qr, dtype)
+            p["wq_b"] = init.normal((qr, h * (nope + rope_d)), qr**-0.5, dtype)
+        else:
+            p["wq"] = init.normal((d, h * (nope + rope_d)), s, dtype)
+        return p
+    p = {
+        "wq": init.normal((d, h * dh), s, dtype),
+        "wk": init.normal((d, hkv * dh), s, dtype),
+        "wv": init.normal((d, hkv * dh), s, dtype),
+        "wo": init.normal((h * dh, d), (h * dh) ** -0.5, dtype),
+    }
+    if cfg.qk_norm:
+        p["q_scale"] = init.ones(dh, dtype)
+        p["k_scale"] = init.ones(dh, dtype)
+    if cross and cfg.cross_attn_gated:
+        p["gate"] = init.zeros(1, dtype)  # tanh(0): the image path starts closed
+    return p
+
+
+def specs_attention(cfg, ax: Axes, cross: bool = False) -> dict:
+    if cfg.use_mla and not cross:
+        p = {"wkv_a": P(ax.dp, None), "kv_norm": P(None), "wkv_b": P(ax.dp, ax.tp),
+             "wo": P(ax.tp, ax.dp)}
+        if cfg.q_lora_rank:
+            p["wq_a"] = P(ax.dp, None)
+            p["q_norm"] = P(None)
+            p["wq_b"] = P(ax.dp, ax.tp)
+        else:
+            p["wq"] = P(ax.dp, ax.tp)
+        return p
+    if cfg.attn_weight_shard == "f" and not cross:
+        full = (*ax.dp, ax.tp)
+        p = {"wq": P(None, full), "wk": P(None, full), "wv": P(None, full), "wo": P(full, None)}
+    else:
+        p = {"wq": P(ax.dp, ax.tp), "wk": P(ax.dp, ax.tp), "wv": P(ax.dp, ax.tp),
+             "wo": P(ax.tp, ax.dp)}
+    if cfg.qk_norm:
+        p["q_scale"] = P(None)
+        p["k_scale"] = P(None)
+    if cross and cfg.cross_attn_gated:
+        p["gate"] = P(None)
+    return p
 
 
 def _gated(y: torch.Tensor, p: dict) -> torch.Tensor:
@@ -147,7 +211,11 @@ def latent_buffer(ckv: torch.Tensor, kpe: torch.Tensor) -> torch.Tensor:
     """The ``[B, S, r + rope]`` latent cache whose first ``r`` columns are
     ``ckv`` and the rest ``kpe``: a view when the two are views of one
     buffer (what ``Model.init_cache`` gives), else their concatenation."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
     r = ckv.shape[-1]
+    if isinstance(ckv, FakeTensor):  # a dry run's shapes: no storage to share
+        return torch.cat([ckv, kpe], -1)
     if (ckv.untyped_storage().data_ptr() == kpe.untyped_storage().data_ptr()
             and ckv.stride() == kpe.stride() and ckv.stride(-1) == 1
             and kpe.storage_offset() == ckv.storage_offset() + r

@@ -4,14 +4,10 @@
 A model is ``prefix`` layers followed by ``n_blocks`` repeats of a ``block``
 pattern. Only the fields the port reads are copied, the training-policy
 hints included (``router_aux_weight``, ``opt_state_dtype``, ``remat``,
-``remat_policy``, with the reference's defaults). The reference's
-mesh-sharding knobs (``activation_partitioning`` and the
-``*_weight_shard`` fields) place activations and weights over a TPU mesh;
-the port runs on one card, so they stay out until a mesh exists (ROADMAP
-Queue 1 item 8d); on one card the reference's weight-stationary MoE
-(``moe_ffn_fshard``) does ``moe_ffn``'s arithmetic, so the port has the one
-layer. MoE routing (``top_k``, ``capacity_factor``), a cross-attention
-model's image tokens (``n_img_tokens``) and its tanh gate
+``remat_policy``) and the four mesh-sharding knobs
+(``activation_partitioning`` and the ``*_weight_shard`` fields), each with
+the reference's default. MoE routing (``top_k``, ``capacity_factor``), a
+cross-attention model's image tokens (``n_img_tokens``) and its tanh gate
 (``cross_attn_gated``) and MLA's widths (``q_lora_rank``, ``kv_lora_rank``,
 ``qk_rope_dim``, ``qk_nope_dim``, ``v_head_dim``; deepseek-v2-236b) are here.
 """
@@ -20,7 +16,6 @@ from __future__ import annotations
 import dataclasses
 
 # where the parts of the reference the port does not run yet are queued
-# (the mesh and sharding analogs: item 8d)
 LATER_ITEM = "ROADMAP Queue 1"
 
 
@@ -80,6 +75,19 @@ class ModelConfig:
     # training-policy hints consumed by launch/train
     opt_state_dtype: str = "float32"  # "bfloat16" for the giant MoEs
     remat: bool = True
+    # ---- mesh placement (the reference's knobs and defaults)
+    # "batch": activations shard the batch over the data axes only; "seq":
+    # they also shard the sequence over the model axis (the port runs it on
+    # a model axis of 1 only, where it is "batch": ROADMAP item 8e)
+    activation_partitioning: str = "batch"
+    # MoE expert weights: "d" = FSDP on d_model, gathered per layer (train);
+    # "f" = the hidden dim sharded over the data axes, weights never move,
+    # partial outputs summed (decode: moe_ffn_fshard)
+    moe_weight_shard: str = "d"
+    # dense-FFN weights: "d" as above; "f" = hidden dim over every axis
+    dense_weight_shard: str = "d"
+    # attention projections: the same "d"/"f" convention (GQA only)
+    attn_weight_shard: str = "d"
     # remat policy: "dots" (save matmul outputs), "nothing", or "save_moe"
     # (keep the MoE layers' outputs across the backward pass)
     remat_policy: str = "dots"
@@ -100,6 +108,16 @@ class ModelConfig:
     @property
     def is_encoder_only(self) -> bool:
         return not self.causal
+
+    @property
+    def supports_long_context(self) -> bool:
+        """True when at most a quarter of the layers (at least one) keep a
+        full-attention KV cache: SSM, hybrid and sliding-window families may
+        run ``long_500k``; pure full-attention ones skip it (the
+        reference's rule)."""
+        specs = self.layers()
+        full_attn = [s for s in specs if s.mixer == "attn" and s.window is None]
+        return len(full_attn) <= max(1, len(specs) // 4)
 
     def layers(self) -> list[LayerSpec]:
         return list(self.prefix) + list(self.block) * self.n_blocks

@@ -1,20 +1,94 @@
-"""Shared layers: RMS norms, RoPE, the dense FFN and the MoE.
+"""Shared layers: RMS norms, RoPE, the dense FFN and the MoE, each with its
+initialiser and its sharding specs.
 
 Each upcasts to float32 and casts back exactly where the reference's
 ``repro.models.layers`` does, so both packages round at the same places.
 
+Sharding convention (the reference's): ``ax.tp`` is the tensor-parallel
+mesh axis (``"model"``), ``ax.dp`` the tuple of data axes the parameters are
+FSDP-sharded over (``("data",)``, or ``("pod", "data")`` across pods). Every
+``init_*`` has a ``specs_*`` that mirrors its tree with a spec at each leaf.
+
+The initialisers draw from an :class:`Init`: seeded normals on a device, or,
+with ``Init.shapes()``, empty tensors on the ``meta`` device (shapes and
+dtypes, nothing drawn, nothing allocated). The draws come in one fixed order
+per leaf kind, which is what makes ``Model.init`` reproducible.
+
 The MoE is the reference's expert-parallel ``moe_ffn`` with the expert axis
-whole on one card: at one shard its two token all-to-alls are the identity
+whole on each rank: at one shard its two token all-to-alls are the identity
 and its FSDP weight gathers no-ops, so what is left is routing, the
 capacity-bounded dispatch, the expert products and the combine, in the
-reference's arithmetic and order.
+reference's arithmetic and order. On a mesh each rank runs it on its own
+batch rows with the gathered weights, as the reference's ``shard_map`` does
+on each data shard (the capacity and the aux loss are per shard there too).
+``moe_ffn_fshard`` is the weight-stationary decode MoE.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.launch.mesh import P
+
+
+@dataclasses.dataclass(frozen=True)
+class Axes:
+    dp: tuple[str, ...] = ("data",)
+    tp: str = "model"
+
+    @property
+    def batch(self):
+        return self.dp  # activation batch axes
+
+
+class Init:
+    """Where the initialisers' numbers come from: ``normal(shape, scale)``
+    draws ``randn * scale`` from ``generator`` on ``device`` (one draw a
+    call, in call order); ``ones``/``zeros``/``a_log`` are deterministic.
+    ``Init.shapes()`` makes every call an empty ``meta`` tensor."""
+
+    def __init__(self, generator: torch.Generator | None, device):
+        self.generator = generator
+        self.device = torch.device(device)
+
+    @classmethod
+    def shapes(cls) -> "Init":
+        return cls(None, "meta")
+
+    @property
+    def meta(self) -> bool:
+        return self.device.type == "meta"
+
+    def normal(self, shape, scale: float, dtype: torch.dtype) -> torch.Tensor:
+        if self.meta:
+            return torch.empty(shape, dtype=dtype, device="meta")
+        return torch.randn(shape, generator=self.generator, device=self.device,
+                           dtype=dtype).mul_(scale)
+
+    def ones(self, n: int, dtype: torch.dtype) -> torch.Tensor:
+        return torch.ones(n, dtype=dtype, device=self.device)
+
+    def zeros(self, n: int, dtype: torch.dtype) -> torch.Tensor:
+        return torch.zeros(n, dtype=dtype, device=self.device)
+
+    def a_log(self, di: int, n: int) -> torch.Tensor:
+        """``log(1..n)`` on every one of ``di`` rows (Mamba's ``A``)."""
+        if self.meta:
+            return torch.empty((di, n), dtype=torch.float32, device="meta")
+        return torch.log(torch.arange(1, n + 1, dtype=torch.float32, device=self.device)) \
+            .expand(di, n).contiguous()
+
+
+# --------------------------------------------------------------------- norms
+def init_rmsnorm(init: Init, d: int, dtype: torch.dtype) -> dict:
+    return {"scale": init.ones(d, dtype)}
+
+
+def specs_rmsnorm() -> dict:
+    return {"scale": P(None)}
 
 
 def rms_norm(x: torch.Tensor, p: dict, eps: float = 1e-6) -> torch.Tensor:
@@ -49,8 +123,13 @@ def _rope_freqs_on(dh: int, theta: float, device: torch.device) -> torch.Tensor:
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """x: [..., T, H, Dh]; positions: [..., T]. Rotates the two halves of
     the head (``x1, x2 = split``), not interleaved pairs."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
     dh = x.shape[-1]
-    freqs = _rope_freqs_on(dh, float(theta), x.device)  # [Dh/2]
+    if isinstance(x, FakeTensor):  # a dry run's shapes: keep fake tensors out of the cache
+        freqs = rope_freqs(dh, float(theta), x.device)
+    else:
+        freqs = _rope_freqs_on(dh, float(theta), x.device)  # [Dh/2]
     angles = positions[..., None].float() * freqs  # [..., T, Dh/2]
     cos = torch.cos(angles)[..., None, :]
     sin = torch.sin(angles)[..., None, :]
@@ -68,6 +147,27 @@ def _act(h: torch.Tensor, g: torch.Tensor | None, activation: str) -> torch.Tens
         r = F.relu(h)
         return r * r
     raise ValueError(activation)
+
+
+def init_dense_ffn(init: Init, d: int, f: int, activation: str, dtype: torch.dtype) -> dict:
+    p = {"w_in": init.normal((d, f), d**-0.5, dtype), "w_out": init.normal((f, d), f**-0.5, dtype)}
+    if activation == "swiglu":
+        p["w_gate"] = init.normal((d, f), d**-0.5, dtype)
+    return p
+
+
+def specs_dense_ffn(ax: Axes, activation: str, weight_shard: str = "d") -> dict:
+    if weight_shard == "f":
+        # weight-stationary: the hidden dim over every axis
+        full = (*ax.dp, ax.tp)
+        p = {"w_in": P(None, full), "w_out": P(full, None)}
+        if activation == "swiglu":
+            p["w_gate"] = P(None, full)
+        return p
+    p = {"w_in": P(ax.dp, ax.tp), "w_out": P(ax.tp, ax.dp)}
+    if activation == "swiglu":
+        p["w_gate"] = P(ax.dp, ax.tp)
+    return p
 
 
 def dense_ffn(x: torch.Tensor, p: dict, activation: str) -> torch.Tensor:
@@ -101,6 +201,40 @@ def _(y):
 
 
 moe_out.register_autograd(lambda ctx, grad: grad)
+
+
+def init_moe(init: Init, d: int, f: int, n_experts: int, n_shared: int, activation: str,
+             dtype: torch.dtype) -> dict:
+    p = {  # the router stays float32 in a bf16 model
+        "router": init.normal((d, n_experts), d**-0.5, torch.float32),
+        "w_in": init.normal((n_experts, d, f), d**-0.5, dtype),
+        "w_out": init.normal((n_experts, f, d), f**-0.5, dtype),
+    }
+    if activation == "swiglu":
+        p["w_gate"] = init.normal((n_experts, d, f), d**-0.5, dtype)
+    if n_shared:
+        p["shared"] = init_dense_ffn(init, d, n_shared * f, activation, dtype)
+    return p
+
+
+def specs_moe(ax: Axes, activation: str, n_shared: int) -> dict:
+    p = {"router": P(None, None), "w_in": P(ax.tp, ax.dp, None), "w_out": P(ax.tp, None, ax.dp)}
+    if activation == "swiglu":
+        p["w_gate"] = P(ax.tp, ax.dp, None)
+    if n_shared:
+        p["shared"] = specs_dense_ffn(ax, activation)
+    return p
+
+
+def specs_moe_fshard(ax: Axes, activation: str, n_shared: int) -> dict:
+    """Decode-mode expert weights: the hidden dim sharded over the data
+    axes, never gathered over them (they dwarf a decode step's tokens)."""
+    p = {"router": P(None, None), "w_in": P(ax.tp, None, ax.dp), "w_out": P(ax.tp, ax.dp, None)}
+    if activation == "swiglu":
+        p["w_gate"] = P(ax.tp, None, ax.dp)
+    if n_shared:
+        p["shared"] = specs_dense_ffn(ax, activation)
+    return p
 
 
 def positions_in_expert(e_flat: torch.Tensor, n_experts: int) -> torch.Tensor:
@@ -170,13 +304,14 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg, name_output: bool = False):
         return _moe_ffn(x, p, cfg, name_output)
 
 
-def _moe_ffn(x: torch.Tensor, p: dict, cfg, name_output: bool):
+def _route(tokens: torch.Tensor, router: torch.Tensor, cfg):
+    """Routing and dispatch of ``tokens`` [T, D]: ``(cap, send, dest, keep,
+    w_topk, aux)``, ``send`` the ``[E * cap + 1, D]`` dispatch buffer (its
+    last row the overflow slot)."""
     e, k = cfg.n_experts, cfg.top_k
-    b, s, d = x.shape
-    tl = b * s
+    tl, d = tokens.shape
     cap = moe_capacity(tl, cfg)
-    tokens = x.reshape(tl, d)
-    probs = torch.softmax(tokens.float() @ p["router"], dim=-1)
+    probs = torch.softmax(tokens.float() @ router, dim=-1)
     w_topk, idx = top_k(probs, k)  # [Tl, k]
     w_topk = w_topk / w_topk.sum(-1, keepdim=True).clamp_min(1e-9)
     # the Switch aux loss, on each token's first choice
@@ -186,13 +321,100 @@ def _moe_ffn(x: torch.Tensor, p: dict, cfg, name_output: bool):
     pos = positions_in_expert(e_flat, e)
     keep = pos < cap
     dest = torch.where(keep, e_flat * cap + pos, e * cap)  # e*cap: the overflow slot
-    send = x.new_zeros((e * cap + 1, d)).index_put((dest,), tokens.repeat_interleave(k, dim=0))
-    y = expert_products(send[: e * cap].reshape(e, cap, d), p, cfg.activation).to(x.dtype)
-    ret_flat = torch.cat([y.reshape(e * cap, d), y.new_zeros((1, d))])
+    send = tokens.new_zeros((e * cap + 1, d)).index_put((dest,), tokens.repeat_interleave(k, dim=0))
+    return cap, send, dest, keep, w_topk, aux
+
+
+def _combine(y: torch.Tensor, dest, keep, w_topk, k: int) -> torch.Tensor:
+    """The k weighted expert outputs of each token summed in float32:
+    ``[T, D]`` in ``y``'s dtype; ``y`` is ``[E, cap, D]``."""
+    d = y.shape[-1]
+    ret_flat = torch.cat([y.reshape(-1, d), y.new_zeros((1, d))])
     vals = ret_flat[dest].float() * (keep * w_topk.reshape(-1))[:, None]
-    out = vals.reshape(tl, k, d).sum(1).to(x.dtype).reshape(b, s, d)
+    return vals.reshape(-1, k, d).sum(1).to(y.dtype)
+
+
+def _moe_ffn(x: torch.Tensor, p: dict, cfg, name_output: bool):
+    e, k = cfg.n_experts, cfg.top_k
+    b, s, d = x.shape
+    cap, send, dest, keep, w_topk, aux = _route(x.reshape(b * s, d), p["router"], cfg)
+    y = expert_products(send[: e * cap].reshape(e, cap, d), p, cfg.activation).to(x.dtype)
+    out = _combine(y, dest, keep, w_topk, k).reshape(b, s, d)
     if name_output:
         out = moe_out(out)
+    if "shared" in p:
+        out = out + dense_ffn(x, p["shared"], cfg.activation)
+    return out, aux
+
+
+EXPERT_WEIGHTS = ("w_in", "w_gate", "w_out")
+
+
+def moe_ffn_fshard(x: torch.Tensor, p: dict, cfg, ax: Axes | None = None, mesh=None,
+                   batch_axes: tuple = ()):
+    """The weight-stationary MoE of a decode step (the reference's
+    ``moe_ffn_fshard``, ``moe_weight_shard="f"``). x: ``[B, S, D]``, this
+    rank's batch rows when ``batch_axes`` split the batch. Returns ``(y,
+    aux)``.
+
+    On a mesh the expert weights stay DTensors placed by
+    :func:`specs_moe_fshard`: each rank holds an F-slice of every expert
+    over the data axes. The tokens are all-gathered over ``batch_axes``;
+    routing, capacity and the aux loss are computed on all of them (as the
+    reference's, so every rank routes alike); each rank computes its F-slice
+    of every expert product from its own weight shards, and the partial
+    outputs are summed over the data axes that shard F (an all-reduce),
+    then each rank keeps its own rows. Over the model axis the reference
+    spreads the experts with two token all-to-alls; the port gathers the
+    experts' F-slices over that axis instead (the tokens stay put). The
+    products are float32 end to end, as in :func:`moe_ffn`. Without a mesh
+    (or on plain tensors) this is :func:`moe_ffn`'s arithmetic on one
+    shard. On a mesh it is a decode path: it raises if a gradient is
+    needed."""
+    with torch.profiler.record_function(MOE_RANGE):
+        return _moe_ffn_fshard(x, p, cfg, ax or Axes(), mesh, tuple(batch_axes))
+
+
+def _moe_ffn_fshard(x, p, cfg, ax: Axes, mesh, batch_axes: tuple):
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from repro_torch.launch.mesh import local_slice
+
+    e, k = cfg.n_experts, cfg.top_k
+    b, s, d = x.shape
+    w = {n: p[n] for n in EXPERT_WEIGHTS if n in p}
+    sharded = mesh is not None and any(isinstance(t, DTensor) for t in w.values())
+    xg, sum_dims, rows = x, (), None
+    if sharded:
+        if torch.is_grad_enabled() and (x.requires_grad
+                                        or any(t.requires_grad for t in w.values())):
+            raise NotImplementedError(
+                "moe_ffn_fshard on a mesh is the decode path: a train step through it "
+                "(moe_weight_shard='f') waits for ROADMAP Queue 1 item 8e")
+        names = mesh.mesh_dim_names
+        # a host mesh holds its shards on the CPU; the products run on x's device
+        if batch_axes:
+            rows = tuple(Shard(0) if n in batch_axes else Replicate() for n in names)
+            xg = DTensor.from_local(x, mesh, rows, run_check=False).full_tensor().to(x.device)
+        dp_dims = [names.index(a) for a in ax.dp]
+        local = {}
+        for n, t in w.items():  # the model axis gathered, the data axes' F-slices kept
+            places = tuple(pl if i in dp_dims else Replicate() for i, pl in enumerate(t.placements))
+            local[n] = t.redistribute(mesh, places).to_local().to(x.device)
+        # the data dims that split F: their partial products are summed
+        sum_dims = tuple(i for i in dp_dims if isinstance(w["w_in"].placements[i], Shard))
+        w = local
+    tl = xg.shape[0] * s
+    cap, send, dest, keep, w_topk, aux = _route(xg.reshape(tl, d), p["router"], cfg)
+    y = expert_products(send[: e * cap].reshape(e, cap, d), w, cfg.activation)  # F-slice
+    if sum_dims:
+        parts = tuple(Partial() if i in sum_dims else Replicate()
+                      for i in range(len(mesh.mesh_dim_names)))
+        y = DTensor.from_local(y, mesh, parts, run_check=False).full_tensor().to(x.device)
+    y = y.to(x.dtype)
+    out = _combine(y, dest, keep, w_topk, k).reshape(xg.shape)
+    if rows is not None:  # this rank's batch rows back
+        out = local_slice(out, rows, mesh)
     if "shared" in p:
         out = out + dense_ffn(x, p["shared"], cfg.activation)
     return out, aux

@@ -4,6 +4,8 @@ The full-sequence forward runs one fused scan (``kernels/mamba_scan``) where
 the reference runs its chunked associative scan and adds the ``D`` skip
 (``_ssm_scan_chunked`` + skip). Decode is one recurrence step on
 ``(conv_state, ssm_state)`` in plain PyTorch, as in the reference.
+``init_mamba`` and ``specs_mamba`` give the block's parameters and their
+sharding specs.
 """
 from __future__ import annotations
 
@@ -11,6 +13,39 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.mamba_scan.ops import selective_scan
+from repro_torch.launch.mesh import P
+from repro_torch.models.layers import Axes, Init
+
+
+def init_mamba(init: Init, cfg, dtype: torch.dtype) -> dict:
+    d = cfg.d_model
+    di, n = cfg.mamba_expand * d, cfg.ssm_state
+    dt_rank = max(d // 16, 1)
+    return {
+        "in_proj": init.normal((d, 2 * di), d**-0.5, dtype),
+        "conv_w": init.normal((cfg.d_conv, di), 0.1, dtype),
+        "conv_b": init.zeros(di, dtype),
+        "x_proj": init.normal((di, dt_rank + 2 * n), di**-0.5, dtype),
+        "dt_proj": init.normal((dt_rank, di), dt_rank**-0.5, dtype),
+        "dt_bias": init.zeros(di, torch.float32),
+        "a_log": init.a_log(di, n),
+        "d_skip": init.ones(di, torch.float32),
+        "out_proj": init.normal((di, d), di**-0.5, dtype),
+    }
+
+
+def specs_mamba(ax: Axes) -> dict:
+    return {
+        "in_proj": P(ax.dp, ax.tp),
+        "conv_w": P(None, ax.tp),
+        "conv_b": P(ax.tp),
+        "x_proj": P(ax.tp, None),
+        "dt_proj": P(None, ax.tp),
+        "dt_bias": P(ax.tp),
+        "a_log": P(ax.tp, None),
+        "d_skip": P(ax.tp),
+        "out_proj": P(ax.tp, ax.dp),
+    }
 
 
 def mamba_forward(x: torch.Tensor, p: dict, cfg):

@@ -1,4 +1,5 @@
-"""Model assembly: embed -> layers -> final norm -> head, for one card.
+"""Model assembly: embed -> layers -> final norm -> head, on one card or on a
+device mesh.
 
 The reference keeps its ``prefix`` layers' parameters one dict a layer and
 stacks its blocks' on a leading ``n_blocks`` axis, walked with ``lax.scan``;
@@ -6,6 +7,28 @@ the port keeps one parameter dict per layer (``params["layers"]``, in
 ``cfg.layers()`` order, the prefix first, each with the reference's key
 names) and walks them with a loop. ``repro_torch.convert.
 lm_params_from_arrays`` unstacks the reference's pytree into this layout.
+Each layer's leaves come from ``init_layer`` (the per-module ``init_*``
+functions, drawn in one fixed order), its sharding specs from
+``specs_layer``, and its full-sequence step is ``apply_layer``, as in the
+reference. ``param_specs``/``cache_specs`` follow the port's flat layout;
+``convert.stack_layers`` maps them to the reference's (a stacked leaf's
+spec gains a leading ``None``).
+
+On a mesh (``Model(cfg, device, ax=, mesh=)``, a ``torch.distributed``
+``DeviceMesh``) the parameters are DTensors placed by ``param_specs``
+(``launch.mesh.shard_tree``) and the inputs DTensors split over the data
+axes. Each rank computes on plain tensors on ``device``: its batch rows,
+with each layer's weights gathered whole for the layer (the reference's
+``"d"`` convention, FSDP on d_model gathered per layer). A gathered
+weight's gradient is read as ``Partial`` over the axes that split the batch
+and ``Replicate`` over the others (``launch.mesh.batch_grad_placements``),
+so that the shards' gradients are summed once. A decode step gathers each
+layer's cache over the model axis (the reference shards its sequence
+there), steps it, and keeps its own shard. Expert weights placed by
+``specs_moe_fshard`` (``moe_weight_shard="f"``) are never gathered:
+``moe_ffn_fshard`` uses them where they lie. ``activation_partitioning=
+"seq"`` on a model axis larger than 1 raises (ROADMAP Queue 1 item 8e); on a
+model axis of 1 it computes what ``"batch"`` does, as in the reference.
 
 The decode cache is a list with one dict per layer; ``decode_step`` writes
 it in place (the reference returns a new pytree) and returns it.
@@ -61,16 +84,45 @@ import torch.utils.checkpoint as checkpoint
 from torch import nn
 
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import (
+    P,
+    batch_grad_placements,
+    gather,
+    gather_tree,
+    local_slice,
+)
 from repro_torch.models.attention import (
     gqa_cross_decode,
     gqa_flash_decode,
     gqa_forward,
+    init_attention,
     mla_flash_decode,
     mla_forward,
+    specs_attention,
 )
 from repro_torch.models.config import LayerSpec, ModelConfig
-from repro_torch.models.layers import apply_rope, dense_ffn, moe_ffn, qk_head_norm, rms_norm
-from repro_torch.models.mamba import mamba_decode_step, mamba_forward
+from repro_torch.models.layers import (
+    EXPERT_WEIGHTS,
+    Axes,
+    Init,
+    apply_rope,
+    dense_ffn,
+    init_dense_ffn,
+    init_moe,
+    init_rmsnorm,
+    moe_ffn,
+    moe_ffn_fshard,
+    qk_head_norm,
+    rms_norm,
+    specs_dense_ffn,
+    specs_moe,
+    specs_moe_fshard,
+    specs_rmsnorm,
+)
+from repro_torch.models.mamba import init_mamba, mamba_decode_step, mamba_forward, specs_mamba
+
+# where activation_partitioning="seq" on a model axis larger than 1 is queued
+SEQ_ITEM = "ROADMAP Queue 1 item 8e"
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -118,132 +170,219 @@ def _needs_grad(x: torch.Tensor, p: dict) -> bool:
     return False
 
 
+def check_partitioning(cfg: ModelConfig, ax: Axes, mesh) -> None:
+    """Raise for what the port's mesh path does not compute: a sequence
+    split over a model axis larger than 1."""
+    if cfg.activation_partitioning not in ("batch", "seq"):
+        raise ValueError(f"unknown activation_partitioning {cfg.activation_partitioning!r}")
+    if cfg.activation_partitioning == "seq" and mesh is not None \
+            and mesh.size(mesh.mesh_dim_names.index(ax.tp)) > 1:
+        raise NotImplementedError(
+            f"activation_partitioning='seq' over a model axis of "
+            f"{mesh.size(mesh.mesh_dim_names.index(ax.tp))} ranks (sequence-parallel "
+            f"activations) waits for {SEQ_ITEM}; use 'batch', or a model axis of 1")
+
+
+# ----------------------------------------------------------------- layer p/s
+def init_layer(init: Init, spec: LayerSpec, cfg: ModelConfig) -> dict:
+    dt = getattr(torch, cfg.dtype)
+    d = cfg.d_model
+    p: dict = {"norm1": init_rmsnorm(init, d, dt)}
+    if spec.mixer == "attn":
+        p["attn"] = init_attention(init, cfg, dt)
+    elif spec.mixer == "cross_attn":
+        p["attn"] = init_attention(init, cfg, dt, cross=True)
+    elif spec.mixer == "mamba":
+        p["mamba"] = init_mamba(init, cfg, dt)
+    if spec.ffn != "none":
+        p["norm2"] = init_rmsnorm(init, d, dt)
+    if spec.ffn in ("dense", "moe_dense"):
+        p["ffn"] = init_dense_ffn(init, d, cfg.d_ff, cfg.activation, dt)
+    if spec.ffn in ("moe", "moe_dense"):
+        p["moe"] = init_moe(init, d, cfg.d_ff_expert or cfg.d_ff, cfg.n_experts,
+                            cfg.n_shared_experts, cfg.activation, dt)
+    return p
+
+
+def specs_layer(spec: LayerSpec, cfg: ModelConfig, ax: Axes) -> dict:
+    p: dict = {"norm1": specs_rmsnorm()}
+    if spec.mixer in ("attn", "cross_attn"):
+        p["attn"] = specs_attention(cfg, ax, cross=(spec.mixer == "cross_attn"))
+    elif spec.mixer == "mamba":
+        p["mamba"] = specs_mamba(ax)
+    if spec.ffn != "none":
+        p["norm2"] = specs_rmsnorm()
+    if spec.ffn in ("dense", "moe_dense"):
+        p["ffn"] = specs_dense_ffn(ax, cfg.activation, cfg.dense_weight_shard)
+    if spec.ffn in ("moe", "moe_dense"):
+        specs_fn = specs_moe_fshard if cfg.moe_weight_shard == "f" else specs_moe
+        p["moe"] = specs_fn(ax, cfg.activation, cfg.n_shared_experts)
+    return p
+
+
+def _ffn(x: torch.Tensor, p: dict, spec: LayerSpec, cfg: ModelConfig, ax: Axes | None = None,
+         mesh=None, batch_axes: tuple = ()):
+    """The layer's FFN residual: ``(x + out, aux)``, ``out`` the dense FFN,
+    the MoE, or their sum (in that order), on one normed input."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if spec.ffn == "none":
+        return x, aux
+    h = rms_norm(x, p["norm2"])
+    out = None
+    if spec.ffn in ("dense", "moe_dense"):
+        out = dense_ffn(h, p["ffn"], cfg.activation)
+    if spec.ffn in ("moe", "moe_dense"):
+        if cfg.moe_weight_shard == "f":
+            mo, aux = moe_ffn_fshard(h, p["moe"], cfg, ax, mesh, batch_axes)
+        else:
+            mo, aux = moe_ffn(h, p["moe"], cfg,
+                              name_output=cfg.remat and cfg.remat_policy == "save_moe")
+        out = mo if out is None else out + mo
+    return x + out, aux
+
+
+def apply_layer(x: torch.Tensor, p: dict, spec: LayerSpec, cfg: ModelConfig,
+                ax: Axes | None = None, mesh=None, img_embeds=None, batch_axes: tuple = ()):
+    """One layer of the full-sequence forward on plain tensors (a rank's
+    batch rows and the layer's weights; expert weights under
+    ``moe_weight_shard="f"`` stay DTensors). Returns ``(x, aux, cache)``:
+    the router loss of its MoE (zero without one) and the cache entry its
+    mixer made (``(k, v)`` or the Mamba states)."""
+    h = rms_norm(x, p["norm1"])
+    if spec.mixer == "attn" and cfg.use_mla:
+        y, cache = mla_forward(h, p["attn"], cfg, window=spec.window)
+    elif spec.mixer == "attn":
+        y, cache = gqa_forward(h, p["attn"], cfg, window=spec.window)
+    elif spec.mixer == "cross_attn":
+        y, cache = gqa_forward(h, p["attn"], cfg, window=None, kv_x=img_embeds)
+    else:
+        y, cache = mamba_forward(h, p["mamba"], cfg)
+    x, aux = _ffn(x + y, p, spec, cfg, ax, mesh, batch_axes)
+    return x, aux, cache
+
+
 class Model(nn.Module):
     """The LM of ``cfg`` on ``device`` (default ``"cuda"``; without a card
-    only ``device="cpu"`` runs, on the kernels' plain versions). Parameters
-    live in the dict ``init`` returns and are passed to every call, as in the
-    reference."""
+    only ``device="cpu"`` runs, on the kernels' plain versions), on one
+    device or, with ``mesh``, on a rank of a device mesh (``ax`` its data
+    and model axes). Parameters live in the dict ``init`` returns and are
+    passed to every call, as in the reference."""
 
-    def __init__(self, cfg: ModelConfig, device: str | torch.device | None = None):
+    def __init__(self, cfg: ModelConfig, device: str | torch.device | None = None,
+                 ax: Axes | None = None, mesh=None):
         super().__init__()
         _check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = getattr(torch, cfg.dtype)
+        self.ax = ax or Axes()
+        self.mesh = mesh
+        check_partitioning(cfg, self.ax, mesh)
 
     # ------------------------------------------------------------------ init
     def init(self, generator: torch.Generator) -> dict:
         """Seeded random parameters on the model's device, at the
-        reference's shapes and scales (``generator`` lives on that device).
-        The numbers differ from the reference's ``jax.random`` ones; carry
-        those over with ``lm_params_from_arrays`` to compare the packages."""
-        cfg, dev, dt = self.cfg, self.device, self.dtype
+        reference's shapes and scales (``generator`` lives on that device),
+        whole on every rank (``launch.mesh.shard_tree`` places them on a
+        mesh). The numbers differ from the reference's ``jax.random`` ones;
+        carry those over with ``lm_params_from_arrays`` to compare the
+        packages."""
+        return self._init(Init(generator, self.device))
+
+    def init_shapes(self) -> dict:
+        """``init``'s tree as empty ``meta`` tensors: the shapes and dtypes,
+        nothing drawn, nothing allocated."""
+        return self._init(Init.shapes())
+
+    def _init(self, init: Init) -> dict:
+        cfg, dt = self.cfg, self.dtype
         d = cfg.d_model
-
-        def normal(shape, scale, dtype=dt):
-            return torch.randn(shape, generator=generator, device=dev, dtype=dtype).mul_(scale)
-
-        def ones(n, dtype=dt):
-            return torch.ones(n, dtype=dtype, device=dev)
-
-        def zeros(n, dtype=dt):
-            return torch.zeros(n, dtype=dtype, device=dev)
-
-        def dense(f: int) -> dict:
-            p = {"w_in": normal((d, f), d**-0.5), "w_out": normal((f, d), f**-0.5)}
-            if cfg.activation == "swiglu":
-                p["w_gate"] = normal((d, f), d**-0.5)
-            return p
-
-        def mla() -> dict:
-            h, r, qr = cfg.n_heads, cfg.kv_lora_rank, cfg.q_lora_rank
-            nope, rope_d, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
-            s = d**-0.5
-            p = {
-                "wkv_a": normal((d, r + rope_d), s),
-                "kv_norm": ones(r),
-                "wkv_b": normal((r, h * (nope + vd)), r**-0.5),
-                "wo": normal((h * vd, d), (h * vd) ** -0.5),
-            }
-            if qr:
-                p["wq_a"] = normal((d, qr), s)
-                p["q_norm"] = ones(qr)
-                p["wq_b"] = normal((qr, h * (nope + rope_d)), qr**-0.5)
-            else:
-                p["wq"] = normal((d, h * (nope + rope_d)), s)
-            return p
-
-        def layer(spec: LayerSpec) -> dict:
-            p: dict = {"norm1": {"scale": ones(d)}}
-            if spec.mixer == "attn" and cfg.use_mla:
-                p["attn"] = mla()
-            elif spec.mixer in ("attn", "cross_attn"):
-                h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-                s = d**-0.5
-                p["attn"] = {
-                    "wq": normal((d, h * dh), s),
-                    "wk": normal((d, hkv * dh), s),
-                    "wv": normal((d, hkv * dh), s),
-                    "wo": normal((h * dh, d), (h * dh) ** -0.5),
-                }
-                if cfg.qk_norm:
-                    p["attn"]["q_scale"] = ones(dh)
-                    p["attn"]["k_scale"] = ones(dh)
-                if spec.mixer == "cross_attn" and cfg.cross_attn_gated:
-                    p["attn"]["gate"] = zeros(1)  # tanh(0): the image path starts closed
-            else:  # mamba
-                di, n = cfg.mamba_expand * d, cfg.ssm_state
-                dt_rank = max(d // 16, 1)
-                p["mamba"] = {
-                    "in_proj": normal((d, 2 * di), d**-0.5),
-                    "conv_w": normal((cfg.d_conv, di), 0.1),
-                    "conv_b": zeros(di),
-                    "x_proj": normal((di, dt_rank + 2 * n), di**-0.5),
-                    "dt_proj": normal((dt_rank, di), dt_rank**-0.5),
-                    "dt_bias": zeros(di, torch.float32),
-                    "a_log": torch.log(torch.arange(1, n + 1, dtype=torch.float32, device=dev))
-                    .expand(di, n).contiguous(),
-                    "d_skip": ones(di, torch.float32),
-                    "out_proj": normal((di, d), di**-0.5),
-                }
-            if spec.ffn != "none":
-                p["norm2"] = {"scale": ones(d)}
-            if spec.ffn in ("dense", "moe_dense"):
-                p["ffn"] = dense(cfg.d_ff)
-            if spec.ffn in ("moe", "moe_dense"):
-                e, f = cfg.n_experts, cfg.d_ff_expert or cfg.d_ff
-                p["moe"] = {  # the router stays float32 in a bf16 model
-                    "router": normal((d, e), d**-0.5, torch.float32),
-                    "w_in": normal((e, d, f), d**-0.5),
-                    "w_out": normal((e, f, d), f**-0.5),
-                }
-                if cfg.activation == "swiglu":
-                    p["moe"]["w_gate"] = normal((e, d, f), d**-0.5)
-                if cfg.n_shared_experts:
-                    p["moe"]["shared"] = dense(cfg.n_shared_experts * f)
-            return p
-
         params: dict = {}
         if cfg.frontend != "frames":  # frame embeddings arrive at d_model width
-            params["embed"] = normal((cfg.vocab_size, d), 0.02)
-        params["layers"] = [layer(spec) for spec in cfg.layers()]
-        params["final_norm"] = {"scale": ones(d)}
+            params["embed"] = init.normal((cfg.vocab_size, d), 0.02, dt)
+        params["layers"] = [init_layer(init, spec, cfg) for spec in cfg.layers()]
+        params["final_norm"] = init_rmsnorm(init, d, dt)
         if not cfg.tie_embeddings:
-            params["unembed"] = normal((d, cfg.vocab_size), d**-0.5)
+            params["unembed"] = init.normal((d, cfg.vocab_size), d**-0.5, dt)
         return params
 
+    # ----------------------------------------------------------------- specs
+    def param_specs(self) -> dict:
+        """The sharding spec of every parameter, in ``init``'s layout."""
+        cfg, ax = self.cfg, self.ax
+        specs: dict = {}
+        if cfg.frontend != "frames":
+            specs["embed"] = P(ax.tp, ax.dp)  # vocab x d_model
+        specs["layers"] = [specs_layer(spec, cfg, ax) for spec in cfg.layers()]
+        specs["final_norm"] = specs_rmsnorm()
+        if not cfg.tie_embeddings:
+            specs["unembed"] = P(ax.dp, ax.tp)
+        return specs
+
+    def cache_specs(self) -> list:
+        """The sharding spec of every decode-cache leaf, in ``init_cache``'s
+        layout: the batch over the data axes; a full-attention (or MLA)
+        cache's sequence over the model axis, a ring's replicated; a Mamba
+        state's inner width over the model axis."""
+        ax = self.ax
+
+        def layer_spec(spec: LayerSpec) -> dict:
+            if spec.mixer == "attn":
+                seq = None if spec.window is not None else ax.tp
+                if self.cfg.use_mla:
+                    return {"ckv": P(ax.dp, seq, None), "kpe": P(ax.dp, seq, None)}
+                return {"k": P(ax.dp, seq, None, None), "v": P(ax.dp, seq, None, None)}
+            if spec.mixer == "cross_attn":
+                return {"k_img": P(ax.dp, None, None, None), "v_img": P(ax.dp, None, None, None)}
+            return {"conv": P(ax.dp, None, ax.tp), "ssm": P(ax.dp, ax.tp, None)}
+
+        return [layer_spec(spec) for spec in self.cfg.layers()]
+
+    # ---------------------------------------------------------- mesh helpers
+    def _local(self, inputs: dict) -> tuple[dict, tuple]:
+        """Plain tensors on the model's device for ``inputs`` (DTensors split
+        over the data axes, or plain tensors), and the mesh axes that split
+        their batch."""
+        from torch.distributed.tensor import DTensor, Shard
+
+        batch_axes: tuple = ()
+        out = {}
+        for name, t in inputs.items():
+            if isinstance(t, DTensor):
+                axes = tuple(n for n, pl in zip(t.device_mesh.mesh_dim_names, t.placements)
+                             if isinstance(pl, Shard) and pl.dim == 0)
+                if name in ("tokens", "frames"):
+                    batch_axes = axes
+                t = t.to_local()
+            out[name] = t.to(self.device) if t.device != self.device else t
+        return out, batch_axes
+
+    def _weights(self, tree, batch_axes: tuple, spec: LayerSpec | None = None):
+        """``tree``'s weights gathered whole on the model's device (on a
+        mesh), their gradients read as the batch split over ``batch_axes``;
+        the expert weights of a ``moe_weight_shard="f"`` layer stay put."""
+        if self.mesh is None:
+            return tree
+        gp = batch_grad_placements(self.mesh, batch_axes)
+        if spec is not None and "moe" in tree and self.cfg.moe_weight_shard == "f":
+            moe = {k: (v if k in EXPERT_WEIGHTS else gather_tree(v, gp, self.device))
+                   for k, v in tree["moe"].items()}
+            rest = gather_tree({k: v for k, v in tree.items() if k != "moe"}, gp, self.device)
+            return {**rest, "moe": moe}
+        return gather_tree(tree, gp, self.device)
+
     # --------------------------------------------------------------- forward
-    def _embed(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-        x = params["embed"][tokens]
+    def _embed(self, params: dict, tokens: torch.Tensor, batch_axes: tuple = ()) -> torch.Tensor:
+        x = self._weights(params["embed"], batch_axes)[tokens]
         if self.cfg.embed_scale:
             x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype, device=x.device)
         return x
 
-    def _head(self, params: dict, x: torch.Tensor) -> torch.Tensor:
-        x = rms_norm(x, params["final_norm"])
+    def _head(self, params: dict, x: torch.Tensor, batch_axes: tuple = ()) -> torch.Tensor:
+        x = rms_norm(x, self._weights(params["final_norm"], batch_axes))
         if self.cfg.tie_embeddings:
-            return x @ params["embed"].T
-        return x @ params["unembed"]
+            return x @ self._weights(params["embed"], batch_axes).T
+        return x @ self._weights(params["unembed"], batch_axes)
 
     def forward(self, params: dict, inputs: dict):
         """Full-sequence forward. inputs: ``{"tokens": [B, S]}`` (or
@@ -252,59 +391,40 @@ class Model(nn.Module):
         layer (without it such a layer attends to its own input, as the
         reference's does). Returns ``(logits [B, S, V], aux_loss)``;
         ``aux_loss`` is the MoE router loss summed over the layers (float32;
-        zero without MoE layers)."""
+        zero without MoE layers). On a mesh the inputs are DTensors (or this
+        rank's rows) and the logits are this rank's rows."""
         cfg = self.cfg
+        inputs, batch_axes = self._local(inputs)
         if cfg.frontend == "frames":
             x = inputs["frames"].to(self.dtype)
         else:
-            x = self._embed(params, inputs["tokens"])
+            x = self._embed(params, inputs["tokens"], batch_axes)
         img = inputs.get("image_embeds")
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for spec, p in zip(cfg.layers(), params["layers"]):
+            p = self._weights(p, batch_axes, spec)
             if cfg.remat and _needs_grad(x, p):
                 context = checkpoint.noop_context_fn
                 if cfg.remat_policy in _POLICIES:
                     context = functools.partial(
                         checkpoint.create_selective_checkpoint_contexts,
                         _POLICIES[cfg.remat_policy])
-                x, a = checkpoint.checkpoint(self._layer, x, p, spec, img, use_reentrant=False,
-                                             context_fn=context)
+                x, a = checkpoint.checkpoint(self._layer, x, p, spec, img, batch_axes,
+                                             use_reentrant=False, context_fn=context)
             else:
-                x, a = self._layer(x, p, spec, img)
+                x, a = self._layer(x, p, spec, img, batch_axes)
             aux = aux + a
-        return self._head(params, x), aux
+        return self._head(params, x, batch_axes), aux
 
-    def _ffn(self, x: torch.Tensor, p: dict, spec: LayerSpec):
-        """The layer's FFN residual: ``(x + out, aux)``, ``out`` the dense
-        FFN, the MoE, or their sum (in that order), on one normed input."""
-        cfg = self.cfg
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        if spec.ffn == "none":
-            return x, aux
-        h = rms_norm(x, p["norm2"])
-        out = None
-        if spec.ffn in ("dense", "moe_dense"):
-            out = dense_ffn(h, p["ffn"], cfg.activation)
-        if spec.ffn in ("moe", "moe_dense"):
-            mo, aux = moe_ffn(h, p["moe"], cfg,
-                              name_output=cfg.remat and cfg.remat_policy == "save_moe")
-            out = mo if out is None else out + mo
-        return x + out, aux
+    def _ffn(self, x: torch.Tensor, p: dict, spec: LayerSpec, batch_axes: tuple = ()):
+        """The layer's FFN residual: ``(x + out, aux)`` (:func:`_ffn`)."""
+        return _ffn(x, p, spec, self.cfg, self.ax, self.mesh, batch_axes)
 
-    def _layer(self, x: torch.Tensor, p: dict, spec: LayerSpec, img=None):
+    def _layer(self, x: torch.Tensor, p: dict, spec: LayerSpec, img=None, batch_axes: tuple = ()):
         """One layer of the full-sequence forward: ``(x, aux)``; ``img`` the
         image embeddings a cross-attention layer reads."""
-        cfg = self.cfg
-        h = rms_norm(x, p["norm1"])
-        if spec.mixer == "attn" and cfg.use_mla:
-            y, _ = mla_forward(h, p["attn"], cfg, window=spec.window)
-        elif spec.mixer == "attn":
-            y, _ = gqa_forward(h, p["attn"], cfg, window=spec.window)
-        elif spec.mixer == "cross_attn":
-            y, _ = gqa_forward(h, p["attn"], cfg, window=None, kv_x=img)
-        else:
-            y, _ = mamba_forward(h, p["mamba"], cfg)
-        return self._ffn(x + y, p, spec)
+        x, aux, _ = apply_layer(x, p, spec, self.cfg, self.ax, self.mesh, img, batch_axes)
+        return x, aux
 
     # ----------------------------------------------------------------- cache
     def init_cache(self, batch: int, seq: int, dtype: torch.dtype | None = None) -> list:
@@ -410,7 +530,8 @@ class Model(nn.Module):
         out = torch.einsum("bhr,rhv->bhv", ctx_lat, w_uv)
         return x + out.reshape(b, 1, nh * vd) @ p["wo"]
 
-    def _decode_layer(self, x, p, spec: LayerSpec, cache: dict, pos: int):
+    def _decode_layer(self, x, p, spec: LayerSpec, cache: dict, pos: int,
+                      batch_axes: tuple = ()):
         """One-token step for one layer. x: [B, 1, D]; ``cache`` is updated."""
         h = rms_norm(x, p["norm1"])
         if spec.mixer == "attn" and self.cfg.use_mla:
@@ -423,16 +544,55 @@ class Model(nn.Module):
             y, (cache["conv"], cache["ssm"]) = mamba_decode_step(
                 h, p["mamba"], self.cfg, cache["conv"], cache["ssm"])
             x = x + y
-        x, _ = self._ffn(x, p, spec)  # the router loss of a decode step is dropped
+        x, _ = self._ffn(x, p, spec, batch_axes)  # the router loss of a decode step is dropped
         return x
+
+    def _cache_in(self, cache: dict) -> dict:
+        """A layer's cache on the model's device: this rank's batch rows,
+        whole over every other axis (an all-gather over the model axis where
+        the spec shards it). An MLA layer's two leaves become views of one
+        buffer again, which the absorbed decode reads in one launch."""
+        from torch.distributed.tensor import Replicate
+
+        out = {}
+        for name, t in cache.items():
+            keep = tuple(pl if n in self.ax.dp else Replicate()
+                         for n, pl in zip(self.mesh.mesh_dim_names, t.placements))
+            out[name] = t.redistribute(self.mesh, keep).to_local().to(self.device)
+        if "ckv" in out:
+            r = out["ckv"].shape[-1]
+            latent = torch.cat([out["ckv"], out["kpe"]], dim=-1)
+            out = {"ckv": latent[..., :r], "kpe": latent[..., r:]}
+        return out
+
+    def _cache_out(self, cache: dict, stepped: dict) -> None:
+        """Each leaf of ``cache`` (DTensors) replaced by this rank's shard of
+        the stepped whole layer cache (a slice, no communication)."""
+        from torch.distributed.tensor import DTensor, Replicate
+
+        for name, t in cache.items():
+            split = tuple(Replicate() if n in self.ax.dp else pl
+                          for n, pl in zip(self.mesh.mesh_dim_names, t.placements))
+            local = local_slice(stepped[name], split, self.mesh).contiguous()
+            cache[name] = DTensor.from_local(local.to(t.device), self.mesh, t.placements,
+                                             run_check=False, shape=t.shape, stride=t.stride())
 
     def decode_step(self, params: dict, cache: list, tokens: torch.Tensor, pos: int):
         """One decode step. tokens: [B, 1]; ``pos`` the position being
         written. Returns ``(logits [B, 1, V], cache)``, the cache updated in
-        place."""
+        place. On a mesh ``tokens`` is a DTensor (or this rank's rows), the
+        cache a list of dicts of DTensors placed by ``cache_specs``, and the
+        logits are this rank's rows."""
         if self.cfg.is_encoder_only:
             raise ValueError(f"{self.cfg.name} is encoder-only: it has no decode path")
-        x = self._embed(params, tokens)
+        inputs, batch_axes = self._local({"tokens": tokens})
+        x = self._embed(params, inputs["tokens"], batch_axes)
         for spec, p, c in zip(self.cfg.layers(), params["layers"], cache):
-            x = self._decode_layer(x, p, spec, c, pos)
-        return self._head(params, x), cache
+            p = self._weights(p, batch_axes, spec)
+            if self.mesh is None:
+                x = self._decode_layer(x, p, spec, c, pos, batch_axes)
+                continue
+            stepped = self._cache_in(c)
+            x = self._decode_layer(x, p, spec, stepped, pos, batch_axes)
+            self._cache_out(c, stepped)
+        return self._head(params, x, batch_axes), cache

@@ -9,8 +9,18 @@ and divided, as the reference's ``lax.scan`` branch does (its ``ce`` is the
 mean loss and its ``aux`` zero). Gradients come from ``torch.autograd``
 through the model's forward, the attention and scan kernels included (their
 wrappers carry the plain versions' gradients).
+
+On a mesh (a ``Model`` with ``mesh``) the parameters and moments are
+DTensors and the batch leaves DTensors split over the data axes
+(``launch.specs.batch_specs``). Each rank's loss is its rows' mean over the
+number of batch shards, so the shards' losses sum to the global batch's
+mean; the gathered weights' gradients are summed over the batch shards
+(``Partial`` on those axes) and land as the parameters' shards; the metrics
+are all-reduced to the global values on every rank.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -29,14 +39,79 @@ def token_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return nll.mean()
 
 
+def _local(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(t, DTensor):
+        t = t.to_local()
+    return t.to(device)
+
+
+def batch_split(batch: dict, rows_dim: int = 0) -> tuple:
+    """``(mesh, mesh dims)`` that split the batch rows (dim ``rows_dim``: 1
+    under a leading microbatch axis) of a tree of DTensor leaves (the
+    tokens' or frames' ``Shard``), or ``(None, ())`` for plain tensors."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    t = batch.get("tokens", batch.get("frames"))
+    if not isinstance(t, DTensor):
+        return None, ()
+    dims = tuple(i for i, pl in enumerate(t.placements)
+                 if isinstance(pl, Shard) and pl.dim == rows_dim)
+    return t.device_mesh, dims
+
+
+def _shard_count(mesh, dims) -> int:
+    n = 1
+    for i in dims:
+        n *= mesh.size(i)
+    return n
+
+
+def _all_reduce(t: torch.Tensor, mesh, dims) -> torch.Tensor:
+    """The sum of ``t`` over the mesh dims ``dims`` (a plain tensor back)."""
+    from torch.distributed import _functional_collectives as funcol
+
+    device = t.device
+    if mesh.device_type != device.type:
+        t = t.to(mesh.device_type)
+    for i in dims:
+        t = funcol.wait_tensor(funcol.all_reduce(t, "sum", (mesh, i)))
+    return t.to(device)
+
+
 def make_loss_fn(model: Model):
     def loss_fn(params, batch):
         logits, aux = model.forward(params, batch)
-        ce = token_ce(logits, batch["labels"])
+        ce = token_ce(logits, _local(batch["labels"], logits.device))
+        mesh, dims = batch_split(batch)
+        if mesh is not None:  # this rank's part of the global batch's mean
+            n = _shard_count(mesh, dims)
+            ce, aux = ce / n, aux / n
         loss = ce + model.cfg.router_aux_weight * aux
         return loss, {"ce": ce, "aux": aux}
 
     return loss_fn
+
+
+def _microbatch(batch: dict, i: int) -> dict:
+    """Microbatch ``i`` of batch leaves with a leading ``accum`` axis; a
+    DTensor leaf keeps its split of the batch rows (dim 1 becomes dim 0)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch.launch.specs import contiguous_stride
+
+    out = {}
+    for k, v in batch.items():
+        if isinstance(v, DTensor):
+            places = [Shard(pl.dim - 1) if isinstance(pl, Shard) else pl for pl in v.placements]
+            local = v.to_local()[i]
+            out[k] = DTensor.from_local(local, v.device_mesh, places, run_check=False,
+                                        shape=v.shape[1:],
+                                        stride=contiguous_stride(v.shape[1:]))
+        else:
+            out[k] = v[i]
+    return out
 
 
 def _value_and_grad(loss_fn, params, batch):
@@ -58,11 +133,20 @@ def make_train_step(
     total_steps: int = 10_000,
     weight_decay: float = 0.1,
     accum: int = 1,
+    sample=None,
 ):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)`` with metrics ``loss``, ``ce``, ``aux``, ``grad_norm`` and
     ``lr`` (scalar tensors on the device); the returned parameters hold no
-    autograd graph."""
+    autograd graph.
+
+    ``sample`` is for counting, not training (the dry run's
+    ``OpCounter.repeat``): with ``accum > 1`` the step runs only the first
+    microbatch, inside ``sample(accum)``, and its values are that
+    microbatch's divided by ``accum``."""
+    from repro_torch.models.model import check_partitioning
+
+    check_partitioning(model.cfg, model.ax, model.mesh)
     loss_fn = make_loss_fn(model)
 
     def train_step(params, opt_state: AdamWState, batch):
@@ -70,17 +154,21 @@ def make_train_step(
             loss, metrics, grads = _value_and_grad(loss_fn, params, batch)
         else:
             # microbatch accumulation: batch leaves have a leading accum axis
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                   device=p.device), params)
+            grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
             loss = torch.zeros((), dtype=torch.float32, device=opt_state.step.device)
-            for i in range(accum):
-                l, _, g = _value_and_grad(loss_fn, params, {k: v[i] for k, v in batch.items()})
-                grads = tree_map(torch.add, grads, g)
-                loss = loss + l
+            for i in range(1 if sample else accum):
+                with sample(accum) if sample else contextlib.nullcontext():
+                    l, _, g = _value_and_grad(loss_fn, params, _microbatch(batch, i))
+                    grads = tree_map(torch.add, grads, g)
+                    loss = loss + l.to(loss.device)
             grads = tree_map(lambda g: g / accum, grads)
             loss = loss / accum
             metrics = {"ce": loss, "aux": torch.zeros((), dtype=torch.float32,
                                                       device=loss.device)}
+        mesh, dims = batch_split(batch, rows_dim=0 if accum == 1 else 1)
+        if mesh is not None:  # the global batch's values on every rank
+            loss = _all_reduce(loss, mesh, dims)
+            metrics = {k: _all_reduce(v, mesh, dims) for k, v in metrics.items()}
         lr = cosine_schedule(opt_state.step, peak_lr, warmup, total_steps)
         new_params, new_opt, gnorm = adamw_update(
             grads, opt_state, params, lr, weight_decay=weight_decay

@@ -1756,3 +1756,41 @@ def test_cuttana_detail_and_swaps_on_card_equal_cpu(cuda_device):
     assert out[cuda_device][0] == out["cpu"][0]
     assert np.array_equal(out[cuda_device][1], out["cpu"][1])
     assert out["cpu"][0]["moves"] >= a.refine_moves
+
+
+# ----------------------------------------------------------------------- meshes
+@pytest.mark.gpu
+def test_sharded_train_on_card_equals_one_device(cuda_device):
+    """``launch.train --mesh 2x1`` and ``1x2`` on the card (two gloo ranks
+    sharing it, started by the launcher), float32, reduced qwen3-8b: 3
+    steps' losses and grad norms within 1e-4 of the 1x1 run on the card (a
+    data axis halves each product's rows, which may change cuBLAS's
+    kernels)."""
+    from repro_torch.launch import train as train_mod
+
+    args = ["--arch", "reduced:qwen3-8b", "--steps", "3", "--global-batch", "4",
+            "--seq-len", "64", "--log-every", "100", "--dtype", "float32"]
+    want = []
+    train_mod.main(args, want)
+    for mesh in ("2x1", "1x2"):
+        got = []
+        train_mod.main([*args, "--mesh", mesh], got)
+        assert [h["step"] for h in got] == [1, 2, 3]
+        for key in ("loss", "grad_norm"):
+            np.testing.assert_allclose([h[key] for h in got], [h[key] for h in want],
+                                       rtol=1e-4, err_msg=f"{mesh} {key}")
+
+
+@pytest.mark.gpu
+def test_serve_mesh_on_card_gives_one_device_tokens(cuda_device):
+    """``launch.serve --mesh 1x2`` on the card (reduced qwen3-8b, and
+    reduced jamba through ``moe_ffn_fshard``): the 1x1 loop's tokens."""
+    from repro_torch.launch import serve as serve_mod
+
+    for arch, opt in (("reduced:qwen3-8b", None),
+                      ("reduced:jamba-v0.1-52b", "moe_weight_shard=f")):
+        argv = ["--arch", arch, "--batch", "4", "--prompt-len", "6", "--gen", "4",
+                *(["--opt", opt] if opt else [])]
+        want = serve_mod.main(argv)
+        got = serve_mod.main([*argv, "--mesh", "1x2"])
+        assert torch.equal(got.cpu(), want.cpu()), arch

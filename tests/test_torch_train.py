@@ -600,14 +600,47 @@ def test_train_driver_crash_restart(tmp_path, capsys):
     assert np.isfinite(loss) and loss == whole[-1]["loss"] < whole[0]["loss"]
 
 
-def test_elastic_demo_and_mesh_errors(tmp_path):
-    loss = elastic.main(["--ckpt-dir", str(tmp_path), "--steps", "20", "--arch",
-                         "reduced:falcon-mamba-7b", "--device", "cpu"])
+def test_elastic_demo_and_mesh_errors(tmp_path, capsys):
+    """The elastic demo crashes on 1x1 and resumes on a 1x2 mesh (two gloo
+    ranks it starts itself), as the reference does with two devices; a
+    mesh whose size differs from the process group's raises; a
+    sequence-parallel config on a model axis of 2 raises naming item 8e;
+    a malformed mesh raises."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.model import Model as TModel
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # small ops on a loaded host stall on an intra-op pool
+    try:
+        loss = elastic.main(["--ckpt-dir", str(tmp_path), "--steps", "20", "--arch",
+                             "reduced:qwen3-8b", "--device", "cpu"])
+    finally:
+        torch.set_num_threads(threads)
     assert np.isfinite(loss) and ckpt.latest_step(str(tmp_path)) == 20
-    with pytest.raises(NotImplementedError, match="item 8d"):
-        train_mod.main([*ARGS, "--mesh", "1x2"])
-    with pytest.raises(NotImplementedError, match="item 8d"):
-        train_mod.check_mesh("2x2x2")
+    out = capsys.readouterr().out
+    assert "phase 2: resume on mesh 1x2" in out
+    with pytest.raises(ValueError, match="DxM"):
+        train_mod.build_mesh("2x2x2x2")
+    dist.init_process_group("gloo", init_method=(tmp_path / "store").as_uri(), rank=0,
+                            world_size=1)
+    try:
+        with pytest.raises(ValueError, match="needs 2 ranks, the process group has 1"):
+            train_mod.main([*ARGS, "--mesh", "1x2"])
+    finally:
+        dist.destroy_process_group()
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=2)
+    try:
+        cfg = dataclasses.replace(tconfigs.get_reduced_config("qwen3-8b"),
+                                  activation_partitioning="seq")
+        with pytest.raises(NotImplementedError, match="item 8e"):
+            TModel(cfg, "cpu", mesh=make_debug_mesh(1, 2))
+        TModel(cfg, "cpu", mesh=make_debug_mesh(2, 1))  # a model axis of 1: as "batch"
+    finally:
+        dist.destroy_process_group()
+    assert not dist.is_initialized()
 
 
 def test_train_driver_defaults_to_the_card(tmp_path):
