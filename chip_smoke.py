@@ -145,7 +145,7 @@ Phases:
      for ``cuttana-batched-legacy``, none for the host loops; and
      ``cuttana-parallel`` at S=4 with the ``gain`` and ``completeness``
      buffers (sharded launches only); the CPU runs are a child process's
-     (``--zoo-cpu-child``), started before phase 9 and collected here;
+     (``--zoo-cpu-child``), started before phase 5 and collected here;
  19. social-s: ``cuttana-buffcut`` (gain) and ``cluster+cuttana``; social-m:
      ``heistream`` and ``cuttana-incremental`` (16 batches, S=1 and S=4);
      against the reference's edge cuts, launches equal to ``kernel_calls``;
@@ -329,10 +329,20 @@ and reduced a step; the 2x1 checkpoint resumed at 1x2 and 1x1 for a step;
 ``moe_weight_shard="f"``: the 1x1 loop's tokens, ``decode_split`` in each
 rank; (c) in the parent beside them, two dry-run cells at full width on
 the fake group (qwen3-8b ``train_4k`` 16x16, deepseek-v2-236b
-``decode_32k`` 2x16x16). Phase 7's ``cuttana-parallel`` runs on social-s,
-and phase 21's two children (``--mapped-child`` for (b),
-``--mapped-rows-child`` for (a)'s mapped runs) run beside its resident
-runs.
+``decode_32k`` 2x16x16) and the qwen3-8b cell with
+``activation_partitioning="seq"`` (dot FLOPs a shard at most a tenth of
+the batch cell's); (d) ``activation_partitioning="seq"`` at 1x2 in the
+same ranks: repro-100m to step 5 against phase 24's losses (10
+``wgmma_bf16`` a step a rank, each a 128-query stripe against 256 keys),
+reduced jamba in float32 (the scan on the gathered sequence,
+``moe_ffn_fshard`` in the train step) for 3 steps against its 1x1 run on
+the card, the scan's launches counted. Phase 12 gains rows at a stripe's
+shapes (qwen3-8b's ``train_4k`` layer on a model axis of 16: Tq = 256 of
+Tk = 4,096 at q_offset 0 and 3,840). Phase 7's ``cuttana-parallel`` runs
+on social-s and its CPU parity runs in a child (``--parallel-cpu-child``,
+started before phase 3; phase 18's child now starts before phase 5), and
+phase 21's two children (``--mapped-child`` for (b), ``--mapped-rows-child``
+for (a)'s mapped runs) run beside its resident runs.
 
 Every phase logs its seconds (``phase_seconds``).
 
@@ -1265,12 +1275,10 @@ def web_zoo_specs(tapi) -> list:
 
 def zoo_cpu_child(out: str) -> int:
     """Phase 18's CPU side, in a child process the parent starts before
-    phase 9: every web-s spec on the CPU, pickled to ``out`` for the parent
+    phase 5: every web-s spec on the CPU, pickled to ``out`` for the parent
     to hold its card runs against (until PR 25 they ran one after the other
     in the parent: 56 s of its phase 18's 115 s on the H100 80GB HBM3
     (700 W) machine, run A24)."""
-    import pickle
-
     import numpy as np
 
     sys.path.insert(0, str(ROOT / "src"))
@@ -1278,27 +1286,57 @@ def zoo_cpu_child(out: str) -> int:
     from repro_torch.graph.generators import load_dataset
 
     web = load_dataset("web-s", seed=0)
-    results = {key: cpu_result(np, tapi.partition(web, tapi.PartitionSpec(**fields),
-                                                  device="cpu"))
-               for key, fields in web_zoo_specs(tapi)}
+    return dump_cpu_results(out, {key: cpu_result(np, tapi.partition(
+        web, tapi.PartitionSpec(**fields), device="cpu")) for key, fields in web_zoo_specs(tapi)})
+
+
+# phase 7's sharded algorithms on web-s, card and CPU
+PARALLEL_ALGOS = ("fennel-parallel", "cuttana-parallel", "cuttana-restream")
+
+
+def parallel_spec(tapi, algo: str):
+    return tapi.PartitionSpec(algo=algo, k=8, balance_mode="edge", order="random", seed=0,
+                              params={"num_shards": NUM_SHARDS})
+
+
+def parallel_cpu_child(out: str) -> int:
+    """Phase 7's CPU side, in a child process the parent starts before
+    phase 3: the three sharded algorithms on web-s on the CPU, pickled to
+    ``out`` (they once ran in the parent, between its card runs)."""
+    import numpy as np
+
+    sys.path.insert(0, str(ROOT / "src"))
+    import repro_torch.api as tapi
+    from repro_torch.graph.generators import load_dataset
+
+    web = load_dataset("web-s", seed=0)
+    return dump_cpu_results(out, {algo: cpu_result(np, tapi.partition(
+        web, parallel_spec(tapi, algo), device="cpu")) for algo in PARALLEL_ALGOS})
+
+
+def dump_cpu_results(out: str, results: dict) -> int:
+    import pickle
+
     with open(out, "wb") as f:
         pickle.dump(results, f)
     return 0
 
 
-class ZooCpuChild:
-    """The running ``--zoo-cpu-child`` process; killed at exit if a check
-    fails before phase 18 collects it."""
+class CpuChild:
+    """A running CPU-side child process (``flag``: ``--zoo-cpu-child`` for
+    phase 18, ``--parallel-cpu-child`` for phase 7); killed at exit if a
+    check fails before its phase collects it."""
 
-    def __init__(self, tiny: bool):
+    def __init__(self, flag: str, phase: int, tiny: bool):
         import atexit
         import tempfile
 
-        fd, self.path = tempfile.mkstemp(prefix="chip_smoke_zoo", suffix=".pkl")
+        fd, self.path = tempfile.mkstemp(prefix=f"chip_smoke_{phase}_", suffix=".pkl")
         os.close(fd)
+        self.phase = phase
         self.t0 = time.perf_counter()
         self.proc = subprocess.Popen(
-            [sys.executable, str(Path(__file__).resolve()), "--zoo-cpu-child", self.path]
+            [sys.executable, str(Path(__file__).resolve()), flag, self.path]
             + (["--tiny"] if tiny else []), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
             text=True)
         atexit.register(self.proc.kill)
@@ -1308,11 +1346,12 @@ class ZooCpuChild:
         import pickle
 
         out, err = self.proc.communicate(timeout=900)
-        check(self.proc.returncode == 0, f"phase 18's CPU child failed:\n{out}\n{err}")
+        check(self.proc.returncode == 0,
+              f"phase {self.phase}'s CPU child failed:\n{out}\n{err}")
         with open(self.path, "rb") as f:
             results = pickle.load(f)
         os.unlink(self.path)
-        log(json.dumps({"phase": 18, "cpu_child_seconds": time.perf_counter() - self.t0,
+        log(json.dumps({"phase": self.phase, "cpu_child_seconds": time.perf_counter() - self.t0,
                         "cpu_child_waited": True}))
         return results
 
@@ -1371,7 +1410,7 @@ def profile_once(torch, fn, device, kernel_name: str) -> tuple:
 
 
 def zoo_phases(torch, np, tapi, ops, ref, counters, device, timer, floor, web, social, graph,
-               dataset: str, tiny: bool, ident: str, clock, zoo_cpu: ZooCpuChild) -> tuple:
+               dataset: str, tiny: bool, ident: str, clock, zoo_cpu: CpuChild) -> tuple:
     """Phases 18-20: the partitioner zoo on the card, phase 18's CPU side
     from ``zoo_cpu``. Returns the launches of each path and the kernel rows
     at the zoo's own shapes, for the summary line, and phase 20's R-MAT (a
@@ -2268,8 +2307,13 @@ def flash_row(torch, np, F, fa, fa_ref, timer, name, b, hq, hkv, tq, tk, dh, dty
     call = lambda: fa.flash_attention(q, k, v, **kw)  # noqa: E731
     pairs = attention_pairs(np, tq, tk, causal, window, q_offset) * b * hq
     flops = 2 * pairs * (dh + dv)  # q k^T over Dqk, p v over Dv
-    # q and o, k and (unless it is k's own columns) v, each once
-    nbytes = (b * hq * tq * (dh + dv) + b * hkv * tk * (dh + (0 if latent else dv))) * \
+    # q and o, and k and (unless it is k's own columns) v of the keys some
+    # query sees, each once: a causal stripe skips the keys past its last
+    # query, a window those before its first query's
+    hi = min(q_offset + tq, tk) if causal else tk
+    lo = max(q_offset - window + 1, 0) if window else 0
+    keys = max(hi - lo, 0)
+    nbytes = (b * hq * tq * (dh + dv) + b * hkv * keys * (dh + (0 if latent else dv))) * \
         q.element_size()
     rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -2281,6 +2325,7 @@ def flash_row(torch, np, F, fa, fa_ref, timer, name, b, hq, hkv, tq, tk, dh, dty
         "q_offset": q_offset,
         "max_abs_err": err, "max_row_rel_l2": row_err, "ms": ms,
         "tflops": flops / ms / 1e9, "flops": flops, "exps": pairs, "bytes": nbytes,
+        "keys_read": keys,
         "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
     }
     if library_causal is not None:
@@ -2336,6 +2381,7 @@ def flash_kernel_checks(torch, np, F, fa, fa_ref, timer, tiny: bool):
                                   library_causal=False, reps=(5, 2)))
     rows += family_flash_rows(torch, np, F, fa, fa_ref, timer, tiny)
     rows += mla_flash_rows(torch, np, F, fa, fa_ref, timer, tiny)
+    rows += stripe_flash_rows(torch, np, F, fa, fa_ref, timer, tiny)
     if timer.device.type == "cuda":
         torch.cuda.empty_cache()  # the plain version's scores at the prefill shape
     for dtype in (torch.float32, torch.bfloat16):
@@ -2391,6 +2437,33 @@ FAMILY_FLASH_ROWS_TINY = (
     ("cross_prefill_reduced", 1, 16, 2, 64, 128, 128, "bfloat16", False, None, 0),
     ("hubert_fma_short_f32_reduced", 2, 8, 2, 16, 150, 80, "float32", False, None, 0),
 )
+
+
+# phase 12's rows at a sequence-parallel rank's shapes: qwen3-8b's
+# train_4k layer (B=1, H 32/8, Dh 128, bf16) cut over a model axis of 16,
+# each rank's 256-query stripe against the 4,096 gathered keys at q_offset =
+# its start: the first stripe (a triangle of 256 x 256) and the last (all
+# 4,096 keys), the causal stripes' imbalance. name, tq, tk, q_offset
+STRIPE_FLASH_ROWS = (
+    ("qwen3_stripe0_of16_t4096", 256, 4096, 0),
+    ("qwen3_stripe15_of16_t4096", 256, 4096, 3840),
+)
+STRIPE_FLASH_ROWS_TINY = (
+    ("qwen3_stripe0_of4_t256", 64, 256, 0),
+    ("qwen3_stripe3_of4_t256", 64, 256, 192),
+)
+
+
+def stripe_flash_rows(torch, np, F, fa, fa_ref, timer, tiny: bool) -> list:
+    """Phase 12's rows at a sequence-parallel rank's shapes (the query
+    stripe against the gathered sequence at its ``q_offset``), each with
+    its device time, bound, plain time and SDPA's (a boolean mask below the
+    top-left diagonal that ``is_causal`` draws)."""
+    hq, hkv, dh = (4, 2, 32) if tiny else (32, 8, 128)
+    return [flash_row(torch, np, F, fa, fa_ref, timer, name, 1, hq, hkv, tq, tk, dh,
+                      torch.bfloat16, True, None, q_offset, library_causal=True,
+                      reps=(3, 1) if tiny else (20, 2))
+            for name, tq, tk, q_offset in (STRIPE_FLASH_ROWS_TINY if tiny else STRIPE_FLASH_ROWS)]
 
 
 # phase 12's rows at deepseek-v2-236b's MLA pairs: name, b, hq, hkv, tq, tk,
@@ -3929,6 +4002,22 @@ DRYRUN_CELLS = (("qwen3-8b", "train_4k", False, None), ("deepseek-v2-236b", "dec
                                                         None))
 DRYRUN_CELLS_TINY = (("reduced:qwen3-8b", "train_4k", False, (2, 2)),
                      ("reduced:deepseek-v2-236b", "decode_32k", True, (2, 2, 2)))
+# (d): activation_partitioning="seq" on the model axis of 1x2 (each
+# rank its stripe of the positions); repro-100m against phase 24's losses as
+# (a), then reduced jamba in float32 through the scan on the gathered
+# sequence and moe_ffn_fshard in the train step, against its 1x1 run on the
+# card (float32 on the card: 1e-4, tests/test_torch_gpu.py's)
+SEQ = {"activation_partitioning": "seq"}
+SEQ_STEPS = 5
+SEQ_JAMBA_ARGS = ["--arch", "reduced:jamba-v0.1-52b", "--steps", "3", "--global-batch", "4",
+                  "--seq-len", "64", "--log-every", "100", "--dtype", "float32"]
+SEQ_JAMBA_OVER = {"moe_weight_shard": "f"}
+SEQ_JAMBA_RTOL = 1e-4
+# the dry run's seq cell beside the batch cell of DRYRUN_CELLS' first, and
+# the most a shard's dot FLOPs may be of the batch cell's: 16 model ranks
+# split the tokens (1/16 expected), 2 with --tiny (1/2)
+DRYRUN_SEQ_CELL = ("qwen3-8b", "train_4k", False, None, 0.1)
+DRYRUN_SEQ_CELL_TINY = ("reduced:qwen3-8b", "train_4k", False, (2, 2), 0.55)
 
 
 def mesh_train_args(tiny: bool, device) -> list:
@@ -3939,19 +4028,43 @@ def mesh_train_args(tiny: bool, device) -> list:
     return base + (["--global-batch", "2", "--seq-len", "32"] if tiny else [])
 
 
+def counted_train(train_mod, fa, scan, argv: list, overrides=None) -> dict:
+    """One launcher run in a rank, stopped by ``--fail-at``: its history,
+    the kernels' launches (counts zeroed first) and its collectives' bytes
+    a step (``op_analysis.OpCounter``; the checkpoint's gathers apart)."""
+    from repro_torch.launch.op_analysis import OpCounter
+
+    fa.reset()
+    scan.reset()
+    history, counter = [], OpCounter(sources=True)
+    with counter:
+        try:
+            train_mod.main(argv, history, overrides)
+        except RuntimeError as err:
+            check("injected failure" in str(err), f"{argv} raised {err}")
+    steps = [r for r in counter.records if " save" not in (r[3] or "")]
+    per_step: dict = {}
+    for kind, nbytes, _, _, times in steps:
+        per_step[kind] = per_step.get(kind, 0) + nbytes * times / max(len(history), 1)
+    return {"history": history, "launches": fa.launches, "variants": dict(fa.variant_launches),
+            "scan_launches": scan.launches, "collective_bytes_per_step": per_step,
+            "checkpoint_gather_bytes": sum(r[1] * r[4] for r in counter.records
+                                           if " save" in (r[3] or ""))}
+
+
 def mesh_rank(rank: int, world: int, store: str, work: str, tiny: bool) -> None:
     """Phase 29's spawned rank (two share the card over gloo): the train launcher at
     2x1 and 1x2 to step 5 (each run's collectives counted), the 2x1
-    checkpoint resumed at 1x2 for a step, the serve loop at 1x2. Writes
-    ``rank<r>.json``."""
+    checkpoint resumed at 1x2 for a step, the serve loop at 1x2, and (d)
+    the sequence-parallel runs at 1x2. Writes ``rank<r>.json``."""
     import shutil
 
     import torch
 
     from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.mamba_scan import ops as scan
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch import train as train_mod
-    from repro_torch.launch.op_analysis import OpCounter
     from repro_torch.launch.ranks import join
 
     import torch.distributed as dist
@@ -3963,25 +4076,17 @@ def mesh_rank(rank: int, world: int, store: str, work: str, tiny: bool) -> None:
     try:
         base = mesh_train_args(tiny, device)
         for mesh in MESH_TRAIN:
-            fa.reset()
-            history, counter = [], OpCounter(sources=True)
-            with counter:
-                try:
-                    train_mod.main(base + ["--mesh", mesh, "--fail-at", str(MESH_STEPS),
-                                           "--ckpt-dir", os.path.join(work, f"ck_{mesh}"),
-                                           "--ckpt-every", str(MESH_STEPS)], history)
-                except RuntimeError as err:
-                    check("injected failure" in str(err), f"mesh {mesh} raised {err}")
-            steps = [r for r in counter.records if " save" not in (r[3] or "")]
-            per_step: dict = {}
-            for kind, nbytes, _, _, times in steps:
-                per_step[kind] = per_step.get(kind, 0) + nbytes * times / len(history)
-            out["train"][mesh] = {
-                "history": history, "launches": fa.launches,
-                "variants": dict(fa.variant_launches),
-                "collective_bytes_per_step": per_step,
-                "checkpoint_gather_bytes": sum(r[1] * r[4] for r in counter.records
-                                               if " save" in (r[3] or ""))}
+            out["train"][mesh] = counted_train(
+                train_mod, fa, scan, base + ["--mesh", mesh, "--fail-at", str(MESH_STEPS),
+                                             "--ckpt-dir", os.path.join(work, f"ck_{mesh}"),
+                                             "--ckpt-every", str(MESH_STEPS)])
+        # (d) the model axis splits the positions: phase 24's run to step 5,
+        # then reduced jamba (scan, moe_ffn_fshard) for its 3 steps
+        out["seq"] = counted_train(train_mod, fa, scan,
+                                   base + ["--mesh", "1x2", "--fail-at", str(SEQ_STEPS)], SEQ)
+        out["seq_jamba"] = counted_train(
+            train_mod, fa, scan, SEQ_JAMBA_ARGS + ["--mesh", "1x2", "--device", device.type],
+            {**SEQ_JAMBA_OVER, **SEQ})
         if rank == 0:
             shutil.copytree(os.path.join(work, "ck_2x1"), os.path.join(work, "ck_resume_1x2"))
         dist.barrier()
@@ -4009,6 +4114,63 @@ def mesh_rank(rank: int, world: int, store: str, work: str, tiny: bool) -> None:
         dist.destroy_process_group()
 
 
+def mesh_parent_part(counters, device, tiny: bool, t0: float) -> tuple:
+    """Phase 29's work in the parent while the ranks run: (c) the dry-run
+    cells, then (d)'s jamba baseline (its 1x1 run on the card) and (b)'s
+    (the 1x1 serve loops). Returns ``(cells, cells_s, jamba_11 history,
+    jamba_11 launches, {arch: 1x1 tokens})``."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.mamba_scan import ops as scan
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import train as train_mod
+
+    cells = []
+    for arch, shape, multi, mesh_shape in (DRYRUN_CELLS_TINY if tiny else DRYRUN_CELLS):
+        res = dryrun.run_cell(arch, shape, multi, peak=False, mesh_shape=mesh_shape)
+        check(res["status"] == "ok", f"dry run {arch} {shape}: {res.get('error')}")
+        model_cfg = dryrun._config(arch, None)[0]
+        want_flops = dryrun.analytic_model_flops(model_cfg, SHAPES[shape],
+                                                 SHAPES[shape]["kind"])["model_flops"]
+        check(res["model_flops"] == want_flops,
+              f"dry run {arch} {shape}: model_flops {res['model_flops']} != {want_flops}")
+        cells.append({key: res.get(key) for key in (
+            "arch", "shape", "mesh", "status", "chips", "accum", "wall_s", "lower_s",
+            "trace_s", "dot_flops_per_shard", "total_collective_bytes_per_shard",
+            "collective_bytes_per_shard", "collective_counts", "model_flops", "memory")})
+        log(json.dumps({"phase": 29, "part": "c", **cells[-1]}))
+    arch, shape, multi, mesh_shape, max_share = \
+        DRYRUN_SEQ_CELL_TINY if tiny else DRYRUN_SEQ_CELL
+    res = dryrun.run_cell(arch, shape, multi, SEQ, peak=False, mesh_shape=mesh_shape)
+    check(res["status"] == "ok", f"dry run {arch} {shape} seq: {res.get('error')}")
+    batch_cell = next(c for c in cells if (c["arch"], c["shape"]) == (arch, shape))
+    share = res["dot_flops_per_shard"] / batch_cell["dot_flops_per_shard"]
+    check(share <= max_share,
+          f"dry run {arch} {shape} seq: dot FLOPs a shard {share:.4g} of the batch cell's "
+          f"(> {max_share})")
+    cells.append({**{key: res.get(key) for key in (
+        "arch", "shape", "mesh", "status", "chips", "accum", "wall_s", "trace_s",
+        "dot_flops_per_shard", "total_collective_bytes_per_shard",
+        "collective_bytes_per_shard", "collective_counts", "model_flops")},
+        "overrides": SEQ, "dot_flops_share_of_batch": share})
+    log(json.dumps({"phase": 29, "part": "c", **cells[-1]}))
+    cells_s = time.perf_counter() - t0
+    # (d)'s jamba baseline: the 1x1 run on the card, beside the ranks
+    reset_counts(*counters)
+    jamba_11 = []
+    train_mod.main(SEQ_JAMBA_ARGS + ["--device", device.type], jamba_11, SEQ_JAMBA_OVER)
+    jamba_11_launches = {"flash_attention": fa.launches, "selective_scan": scan.launches}
+    # the 1x1 serve loops (b)'s tokens are held against
+    serve_11 = {}
+    for arch, opt in MESH_SERVE:
+        argv = ["--arch", arch, *MESH_SERVE_ARGS, "--mesh", "1x1", "--device",
+                str(device.type), *(["--opt", opt] if opt else [])]
+        gen, _ = serve_mod.run(serve_mod._parser().parse_args(argv))
+        serve_11[arch] = gen.cpu().tolist()
+    return cells, cells_s, jamba_11, jamba_11_launches, serve_11
+
+
 def mesh_phase(torch, np, counters, device, tiny: bool, ident: str, train_rec: dict) -> dict:
     """Phase 29: the mesh path. (a) ``launch.train`` at repro-100m (bf16,
     B=8, T=256) on meshes 2x1 and 1x2, two gloo ranks sharing the card:
@@ -4020,16 +4182,21 @@ def mesh_phase(torch, np, counters, device, tiny: bool, ident: str, train_rec: d
     1x1 loop's tokens, ``decode_split`` in each rank. (c) beside (a) and
     (b): two dry-run cells at full width on the fake group, qwen3-8b
     ``train_4k`` on 16x16 and deepseek-v2-236b ``decode_32k`` on 2x16x16,
-    ``status: ok`` and the analytic MODEL_FLOPS the port's own."""
+    ``status: ok`` and the analytic MODEL_FLOPS the port's own; and the
+    qwen3-8b cell with ``activation_partitioning="seq"``, its dot FLOPs a
+    shard at most a tenth of the batch cell's. (d)
+    ``activation_partitioning="seq"`` at 1x2 in the same ranks: repro-100m
+    to step 5 against phase 24's losses, 10 ``wgmma_bf16`` a step in each
+    rank at Tq = 128 against Tk = 256 (q_offset 0 and 128), each rank's
+    bytes a step; reduced jamba in float32 (the scan on the gathered
+    sequence, ``moe_ffn_fshard`` in the train step) for 3 steps against its
+    1x1 run on the card here, the scan's launches counted."""
     import shutil
     import tempfile
 
     import torch.multiprocessing as mp
 
-    from repro_torch.configs import SHAPES
     from repro_torch.kernels.flash_attention import ops as fa
-    from repro_torch.launch import dryrun
-    from repro_torch.launch import serve as serve_mod
     from repro_torch.launch import train as train_mod
 
     base = mesh_train_args(tiny, device)
@@ -4043,27 +4210,18 @@ def mesh_phase(torch, np, counters, device, tiny: bool, ident: str, train_rec: d
         t0 = time.perf_counter()
         ctx = mp.start_processes(mesh_rank, args=(2, (Path(work) / "store").as_uri(), work, tiny),
                                  nprocs=2, join=False, start_method="spawn")
-        # (c) in this process while the ranks run
-        cells = []
-        for arch, shape, multi, mesh_shape in (DRYRUN_CELLS_TINY if tiny else DRYRUN_CELLS):
-            res = dryrun.run_cell(arch, shape, multi, peak=False, mesh_shape=mesh_shape)
-            check(res["status"] == "ok", f"dry run {arch} {shape}: {res.get('error')}")
-            model_cfg = dryrun._config(arch, None)[0]
-            want_flops = dryrun.analytic_model_flops(model_cfg, SHAPES[shape],
-                                                     SHAPES[shape]["kind"])["model_flops"]
-            check(res["model_flops"] == want_flops,
-                  f"dry run {arch} {shape}: model_flops {res['model_flops']} != {want_flops}")
-            cells.append({key: res.get(key) for key in (
-                "arch", "shape", "mesh", "status", "chips", "accum", "wall_s", "lower_s",
-                "trace_s", "dot_flops_per_shard", "total_collective_bytes_per_shard",
-                "collective_bytes_per_shard", "collective_counts", "model_flops", "memory")})
-            log(json.dumps({"phase": 29, "part": "c", **cells[-1]}))
-        cells_s = time.perf_counter() - t0
-        while not ctx.join():
-            pass
+        try:
+            cells, cells_s, jamba_11, jamba_11_launches, serve_11 = mesh_parent_part(
+                counters, device, tiny, t0)
+            while not ctx.join():
+                pass
+        except BaseException:  # a failed check here: stop the ranks too
+            for proc in ctx.processes:
+                proc.kill()
+            raise
         ranks_s = time.perf_counter() - t0
         ranks = [json.loads((Path(work) / f"rank{r}.json").read_text()) for r in range(2)]
-        # the 2x1 checkpoint of step 5 resumed here, at 1x1
+        # the 2x1 checkpoint resumed here, at 1x1
         history = []
         reset_counts(*counters)
         shutil.copytree(os.path.join(work, "ck_2x1"), os.path.join(work, "ck_resume_1x1"))
@@ -4074,13 +4232,6 @@ def mesh_phase(torch, np, counters, device, tiny: bool, ident: str, train_rec: d
         except RuntimeError as err:
             check("injected failure" in str(err), f"resume at 1x1 raised {err}")
         resume_11 = {"history": history, "launches": fa.launches}
-        # the 1x1 serve loops the mesh's tokens are held against
-        serve_11 = {}
-        for arch, opt in MESH_SERVE:
-            argv = ["--arch", arch, *MESH_SERVE_ARGS, "--mesh", "1x1", "--device",
-                    str(device.type), *(["--opt", opt] if opt else [])]
-            gen, _ = serve_mod.run(serve_mod._parser().parse_args(argv))
-            serve_11[arch] = gen.cpu().tolist()
 
     def close(got: list, steps: range, what: str) -> float:
         worst = 0.0
@@ -4120,10 +4271,58 @@ def mesh_phase(torch, np, counters, device, tiny: bool, ident: str, train_rec: d
                            "resume 2x1 -> 1x1")}
     for r in ranks:
         mesh_launches += r["resume_1x2"]["launches"]
-    log(json.dumps({"phase": 29, "part": "a", "resume_from": "2x1 step 5",
+    log(json.dumps({"phase": 29, "part": "a", "resume_from": f"2x1 step {MESH_STEPS}",
                     "worst_rel_loss": resume,
                     "losses_1x2": [h["loss"] for h in ranks[0]["resume_1x2"]["history"]],
                     "losses_1x1": [h["loss"] for h in resume_11["history"]]}))
+    # (d) sequence-parallel
+    jcfg = train_mod.get_model_config(SEQ_JAMBA_ARGS[1])
+    n_mamba = sum(s.mixer == "mamba" for s in jcfg.layers())
+    seq_runs = [r["seq"] for r in ranks]
+    seq = {"losses": [h["loss"] for h in seq_runs[0]["history"]],
+           "worst_rel_loss": close(seq_runs[0]["history"], range(1, SEQ_STEPS + 1), "seq 1x2"),
+           "launches_per_rank": [run["launches"] for run in seq_runs],
+           "variants_per_rank": [run["variants"] for run in seq_runs],
+           "step_ms_per_rank": [[1e3 * h["step_s"] for h in run["history"]] for run in seq_runs],
+           "collective_bytes_per_step_per_rank": [run["collective_bytes_per_step"]
+                                                  for run in seq_runs]}
+    for r, run in enumerate(seq_runs):
+        if on_card:
+            check(run["variants"][variant] == n_attn * SEQ_STEPS,
+                  f"seq 1x2 rank {r}: {run['variants'][variant]} {variant} launches, expected "
+                  f"{n_attn} a step")
+        mesh_launches += run["launches"]
+    log(json.dumps({"phase": 29, "part": "d", "mesh": "1x2", **SEQ, **seq}))
+    jamba_runs = [r["seq_jamba"] for r in ranks]
+    steps = int(SEQ_JAMBA_ARGS[SEQ_JAMBA_ARGS.index("--steps") + 1])
+    check(len(jamba_11) == steps and all(len(run["history"]) == steps for run in jamba_runs),
+          "seq jamba: a run took fewer steps than asked")
+    worst = 0.0
+    for key in ("loss", "grad_norm"):
+        for got, ref in zip(jamba_runs[0]["history"], jamba_11):
+            rel = abs(got[key] - ref[key]) / abs(ref[key])
+            worst = max(worst, rel)
+            check(np.isfinite(got[key]) and rel <= SEQ_JAMBA_RTOL,
+                  f"seq jamba 1x2: step {got['step']} {key} {got[key]} against the 1x1 run's "
+                  f"{ref[key]} ({rel:.3g} relative > {SEQ_JAMBA_RTOL})")
+    scan_launches = 0
+    for r, run in enumerate(jamba_runs):
+        if on_card:
+            check(run["scan_launches"] == n_mamba * steps,
+                  f"seq jamba rank {r}: {run['scan_launches']} scan launches, expected "
+                  f"{n_mamba} a step")
+        mesh_launches += run["launches"]
+        scan_launches += run["scan_launches"]
+    seq_jamba = {"losses": [h["loss"] for h in jamba_runs[0]["history"]],
+                 "losses_1x1": [h["loss"] for h in jamba_11], "worst_rel": worst,
+                 "launches_per_rank": [run["launches"] for run in jamba_runs],
+                 "variants_per_rank": [run["variants"] for run in jamba_runs],
+                 "scan_launches_per_rank": [run["scan_launches"] for run in jamba_runs],
+                 "launches_1x1": jamba_11_launches,
+                 "collective_bytes_per_step_per_rank": [run["collective_bytes_per_step"]
+                                                        for run in jamba_runs]}
+    log(json.dumps({"phase": 29, "part": "d", "arch": SEQ_JAMBA_ARGS[1], **SEQ_JAMBA_OVER,
+                    **SEQ, **seq_jamba}))
     serve = {}
     for arch, opt in MESH_SERVE:
         scfg = train_mod.get_model_config(arch)
@@ -4143,8 +4342,9 @@ def mesh_phase(torch, np, counters, device, tiny: bool, ident: str, train_rec: d
                        "decode_tok_per_s_rank0": ranks[0]["serve"][arch]["timings"][
                            "decode_tok_per_s"]}
         log(json.dumps({"phase": 29, "part": "b", "arch": arch, **serve[arch]}))
-    record.update(train=train, resume=resume, serve=serve, cells=cells,
-                  cells_seconds=cells_s, ranks_seconds=ranks_s, launches=mesh_launches)
+    record.update(train=train, resume=resume, serve=serve, cells=cells, seq=seq,
+                  seq_jamba=seq_jamba, cells_seconds=cells_s, ranks_seconds=ranks_s,
+                  launches=mesh_launches, scan_launches=scan_launches)
     log(json.dumps({"phase": 29, "launches": mesh_launches, "cells_seconds": cells_s,
                     "ranks_seconds": ranks_s, "device": ident}))
     return record
@@ -4402,6 +4602,7 @@ def main() -> int:
     ap.add_argument("--mapped-rows-child", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--child-out", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--zoo-cpu-child", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--parallel-cpu-child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.mapped_child:  # phase 21(b)'s child process
         return mapped_child(args.mapped_child, args.child_out, args.tiny)
@@ -4409,6 +4610,8 @@ def main() -> int:
         return mapped_rows_child(args.mapped_rows_child, args.child_out, args.tiny)
     if args.zoo_cpu_child:  # phase 18's CPU side
         return zoo_cpu_child(args.zoo_cpu_child)
+    if args.parallel_cpu_child:  # phase 7's CPU side
+        return parallel_cpu_child(args.parallel_cpu_child)
 
     # phase 24(b) runs the train driver under deterministic algorithms; cuBLAS
     # needs this before its first handle to give the same bits run to run
@@ -4527,6 +4730,10 @@ def main() -> int:
     main_rss = rss.read()
     clock.mark(2)
 
+    # phase 7's CPU runs start now, in a child, beside phases 3-7's card runs
+    # (after phase 2's timed main path)
+    parallel_cpu = CpuChild("--parallel-cpu-child", 7, args.tiny)
+
     # ------------------------------------------------------------ phase 3
     from repro_torch.graph.generators import load_dataset
 
@@ -4578,6 +4785,8 @@ def main() -> int:
     clock.mark(4)
 
     # ------------------------------------------------------------ phase 5
+    # phase 18's CPU runs start now, in a child, beside phases 5-11 and 23
+    zoo_cpu = CpuChild("--zoo-cpu-child", 18, args.tiny)
     sharded_shapes = sharded_kernel_checks(torch, np, ops, ref, dgraph, graph, device, timer, floor)
     clock.mark(5)
 
@@ -4628,29 +4837,33 @@ def main() -> int:
     clock.mark(6)
 
     # ------------------------------------------------------------ phase 7
-    for algo in ("fennel-parallel", "cuttana-parallel", "cuttana-restream"):
-        spec = tapi.PartitionSpec(algo=algo, k=8, balance_mode="edge", order="random", seed=0,
-                                  params={"num_shards": NUM_SHARDS})
+    dev_runs = []
+    for algo in PARALLEL_ALGOS:
         reset_counts(*counters)
-        on_dev = tapi.partition(web, spec, device=device)
+        on_dev = tapi.partition(web, parallel_spec(tapi, algo), device=device)
         dev_launches = ops.sharded_launches
         check(ops.launches == 0, f"web-s {algo}: the sequential kernel launched")
         expect = on_dev.telemetry["kernel_calls"] if device.type == "cuda" else 0
         check(dev_launches == expect, f"web-s {algo}: {dev_launches} launches, expected {expect}")
-        on_cpu = tapi.partition(web, spec, device="cpu")
-        check(np.array_equal(on_dev.assignment, on_cpu.assignment),
+        dev_runs.append((algo, on_dev, dev_launches))
+    # the CPU side, run by the child beside phases 3-7
+    cpu = parallel_cpu.results()
+    for algo, on_dev, dev_launches in dev_runs:
+        on_cpu = cpu[algo]
+        check(np.array_equal(on_dev.assignment, on_cpu["assignment"]),
               f"web-s {algo}: {device.type} and cpu assignments differ")
-        for r in (on_dev, on_cpu):
-            check(r.quality()["edge_cut"] == WEB_S_EDGE_CUT[algo],
-                  f"web-s {algo}: edge_cut {r.quality()['edge_cut']} != {WEB_S_EDGE_CUT[algo]}")
+        for q_ in (on_dev.quality(), on_cpu["quality"]):
+            check(q_["edge_cut"] == WEB_S_EDGE_CUT[algo],
+                  f"web-s {algo}: edge_cut {q_['edge_cut']} != {WEB_S_EDGE_CUT[algo]}")
         log(json.dumps({
             "phase": 7, "dataset": "web-s", "algo": algo, "num_shards": NUM_SHARDS,
             "edge_cut": on_dev.quality()["edge_cut"], "identical_to_cpu": True,
             "kernel_calls": on_dev.telemetry["kernel_calls"], "launches": dev_launches,
             "supersteps": on_dev.telemetry.get("supersteps"),
             "boundary_conflicts": on_dev.telemetry.get("boundary_conflicts"),
-            "timings_device": on_dev.timings, "timings_cpu": on_cpu.timings,
+            "timings_device": on_dev.timings, "timings_cpu": on_cpu["timings"],
         }))
+    del dev_runs, cpu
     for seq_algo, par_algo in (("fennel", "fennel-parallel"), ("cuttana", "cuttana-parallel")):
         seq = tapi.partition(web, tapi.PartitionSpec(
             algo=seq_algo, k=8, balance_mode="edge", order="random", seed=0), device=device)
@@ -4695,9 +4908,6 @@ def main() -> int:
     log(json.dumps({"phase": 8, "dataset": dataset, **profile_stream(
         torch, tapi, social, device, "fennel-parallel", {"num_shards": NUM_SHARDS})}))
     clock.mark(8)
-
-    # phase 18's CPU runs start now, in a child, beside phases 9-11 and 23
-    zoo_cpu = ZooCpuChild(args.tiny)
 
     # ------------------------------------------------------------ phase 9
     lg = main_res.localized()
@@ -4972,8 +5182,15 @@ def main() -> int:
                 lm_launches["flash_attention"] + mesh_rec["launches"],
                 TPU_KERNEL_FLASH, FLASH_SOURCE, variant=flash_shapes[0]["variant"],
                 # phase 29: both ranks' launches on the mesh path (in
-                # ``launches`` too)
+                # ``launches`` too), (d)'s sequence-parallel runs among them;
+                # phase 12's rows at a stripe's shapes
                 mesh_launches=mesh_rec["launches"],
+                seq_variants_per_rank=mesh_rec["seq"]["variants_per_rank"],
+                stripe_rows=[{key: r.get(key) for key in (
+                    "shape", "variant", "tq", "tk", "q_offset", "ms", "call_ms", "plain_ms",
+                    "library_ms", "bound_ms", "bound_by", "keys_read", "tflops",
+                    "max_abs_err", "max_row_rel_l2")} for r in flash_shapes
+                    if "stripe" in r["shape"]],
                 tflops=flash_shapes[0]["tflops"], variant_launches=flash_variants,
                 # phase 24: the training path (the driver's three runs and
                 # the elastic demo) and the gradient rows
@@ -5030,10 +5247,14 @@ def main() -> int:
                 n_split=mla_latent[0]["n_split"],
                 tb_per_s=mla_latent[0]["bytes"] / mla_latent[0]["ms"] / 1e9,
                 rows=[{key: r.get(key) for key in mla_row_keys} for r in mla_latent]),
-        summary("selective_scan", scan_shapes, lm_launches["selective_scan"],
+        summary("selective_scan", scan_shapes,
+                lm_launches["selective_scan"] + mesh_rec["scan_launches"],
                 TPU_KERNEL_SCAN, SCAN_SOURCE, variant=scan_shapes[0]["variant"],
                 exp_bound_share=scan_shapes[0]["exp_bound_share"],
                 moe_family_launches=moe_rec["launches"]["selective_scan"],
+                # phase 29(d): both ranks' scans of the gathered sequence (in
+                # ``launches`` too)
+                mesh_launches=mesh_rec["scan_launches"],
                 grad_rows=[r for r in train_rec["grad_rows"] if "n" in r]),
     ]}))
     if args.tiny:

@@ -6,6 +6,8 @@ bytes, argument bytes) dumped as JSON.
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-8b \\
         --shape train_4k [--multi-pod] [--out runs/dryrun]
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --jobs 8   # the 80 cells
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-8b --shape train_4k \
+        --opt activation_partitioning=seq     # the model axis splits the positions
 
 The reference lowers and compiles each cell's jitted step for 256 or 512
 fake XLA host devices and reads the HLO. The port has no compiler to ask:
@@ -24,6 +26,14 @@ The kernels cannot launch on fake tensors, so the step runs the plain
 versions, except the selective scan, whose plain version loops over time:
 a cell runs it as a shape-only stand-in (elementwise, no dot
 counted, as the reference's HLO counts no dots for its Pallas scan).
+
+``--opt activation_partitioning=seq`` lowers the sequence-parallel mode:
+each rank runs its stripe of the positions (rank 0's, the first 1/16 on
+16x16), so its dot FLOPs are about the batch cell's over the model axis,
+its attention counts the stripe's ``Tq x T`` scores, and its collectives
+gain the K/V (MLA: latent) and Mamba/MoE input gathers and their
+reduce-scatters; ``pick_accum`` divides the activation footprint by the
+model axis, as the reference's does.
 
 Unlike the reference (which sets ``XLA_FLAGS`` at import), importing this
 module changes nothing: ``run_cell`` creates the fake group, and destroys

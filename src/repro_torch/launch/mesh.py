@@ -15,16 +15,25 @@ sanitize_spec` replicates a dim that its axes do not divide.
 The meshes are built over whatever process group exists, the dry run's fake
 group of 256 or 512 ranks included, and the mesh's size must be the group's.
 Nothing here touches ``torch.distributed`` at import time.
+
+Sequence-parallel activations (``activation_partitioning="seq"``) split the
+sequence over one mesh dim: :func:`stripe` is a rank's share of the
+positions (DTensor's ``Shard`` rule, so any length splits, some stripes
+shorter or empty), :func:`seq_gather` the differentiable all-gather of the
+stripes (its backward reduce-scatters the summed gradient), and
+:class:`Stripe` one rank's stripe with the gather, the slice and the global
+last position.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
 
-__all__ = ["P", "axis_sizes", "batch_grad_placements", "gather", "gather_tree",
-           "local_slice", "make_debug_mesh", "make_mesh",
-           "make_production_mesh", "mesh_axes", "placements", "shard", "shard_tree"]
+__all__ = ["P", "Stripe", "axis_sizes", "batch_grad_placements", "gather", "gather_tree",
+           "local_slice", "make_debug_mesh", "make_mesh", "make_production_mesh", "mesh_axes",
+           "placements", "seq_gather", "shard", "shard_tree", "stripe"]
 
 
 class P:
@@ -256,3 +265,92 @@ def _unshard(rows: torch.Tensor, places, sizes, local_shape, shape) -> torch.Ten
     for d in range(len(local_shape)):
         order += [a for a, dim in enumerate(dims) if dim == d] + [k + d]
     return rows.reshape(*sizes, *local_shape).permute(*order).reshape(shape)
+
+
+# ------------------------------------------------------- sequence stripes
+def stripe(total: int, n: int, r: int) -> tuple[int, int]:
+    """``(start, length)`` of rank ``r``'s stripe when ``total`` positions
+    split over ``n`` ranks by DTensor's ``Shard`` rule: chunks of
+    ``ceil(total / n)`` in rank order, so the last stripes may be shorter
+    or empty."""
+    size = -(-total // n)
+    start = min(r * size, total)
+    return start, min(size, total - start)
+
+
+def _dim_placements(mesh, i: int, on_dim, off_dim) -> tuple:
+    return tuple(on_dim if j == i else off_dim for j in range(len(mesh.mesh_dim_names)))
+
+
+def seq_gather(x: torch.Tensor, mesh, dim_name: str, seq_dim: int, total: int) -> torch.Tensor:
+    """The whole sequence (``total`` positions) of the stripes ``x`` that the
+    ranks of mesh dim ``dim_name`` hold along ``seq_dim``, on ``x``'s
+    device: an all-gather, whose backward reduce-scatters the gradient
+    summed over those ranks (each rank's gradient of the whole sequence is
+    one part of the sum). Ranks of the other mesh dims gather their own
+    stripes apart. A host mesh's collectives run on the host."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from repro_torch.launch.specs import contiguous_stride
+
+    i = mesh.mesh_dim_names.index(dim_name)
+    if mesh.size(i) == 1:
+        return x
+    shape = list(x.shape)
+    shape[seq_dim] = total
+    dt = DTensor.from_local(x.contiguous(), mesh, _dim_placements(mesh, i, Shard(seq_dim),
+                                                                  Replicate()),
+                            run_check=False, shape=torch.Size(shape),
+                            stride=contiguous_stride(shape))
+    out = dt.full_tensor(grad_placements=_dim_placements(mesh, i, Partial(), Replicate()))
+    return out.to(x.device) if out.device != x.device else out
+
+
+@dataclasses.dataclass(frozen=True)
+class Stripe:
+    """This rank's stripe of a sequence of ``total`` positions split over
+    the mesh dim ``dim_name``: positions ``start .. start + length - 1``
+    (``ranks`` the dim's size)."""
+
+    mesh: object
+    dim_name: str
+    total: int
+    start: int
+    length: int
+    ranks: int
+
+    @classmethod
+    def of(cls, mesh, dim_name: str, total: int) -> "Stripe":
+        i = mesh.mesh_dim_names.index(dim_name)
+        n = mesh.size(i)
+        start, length = stripe(total, n, mesh.get_coordinate()[i])
+        return cls(mesh, dim_name, total, start, length, n)
+
+    def gather(self, x: torch.Tensor, seq_dim: int = 1) -> torch.Tensor:
+        """:func:`seq_gather` of this stripe's ``x``."""
+        return seq_gather(x, self.mesh, self.dim_name, seq_dim, self.total)
+
+    def keep(self, x: torch.Tensor, seq_dim: int = 1) -> torch.Tensor:
+        """This stripe of the whole sequence ``x`` (a view)."""
+        return x.narrow(seq_dim, self.start, self.length)
+
+    def last(self, x: torch.Tensor, seq_dim: int = 1) -> torch.Tensor:
+        """The sequence's last position (``total - 1``) of the stripes ``x``,
+        on every rank of the dim: the rank that holds it sends it, the
+        others zeros, summed (an all-reduce, exact)."""
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+
+        if self.total == 0:
+            raise ValueError("an empty sequence has no last position")
+        if self.start + self.length == self.total and self.length:
+            row = x.narrow(seq_dim, self.length - 1, 1)
+        else:
+            shape = list(x.shape)
+            shape[seq_dim] = 1
+            row = x.new_zeros(shape)
+        i = self.mesh.mesh_dim_names.index(self.dim_name)
+        dt = DTensor.from_local(row.contiguous(), self.mesh,
+                                _dim_placements(self.mesh, i, Partial(), Replicate()),
+                                run_check=False)
+        out = dt.full_tensor()
+        return out.to(x.device) if out.device != x.device else out

@@ -28,11 +28,17 @@ What it exercises:
   * crash-restart: ``--fail-at N`` raises after step N; rerunning with the
     same ``--ckpt-dir`` resumes from the latest checkpoint, the data
     pipeline included (``TokenPipeline.skip_to``).
+
+The command line has no flag for the sharding fields, as the reference's
+has none; a caller in Python sets them on the config, ``main(argv,
+overrides={"activation_partitioning": "seq"})`` (the dry run's ``--opt``
+does the same), and every rank trains that config.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import math
 import sys
 import time
@@ -140,19 +146,21 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv=None, history: list | None = None):
+def main(argv=None, history: list | None = None, overrides: dict | None = None):
     """Train; returns the last step's loss. ``history``, when given, gets
     each step's metrics as floats (``step``, ``loss``, ``ce``, ``aux``,
     ``grad_norm``, ``lr``, and the step's host seconds ``step_s``); with
-    ranks, rank 0's."""
+    ranks, rank 0's. ``overrides`` replace fields of the ``--arch`` config
+    (``dataclasses.replace``), ``--dtype`` after them."""
     import torch.distributed as dist
 
     argv = list(sys.argv[1:] if argv is None else argv)
     args = _parser().parse_args(argv)
     dims, _ = mesh_dims(args.mesh)
     if math.prod(dims) == 1 or dist.is_initialized():  # one device, or a rank of a group
-        return train(args, history)
-    out = run_in_group(_train_rank, argv, args.device, math.prod(dims))
+        return train(args, history, overrides)
+    out = run_in_group(functools.partial(_train_rank, overrides=overrides), argv, args.device,
+                       math.prod(dims))
     if history is not None:
         history.extend(out.get("history", []))
     if "error" in out:
@@ -160,15 +168,15 @@ def main(argv=None, history: list | None = None):
     return out["loss"]
 
 
-def _train_rank(argv: list, out: dict) -> None:
+def _train_rank(argv: list, out: dict, overrides: dict | None = None) -> None:
     """One rank's run: ``out`` gets its history and loss."""
     out["history"] = []
-    out["loss"] = train(_parser().parse_args(argv), out["history"])
+    out["loss"] = train(_parser().parse_args(argv), out["history"], overrides)
 
 
-def train(args, history: list | None = None):
+def train(args, history: list | None = None, overrides: dict | None = None):
     """The training loop of one rank (or of the one device): ``args`` as
-    :func:`main` parses them."""
+    :func:`main` parses them, ``overrides`` as :func:`main` takes them."""
     import torch.distributed as dist
 
     device = resolve_device(args.device)
@@ -180,7 +188,7 @@ def train(args, history: list | None = None):
     else:
         build_mesh(args.mesh)  # a mesh of more than one rank needs a group: raises
     main_rank = rank == 0
-    cfg = get_model_config(args.arch)
+    cfg = dataclasses.replace(get_model_config(args.arch), **(overrides or {}))
     if args.dtype:
         cfg = dataclasses.replace(cfg, dtype=args.dtype)
     dp = ("pod", "data") if mesh is not None and "pod" in mesh.mesh_dim_names else ("data",)

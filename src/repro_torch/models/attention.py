@@ -21,8 +21,19 @@ query and key are wider than the value: prefill in the expanded form
 columns a head, one launch a layer), the decode step in the absorbed form
 (``mla_flash_decode``: all 128 query heads against the one latent KV head,
 576 key columns of which the first 512 are the value, one launch over the
-latent cache). The reference's sequence-parallel mode waits for ROADMAP
-Queue 1 item 8e.
+latent cache).
+
+Sequence-parallel (``stripe``, ``activation_partitioning="seq"`` on a model
+axis larger than 1): ``x`` is the rank's stripe of the positions. Queries
+stay local, RoPE'd at the stripe's positions; the keys and values (after
+qk-norm and RoPE) are all-gathered over the model axis, and one launch runs
+the stripe's rows against the whole sequence at ``q_offset`` = the
+stripe's start (causal and windowed masks at absolute positions). MLA
+gathers its latent (``c_kv`` and the RoPE'd ``k_pe``, 576 values a token at
+full width) and expands it on every rank, where gathering the expanded keys
+and values would move 128 heads x 320 values a token: the same values, 71x
+fewer bytes. Cross-attention's keys and values come from the image
+embeddings, which are not split: the stripe's queries attend to them all.
 
 ``init_attention`` and ``specs_attention`` give a layer's parameters and
 their sharding specs (the GQA, cross and MLA variants).
@@ -32,7 +43,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.launch.mesh import P
+from repro_torch.launch.mesh import P, Stripe
 from repro_torch.models.layers import Axes, Init, apply_rope, qk_head_norm, rms_norm
 
 
@@ -104,13 +115,12 @@ def _gated(y: torch.Tensor, p: dict) -> torch.Tensor:
 
 
 def gqa_forward(x: torch.Tensor, p: dict, cfg, window: int | None, kv_x=None,
-                causal: bool | None = None, seq_axes=None):
-    """Full-sequence attention (prefill). x: [B, T, D]; ``kv_x`` [B, S, D]
+                causal: bool | None = None, stripe: Stripe | None = None):
+    """Full-sequence attention (prefill). x: [B, T, D], or this rank's stripe
+    ``[B, T_r, D]`` of the positions with ``stripe``; ``kv_x`` [B, S, D]
     the cross-attention source (cast to ``x``'s dtype: the kernel takes one
-    dtype). Returns ``(y [B, T, D], (k, v))`` with k, v ``[B, S, Hkv, Dh]``."""
-    if seq_axes is not None:
-        raise NotImplementedError(
-            "sequence-parallel attention needs a mesh; the port runs on one card")
+    dtype). Returns ``(y [B, T, D] (T_r with a stripe), (k, v))`` with k, v
+    ``[B, S, Hkv, Dh]`` over the whole sequence."""
     b, t, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     src = x if kv_x is None else kv_x.to(x.dtype)
@@ -121,13 +131,18 @@ def gqa_forward(x: torch.Tensor, p: dict, cfg, window: int | None, kv_x=None,
     if cfg.qk_norm:  # before RoPE, as qwen3 does
         q = qk_head_norm(q, p["q_scale"])
         k = qk_head_norm(k, p["k_scale"])
+    start = 0
     if kv_x is None:  # self-attention gets RoPE
-        pos = torch.arange(t, device=x.device)
+        start = stripe.start if stripe is not None else 0
+        pos = torch.arange(start, start + t, device=x.device)
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
+        if stripe is not None:  # the whole sequence's keys and values, one gather
+            kv = stripe.gather(torch.cat([k, v], -1))
+            k, v = kv[..., :dh], kv[..., dh:]
     is_causal = (cfg.causal if causal is None else causal) and kv_x is None
     out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                          causal=is_causal, window=window)
+                          causal=is_causal, window=window, q_offset=start)
     y = out.transpose(1, 2).reshape(b, t, h * dh) @ p["wo"]
     if kv_x is not None:
         y = _gated(y, p)
@@ -162,47 +177,75 @@ def gqa_cross_decode(h: torch.Tensor, p: dict, cfg, k_img: torch.Tensor,
 
 
 # ----------------------------------------------------------------- MLA paths
+def mla_q(x: torch.Tensor, p: dict, cfg, pos: torch.Tensor) -> torch.Tensor:
+    """MLA's query ``[B, T, H, nope + rope]``, its rope part RoPE'd at ``pos``."""
+    b, t, _ = x.shape
+    nope, rope_d = cfg.qk_nope_dim, cfg.qk_rope_dim
+    if cfg.q_lora_rank:
+        qa = rms_norm(x @ p["wq_a"], {"scale": p["q_norm"]})
+        q = (qa @ p["wq_b"]).reshape(b, t, cfg.n_heads, nope + rope_d)
+    else:
+        q = (x @ p["wq"]).reshape(b, t, cfg.n_heads, nope + rope_d)
+    q_nope, q_pe = q[..., :nope], q[..., nope:]
+    return torch.cat([q_nope, apply_rope(q_pe, pos, cfg.rope_theta)], -1)
+
+
+def mla_latent(x: torch.Tensor, p: dict, cfg, pos: torch.Tensor):
+    """What MLA's decode cache keeps: ``c_kv`` [B, T, r] (normed) and the
+    key's rope part ``k_pe`` [B, T, rope], RoPE'd at ``pos``."""
+    r = cfg.kv_lora_rank
+    kv_a = x @ p["wkv_a"]  # [B, T, r + rope]
+    c_kv = rms_norm(kv_a[..., :r], {"scale": p["kv_norm"]})
+    k_pe = apply_rope(kv_a[..., None, r:], pos, cfg.rope_theta)[:, :, 0]
+    return c_kv, k_pe
+
+
+def mla_kv(c_kv: torch.Tensor, k_pe: torch.Tensor, p: dict, cfg):
+    """The expanded key ``[B, T, H, nope + rope]`` (the rope part broadcast
+    over the heads) and value ``[B, T, H, v_head_dim]`` (a view of the
+    ``wkv_b`` product, no copy) of the latent."""
+    b, t, _ = c_kv.shape
+    h, nope, rope_d = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    kv = (c_kv @ p["wkv_b"]).reshape(b, t, h, nope + cfg.v_head_dim)
+    k_nope, v = kv[..., :nope], kv[..., nope:]
+    k = torch.cat([k_nope, k_pe[:, :, None].expand(b, t, h, rope_d)], -1)
+    return k, v
+
+
 def mla_qkv(x: torch.Tensor, p: dict, cfg):
     """Expanded-form MLA projections for prefill, as the reference's: q and k
     ``[B, T, H, nope + rope]`` (the rope key broadcast over the heads), v
     ``[B, T, H, v_head_dim]`` (a view of the ``wkv_b`` product, no copy), and
     what the decode cache keeps, ``c_kv`` [B, T, r] and ``k_pe`` [B, T, rope]."""
-    b, t, _ = x.shape
-    h = cfg.n_heads
-    nope, rope_d, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
-    r = cfg.kv_lora_rank
-    if cfg.q_lora_rank:
-        qa = rms_norm(x @ p["wq_a"], {"scale": p["q_norm"]})
-        q = (qa @ p["wq_b"]).reshape(b, t, h, nope + rope_d)
-    else:
-        q = (x @ p["wq"]).reshape(b, t, h, nope + rope_d)
-    q_nope, q_pe = q[..., :nope], q[..., nope:]
-    kv_a = x @ p["wkv_a"]  # [B, T, r + rope]
-    c_kv = rms_norm(kv_a[..., :r], {"scale": p["kv_norm"]})
-    k_pe = kv_a[..., r:]
-    pos = torch.arange(t, device=x.device)
-    q_pe = apply_rope(q_pe, pos, cfg.rope_theta)
-    k_pe = apply_rope(k_pe[:, :, None, :], pos, cfg.rope_theta)[:, :, 0]
-    kv = (c_kv @ p["wkv_b"]).reshape(b, t, h, nope + vd)
-    k_nope, v = kv[..., :nope], kv[..., nope:]
-    k = torch.cat([k_nope, k_pe[:, :, None].expand(b, t, h, rope_d)], -1)
-    qq = torch.cat([q_nope, q_pe], -1)
-    return qq, k, v, c_kv, k_pe
+    pos = torch.arange(x.shape[1], device=x.device)
+    c_kv, k_pe = mla_latent(x, p, cfg, pos)
+    k, v = mla_kv(c_kv, k_pe, p, cfg)
+    return mla_q(x, p, cfg, pos), k, v, c_kv, k_pe
 
 
-def mla_forward(x: torch.Tensor, p: dict, cfg, window: int | None = None, seq_axes=None):
+def mla_forward(x: torch.Tensor, p: dict, cfg, window: int | None = None,
+                stripe: Stripe | None = None):
     """Full-sequence MLA (prefill): one launch at (Dqk, Dv) = (nope + rope,
     v_head_dim), scaled by (nope + rope)^-0.5 as the reference's ``_sdpa``
     scales by its query's width. The reference switches to ``_chunked_sdpa``
-    from 8,192 tokens; the kernel covers both. Returns ``(y [B, T, D],
-    (c_kv, k_pe))``."""
-    if seq_axes is not None:
-        raise NotImplementedError(
-            "sequence-parallel attention needs a mesh; the port runs on one card")
+    from 8,192 tokens; the kernel covers both. With ``stripe``, ``x`` is the
+    rank's stripe of the positions and the latent is gathered whole before
+    it is expanded. Returns ``(y [B, T, D] (T_r with a stripe), (c_kv,
+    k_pe))``, the latent over the whole sequence."""
     b, t, _ = x.shape
-    q, k, v, c_kv, k_pe = mla_qkv(x, p, cfg)
+    if stripe is None:
+        q, k, v, c_kv, k_pe = mla_qkv(x, p, cfg)
+    else:
+        pos = torch.arange(stripe.start, stripe.start + t, device=x.device)
+        c_kv, k_pe = mla_latent(x, p, cfg, pos)
+        r = c_kv.shape[-1]
+        latent = stripe.gather(torch.cat([c_kv, k_pe], -1))
+        c_kv, k_pe = latent[..., :r], latent[..., r:]
+        k, v = mla_kv(c_kv, k_pe, p, cfg)
+        q = mla_q(x, p, cfg, pos)
     out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                          causal=cfg.causal, window=window)
+                          causal=cfg.causal, window=window,
+                          q_offset=stripe.start if stripe is not None else 0)
     y = out.transpose(1, 2).reshape(b, t, cfg.n_heads * cfg.v_head_dim) @ p["wo"]
     return y, (c_kv, k_pe)
 

@@ -77,12 +77,12 @@ class ModelConfig:
     remat: bool = True
     # ---- mesh placement (the reference's knobs and defaults)
     # "batch": activations shard the batch over the data axes only; "seq":
-    # they also shard the sequence over the model axis (the port runs it on
-    # a model axis of 1 only, where it is "batch": ROADMAP item 8e)
+    # they also shard the sequence over the model axis (on a model axis of 1
+    # the two are one)
     activation_partitioning: str = "batch"
     # MoE expert weights: "d" = FSDP on d_model, gathered per layer (train);
     # "f" = the hidden dim sharded over the data axes, weights never move,
-    # partial outputs summed (decode: moe_ffn_fshard)
+    # partial outputs summed (moe_ffn_fshard, decode and train)
     moe_weight_shard: str = "d"
     # dense-FFN weights: "d" as above; "f" = hidden dim over every axis
     dense_weight_shard: str = "d"

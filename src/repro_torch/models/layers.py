@@ -21,7 +21,8 @@ capacity-bounded dispatch, the expert products and the combine, in the
 reference's arithmetic and order. On a mesh each rank runs it on its own
 batch rows with the gathered weights, as the reference's ``shard_map`` does
 on each data shard (the capacity and the aux loss are per shard there too).
-``moe_ffn_fshard`` is the weight-stationary decode MoE.
+``moe_ffn_fshard`` is the weight-stationary MoE (decode, and a train step
+under ``moe_weight_shard="f"``).
 """
 from __future__ import annotations
 
@@ -351,11 +352,10 @@ EXPERT_WEIGHTS = ("w_in", "w_gate", "w_out")
 
 
 def moe_ffn_fshard(x: torch.Tensor, p: dict, cfg, ax: Axes | None = None, mesh=None,
-                   batch_axes: tuple = ()):
-    """The weight-stationary MoE of a decode step (the reference's
-    ``moe_ffn_fshard``, ``moe_weight_shard="f"``). x: ``[B, S, D]``, this
-    rank's batch rows when ``batch_axes`` split the batch. Returns ``(y,
-    aux)``.
+                   batch_axes: tuple = (), seq_parallel: bool = False):
+    """The weight-stationary MoE (the reference's ``moe_ffn_fshard``,
+    ``moe_weight_shard="f"``). x: ``[B, S, D]``, this rank's batch rows when
+    ``batch_axes`` split the batch. Returns ``(y, aux)``.
 
     On a mesh the expert weights stay DTensors placed by
     :func:`specs_moe_fshard`: each rank holds an F-slice of every expert
@@ -369,13 +369,21 @@ def moe_ffn_fshard(x: torch.Tensor, p: dict, cfg, ax: Axes | None = None, mesh=N
     experts' F-slices over that axis instead (the tokens stay put). The
     products are float32 end to end, as in :func:`moe_ffn`. Without a mesh
     (or on plain tensors) this is :func:`moe_ffn`'s arithmetic on one
-    shard. On a mesh it is a decode path: it raises if a gradient is
-    needed."""
+    shard.
+
+    It is differentiable on a mesh: the row gather's gradient is
+    reduce-scattered over the data axes (every rank's routing and products
+    read every row), the partial outputs' gradient all-reduced (every rank's
+    rows read the summed output), and the expert weights' gradients land as
+    their F-slices, never gathered. ``seq_parallel`` says that the model
+    axis splits the sequence (each model rank keeps its own stripe of the
+    output), so the experts' gradients are summed over it too; otherwise
+    its ranks compute the same gradient, which is kept once."""
     with torch.profiler.record_function(MOE_RANGE):
-        return _moe_ffn_fshard(x, p, cfg, ax or Axes(), mesh, tuple(batch_axes))
+        return _moe_ffn_fshard(x, p, cfg, ax or Axes(), mesh, tuple(batch_axes), seq_parallel)
 
 
-def _moe_ffn_fshard(x, p, cfg, ax: Axes, mesh, batch_axes: tuple):
+def _moe_ffn_fshard(x, p, cfg, ax: Axes, mesh, batch_axes: tuple, seq_parallel: bool):
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     from repro_torch.launch.mesh import local_slice
@@ -386,21 +394,25 @@ def _moe_ffn_fshard(x, p, cfg, ax: Axes, mesh, batch_axes: tuple):
     sharded = mesh is not None and any(isinstance(t, DTensor) for t in w.values())
     xg, sum_dims, rows = x, (), None
     if sharded:
-        if torch.is_grad_enabled() and (x.requires_grad
-                                        or any(t.requires_grad for t in w.values())):
-            raise NotImplementedError(
-                "moe_ffn_fshard on a mesh is the decode path: a train step through it "
-                "(moe_weight_shard='f') waits for ROADMAP Queue 1 item 8e")
         names = mesh.mesh_dim_names
+
+        def partial_on(dims):
+            return tuple(Partial() if i in dims else Replicate() for i in range(len(names)))
+
         # a host mesh holds its shards on the CPU; the products run on x's device
         if batch_axes:
             rows = tuple(Shard(0) if n in batch_axes else Replicate() for n in names)
-            xg = DTensor.from_local(x, mesh, rows, run_check=False).full_tensor().to(x.device)
+            row_dims = [names.index(a) for a in batch_axes]
+            xg = DTensor.from_local(x, mesh, rows, run_check=False).full_tensor(
+                grad_placements=partial_on(row_dims)).to(x.device)
         dp_dims = [names.index(a) for a in ax.dp]
+        tp_dim = names.index(ax.tp)
         local = {}
         for n, t in w.items():  # the model axis gathered, the data axes' F-slices kept
             places = tuple(pl if i in dp_dims else Replicate() for i, pl in enumerate(t.placements))
-            local[n] = t.redistribute(mesh, places).to_local().to(x.device)
+            grads = tuple(Partial() if seq_parallel and i == tp_dim else pl
+                          for i, pl in enumerate(places))
+            local[n] = t.redistribute(mesh, places).to_local(grad_placements=grads).to(x.device)
         # the data dims that split F: their partial products are summed
         sum_dims = tuple(i for i in dp_dims if isinstance(w["w_in"].placements[i], Shard))
         w = local
@@ -408,9 +420,8 @@ def _moe_ffn_fshard(x, p, cfg, ax: Axes, mesh, batch_axes: tuple):
     cap, send, dest, keep, w_topk, aux = _route(xg.reshape(tl, d), p["router"], cfg)
     y = expert_products(send[: e * cap].reshape(e, cap, d), w, cfg.activation)  # F-slice
     if sum_dims:
-        parts = tuple(Partial() if i in sum_dims else Replicate()
-                      for i in range(len(mesh.mesh_dim_names)))
-        y = DTensor.from_local(y, mesh, parts, run_check=False).full_tensor().to(x.device)
+        y = DTensor.from_local(y, mesh, partial_on(sum_dims), run_check=False).full_tensor(
+            grad_placements=partial_on(sum_dims)).to(x.device)
     y = y.to(x.dtype)
     out = _combine(y, dest, keep, w_topk, k).reshape(xg.shape)
     if rows is not None:  # this rank's batch rows back

@@ -26,9 +26,21 @@ so that the shards' gradients are summed once. A decode step gathers each
 layer's cache over the model axis (the reference shards its sequence
 there), steps it, and keeps its own shard. Expert weights placed by
 ``specs_moe_fshard`` (``moe_weight_shard="f"``) are never gathered:
-``moe_ffn_fshard`` uses them where they lie. ``activation_partitioning=
-"seq"`` on a model axis larger than 1 raises (ROADMAP Queue 1 item 8e); on a
-model axis of 1 it computes what ``"batch"`` does, as in the reference.
+``moe_ffn_fshard`` uses them where they lie.
+
+``activation_partitioning="seq"`` on a model axis larger than 1 splits each
+rank's rows along the sequence too (the reference's sequence-parallel
+mode): a rank holds ``[B_local, T_r, D]``, its stripe of the positions
+(``launch.mesh.Stripe``; any T, stripes uneven or empty by DTensor's
+``Shard`` rule). Norms, projections, the dense FFN and the head run on the
+stripe; attention keeps its query stripe, gathers K and V over the model
+axis and runs one launch at ``q_offset`` = the stripe's start; a Mamba
+mixer and a MoE FFN gather their normed input over the model axis, run on
+the whole sequence (so a data shard's tokens are scanned and routed whole,
+as in ``"batch"``) and keep their stripe of the output. The model axis then
+splits the tokens, so a gathered weight's gradient is ``Partial`` over it
+as well as over the data axes. The values are ``"batch"``'s; on a model
+axis of 1 the two modes are one, as in the reference.
 
 The decode cache is a list with one dict per layer; ``decode_step`` writes
 it in place (the reference returns a new pytree) and returns it.
@@ -86,6 +98,7 @@ from torch import nn
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import (
     P,
+    Stripe,
     batch_grad_placements,
     gather,
     gather_tree,
@@ -120,9 +133,6 @@ from repro_torch.models.layers import (
     specs_rmsnorm,
 )
 from repro_torch.models.mamba import init_mamba, mamba_decode_step, mamba_forward, specs_mamba
-
-# where activation_partitioning="seq" on a model axis larger than 1 is queued
-SEQ_ITEM = "ROADMAP Queue 1 item 8e"
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -170,17 +180,10 @@ def _needs_grad(x: torch.Tensor, p: dict) -> bool:
     return False
 
 
-def check_partitioning(cfg: ModelConfig, ax: Axes, mesh) -> None:
-    """Raise for what the port's mesh path does not compute: a sequence
-    split over a model axis larger than 1."""
+def check_partitioning(cfg: ModelConfig) -> None:
+    """Raise for an ``activation_partitioning`` the model does not know."""
     if cfg.activation_partitioning not in ("batch", "seq"):
         raise ValueError(f"unknown activation_partitioning {cfg.activation_partitioning!r}")
-    if cfg.activation_partitioning == "seq" and mesh is not None \
-            and mesh.size(mesh.mesh_dim_names.index(ax.tp)) > 1:
-        raise NotImplementedError(
-            f"activation_partitioning='seq' over a model axis of "
-            f"{mesh.size(mesh.mesh_dim_names.index(ax.tp))} ranks (sequence-parallel "
-            f"activations) waits for {SEQ_ITEM}; use 'batch', or a model axis of 1")
 
 
 # ----------------------------------------------------------------- layer p/s
@@ -221,9 +224,11 @@ def specs_layer(spec: LayerSpec, cfg: ModelConfig, ax: Axes) -> dict:
 
 
 def _ffn(x: torch.Tensor, p: dict, spec: LayerSpec, cfg: ModelConfig, ax: Axes | None = None,
-         mesh=None, batch_axes: tuple = ()):
+         mesh=None, batch_axes: tuple = (), stripe: Stripe | None = None):
     """The layer's FFN residual: ``(x + out, aux)``, ``out`` the dense FFN,
-    the MoE, or their sum (in that order), on one normed input."""
+    the MoE, or their sum (in that order), on one normed input. With a
+    ``stripe`` the MoE routes the whole sequence (gathered) and keeps its
+    stripe of the output."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.ffn == "none":
         return x, aux
@@ -232,32 +237,42 @@ def _ffn(x: torch.Tensor, p: dict, spec: LayerSpec, cfg: ModelConfig, ax: Axes |
     if spec.ffn in ("dense", "moe_dense"):
         out = dense_ffn(h, p["ffn"], cfg.activation)
     if spec.ffn in ("moe", "moe_dense"):
+        hm = h if stripe is None else stripe.gather(h)
         if cfg.moe_weight_shard == "f":
-            mo, aux = moe_ffn_fshard(h, p["moe"], cfg, ax, mesh, batch_axes)
+            mo, aux = moe_ffn_fshard(hm, p["moe"], cfg, ax, mesh, batch_axes,
+                                     seq_parallel=stripe is not None)
         else:
-            mo, aux = moe_ffn(h, p["moe"], cfg,
+            mo, aux = moe_ffn(hm, p["moe"], cfg,
                               name_output=cfg.remat and cfg.remat_policy == "save_moe")
+        if stripe is not None:
+            mo = stripe.keep(mo)
         out = mo if out is None else out + mo
     return x + out, aux
 
 
 def apply_layer(x: torch.Tensor, p: dict, spec: LayerSpec, cfg: ModelConfig,
-                ax: Axes | None = None, mesh=None, img_embeds=None, batch_axes: tuple = ()):
+                ax: Axes | None = None, mesh=None, img_embeds=None, batch_axes: tuple = (),
+                stripe: Stripe | None = None):
     """One layer of the full-sequence forward on plain tensors (a rank's
-    batch rows and the layer's weights; expert weights under
-    ``moe_weight_shard="f"`` stay DTensors). Returns ``(x, aux, cache)``:
-    the router loss of its MoE (zero without one) and the cache entry its
-    mixer made (``(k, v)`` or the Mamba states)."""
+    batch rows, or with ``stripe`` their stripe of the sequence, and the
+    layer's weights; expert weights under ``moe_weight_shard="f"`` stay
+    DTensors). Returns ``(x, aux, cache)``: the router loss of its MoE
+    (zero without one) and the cache entry its mixer made (``(k, v)``, the
+    MLA latent or the Mamba states; whole over the sequence). A Mamba mixer
+    scans the whole sequence (its input gathered) and keeps its stripe."""
     h = rms_norm(x, p["norm1"])
     if spec.mixer == "attn" and cfg.use_mla:
-        y, cache = mla_forward(h, p["attn"], cfg, window=spec.window)
+        y, cache = mla_forward(h, p["attn"], cfg, window=spec.window, stripe=stripe)
     elif spec.mixer == "attn":
-        y, cache = gqa_forward(h, p["attn"], cfg, window=spec.window)
+        y, cache = gqa_forward(h, p["attn"], cfg, window=spec.window, stripe=stripe)
     elif spec.mixer == "cross_attn":
-        y, cache = gqa_forward(h, p["attn"], cfg, window=None, kv_x=img_embeds)
-    else:
+        y, cache = gqa_forward(h, p["attn"], cfg, window=None, kv_x=img_embeds, stripe=stripe)
+    elif stripe is None:
         y, cache = mamba_forward(h, p["mamba"], cfg)
-    x, aux = _ffn(x + y, p, spec, cfg, ax, mesh, batch_axes)
+    else:
+        y, cache = mamba_forward(stripe.gather(h), p["mamba"], cfg)
+        y = stripe.keep(y)
+    x, aux = _ffn(x + y, p, spec, cfg, ax, mesh, batch_axes, stripe)
     return x, aux, cache
 
 
@@ -277,7 +292,7 @@ class Model(nn.Module):
         self.dtype = getattr(torch, cfg.dtype)
         self.ax = ax or Axes()
         self.mesh = mesh
-        check_partitioning(cfg, self.ax, mesh)
+        check_partitioning(cfg)
 
     # ------------------------------------------------------------------ init
     def init(self, generator: torch.Generator) -> dict:
@@ -339,10 +354,42 @@ class Model(nn.Module):
         return [layer_spec(spec) for spec in self.cfg.layers()]
 
     # ---------------------------------------------------------- mesh helpers
-    def _local(self, inputs: dict) -> tuple[dict, tuple]:
+    def seq_stripe(self, total: int) -> Stripe | None:
+        """This rank's stripe of a ``total``-long sequence where
+        ``activation_partitioning="seq"`` splits it over a model axis larger
+        than 1, else ``None``."""
+        if self.cfg.activation_partitioning != "seq" or self.mesh is None \
+                or self.mesh.size(self.mesh.mesh_dim_names.index(self.ax.tp)) == 1:
+            return None
+        return Stripe.of(self.mesh, self.ax.tp, total)
+
+    def token_split(self, batch: dict, rows_dim: int = 0) -> tuple:
+        """``(mesh, mesh dims, stripe)`` for a batch of this model: the mesh
+        dims that split its tokens (those that shard the batch rows, dim
+        ``rows_dim`` of the tokens' or frames' DTensor: 1 under a leading
+        microbatch axis; then the model axis where :meth:`seq_stripe` splits
+        the sequence over it), and this rank's stripe (``None`` without a
+        split); ``(None, (), None)`` for plain tensors unsplit."""
+        from torch.distributed.tensor import DTensor, Shard
+
+        t = batch.get("tokens", batch.get("frames"))
+        stripe = self.seq_stripe(t.shape[rows_dim + 1])
+        mesh, dims = None, ()
+        if isinstance(t, DTensor):
+            mesh = t.device_mesh
+            dims = tuple(i for i, pl in enumerate(t.placements)
+                         if isinstance(pl, Shard) and pl.dim == rows_dim)
+        if stripe is not None:
+            mesh = self.mesh
+            dims += (self.mesh.mesh_dim_names.index(self.ax.tp),)
+        return mesh, dims, stripe
+
+    def _local(self, inputs: dict, split_seq: bool = True) -> tuple[dict, tuple, Stripe | None]:
         """Plain tensors on the model's device for ``inputs`` (DTensors split
-        over the data axes, or plain tensors), and the mesh axes that split
-        their batch."""
+        over the data axes, or plain tensors), the mesh axes that split
+        their batch, and with ``split_seq`` the rank's stripe of the
+        sequence (:meth:`seq_stripe`; the tokens or frames are cut to it on
+        dim 1)."""
         from torch.distributed.tensor import DTensor, Shard
 
         batch_axes: tuple = ()
@@ -355,7 +402,11 @@ class Model(nn.Module):
                     batch_axes = axes
                 t = t.to_local()
             out[name] = t.to(self.device) if t.device != self.device else t
-        return out, batch_axes
+        seq = "tokens" if "tokens" in out else "frames"
+        stripe = self.seq_stripe(out[seq].shape[1]) if split_seq and seq in out else None
+        if stripe is not None:
+            out[seq] = stripe.keep(out[seq])
+        return out, batch_axes, stripe
 
     def _weights(self, tree, batch_axes: tuple, spec: LayerSpec | None = None):
         """``tree``'s weights gathered whole on the model's device (on a
@@ -392,38 +443,46 @@ class Model(nn.Module):
         reference's does). Returns ``(logits [B, S, V], aux_loss)``;
         ``aux_loss`` is the MoE router loss summed over the layers (float32;
         zero without MoE layers). On a mesh the inputs are DTensors (or this
-        rank's rows) and the logits are this rank's rows."""
+        rank's rows) and the logits are this rank's rows, under
+        ``activation_partitioning="seq"`` their stripe of the positions
+        (:meth:`seq_stripe`). Every rank of a sequence split gets the same
+        ``aux``."""
         cfg = self.cfg
-        inputs, batch_axes = self._local(inputs)
+        inputs, batch_axes, stripe = self._local(inputs)
+        # the axes that split the tokens: a gathered weight's gradient is a
+        # part of the sum over them
+        grad_axes = batch_axes + ((self.ax.tp,) if stripe is not None else ())
         if cfg.frontend == "frames":
             x = inputs["frames"].to(self.dtype)
         else:
-            x = self._embed(params, inputs["tokens"], batch_axes)
+            x = self._embed(params, inputs["tokens"], grad_axes)
         img = inputs.get("image_embeds")
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for spec, p in zip(cfg.layers(), params["layers"]):
-            p = self._weights(p, batch_axes, spec)
+            p = self._weights(p, grad_axes, spec)
             if cfg.remat and _needs_grad(x, p):
                 context = checkpoint.noop_context_fn
                 if cfg.remat_policy in _POLICIES:
                     context = functools.partial(
                         checkpoint.create_selective_checkpoint_contexts,
                         _POLICIES[cfg.remat_policy])
-                x, a = checkpoint.checkpoint(self._layer, x, p, spec, img, batch_axes,
+                x, a = checkpoint.checkpoint(self._layer, x, p, spec, img, batch_axes, stripe,
                                              use_reentrant=False, context_fn=context)
             else:
-                x, a = self._layer(x, p, spec, img, batch_axes)
+                x, a = self._layer(x, p, spec, img, batch_axes, stripe)
             aux = aux + a
-        return self._head(params, x, batch_axes), aux
+        return self._head(params, x, grad_axes), aux
 
     def _ffn(self, x: torch.Tensor, p: dict, spec: LayerSpec, batch_axes: tuple = ()):
         """The layer's FFN residual: ``(x + out, aux)`` (:func:`_ffn`)."""
         return _ffn(x, p, spec, self.cfg, self.ax, self.mesh, batch_axes)
 
-    def _layer(self, x: torch.Tensor, p: dict, spec: LayerSpec, img=None, batch_axes: tuple = ()):
+    def _layer(self, x: torch.Tensor, p: dict, spec: LayerSpec, img=None, batch_axes: tuple = (),
+               stripe: Stripe | None = None):
         """One layer of the full-sequence forward: ``(x, aux)``; ``img`` the
         image embeddings a cross-attention layer reads."""
-        x, aux, _ = apply_layer(x, p, spec, self.cfg, self.ax, self.mesh, img, batch_axes)
+        x, aux, _ = apply_layer(x, p, spec, self.cfg, self.ax, self.mesh, img, batch_axes,
+                                stripe)
         return x, aux
 
     # ----------------------------------------------------------------- cache
@@ -585,7 +644,7 @@ class Model(nn.Module):
         logits are this rank's rows."""
         if self.cfg.is_encoder_only:
             raise ValueError(f"{self.cfg.name} is encoder-only: it has no decode path")
-        inputs, batch_axes = self._local({"tokens": tokens})
+        inputs, batch_axes, _ = self._local({"tokens": tokens}, split_seq=False)
         x = self._embed(params, inputs["tokens"], batch_axes)
         for spec, p, c in zip(self.cfg.layers(), params["layers"], cache):
             p = self._weights(p, batch_axes, spec)

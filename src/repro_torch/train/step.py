@@ -17,6 +17,17 @@ number of batch shards, so the shards' losses sum to the global batch's
 mean; the gathered weights' gradients are summed over the batch shards
 (``Partial`` on those axes) and land as the parameters' shards; the metrics
 are all-reduced to the global values on every rank.
+
+Under ``activation_partitioning="seq"`` on a model axis larger than 1 the
+model axis splits the tokens too: a rank's logits are its stripe of the
+positions, its cross-entropy is the sum over its tokens divided by the
+global batch's token count (stripes may be uneven or empty, so a mean per
+rank would weigh them wrongly), and the model axis counts among the
+shards. The router aux loss is the same on every model rank of a data
+shard (each routes the whole sequence), so dividing it by all the shards
+and summing the gradient over them (``Partial`` on the model axis too)
+gives each data shard's aux its weight ``1 / n_data`` once, as in
+``"batch"``; the all-reduced ``aux`` metric is the mean over data shards.
 """
 from __future__ import annotations
 
@@ -33,10 +44,14 @@ __all__ = ["make_decode_step", "make_eval_step", "make_loss_fn", "make_prefill_s
            "make_train_step", "token_ce"]
 
 
-def token_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each token's negative log-likelihood (float32 ``log_softmax``)."""
     logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -torch.take_along_dim(logp, labels[..., None].long(), dim=-1)
-    return nll.mean()
+    return -torch.take_along_dim(logp, labels[..., None].long(), dim=-1)
+
+
+def token_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    return token_nll(logits, labels).mean()
 
 
 def _local(t: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -45,20 +60,6 @@ def _local(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     if isinstance(t, DTensor):
         t = t.to_local()
     return t.to(device)
-
-
-def batch_split(batch: dict, rows_dim: int = 0) -> tuple:
-    """``(mesh, mesh dims)`` that split the batch rows (dim ``rows_dim``: 1
-    under a leading microbatch axis) of a tree of DTensor leaves (the
-    tokens' or frames' ``Shard``), or ``(None, ())`` for plain tensors."""
-    from torch.distributed.tensor import DTensor, Shard
-
-    t = batch.get("tokens", batch.get("frames"))
-    if not isinstance(t, DTensor):
-        return None, ()
-    dims = tuple(i for i, pl in enumerate(t.placements)
-                 if isinstance(pl, Shard) and pl.dim == rows_dim)
-    return t.device_mesh, dims
 
 
 def _shard_count(mesh, dims) -> int:
@@ -83,11 +84,16 @@ def _all_reduce(t: torch.Tensor, mesh, dims) -> torch.Tensor:
 def make_loss_fn(model: Model):
     def loss_fn(params, batch):
         logits, aux = model.forward(params, batch)
-        ce = token_ce(logits, _local(batch["labels"], logits.device))
-        mesh, dims = batch_split(batch)
+        labels = _local(batch["labels"], logits.device)
+        mesh, dims, stripe = model.token_split(batch)
+        n = _shard_count(mesh, dims) if mesh is not None else 1
+        if stripe is None:
+            ce = token_ce(logits, labels) / n
+        else:  # this stripe's tokens over the global batch's B * T
+            n_data = n // stripe.ranks
+            ce = token_nll(logits, stripe.keep(labels)).sum() / (labels.numel() * n_data)
         if mesh is not None:  # this rank's part of the global batch's mean
-            n = _shard_count(mesh, dims)
-            ce, aux = ce / n, aux / n
+            aux = aux / n
         loss = ce + model.cfg.router_aux_weight * aux
         return loss, {"ce": ce, "aux": aux}
 
@@ -114,13 +120,22 @@ def _microbatch(batch: dict, i: int) -> dict:
     return out
 
 
-def _value_and_grad(loss_fn, params, batch):
+def _value_and_grad(loss_fn, params, batch, one_thread: bool = False):
     """``(loss, metrics, grads)``: the gradient of every parameter leaf
-    (zeros where the loss does not reach one), in the parameters' dtypes."""
+    (zeros where the loss does not reach one), in the parameters' dtypes.
+
+    ``one_thread`` runs the backward on this thread alone (a host mesh's:
+    gloo ranks sharing a card): the engine otherwise runs the card's nodes
+    on its own worker thread and the host's here, so the order in which the
+    gradients' host collectives become ready, and are issued, would depend
+    on the two threads' timing and could differ between ranks (a collective
+    mismatch). On one thread the order is the graph's, the same on every
+    rank. A mesh of the card's own runs its nodes on one thread anyway."""
     leaves, treedef = tree_flatten(params)
     leaves = [p.detach().requires_grad_(True) for p in leaves]
     loss, metrics = loss_fn(tree_unflatten(treedef, leaves), batch)
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    with torch.autograd.set_multithreading_enabled(not one_thread):
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
     metrics = {k: v.detach() for k, v in metrics.items()}
     return loss.detach(), metrics, tree_unflatten(treedef, grads)
@@ -144,28 +159,28 @@ def make_train_step(
     ``OpCounter.repeat``): with ``accum > 1`` the step runs only the first
     microbatch, inside ``sample(accum)``, and its values are that
     microbatch's divided by ``accum``."""
-    from repro_torch.models.model import check_partitioning
-
-    check_partitioning(model.cfg, model.ax, model.mesh)
     loss_fn = make_loss_fn(model)
+    # a host mesh: collectives on the host, the model's nodes on a card
+    one_thread = model.mesh is not None and model.mesh.device_type != model.device.type
 
     def train_step(params, opt_state: AdamWState, batch):
         if accum == 1:
-            loss, metrics, grads = _value_and_grad(loss_fn, params, batch)
+            loss, metrics, grads = _value_and_grad(loss_fn, params, batch, one_thread)
         else:
             # microbatch accumulation: batch leaves have a leading accum axis
             grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
             loss = torch.zeros((), dtype=torch.float32, device=opt_state.step.device)
             for i in range(1 if sample else accum):
                 with sample(accum) if sample else contextlib.nullcontext():
-                    l, _, g = _value_and_grad(loss_fn, params, _microbatch(batch, i))
+                    l, _, g = _value_and_grad(loss_fn, params, _microbatch(batch, i),
+                                              one_thread)
                     grads = tree_map(torch.add, grads, g)
                     loss = loss + l.to(loss.device)
             grads = tree_map(lambda g: g / accum, grads)
             loss = loss / accum
             metrics = {"ce": loss, "aux": torch.zeros((), dtype=torch.float32,
                                                       device=loss.device)}
-        mesh, dims = batch_split(batch, rows_dim=0 if accum == 1 else 1)
+        mesh, dims, _ = model.token_split(batch, rows_dim=0 if accum == 1 else 1)
         if mesh is not None:  # the global batch's values on every rank
             loss = _all_reduce(loss, mesh, dims)
             metrics = {k: _all_reduce(v, mesh, dims) for k, v in metrics.items()}
@@ -192,11 +207,13 @@ def make_eval_step(model: Model):
 
 def make_prefill_step(model: Model):
     """Serving prefill: forward only, returns the logits of the last
-    position ``[B, 1, V]``."""
+    position ``[B, 1, V]`` (on a sequence split over the model axis, the
+    global last position on every rank of it)."""
 
     def prefill(params, batch):
         logits, _ = model.forward(params, batch)
-        return logits[:, -1:]
+        stripe = model.token_split(batch)[2]
+        return logits[:, -1:] if stripe is None else stripe.last(logits)
 
     return prefill
 

@@ -16,6 +16,8 @@ kernel does not have (its readout is a multiply-sum), and XLA may fold or
 split a few small products (the router's, the absorbed projections'). The
 measured gaps are in the test's ids.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -170,14 +172,66 @@ def test_fake_2x2_cell_has_the_reference_keys_and_leaves_no_group(shape, tmp_pat
 
 
 def test_skipped_cell_and_errors_leave_no_group():
+    """A skipped cell, a sequence-parallel cell on a model axis of 2 (it
+    lowers: the model axis splits the tokens, so a shard's dot FLOPs are
+    half the batch cell's), and a config the port refuses each leave no
+    process group behind."""
     res = dryrun.run_cell("qwen3-8b", "long_500k", False)
     assert res["status"] == "skip: pure full-attention arch (needs sub-quadratic)"
     assert not dist.is_initialized()
-    # a config the port cannot shard (sequence-parallel on a model axis of 2)
-    bad = dryrun.run_cell("reduced:qwen3-8b", "train_4k", False,
-                          {"activation_partitioning": "seq"}, peak=False, mesh_shape=(2, 2))
-    assert bad["status"] == "error" and "8e" in bad["error"]
+    cells = {mode: dryrun.run_cell("reduced:qwen3-8b", "train_4k", False,
+                                   {"activation_partitioning": mode}, peak=False,
+                                   mesh_shape=(2, 2)) for mode in ("seq", "batch")}
     assert not dist.is_initialized()
+    assert cells["seq"]["status"] == cells["batch"]["status"] == "ok", cells["seq"].get("error")
+    assert cells["seq"]["dot_flops_per_shard"] <= 0.55 * cells["batch"]["dot_flops_per_shard"]
+    bad = dryrun.run_cell("reduced:qwen3-8b", "train_4k", False,
+                          {"activation_partitioning": "tokens"}, peak=False, mesh_shape=(2, 2))
+    assert bad["status"] == "error" and "activation_partitioning" in bad["error"]
+    assert not dist.is_initialized()
+
+
+def test_op_analysis_counts_a_stripe_against_the_gathered_keys():
+    """Under ``activation_partitioning="seq"`` on a model axis of 2 (fake
+    group, shapes only), rank 0's attention scores are its T/2 query rows
+    against all T keys, a launch a layer (and the backward's recompute of
+    the plain version), and each layer all-gathers its stripe's K and V
+    (one collective, ``[B, T, Hkv, 2 Dh]`` of bf16)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    import repro_torch.configs as tconfigs
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.specs import batch_specs, sds_tree
+    from repro_torch.models.model import Model
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.step import make_train_step
+
+    cfg = dataclasses.replace(tconfigs.get_reduced_config("qwen3-8b"),
+                              activation_partitioning="seq")
+    b, t = 2, 64
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=2)
+    try:
+        mesh = make_debug_mesh(1, 2)
+        model = Model(cfg, "cpu", mesh=mesh)
+        with FakeTensorMode():
+            params = sds_tree(model.init_shapes(), model.param_specs(), mesh)
+            batch = batch_specs(cfg, {"global_batch": b, "seq_len": t}, mesh, ("data",))
+            res = analyze(make_train_step(model), params, adamw_init(params), batch,
+                          sources=True)
+    finally:
+        dist.destroy_process_group()
+    hkv, dh = cfg.n_kv_heads, cfg.head_dim
+    g = cfg.n_heads // hkv
+    n_attn = sum(s.mixer == "attn" for s in cfg.layers())
+    dots = res["counter"].dots
+    assert dots[("bmm", ((b * hkv, g * t // 2, dh), (b * hkv, dh, t)))] == 2 * n_attn
+    assert not any(sig[0] == "bmm" and sig[1][0][1] == g * t for sig in dots)
+    kv = [r for r in res["counter"].records
+          if r[0] == "all-gather" and (r[3] or "").startswith("models/attention.py")]
+    assert len(kv) == n_attn
+    assert all(r[1] == b * t * hkv * 2 * dh * 2 for r in kv)
+    assert res["collective_counts"]["reduce-scatter"] > 0
 
 
 def test_peak_bytes_from_memtracker():

@@ -1758,6 +1758,87 @@ def test_cuttana_detail_and_swaps_on_card_equal_cpu(cuda_device):
     assert out["cpu"][0]["moves"] >= a.refine_moves
 
 
+# ------------------------------------------------- sequence-parallel stripes
+# (T, ranks, rank, window): query stripe ``rank`` of T positions cut over
+# ``ranks`` (launch.mesh.stripe) against all T keys, at q_offset = its start
+STRIPE_CASES = [(256, 2, 0, None), (256, 2, 1, None), (256, 2, 1, 64), (1024, 4, 3, None),
+                (1024, 4, 2, 100), (1000, 8, 7, None), (4096, 16, 15, None),
+                (4096, 16, 1, 1024)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,ranks,rank,window", STRIPE_CASES)
+def test_flash_kernel_at_stripe_shapes(cuda_device, t, ranks, rank, window, dtype):
+    """A sequence-parallel rank's launch: its stripe's queries (Tq < Tk) at
+    ``q_offset`` = the stripe's start against the gathered keys, causal and
+    windowed, in the model's layout; ``wgmma_bf16`` in bf16, ``fma`` in
+    float32, against the plain version."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch.mesh import stripe
+
+    start, tq = stripe(t, ranks, rank)
+    kw = dict(causal=True, window=window, q_offset=start)
+    if dtype == torch.bfloat16:
+        _tensor_core_case(cuda_device, 1, 8, 2, tq, t, 128, t + rank, model_layout=True, **kw)
+        return
+    before = fa.variant_launches["fma"]
+    _flash_case(cuda_device, dtype, 1, 8, 2, tq, t, 128, t + rank, **kw)
+    assert fa.variant_launches["fma"] == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 48])
+def test_flash_kernel_gradient_through_a_stripe(cuda_device, dtype, window):
+    """The kernel's autograd at a stripe (the second of two: Tq = 96 of
+    Tk = 192, q_offset 96): the output and every input's gradient against
+    plain autograd, the gradient of the keys and values reaching the
+    positions before the stripe too."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    rng = np.random.default_rng(96 + (window or 0))
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda_device, dtype)
+               .requires_grad_(True) for s in ((2, 4, 96, 64), (2, 2, 192, 64), (2, 2, 192, 64)))
+    grad_out = torch.from_numpy(rng.standard_normal((2, 4, 96, 64)).astype(np.float32)) \
+        .to(cuda_device, dtype)
+    kw = dict(causal=True, window=window, q_offset=96)
+    before = fa.launches
+    out = fa.flash_attention(q, k, v, **kw)
+    got = torch.autograd.grad(out, (q, k, v), grad_out)
+    assert fa.launches == before + 1
+    want_out = flash_attention_ref(q, k, v, **kw)
+    want = torch.autograd.grad(want_out, (q, k, v), grad_out)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(out.float(), want_out.float(), rtol=tol, atol=tol)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and _rel_l2(g, w) <= GRAD_TOL[dtype]
+    assert float(got[1][:, :, :96].float().abs().sum()) > 0  # keys before the stripe
+
+
+@pytest.mark.gpu
+def test_seq_parallel_train_on_card_equals_one_device(cuda_device):
+    """``launch.train --mesh 1x2`` with ``activation_partitioning="seq"``
+    on the card (two gloo ranks sharing it), float32: reduced qwen3-8b and
+    reduced jamba with ``moe_weight_shard="f"`` (the scan on the gathered
+    sequence, ``moe_ffn_fshard`` in the train step), 3 steps' losses and
+    grad norms within 1e-4 of the 1x1 run on the card."""
+    from repro_torch.launch import train as train_mod
+
+    for arch, over in (("reduced:qwen3-8b", {}),
+                       ("reduced:jamba-v0.1-52b", {"moe_weight_shard": "f"})):
+        args = ["--arch", arch, "--steps", "3", "--global-batch", "4", "--seq-len", "64",
+                "--log-every", "100", "--dtype", "float32"]
+        want, got = [], []
+        train_mod.main(args, want, over)
+        train_mod.main([*args, "--mesh", "1x2"], got, {**over, "activation_partitioning": "seq"})
+        assert [h["step"] for h in got] == [1, 2, 3]
+        for key in ("loss", "grad_norm"):
+            np.testing.assert_allclose([h[key] for h in got], [h[key] for h in want],
+                                       rtol=1e-4, err_msg=f"{arch} {key}")
+
+
 # ----------------------------------------------------------------------- meshes
 @pytest.mark.gpu
 def test_sharded_train_on_card_equals_one_device(cuda_device):

@@ -604,12 +604,16 @@ def test_elastic_demo_and_mesh_errors(tmp_path, capsys):
     """The elastic demo crashes on 1x1 and resumes on a 1x2 mesh (two gloo
     ranks it starts itself), as the reference does with two devices; a
     mesh whose size differs from the process group's raises; a
-    sequence-parallel config on a model axis of 2 raises naming item 8e;
-    a malformed mesh raises."""
+    sequence-parallel config on a model axis of 2 builds and steps (on a
+    fake group of 2, on shapes: ``tests/test_torch_seq_parallel.py`` holds
+    its values), its logits this rank's stripe of the positions; a
+    malformed mesh raises."""
     import torch.distributed as dist
+    from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
     from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.specs import batch_specs, sds_tree
     from repro_torch.models.model import Model as TModel
 
     threads = torch.get_num_threads()
@@ -635,9 +639,19 @@ def test_elastic_demo_and_mesh_errors(tmp_path, capsys):
     try:
         cfg = dataclasses.replace(tconfigs.get_reduced_config("qwen3-8b"),
                                   activation_partitioning="seq")
-        with pytest.raises(NotImplementedError, match="item 8e"):
-            TModel(cfg, "cpu", mesh=make_debug_mesh(1, 2))
-        TModel(cfg, "cpu", mesh=make_debug_mesh(2, 1))  # a model axis of 1: as "batch"
+        mesh = make_debug_mesh(1, 2)
+        model = TModel(cfg, "cpu", mesh=mesh)
+        stripe = model.seq_stripe(16)
+        assert (stripe.start, stripe.length, stripe.ranks) == (0, 8, 2)
+        with FakeTensorMode():
+            params = sds_tree(model.init_shapes(), model.param_specs(), mesh)
+            batch = batch_specs(cfg, {"global_batch": 2, "seq_len": 16}, mesh, ("data",))
+            _, _, metrics = make_train_step(model)(params, adamw_init(params), batch)
+            logits, _ = model.forward(params, batch)
+        assert set(metrics) == {"loss", "ce", "aux", "grad_norm", "lr"}
+        assert tuple(logits.shape) == (2, 8, cfg.vocab_size)
+        # a model axis of 1: as "batch"
+        assert TModel(cfg, "cpu", mesh=make_debug_mesh(2, 1)).seq_stripe(16) is None
     finally:
         dist.destroy_process_group()
     assert not dist.is_initialized()
