@@ -320,25 +320,36 @@ Phases:
      one step under ``torch.profiler`` (busy time, idle share), and one
      checkpoint of the state saved and restored (bytes, seconds).
 
-Phase 29 (after phase 24): the mesh path. (a) ``launch.train``
+Phase 29 (after phase 24): the mesh path, tensor-parallel on the model
+axis (each rank's products split as the specs place the weights: its query
+heads, its hidden units, its Mamba channels, its vocabulary columns, the
+row-parallel partials summed over the model axis). (a) ``launch.train``
 at repro-100m on meshes 2x1 and 1x2, two gloo ranks sharing the card, to
 step 5 against phase 24's 1x1 losses (``MESH_LOSS_RTOL``), 10
-``wgmma_bf16`` a step in each rank, each rank's step ms and bytes gathered
-and reduced a step; the 2x1 checkpoint resumed at 1x2 and 1x1 for a step;
-(b) ``launch.serve --mesh 1x2`` of reduced qwen3-8b and reduced jamba with
-``moe_weight_shard="f"``: the 1x1 loop's tokens, ``decode_split`` in each
-rank; (c) in the parent beside them, two dry-run cells at full width on
+``wgmma_bf16`` a step in each rank (on 1x2 a rank's 5 of the 10 heads),
+each rank's step ms and bytes all-gathered, reduce-scattered and
+all-reduced a step; the 2x1 checkpoint resumed at 1x2 and 1x1 for a step;
+(b) ``launch.serve --mesh 1x2`` of reduced qwen3-8b (bf16) and reduced
+jamba with ``moe_weight_shard="f"`` in float32: the 1x1 loop's tokens; of
+reduced jamba in bf16: the 1x1 run scores the mesh's tokens (teacher
+forcing) with the mesh's expert choices, every step's logits within 2e-2
+relative L2 and the same choice at every clear step; ``decode_split`` in each rank; (c) in the parent beside them, two dry-run cells at full width on
 the fake group (qwen3-8b ``train_4k`` 16x16, deepseek-v2-236b
-``decode_32k`` 2x16x16) and the qwen3-8b cell with
-``activation_partitioning="seq"`` (dot FLOPs a shard at most a tenth of
-the batch cell's); (d) ``activation_partitioning="seq"`` at 1x2 in the
-same ranks: repro-100m to step 5 against phase 24's losses (10
-``wgmma_bf16`` a step a rank, each a 128-query stripe against 256 keys),
-reduced jamba in float32 (the scan on the gathered sequence,
-``moe_ffn_fshard`` in the train step) for 3 steps against its 1x1 run on
-the card, the scan's launches counted. Phase 12 gains rows at a stripe's
-shapes (qwen3-8b's ``train_4k`` layer on a model axis of 16: Tq = 256 of
-Tk = 4,096 at q_offset 0 and 3,840). Phase 7's ``cuttana-parallel`` runs
+``decode_32k`` 2x16x16), the qwen3-8b cell on a model axis of 1 (16x1:
+the 16x16 cell's dot FLOPs a shard at most a tenth of it) and the qwen3-8b
+cell with ``activation_partitioning="seq"`` (within 10 % of the batch
+cell's); (d) ``activation_partitioning="seq"`` at 1x2 in the same ranks
+(Megatron's sequence parallelism: each region gathers the stripes and
+reduce-scatters back to them): repro-100m to step 5 against phase 24's
+losses (10 ``wgmma_bf16`` a step a rank, its 5 heads over all 256
+positions), reduced jamba in float32 (the scan on the gathered sequence,
+a rank's channels; ``moe_ffn_fshard`` in the train step) for 3 steps
+against its 1x1 run on the card, the scan's launches counted. Phase 12
+gains rows at a stripe's shapes (qwen3-8b's ``train_4k`` layer on a model
+axis of 16: Tq = 256 of Tk = 4,096 at q_offset 0 and 3,840) and at a
+tensor-parallel rank's heads (the same layer's 2 query heads over 1 KV
+head, T = 4,096); phase 13 a row at a rank's channels (falcon-mamba-7b's
+Di 8,192 over 16: 512 channels, T = 8,192). Phase 7's ``cuttana-parallel`` runs
 on social-s and its CPU parity runs in a child (``--parallel-cpu-child``,
 started before phase 3; phase 18's child now starts before phase 5), and
 phase 21's two children (``--mapped-child`` for (b), ``--mapped-rows-child``
@@ -2382,6 +2393,7 @@ def flash_kernel_checks(torch, np, F, fa, fa_ref, timer, tiny: bool):
     rows += family_flash_rows(torch, np, F, fa, fa_ref, timer, tiny)
     rows += mla_flash_rows(torch, np, F, fa, fa_ref, timer, tiny)
     rows += stripe_flash_rows(torch, np, F, fa, fa_ref, timer, tiny)
+    rows += tp_flash_rows(torch, np, F, fa, fa_ref, timer, tiny)
     if timer.device.type == "cuda":
         torch.cuda.empty_cache()  # the plain version's scores at the prefill shape
     for dtype in (torch.float32, torch.bfloat16):
@@ -2464,6 +2476,24 @@ def stripe_flash_rows(torch, np, F, fa, fa_ref, timer, tiny: bool) -> list:
                       torch.bfloat16, True, None, q_offset, library_causal=True,
                       reps=(3, 1) if tiny else (20, 2))
             for name, tq, tk, q_offset in (STRIPE_FLASH_ROWS_TINY if tiny else STRIPE_FLASH_ROWS)]
+
+
+# phase 12's rows at a tensor-parallel rank's shapes: qwen3-8b's train_4k
+# layer (B=1, T=4,096, Dh 128, bf16) on a model axis of 16, each rank's 2
+# query heads reading 1 KV head (group 2 where the model's is 4): 64 query
+# tiles of 64 rows a head for 132 SMs. name, b, hq, hkv, t, dh
+TP_FLASH_ROWS = (("qwen3_tp16_heads2_t4096", 1, 2, 1, 4096, 128),)
+TP_FLASH_ROWS_TINY = (("qwen3_tp2_heads2_t256", 1, 2, 1, 256, 32),)
+
+
+def tp_flash_rows(torch, np, F, fa, fa_ref, timer, tiny: bool) -> list:
+    """Phase 12's rows at a tensor-parallel rank's shapes (its own query
+    heads over the whole causal sequence), each with its device time,
+    bound, plain time and SDPA's."""
+    return [flash_row(torch, np, F, fa, fa_ref, timer, name, b, hq, hkv, t, t, dh,
+                      torch.bfloat16, True, None, 0, library_causal=True,
+                      reps=(3, 1) if tiny else (20, 2))
+            for name, b, hq, hkv, t, dh in (TP_FLASH_ROWS_TINY if tiny else TP_FLASH_ROWS)]
 
 
 # phase 12's rows at deepseek-v2-236b's MLA pairs: name, b, hq, hkv, tq, tk,
@@ -2584,12 +2614,20 @@ def scan_row(torch, scan, scan_ref, timer, name, bsz, t, d, n, dtype, tol, model
     return row
 
 
+SCAN_TP_RANKS = 16  # the production mesh's model axis
+
+
 def scan_kernel_checks(torch, scan, scan_ref, timer, tiny: bool):
     """Phase 13: the scan kernel at one falcon-mamba-7b layer and at the
     test shapes."""
     t, d = (256, 256) if tiny else (8192, 8192)
     rows = [scan_row(torch, scan, scan_ref, timer, f"falcon_layer_t{t}_d{d}", 1, t, d, 16,
                      torch.float32, SCAN_LAYER_TOL, model_a=True, main=True)]
+    # a tensor-parallel rank's channels: the layer's Di over a model axis of
+    # 16 (2 with --tiny)
+    tp = 2 if tiny else SCAN_TP_RANKS
+    rows.append(scan_row(torch, scan, scan_ref, timer, f"falcon_tp{tp}_t{t}_d{d // tp}", 1, t,
+                         d // tp, 16, torch.float32, SCAN_LAYER_TOL, model_a=True, main=True))
     for dtype in (torch.float32, torch.bfloat16):
         for bsz, t, d, n in ((1, 16, 64, 8), (2, 32, 128, 16), (2, 8, 512, 16)):
             rows.append(scan_row(torch, scan, scan_ref, timer, "test_kernels", bsz, t, d, n,
@@ -3995,7 +4033,22 @@ MESH_RESUME_TO = 6  # the resumed runs take step 6
 # bf16 by the reduce-scatter, so bits differ; 1e-2 relative (the prediction in
 # PERF.md: within 5e-3)
 MESH_LOSS_RTOL = 1e-2
-MESH_SERVE = (("reduced:qwen3-8b", None), ("reduced:jamba-v0.1-52b", "moe_weight_shard=f"))
+# (name, arch, --opt, check): the model axis adds the row-parallel
+# products' partials in another order than one card's product, so bits may
+# differ. "tokens": the 1x1 loop's tokens (qwen3 in bf16, jamba in float32).
+# "forced": reduced jamba in bf16, where a one-ulp gap can flip an expert
+# choice (and move a row's logits by a tenth): the one-card run scores the
+# mesh's tokens (teacher forcing, launch.serve.forced_logits) with the
+# mesh's expert choices (routing()), every step's logits within
+# SERVE_LOGITS_RTOL relative L2 of the mesh's, and the mesh's token the
+# one-card run's choice wherever that is clear (ahead of the second logit
+# by SERVE_MARGIN of its size: 4 bf16 ulps)
+MESH_SERVE = (("qwen3", "reduced:qwen3-8b", None, "tokens"),
+              ("jamba_f32", "reduced:jamba-v0.1-52b", "moe_weight_shard=f,dtype=float32",
+               "tokens"),
+              ("jamba_bf16", "reduced:jamba-v0.1-52b", "moe_weight_shard=f", "forced"))
+SERVE_LOGITS_RTOL = 2e-2  # tests/test_torch_gpu.py's bf16 relative L2
+SERVE_MARGIN = 2.0 ** -5
 MESH_PROMPT, MESH_GEN = 8, 8
 MESH_SERVE_ARGS = ["--batch", "4", "--prompt-len", str(MESH_PROMPT), "--gen", str(MESH_GEN)]
 DRYRUN_CELLS = (("qwen3-8b", "train_4k", False, None), ("deepseek-v2-236b", "decode_32k", True,
@@ -4013,11 +4066,18 @@ SEQ_JAMBA_ARGS = ["--arch", "reduced:jamba-v0.1-52b", "--steps", "3", "--global-
                   "--seq-len", "64", "--log-every", "100", "--dtype", "float32"]
 SEQ_JAMBA_OVER = {"moe_weight_shard": "f"}
 SEQ_JAMBA_RTOL = 1e-4
-# the dry run's seq cell beside the batch cell of DRYRUN_CELLS' first, and
-# the most a shard's dot FLOPs may be of the batch cell's: 16 model ranks
-# split the tokens (1/16 expected), 2 with --tiny (1/2)
-DRYRUN_SEQ_CELL = ("qwen3-8b", "train_4k", False, None, 0.1)
-DRYRUN_SEQ_CELL_TINY = ("reduced:qwen3-8b", "train_4k", False, (2, 2), 0.55)
+# the dry run's cells beside the batch cell of DRYRUN_CELLS' first: the same
+# cell on a model axis of 1 (16x1; 2x1 with --tiny), whose dot FLOPs a shard
+# the batch cell's may be at most TP_MAX_SHARE of (16 model ranks split the
+# products: 1/16 expected; 2 with --tiny: 1/2), and the seq cell, within
+# SEQ_BATCH_RTOL of the batch cell (the model axis splits the products in
+# both modes)
+DRYRUN_TP1_CELL = ("qwen3-8b", "train_4k", False, (16, 1))
+DRYRUN_TP1_CELL_TINY = ("reduced:qwen3-8b", "train_4k", False, (2, 1))
+TP_MAX_SHARE, TP_MAX_SHARE_TINY = 0.1, 0.55
+DRYRUN_SEQ_CELL = ("qwen3-8b", "train_4k", False, None)
+DRYRUN_SEQ_CELL_TINY = ("reduced:qwen3-8b", "train_4k", False, (2, 2))
+SEQ_BATCH_RTOL = 0.1
 
 
 def mesh_train_args(tiny: bool, device) -> list:
@@ -4100,14 +4160,21 @@ def mesh_rank(rank: int, world: int, store: str, work: str, tiny: bool) -> None:
             check("injected failure" in str(err), f"resume at 1x2 raised {err}")
         out["resume_1x2"] = {"history": history, "launches": fa.launches,
                              "variants": dict(fa.variant_launches)}
-        for arch, opt in MESH_SERVE:
+        for name, arch, opt, how in MESH_SERVE:
             fa.reset()
             argv = ["--arch", arch, *MESH_SERVE_ARGS, "--mesh", "1x2", "--device",
                     str(device.type), *(["--opt", opt] if opt else [])]
-            gen, timing = serve_mod.run(serve_mod._parser().parse_args(argv))
-            out["serve"][arch] = {"gen": gen.cpu().tolist(), "timings": timing,
+            model, params, prompts = serve_mod.setup(serve_mod._parser().parse_args(argv))
+            gen, timing = serve_mod.serve(model, params, prompts, MESH_GEN)
+            out["serve"][name] = {"gen": gen.cpu().tolist(), "timings": timing,
                                   "launches": fa.launches,
                                   "variants": dict(fa.variant_launches)}
+            if how == "forced":  # the mesh's own tokens scored, for the check
+                record = out["serve"][name]["routing"] = []
+                with routing(record):
+                    out["serve"][name]["logits"] = serve_mod.forced_logits(
+                        model, params, prompts, gen).tolist()
+            del model, params
     finally:
         with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
             json.dump(out, f)
@@ -4140,20 +4207,29 @@ def mesh_parent_part(counters, device, tiny: bool, t0: float) -> tuple:
             "trace_s", "dot_flops_per_shard", "total_collective_bytes_per_shard",
             "collective_bytes_per_shard", "collective_counts", "model_flops", "memory")})
         log(json.dumps({"phase": 29, "part": "c", **cells[-1]}))
-    arch, shape, multi, mesh_shape, max_share = \
-        DRYRUN_SEQ_CELL_TINY if tiny else DRYRUN_SEQ_CELL
+    keys = ("arch", "shape", "mesh", "status", "chips", "accum", "wall_s", "trace_s",
+            "dot_flops_per_shard", "total_collective_bytes_per_shard",
+            "collective_bytes_per_shard", "collective_counts", "model_flops")
+    arch, shape, multi, mesh_shape = DRYRUN_TP1_CELL_TINY if tiny else DRYRUN_TP1_CELL
+    batch_cell = next(c for c in cells if (c["arch"], c["shape"]) == (arch, shape))
+    res = dryrun.run_cell(arch, shape, multi, peak=False, mesh_shape=mesh_shape)
+    check(res["status"] == "ok", f"dry run {arch} {shape} {res['mesh']}: {res.get('error')}")
+    max_share = TP_MAX_SHARE_TINY if tiny else TP_MAX_SHARE
+    share = batch_cell["dot_flops_per_shard"] / res["dot_flops_per_shard"]
+    check(share <= max_share,
+          f"dry run {arch} {shape}: the {batch_cell['mesh']} cell's dot FLOPs a shard are "
+          f"{share:.4g} of the {res['mesh']} cell's (> {max_share})")
+    cells.append({**{key: res.get(key) for key in keys}, "batch_share_of_this": share})
+    log(json.dumps({"phase": 29, "part": "c", **cells[-1]}))
+    arch, shape, multi, mesh_shape = DRYRUN_SEQ_CELL_TINY if tiny else DRYRUN_SEQ_CELL
     res = dryrun.run_cell(arch, shape, multi, SEQ, peak=False, mesh_shape=mesh_shape)
     check(res["status"] == "ok", f"dry run {arch} {shape} seq: {res.get('error')}")
-    batch_cell = next(c for c in cells if (c["arch"], c["shape"]) == (arch, shape))
-    share = res["dot_flops_per_shard"] / batch_cell["dot_flops_per_shard"]
-    check(share <= max_share,
-          f"dry run {arch} {shape} seq: dot FLOPs a shard {share:.4g} of the batch cell's "
-          f"(> {max_share})")
-    cells.append({**{key: res.get(key) for key in (
-        "arch", "shape", "mesh", "status", "chips", "accum", "wall_s", "trace_s",
-        "dot_flops_per_shard", "total_collective_bytes_per_shard",
-        "collective_bytes_per_shard", "collective_counts", "model_flops")},
-        "overrides": SEQ, "dot_flops_share_of_batch": share})
+    seq_share = res["dot_flops_per_shard"] / batch_cell["dot_flops_per_shard"]
+    check(abs(seq_share - 1) <= SEQ_BATCH_RTOL,
+          f"dry run {arch} {shape} seq: dot FLOPs a shard {seq_share:.4g} of the batch cell's "
+          f"(beyond {SEQ_BATCH_RTOL} relative)")
+    cells.append({**{key: res.get(key) for key in keys}, "overrides": SEQ,
+                  "dot_flops_share_of_batch": seq_share})
     log(json.dumps({"phase": 29, "part": "c", **cells[-1]}))
     cells_s = time.perf_counter() - t0
     # (d)'s jamba baseline: the 1x1 run on the card, beside the ranks
@@ -4163,12 +4239,77 @@ def mesh_parent_part(counters, device, tiny: bool, t0: float) -> tuple:
     jamba_11_launches = {"flash_attention": fa.launches, "selective_scan": scan.launches}
     # the 1x1 serve loops (b)'s tokens are held against
     serve_11 = {}
-    for arch, opt in MESH_SERVE:
-        argv = ["--arch", arch, *MESH_SERVE_ARGS, "--mesh", "1x1", "--device",
-                str(device.type), *(["--opt", opt] if opt else [])]
-        gen, _ = serve_mod.run(serve_mod._parser().parse_args(argv))
-        serve_11[arch] = gen.cpu().tolist()
+    for name, arch, opt, how in MESH_SERVE:
+        if how == "tokens":
+            argv = ["--arch", arch, *MESH_SERVE_ARGS, "--mesh", "1x1", "--device",
+                    str(device.type), *(["--opt", opt] if opt else [])]
+            gen, _ = serve_mod.run(serve_mod._parser().parse_args(argv))
+            serve_11[name] = gen.cpu().tolist()
     return cells, cells_s, jamba_11, jamba_11_launches, serve_11
+
+
+def routing(record: list, replay: bool = False):
+    """A context in which the MoE's expert choices (``layers.top_k``, one
+    entry a routing call) are kept in ``record``, or with ``replay`` taken
+    from it, each token's weights its own probabilities at those experts."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.models import layers
+
+    @contextlib.contextmanager
+    def ctx():
+        saved, calls = layers.top_k, iter(list(record))
+
+        def top_k(probs, k):
+            if replay:
+                idx = torch.tensor(next(calls), device=probs.device)
+                return probs.gather(-1, idx), idx
+            vals, idx = saved(probs, k)
+            record.append(idx.tolist())
+            return vals, idx
+
+        layers.top_k = top_k
+        try:
+            yield
+        finally:
+            layers.top_k = saved
+        check(not replay or next(calls, None) is None, "replayed routing: calls left over")
+
+    return ctx()
+
+
+def serve_forced_check(torch, arch: str, opt, got: dict, device) -> dict:
+    """Phase 29(b)'s bf16 check: the one-card loop (here) scores the mesh's
+    tokens ``got["gen"]`` (teacher forcing) with the mesh's expert choices
+    ``got["routing"]``; every step's logits within ``SERVE_LOGITS_RTOL``
+    relative L2 of the mesh's ``got["logits"]``, and the mesh's token the
+    one-card run's choice at every step where that is clear
+    (``SERVE_MARGIN``). Returns what the record keeps."""
+    from repro_torch.launch import serve as serve_mod
+
+    argv = ["--arch", arch, *MESH_SERVE_ARGS, "--mesh", "1x1", "--device", str(device.type),
+            *(["--opt", opt] if opt else [])]
+    tokens = torch.tensor(got["gen"])
+    with routing(got["routing"], replay=True):
+        want = serve_mod.forced_logits(*serve_mod.setup(serve_mod._parser().parse_args(argv)),
+                                       tokens).double()
+    mesh = torch.tensor(got["logits"]).double()
+    check(mesh.shape == want.shape, f"serve {arch} ({opt}): logits {tuple(mesh.shape)} against "
+                                    f"{tuple(want.shape)}")
+    rel = max(float((m - w).norm() / w.norm()) for m, w in zip(mesh, want))
+    check(rel <= SERVE_LOGITS_RTOL, f"serve {arch} ({opt}) at 1x2: a step's logits {rel:.3g} "
+                                    f"relative L2 off the 1x1 run's")
+    top2 = want.topk(2, -1).values
+    clear = top2[..., 0] - top2[..., 1] > SERVE_MARGIN * top2[..., 0].abs().clamp(min=1)
+    agree = want.argmax(-1) == tokens.t()
+    check(bool(clear.any()) and bool(agree[clear].all()),
+          f"serve {arch} ({opt}) at 1x2: {int((~agree & clear).sum())} clear steps where the "
+          f"mesh's token is not the 1x1 run's choice")
+    return {"worst_step_logits_rel_l2": rel, "routing_calls": len(got["routing"]),
+            "clear_steps": int(clear.sum()),
+            "steps": clear.numel(), "tokens_equal_1x1_choice": int(agree.sum())}
 
 
 def mesh_phase(torch, np, counters, device, tiny: bool, ident: str, train_rec: dict) -> dict:
@@ -4178,19 +4319,23 @@ def mesh_phase(torch, np, counters, device, tiny: bool, ident: str, train_rec: d
     step in each rank, each rank's step ms and bytes gathered and reduced a
     step; the 2x1 checkpoint of step 5 resumed at 1x1 (here) and at 1x2
     for a step. (b) ``launch.serve --mesh 1x2`` of reduced qwen3-8b and of
-    reduced jamba with ``moe_weight_shard="f"`` (``moe_ffn_fshard``): the
-    1x1 loop's tokens, ``decode_split`` in each rank. (c) beside (a) and
+    reduced jamba with ``moe_weight_shard="f"`` (``moe_ffn_fshard``; in
+    float32 and in bf16): the 1x1 loop's tokens, in bf16 jamba's the
+    teacher-forced check (``serve_forced_check``); ``decode_split`` in each
+    rank. (c) beside (a) and
     (b): two dry-run cells at full width on the fake group, qwen3-8b
     ``train_4k`` on 16x16 and deepseek-v2-236b ``decode_32k`` on 2x16x16,
-    ``status: ok`` and the analytic MODEL_FLOPS the port's own; and the
-    qwen3-8b cell with ``activation_partitioning="seq"``, its dot FLOPs a
-    shard at most a tenth of the batch cell's. (d)
+    ``status: ok`` and the analytic MODEL_FLOPS the port's own; the
+    qwen3-8b cell on a model axis of 1 (16x1), of whose dot FLOPs a shard
+    the 16x16 cell's are at most a tenth; and the qwen3-8b cell with
+    ``activation_partitioning="seq"``, within 10 % of the batch cell's. (d)
     ``activation_partitioning="seq"`` at 1x2 in the same ranks: repro-100m
     to step 5 against phase 24's losses, 10 ``wgmma_bf16`` a step in each
-    rank at Tq = 128 against Tk = 256 (q_offset 0 and 128), each rank's
-    bytes a step; reduced jamba in float32 (the scan on the gathered
-    sequence, ``moe_ffn_fshard`` in the train step) for 3 steps against its
-    1x1 run on the card here, the scan's launches counted."""
+    rank on its 5 heads over all 256 positions, each rank's bytes a step;
+    reduced jamba in float32 (the scan on the gathered sequence, a rank's
+    channels; ``moe_ffn_fshard`` in the train step) for 3 steps against its
+    1x1 run on the card here, the scan's launches counted. The model axis
+    splits every product in (a), (b) and (d)."""
     import shutil
     import tempfile
 
@@ -4324,24 +4469,29 @@ def mesh_phase(torch, np, counters, device, tiny: bool, ident: str, train_rec: d
     log(json.dumps({"phase": 29, "part": "d", "arch": SEQ_JAMBA_ARGS[1], **SEQ_JAMBA_OVER,
                     **SEQ, **seq_jamba}))
     serve = {}
-    for arch, opt in MESH_SERVE:
+    for name, arch, opt, how in MESH_SERVE:
         scfg = train_mod.get_model_config(arch)
         expect = sum(s.mixer == "attn" for s in scfg.layers()) * (MESH_PROMPT + MESH_GEN - 1)
+        forced = serve_forced_check(torch, arch, opt, ranks[0]["serve"][name], device) \
+            if how == "forced" else {}
         for r, rank in enumerate(ranks):
-            got = rank["serve"][arch]
-            check(got["gen"] == serve_11[arch],
-                  f"serve {arch} ({opt}) at 1x2, rank {r}: tokens differ from the 1x1 loop's")
+            got = rank["serve"][name]
+            check(got["gen"] == (serve_11[name] if how == "tokens" else ranks[0]["serve"][name][
+                "gen"]), f"serve {name} ({opt}) at 1x2, rank {r}: tokens differ from "
+                         f"{'the 1x1 loop' if how == 'tokens' else 'rank 0'}'s")
             if on_card:
                 check(got["variants"]["decode_split"] == expect,
-                      f"serve {arch} rank {r}: {got['variants']['decode_split']} decode_split "
+                      f"serve {name} rank {r}: {got['variants']['decode_split']} decode_split "
                       f"launches, expected {expect}")
             mesh_launches += got["launches"]
-        serve[arch] = {"opt": opt, "tokens_equal_1x1": True,
-                       "decode_split_per_rank": [rk["serve"][arch]["variants"]["decode_split"]
+        serve[name] = {"arch": arch, "opt": opt, "check": how, **forced,
+                       "decode_split_per_rank": [rk["serve"][name]["variants"]["decode_split"]
                                                  for rk in ranks],
-                       "decode_tok_per_s_rank0": ranks[0]["serve"][arch]["timings"][
+                       "decode_tok_per_s_rank0": ranks[0]["serve"][name]["timings"][
                            "decode_tok_per_s"]}
-        log(json.dumps({"phase": 29, "part": "b", "arch": arch, **serve[arch]}))
+        if how == "tokens":
+            serve[name]["tokens_equal_1x1"] = True
+        log(json.dumps({"phase": 29, "part": "b", "name": name, **serve[name]}))
     record.update(train=train, resume=resume, serve=serve, cells=cells, seq=seq,
                   seq_jamba=seq_jamba, cells_seconds=cells_s, ranks_seconds=ranks_s,
                   launches=mesh_launches, scan_launches=scan_launches)
@@ -5191,6 +5341,11 @@ def main() -> int:
                     "library_ms", "bound_ms", "bound_by", "keys_read", "tflops",
                     "max_abs_err", "max_row_rel_l2")} for r in flash_shapes
                     if "stripe" in r["shape"]],
+                # and at a tensor-parallel rank's heads (phase 29's path)
+                tp_rows=[{key: r.get(key) for key in (
+                    "shape", "variant", "hq", "hkv", "tq", "tk", "ms", "call_ms", "plain_ms",
+                    "library_ms", "bound_ms", "bound_by", "tflops", "max_abs_err",
+                    "max_row_rel_l2")} for r in flash_shapes if "_tp" in r["shape"]],
                 tflops=flash_shapes[0]["tflops"], variant_launches=flash_variants,
                 # phase 24: the training path (the driver's three runs and
                 # the elastic demo) and the gradient rows
@@ -5252,9 +5407,14 @@ def main() -> int:
                 TPU_KERNEL_SCAN, SCAN_SOURCE, variant=scan_shapes[0]["variant"],
                 exp_bound_share=scan_shapes[0]["exp_bound_share"],
                 moe_family_launches=moe_rec["launches"]["selective_scan"],
-                # phase 29(d): both ranks' scans of the gathered sequence (in
-                # ``launches`` too)
+                # phase 29(d): both ranks' scans of the gathered sequence on
+                # their channels (in ``launches`` too), and phase 13's row at
+                # a tensor-parallel rank's channels
                 mesh_launches=mesh_rec["scan_launches"],
+                tp_row={key: r.get(key) for r in scan_shapes if "_tp" in r["shape"]
+                        for key in ("shape", "d", "t", "ms", "call_ms", "plain_ms",
+                                    "library_ms", "bound_ms", "bound_by", "exp_bound_share",
+                                    "max_abs_err")},
                 grad_rows=[r for r in train_rec["grad_rows"] if "n" in r]),
     ]}))
     if args.tiny:

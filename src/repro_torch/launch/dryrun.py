@@ -27,13 +27,18 @@ versions, except the selective scan, whose plain version loops over time:
 a cell runs it as a shape-only stand-in (elementwise, no dot
 counted, as the reference's HLO counts no dots for its Pallas scan).
 
-``--opt activation_partitioning=seq`` lowers the sequence-parallel mode:
-each rank runs its stripe of the positions (rank 0's, the first 1/16 on
-16x16), so its dot FLOPs are about the batch cell's over the model axis,
-its attention counts the stripe's ``Tq x T`` scores, and its collectives
-gain the K/V (MLA: latent) and Mamba/MoE input gathers and their
-reduce-scatters; ``pick_accum`` divides the activation footprint by the
-model axis, as the reference's does.
+On a model axis above 1 each rank's products are its tensor-parallel
+share (``Model``'s column- and row-parallel regions): its query heads, its
+hidden units, its Mamba channels, its vocabulary columns, so a 16x16
+cell's dot FLOPs a shard are about a sixteenth of the 16x1 cell's (the
+``"d"`` MoE's expert products excepted: every model rank runs its data
+shard's ``E x cap`` rows, as the reference's do), and its collectives gain
+the row-parallel products' all-reduces. ``--opt
+activation_partitioning=seq`` lowers the sequence-parallel mode (each
+region gathers the stripes and reduce-scatters back to them): its dot
+FLOPs are the batch cell's, its collectives the stripes' gathers and
+reduce-scatters in place of the all-reduces; ``pick_accum`` divides the
+activation footprint by the model axis, as the reference's does.
 
 Unlike the reference (which sets ``XLA_FLAGS`` at import), importing this
 module changes nothing: ``run_cell`` creates the fake group, and destroys

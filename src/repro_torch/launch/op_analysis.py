@@ -31,12 +31,13 @@ others being the same ops on the same shapes.
 The counts are per shard: what this rank runs. The kernels cannot launch on
 fake tensors, so a dry run counts the plain versions' products (the
 attention's score and value products among them, as the reference's HLO
-counts its attention dots): under sequence parallelism a rank's stripe of
-``Tq`` queries against the ``Tk`` gathered keys counts ``Tq x Tk`` scores,
-the masked ones included, as the reference's dense ``_sdpa`` does. The
-stripes' gathers and their gradients' reduce-scatters are DTensor
-collectives like the weights', counted the same way (``launch/mesh.py`` is
-plumbing: the source named is the model code that asked).
+counts its attention dots): a rank's query heads against all the keys
+count ``Tq x Tk`` scores each, the masked ones included, as the
+reference's dense ``_sdpa`` does. The model axis's collectives
+(``launch.mesh.ModelAxis``: the row-parallel all-reduces, the stripes'
+gathers and reduce-scatters, the K/V gathers) are functional collectives
+like DTensor's, counted the same way (``launch/mesh.py`` is plumbing: the
+source named is the model code that asked).
 """
 from __future__ import annotations
 

@@ -14,7 +14,9 @@ one card (deepseek-v2-236b: its dense prefix layer and one MoE block of the
 ``--mesh DxM`` (or ``PxDxM``) serves on a device mesh, as the reference's
 launcher does: the parameters and the decode caches are DTensors placed by
 ``Model.param_specs``/``cache_specs``, the batch split over the data axes;
-each step gathers a layer's weights and its cache stripes, and an MoE with
+each step gathers a layer's weights over the data axes (on a model axis
+above 1 each rank keeps its chunks and runs its own heads and channels)
+and its cache stripes, and an MoE with
 ``moe_weight_shard="f"`` (``--opt moe_weight_shard=f``) runs
 ``moe_ffn_fshard`` with its expert weights where they lie. The ranks start
 as ``launch.ranks`` says (spawned, or under ``torchrun``); the tokens come
@@ -63,6 +65,29 @@ def prefill_into_cache(model: Model, params: dict, cache: list, tokens: torch.Te
     return logits, cache
 
 
+def _placed(model: Model, prompts: torch.Tensor, length: int):
+    """``(cache, prompts, wrap, rows)`` for a loop over ``length``
+    positions: the cache (this rank's shards on a mesh), this rank's rows of
+    ``prompts`` [B, T], what makes this rank's rows ``[B_r, n]`` of a step's
+    tokens or ids the batch's DTensor, and the rows' placements (``None``
+    and ``None`` on one device)."""
+    b, plen = prompts.shape
+    cache = model.init_cache(b, length)
+    if model.mesh is None:
+        return cache, prompts, None, None
+    from torch.distributed.tensor import DTensor
+
+    mesh = model.mesh
+    cache = shard_tree(cache, model.cache_specs(), mesh)
+    rows = placements(sanitize_spec((b, plen), P(model.ax.dp, None), mesh), mesh)
+
+    def wrap(t):  # this rank's rows as the batch's DTensor
+        return DTensor.from_local(t.to(mesh.device_type), mesh, rows, run_check=False,
+                                  shape=(b, t.shape[1]), stride=contiguous_stride((b, t.shape[1])))
+
+    return cache, local_slice(prompts, rows, mesh), wrap, rows
+
+
 def serve(model: Model, params: dict, prompts: torch.Tensor, gen: int):
     """Prefill ``prompts`` [B, T] and generate ``gen`` tokens greedily
     (argmax, the first maximum on ties, as ``jnp.argmax``). Returns the
@@ -72,20 +97,7 @@ def serve(model: Model, params: dict, prompts: torch.Tensor, gen: int):
     DTensors, ``prompts`` the whole batch (on every rank), and every rank
     gets every row's ids back."""
     b, plen = prompts.shape
-    cache = model.init_cache(b, plen + gen)
-    rows, wrap = None, None
-    if model.mesh is not None:
-        from torch.distributed.tensor import DTensor
-
-        mesh = model.mesh
-        cache = shard_tree(cache, model.cache_specs(), mesh)
-        rows = placements(sanitize_spec((b, plen), P(model.ax.dp, None), mesh), mesh)
-        prompts = local_slice(prompts, rows, mesh)
-
-        def wrap(t):  # this rank's rows as the batch's DTensor
-            return DTensor.from_local(t.to(mesh.device_type), mesh, rows, run_check=False,
-                                      shape=(b, t.shape[1]),
-                                      stride=contiguous_stride((b, t.shape[1])))
+    cache, prompts, wrap, _ = _placed(model, prompts, plen + gen)
     t0 = time.perf_counter()
     logits, cache = prefill_into_cache(model, params, cache, prompts, wrap)
     tok = logits[:, -1].argmax(-1)[:, None]
@@ -105,9 +117,41 @@ def serve(model: Model, params: dict, prompts: torch.Tensor, gen: int):
         "decode_tok_per_s": b * (gen - 1) / t_decode if gen > 1 else None,
     }
     ids = torch.cat(out, dim=1)
-    if rows is not None:
+    if wrap is not None:
         ids = wrap(ids).full_tensor().to(model.device)
     return ids, timings
+
+
+def forced_logits(model: Model, params: dict, prompts: torch.Tensor,
+                  forced: torch.Tensor) -> torch.Tensor:
+    """Teacher forcing: prefill ``prompts`` [B, T], then feed ``forced``
+    [B, gen] (the whole batch) one token a step in place of the greedy
+    choice. Returns every step's logits ``[gen, B, V]`` in float32 on the
+    host: the prefill's last and the ``gen - 1`` decode steps', every row on
+    every rank of a mesh. Two runs that score the same tokens can be held
+    against each other step by step, where their greedy loops part after a
+    near tie."""
+    b, plen = prompts.shape
+    gen = forced.shape[1]
+    cache, prompts, wrap, rows = _placed(model, prompts, plen + gen)
+    if rows is not None:
+        forced = local_slice(forced, rows, model.mesh)
+    ids = torch.cat([prompts, forced.to(prompts.device)], 1)
+    out = []
+    for pos in range(plen + gen - 1):
+        tok = ids[:, pos:pos + 1]
+        logits, cache = model.decode_step(params, cache, wrap(tok) if wrap else tok, pos)
+        if pos >= plen - 1:
+            out.append(logits[:, -1].float())
+    steps = torch.stack(out, 1)  # [B_r, gen, V]
+    if rows is not None:
+        from torch.distributed.tensor import DTensor
+
+        steps = DTensor.from_local(steps.to(model.mesh.device_type), model.mesh, rows,
+                                   run_check=False,
+                                   shape=(b, *steps.shape[1:]),
+                                   stride=contiguous_stride((b, *steps.shape[1:]))).full_tensor()
+    return steps.transpose(0, 1).cpu()
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -139,6 +183,14 @@ def _config(args):
 def run(args) -> tuple[torch.Tensor, dict]:
     """Serve as ``args`` say in this process (the one device, or one rank
     of the mesh's process group): ``(ids [B, gen], timings)``."""
+    return serve(*setup(args), args.gen)
+
+
+def setup(args) -> tuple[Model, dict, torch.Tensor]:
+    """``(model, params, prompts)`` as ``args`` say, in this process (the
+    one device, or one rank of the mesh's process group: ``params`` its
+    shards, ``prompts`` the whole batch): the random parameters of seed 0
+    and prompts of seed 0."""
     import torch.distributed as dist
 
     cfg = _config(args)
@@ -159,7 +211,7 @@ def run(args) -> tuple[torch.Tensor, dict]:
     params = model.init(torch.Generator(device=model.device).manual_seed(0))
     if mesh is not None:
         params = shard_tree(params, model.param_specs(), mesh)
-    return serve(model, params, prompts, args.gen)
+    return model, params, prompts
 
 
 def _serve_rank(argv: list, out: dict) -> None:

@@ -23,17 +23,23 @@ columns a head, one launch a layer), the decode step in the absorbed form
 576 key columns of which the first 512 are the value, one launch over the
 latent cache).
 
-Sequence-parallel (``stripe``, ``activation_partitioning="seq"`` on a model
-axis larger than 1): ``x`` is the rank's stripe of the positions. Queries
-stay local, RoPE'd at the stripe's positions; the keys and values (after
-qk-norm and RoPE) are all-gathered over the model axis, and one launch runs
-the stripe's rows against the whole sequence at ``q_offset`` = the
-stripe's start (causal and windowed masks at absolute positions). MLA
-gathers its latent (``c_kv`` and the RoPE'd ``k_pe``, 576 values a token at
-full width) and expands it on every rank, where gathering the expanded keys
-and values would move 128 heads x 320 values a token: the same values, 71x
-fewer bytes. Cross-attention's keys and values come from the image
-embeddings, which are not split: the stripe's queries attend to them all.
+Tensor-parallel (``tp``, a ``launch.mesh.ModelAxis``; a model axis above 1
+under ``"batch"`` and ``"seq"`` alike): a layer is one region, its input
+entering whole over the sequence and its output leaving through the
+model axis's sum (``ModelAxis.enter``/``exit``). Where the specs split its
+weights over the axis, ``wq`` (MLA: ``wq_b``/``wq`` and ``wkv_b``) is
+this rank's column chunk, read as its own query heads (:func:`own_heads`:
+the chunk itself where it is whole heads, else the heads the chunk overlaps,
+cut from the product all-gathered over the axis), one launch runs those
+heads, and ``wo``'s row chunk takes their output (:func:`own_cols`) to a
+partial sum. ``wk``/``wv`` chunks need not be whole KV heads (repro-100m's
+5 x 64 columns over 2 ranks, 2 KV heads over 4): a rank whose chunk is not
+exactly the KV heads its query heads read all-gathers its chunk of K and V
+over the axis (``Hkv * Dh`` columns, the reference's "cheap to all-gather")
+and takes those heads; the launch's GQA group is its query heads over its
+KV heads, which can differ from the model's (:func:`_launch_kv`). MLA's
+latent (``wkv_a``, ``wq_a``, replicated) is computed whole on every rank,
+as the reference does. Cross-attention's gate applies after the sum.
 
 ``init_attention`` and ``specs_attention`` give a layer's parameters and
 their sharding specs (the GQA, cross and MLA variants).
@@ -43,8 +49,15 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.launch.mesh import P, Stripe
-from repro_torch.models.layers import Axes, Init, apply_rope, qk_head_norm, rms_norm
+from repro_torch.launch.mesh import ModelAxis, P
+from repro_torch.models.layers import (
+    Axes,
+    Init,
+    apply_rope,
+    qk_head_norm,
+    rms_norm,
+    row_product,
+)
 
 
 def init_attention(init: Init, cfg, dtype: torch.dtype, cross: bool = False) -> dict:
@@ -114,36 +127,104 @@ def _gated(y: torch.Tensor, p: dict) -> torch.Tensor:
     return torch.tanh(p["gate"].float()).to(y.dtype) * y
 
 
+def _head_span(cols: int, width: int, tp) -> tuple[int, int, int]:
+    """``(h0, h1, offset)``: the heads ``h0 .. h1 - 1`` that this rank's
+    column chunk (``cols`` of a product ``width`` columns a head, chunk
+    ``tp.rank``) overlaps, and where the chunk starts in their columns."""
+    c0 = tp.rank * cols
+    h0 = c0 // width
+    return h0, -(-(c0 + cols) // width), c0 - h0 * width
+
+
+def own_heads(y: torch.Tensor, width: int, tp) -> tuple[torch.Tensor, int]:
+    """This rank's heads of a column-parallel product ``y`` ``[..., cols]``
+    (its chunk of ``n_heads * width`` columns): ``([..., nh, width], h0)``,
+    the chunk itself where it is whole heads, else the heads it overlaps,
+    cut from ``y`` all-gathered over the model axis (backward: the summed
+    gradient reduce-scattered)."""
+    cols = y.shape[-1]
+    h0, h1, off = _head_span(cols, width, tp)
+    if off == 0 and cols % width == 0:
+        return y.unflatten(-1, (cols // width, width)), h0
+    whole = tp.gather(y, -1)
+    return whole[..., h0 * width:h1 * width].unflatten(-1, (h1 - h0, width)), h0
+
+
+def own_cols(out: torch.Tensor, h0: int, width: int, cols: int, tp) -> torch.Tensor:
+    """This rank's column chunk (``cols`` wide, the rows of its ``wo``
+    chunk) of ``out`` ``[..., nh * width]``, computed for heads from
+    ``h0``."""
+    off = tp.rank * cols - h0 * width
+    return out if off == 0 and out.shape[-1] == cols else out[..., off:off + cols]
+
+
+def _kv_heads(k: torch.Tensor, v: torch.Tensor, kv0: int, kv1: int, dh: int, hkv: int, tp):
+    """KV heads ``kv0 .. kv1 - 1`` ``[..., nkv, Dh]`` of this rank's ``k``
+    and ``v`` products (its column chunks where the specs split ``wk`` and
+    ``wv``, else whole): the chunks themselves where they are exactly those
+    heads, else cut from K and V all-gathered over the model axis (one
+    collective)."""
+    ck = k.shape[-1]
+    if ck < hkv * dh:
+        if tp.rank * ck == kv0 * dh and ck == (kv1 - kv0) * dh:
+            return k.unflatten(-1, (kv1 - kv0, dh)), v.unflatten(-1, (kv1 - kv0, dh))
+        kv = tp.gather(torch.cat([k, v], -1), -1).unflatten(-1, (tp.size, 2, ck))
+        k, v = kv[..., 0, :].flatten(-2), kv[..., 1, :].flatten(-2)
+    return (k[..., kv0 * dh:kv1 * dh].unflatten(-1, (kv1 - kv0, dh)),
+            v[..., kv0 * dh:kv1 * dh].unflatten(-1, (kv1 - kv0, dh)))
+
+
+def _launch_kv(k: torch.Tensor, v: torch.Tensor, h0: int, nq: int, g: int, kv0: int,
+               head_dim: int = 2):
+    """K and V for one launch of query heads ``h0 .. h0 + nq - 1`` (the
+    model's group ``g``) over KV heads from ``kv0`` (along ``head_dim``):
+    as they are where the kernel's own grouping (query head ``i`` reads KV
+    head ``i // (nq / nkv)``) reads the right heads, else one KV head per
+    query head (group 1)."""
+    nkv = k.shape[head_dim]
+    want = [(h0 + i) // g - kv0 for i in range(nq)]
+    if nq % nkv == 0 and want == [i // (nq // nkv) for i in range(nq)]:
+        return k, v
+    idx = torch.tensor(want, device=k.device)
+    return k.index_select(head_dim, idx), v.index_select(head_dim, idx)
+
+
 def gqa_forward(x: torch.Tensor, p: dict, cfg, window: int | None, kv_x=None,
-                causal: bool | None = None, stripe: Stripe | None = None):
-    """Full-sequence attention (prefill). x: [B, T, D], or this rank's stripe
-    ``[B, T_r, D]`` of the positions with ``stripe``; ``kv_x`` [B, S, D]
-    the cross-attention source (cast to ``x``'s dtype: the kernel takes one
-    dtype). Returns ``(y [B, T, D] (T_r with a stripe), (k, v))`` with k, v
-    ``[B, S, Hkv, Dh]`` over the whole sequence."""
-    b, t, _ = x.shape
+                causal: bool | None = None, tp: ModelAxis = ModelAxis()):
+    """Full-sequence attention (prefill). x: [B, T, D] (under ``"seq"``,
+    this rank's stripe); ``kv_x`` [B, S, D] the cross-attention source
+    (cast to ``x``'s dtype: the kernel takes one dtype). Returns ``(y [B, T,
+    D], (k, v))`` with k, v ``[B, S, Hkv, Dh]`` over the whole sequence
+    (where ``tp.split``, the KV heads this rank read)."""
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    x = tp.enter(x)
+    b, t, _ = x.shape
     src = x if kv_x is None else kv_x.to(x.dtype)
     s = src.shape[1]
-    q = (x @ p["wq"]).reshape(b, t, h, dh)
-    k = (src @ p["wk"]).reshape(b, s, hkv, dh)
-    v = (src @ p["wv"]).reshape(b, s, hkv, dh)
+    q, k, v = x @ p["wq"], src @ p["wk"], src @ p["wv"]
+    h0, kv0 = 0, 0
+    if tp.split:
+        q, h0 = own_heads(q, dh, tp)
+        kv0 = h0 // (h // hkv)
+        k, v = _kv_heads(k, v, kv0, (h0 + q.shape[2] - 1) // (h // hkv) + 1, dh, hkv, tp)
+    else:
+        q, k, v = q.reshape(b, t, h, dh), k.reshape(b, s, hkv, dh), v.reshape(b, s, hkv, dh)
     if cfg.qk_norm:  # before RoPE, as qwen3 does
         q = qk_head_norm(q, p["q_scale"])
         k = qk_head_norm(k, p["k_scale"])
-    start = 0
     if kv_x is None:  # self-attention gets RoPE
-        start = stripe.start if stripe is not None else 0
-        pos = torch.arange(start, start + t, device=x.device)
+        pos = torch.arange(t, device=x.device)
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
-        if stripe is not None:  # the whole sequence's keys and values, one gather
-            kv = stripe.gather(torch.cat([k, v], -1))
-            k, v = kv[..., :dh], kv[..., dh:]
+    nq = q.shape[2]
+    kl, vl = _launch_kv(k, v, h0, nq, h // hkv, kv0) if tp.split else (k, v)
     is_causal = (cfg.causal if causal is None else causal) and kv_x is None
-    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                          causal=is_causal, window=window, q_offset=start)
-    y = out.transpose(1, 2).reshape(b, t, h * dh) @ p["wo"]
+    out = flash_attention(q.transpose(1, 2), kl.transpose(1, 2), vl.transpose(1, 2),
+                          causal=is_causal, window=window)
+    y = out.transpose(1, 2).reshape(b, t, nq * dh)
+    if tp.split:
+        y = own_cols(y, h0, dh, p["wo"].shape[0], tp)
+    y = tp.exit(row_product(y, p["wo"], tp.split)).to(x.dtype)
     if kv_x is not None:
         y = _gated(y, p)
     return y, (k, v)
@@ -161,31 +242,51 @@ def gqa_flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
 
 
 def gqa_cross_decode(h: torch.Tensor, p: dict, cfg, k_img: torch.Tensor,
-                     v_img: torch.Tensor) -> torch.Tensor:
+                     v_img: torch.Tensor, tp: ModelAxis = ModelAxis()) -> torch.Tensor:
     """One decode step of a cross-attention layer (the reference's
     ``_plain_cross_decode``): the query of ``h`` [B, 1, D] (qk-norm, no
     RoPE) over every cached image key ``[B, N, Hkv, Dh]``, one bidirectional
-    launch, then ``wo`` and the gate. Returns ``y`` [B, 1, D]."""
+    launch, then ``wo`` and the gate. Where ``tp.split``, this rank's query
+    heads over the KV heads they read, ``wo``'s row chunk and the sum.
+    Returns ``y`` [B, 1, D]."""
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    h = tp.enter(h)
     b = h.shape[0]
-    hq, dh = cfg.n_heads, cfg.head_dim
-    q = (h @ p["wq"]).reshape(b, 1, hq, dh)
+    q = h @ p["wq"]
+    h0 = 0
+    if tp.split:
+        q, h0 = own_heads(q, dh, tp)
+        g = hq // hkv
+        kv0, kv1 = h0 // g, (h0 + q.shape[2] - 1) // g + 1
+        k_img, v_img = _launch_kv(k_img[:, :, kv0:kv1], v_img[:, :, kv0:kv1], h0, q.shape[2],
+                                  g, kv0)
+    else:
+        q = q.reshape(b, 1, hq, dh)
     if cfg.qk_norm:
         q = qk_head_norm(q, p["q_scale"])
     out = flash_attention(q.transpose(1, 2), k_img.transpose(1, 2), v_img.transpose(1, 2),
                           causal=False)
-    return _gated(out.transpose(1, 2).reshape(b, 1, hq * dh) @ p["wo"], p)
+    y = out.transpose(1, 2).reshape(b, 1, q.shape[2] * dh)
+    if tp.split:
+        y = own_cols(y, h0, dh, p["wo"].shape[0], tp)
+    return _gated(tp.exit(row_product(y, p["wo"], tp.split)).to(h.dtype), p)
 
 
 # ----------------------------------------------------------------- MLA paths
-def mla_q(x: torch.Tensor, p: dict, cfg, pos: torch.Tensor) -> torch.Tensor:
-    """MLA's query ``[B, T, H, nope + rope]``, its rope part RoPE'd at ``pos``."""
+def mla_q(x: torch.Tensor, p: dict, cfg, pos: torch.Tensor,
+          tp: ModelAxis = ModelAxis()) -> torch.Tensor:
+    """MLA's query ``[B, T, H, nope + rope]``, its rope part RoPE'd at ``pos``;
+    where ``tp.split`` (``wq_b``/``wq`` split) this rank's heads
+    (:func:`own_heads`)."""
     b, t, _ = x.shape
     nope, rope_d = cfg.qk_nope_dim, cfg.qk_rope_dim
     if cfg.q_lora_rank:
         qa = rms_norm(x @ p["wq_a"], {"scale": p["q_norm"]})
-        q = (qa @ p["wq_b"]).reshape(b, t, cfg.n_heads, nope + rope_d)
+        q = qa @ p["wq_b"]
     else:
-        q = (x @ p["wq"]).reshape(b, t, cfg.n_heads, nope + rope_d)
+        q = x @ p["wq"]
+    q = own_heads(q, nope + rope_d, tp)[0] if tp.split \
+        else q.reshape(b, t, cfg.n_heads, nope + rope_d)
     q_nope, q_pe = q[..., :nope], q[..., nope:]
     return torch.cat([q_nope, apply_rope(q_pe, pos, cfg.rope_theta)], -1)
 
@@ -200,13 +301,17 @@ def mla_latent(x: torch.Tensor, p: dict, cfg, pos: torch.Tensor):
     return c_kv, k_pe
 
 
-def mla_kv(c_kv: torch.Tensor, k_pe: torch.Tensor, p: dict, cfg):
+def mla_kv(c_kv: torch.Tensor, k_pe: torch.Tensor, p: dict, cfg, tp: ModelAxis = ModelAxis()):
     """The expanded key ``[B, T, H, nope + rope]`` (the rope part broadcast
     over the heads) and value ``[B, T, H, v_head_dim]`` (a view of the
-    ``wkv_b`` product, no copy) of the latent."""
+    ``wkv_b`` product, no copy) of the latent; where ``tp.split``
+    (``wkv_b`` split) this rank's heads."""
     b, t, _ = c_kv.shape
-    h, nope, rope_d = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
-    kv = (c_kv @ p["wkv_b"]).reshape(b, t, h, nope + cfg.v_head_dim)
+    nope, rope_d = cfg.qk_nope_dim, cfg.qk_rope_dim
+    kv = c_kv @ p["wkv_b"]
+    kv = own_heads(kv, nope + cfg.v_head_dim, tp)[0] if tp.split \
+        else kv.reshape(b, t, cfg.n_heads, nope + cfg.v_head_dim)
+    h = kv.shape[2]
     k_nope, v = kv[..., :nope], kv[..., nope:]
     k = torch.cat([k_nope, k_pe[:, :, None].expand(b, t, h, rope_d)], -1)
     return k, v
@@ -224,30 +329,27 @@ def mla_qkv(x: torch.Tensor, p: dict, cfg):
 
 
 def mla_forward(x: torch.Tensor, p: dict, cfg, window: int | None = None,
-                stripe: Stripe | None = None):
+                tp: ModelAxis = ModelAxis()):
     """Full-sequence MLA (prefill): one launch at (Dqk, Dv) = (nope + rope,
     v_head_dim), scaled by (nope + rope)^-0.5 as the reference's ``_sdpa``
     scales by its query's width. The reference switches to ``_chunked_sdpa``
-    from 8,192 tokens; the kernel covers both. With ``stripe``, ``x`` is the
-    rank's stripe of the positions and the latent is gathered whole before
-    it is expanded. Returns ``(y [B, T, D] (T_r with a stripe), (c_kv,
-    k_pe))``, the latent over the whole sequence."""
+    from 8,192 tokens; the kernel covers both. Where ``tp.split`` (``wkv_b``
+    split), the latent is computed whole on every rank and the launch runs
+    this rank's heads (H / n of them where n divides H). Returns ``(y
+    [B, T, D], (c_kv, k_pe))``, the latent over the whole sequence."""
+    vd = cfg.v_head_dim
+    x = tp.enter(x)
     b, t, _ = x.shape
-    if stripe is None:
-        q, k, v, c_kv, k_pe = mla_qkv(x, p, cfg)
-    else:
-        pos = torch.arange(stripe.start, stripe.start + t, device=x.device)
-        c_kv, k_pe = mla_latent(x, p, cfg, pos)
-        r = c_kv.shape[-1]
-        latent = stripe.gather(torch.cat([c_kv, k_pe], -1))
-        c_kv, k_pe = latent[..., :r], latent[..., r:]
-        k, v = mla_kv(c_kv, k_pe, p, cfg)
-        q = mla_q(x, p, cfg, pos)
+    pos = torch.arange(t, device=x.device)
+    c_kv, k_pe = mla_latent(x, p, cfg, pos)
+    k, v = mla_kv(c_kv, k_pe, p, cfg, tp)
+    q = mla_q(x, p, cfg, pos, tp)
     out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                          causal=cfg.causal, window=window,
-                          q_offset=stripe.start if stripe is not None else 0)
-    y = out.transpose(1, 2).reshape(b, t, cfg.n_heads * cfg.v_head_dim) @ p["wo"]
-    return y, (c_kv, k_pe)
+                          causal=cfg.causal, window=window)
+    y = out.transpose(1, 2).reshape(b, t, q.shape[2] * vd)
+    if tp.split:
+        y = own_cols(y, _head_span(p["wo"].shape[0], vd, tp)[0], vd, p["wo"].shape[0], tp)
+    return tp.exit(row_product(y, p["wo"], tp.split)).to(x.dtype), (c_kv, k_pe)
 
 
 def latent_buffer(ckv: torch.Tensor, kpe: torch.Tensor) -> torch.Tensor:

@@ -32,7 +32,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from repro_torch.launch.mesh import P
+from repro_torch.launch.mesh import ModelAxis, P
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,10 +171,56 @@ def specs_dense_ffn(ax: Axes, activation: str, weight_shard: str = "d") -> dict:
     return p
 
 
-def dense_ffn(x: torch.Tensor, p: dict, activation: str) -> torch.Tensor:
+def row_product(y: torch.Tensor, w: torch.Tensor, split: bool) -> torch.Tensor:
+    """``y @ w``; where ``split`` (a row-parallel product's partial, to be
+    summed over the model axis) with a float32 result from lower-precision
+    operands, which the caller rounds once, after the sum. The reference's
+    partitioned dot, as XLA compiles it on the host, does the same: a
+    float32 all-reduce of the dot's partials, then one convert. The ranks'
+    partials add in another order than one device's products, so the
+    rounded result can differ from one device's by a unit in the last place.
+    On a card the operands stay bf16 on the tensor cores (``torch.mm``'s
+    ``out_dtype``); on the host they are converted."""
+    if not split or y.dtype not in (torch.bfloat16, torch.float16):
+        return y @ w
+    if y.is_cuda:
+        return _Float32Product.apply(y, w)
+    return y.float() @ w.float()
+
+
+class _Float32Product(torch.autograd.Function):
+    """``y @ w`` ``[..., K] x [K, N]`` in a float32 result from
+    lower-precision operands on the tensor cores; backward in the operands'
+    dtype, as one device's product's is."""
+
+    @staticmethod
+    def forward(ctx, y, w):
+        ctx.save_for_backward(y, w)
+        out = torch.mm(y.reshape(-1, y.shape[-1]), w, out_dtype=torch.float32)
+        return out.reshape(*y.shape[:-1], w.shape[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        y, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1]).to(y.dtype)
+        gy = (g2 @ w.t()).reshape(y.shape) if ctx.needs_input_grad[0] else None
+        gw = y.reshape(-1, y.shape[-1]).t() @ g2 if ctx.needs_input_grad[1] else None
+        return gy, gw
+
+
+def dense_ffn(x: torch.Tensor, p: dict, activation: str, tp: ModelAxis = ModelAxis()
+              ) -> torch.Tensor:
+    """``act(x @ w_in, x @ w_gate) @ w_out``, a tensor-parallel region: its
+    input enters and its output exits through ``tp`` (a
+    ``launch.mesh.ModelAxis``); where ``tp.split`` the weights are this
+    rank's chunks (``w_in`` and ``w_gate`` columns, ``w_out`` rows, as
+    ``specs_dense_ffn`` places them; under ``weight_shard="f"`` the model
+    axis's blocks of every data shard, the same hidden units in all three)
+    and the partial outputs are summed."""
+    x = tp.enter(x)
     h = x @ p["w_in"]
     g = x @ p["w_gate"] if "w_gate" in p else None
-    return _act(h, g, activation) @ p["w_out"]
+    return tp.exit(row_product(_act(h, g, activation), p["w_out"], tp.split)).to(x.dtype)
 
 
 # ------------------------------------------------------------------- the MoE
@@ -352,7 +398,7 @@ EXPERT_WEIGHTS = ("w_in", "w_gate", "w_out")
 
 
 def moe_ffn_fshard(x: torch.Tensor, p: dict, cfg, ax: Axes | None = None, mesh=None,
-                   batch_axes: tuple = (), seq_parallel: bool = False):
+                   batch_axes: tuple = ()):
     """The weight-stationary MoE (the reference's ``moe_ffn_fshard``,
     ``moe_weight_shard="f"``). x: ``[B, S, D]``, this rank's batch rows when
     ``batch_axes`` split the batch. Returns ``(y, aux)``.
@@ -375,15 +421,14 @@ def moe_ffn_fshard(x: torch.Tensor, p: dict, cfg, ax: Axes | None = None, mesh=N
     reduce-scattered over the data axes (every rank's routing and products
     read every row), the partial outputs' gradient all-reduced (every rank's
     rows read the summed output), and the expert weights' gradients land as
-    their F-slices, never gathered. ``seq_parallel`` says that the model
-    axis splits the sequence (each model rank keeps its own stripe of the
-    output), so the experts' gradients are summed over it too; otherwise
-    its ranks compute the same gradient, which is kept once."""
+    their F-slices, never gathered; the model axis's ranks compute the same
+    gradient (under ``"seq"`` too: the MoE runs on the whole sequence), which
+    is kept once."""
     with torch.profiler.record_function(MOE_RANGE):
-        return _moe_ffn_fshard(x, p, cfg, ax or Axes(), mesh, tuple(batch_axes), seq_parallel)
+        return _moe_ffn_fshard(x, p, cfg, ax or Axes(), mesh, tuple(batch_axes))
 
 
-def _moe_ffn_fshard(x, p, cfg, ax: Axes, mesh, batch_axes: tuple, seq_parallel: bool):
+def _moe_ffn_fshard(x, p, cfg, ax: Axes, mesh, batch_axes: tuple):
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     from repro_torch.launch.mesh import local_slice
@@ -406,13 +451,10 @@ def _moe_ffn_fshard(x, p, cfg, ax: Axes, mesh, batch_axes: tuple, seq_parallel: 
             xg = DTensor.from_local(x, mesh, rows, run_check=False).full_tensor(
                 grad_placements=partial_on(row_dims)).to(x.device)
         dp_dims = [names.index(a) for a in ax.dp]
-        tp_dim = names.index(ax.tp)
         local = {}
         for n, t in w.items():  # the model axis gathered, the data axes' F-slices kept
             places = tuple(pl if i in dp_dims else Replicate() for i, pl in enumerate(t.placements))
-            grads = tuple(Partial() if seq_parallel and i == tp_dim else pl
-                          for i, pl in enumerate(places))
-            local[n] = t.redistribute(mesh, places).to_local(grad_placements=grads).to(x.device)
+            local[n] = t.redistribute(mesh, places).to_local(grad_placements=places).to(x.device)
         # the data dims that split F: their partial products are summed
         sum_dims = tuple(i for i in dp_dims if isinstance(w["w_in"].placements[i], Shard))
         w = local

@@ -6,6 +6,20 @@ the reference runs its chunked associative scan and adds the ``D`` skip
 ``(conv_state, ssm_state)`` in plain PyTorch, as in the reference.
 ``init_mamba`` and ``specs_mamba`` give the block's parameters and their
 sharding specs.
+
+Tensor-parallel (``tp``, a ``launch.mesh.ModelAxis``, with the specs'
+weights split over it): the mixer is one region whose channels split over
+the model axis. A rank's ``in_proj`` chunk is contiguous over the ``x ‖
+z`` concatenation (on two ranks, all of ``x`` and none of ``z``), so one
+all-to-all exchanges it for this rank's ``Di / n`` channels of both halves
+(``ModelAxis.channels``): the projection's output where a call has fewer
+tokens than ``d_model`` (decode), else the weight chunk, whichever moves
+fewer bytes. The convolution, ``dt_proj``'s column chunk, ``A``, ``D`` and
+the scan run on those channels; ``x_proj`` (split on its input channels)
+gives a partial ``[B, T, dt_rank + 2N]``, summed over the axis before dt,
+B and C are read; ``out_proj``'s row chunk gives a partial output, summed
+as the region exits. The decode state ``(conv, ssm)`` holds this rank's
+channels.
 """
 from __future__ import annotations
 
@@ -13,8 +27,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.mamba_scan.ops import selective_scan
-from repro_torch.launch.mesh import P
-from repro_torch.models.layers import Axes, Init
+from repro_torch.launch.mesh import ModelAxis, P
+from repro_torch.models.layers import Axes, Init, row_product
 
 
 def init_mamba(init: Init, cfg, dtype: torch.dtype) -> dict:
@@ -48,17 +62,40 @@ def specs_mamba(ax: Axes) -> dict:
     }
 
 
-def mamba_forward(x: torch.Tensor, p: dict, cfg):
-    """Full-sequence Mamba block. x: [B, T, D]. Returns ``(y, (conv_state,
-    ssm_state))``. Like the reference, the full-sequence forward does not
-    track the final ssm state and returns zeros for it; the decode path
-    keeps it step by step."""
+def _in_proj(x: torch.Tensor, p: dict, tp: ModelAxis) -> torch.Tensor:
+    """``x @ in_proj`` ``[..., 2 di]`` laid out ``x ‖ z``, where
+    ``tp.split`` this rank's channels of both halves."""
+    if not tp.split:
+        return x @ p["in_proj"]
+    tokens = x[..., 0].numel()
+    if tokens < x.shape[-1]:  # fewer bytes: exchange the products
+        xz = x @ p["in_proj"]
+        return tp.channels(xz.reshape(tokens, -1)).reshape(xz.shape)
+    return x @ tp.channels(p["in_proj"])
+
+
+def _partial_proj(xc: torch.Tensor, p: dict, tp: ModelAxis, dtype: torch.dtype) -> torch.Tensor:
+    """``xc @ x_proj`` ``[..., dt_rank + 2N]``; where ``tp.split`` (``xc``
+    this rank's channels, ``x_proj`` its rows) the ranks' partials summed,
+    the backward summing the ranks' gradients too (each rank reads the sum
+    for its own channels)."""
+    if not tp.split:
+        return xc @ p["x_proj"]
+    return tp.sum(row_product(xc, p["x_proj"], True), grad_sum=True).to(dtype)
+
+
+def mamba_forward(x: torch.Tensor, p: dict, cfg, tp: ModelAxis = ModelAxis()):
+    """Full-sequence Mamba block. x: [B, T, D] (under ``"seq"``, this rank's
+    stripe). Returns ``(y, (conv_state, ssm_state))``. Like the reference,
+    the full-sequence forward does not track the final ssm state and
+    returns zeros for it; the decode path keeps it step by step."""
+    x = tp.enter(x)
     bsz, t, d = x.shape
-    di = cfg.mamba_expand * d
     n = cfg.ssm_state
     dt_rank = max(d // 16, 1)
-    xz = x @ p["in_proj"]  # [B, T, 2*di]
+    xz = _in_proj(x, p, tp)  # [B, T, 2*di]
     xi, z = xz.chunk(2, dim=-1)
+    di = xi.shape[-1]
     # depthwise causal conv along T
     pad = cfg.d_conv - 1
     xi_pad = F.pad(xi, (0, 0, pad, 0))
@@ -66,32 +103,34 @@ def mamba_forward(x: torch.Tensor, p: dict, cfg):
         xi_pad[:, i : i + t] * p["conv_w"][i][None, None, :] for i in range(cfg.d_conv)
     ) + p["conv_b"]
     xc = F.silu(conv)
-    proj = xc @ p["x_proj"]  # [B, T, dt_rank + 2N]
+    proj = _partial_proj(xc, p, tp, x.dtype)  # [B, T, dt_rank + 2N]
     dt_in = proj[..., :dt_rank]
     b = proj[..., dt_rank : dt_rank + n].float().contiguous()
     c = proj[..., dt_rank + n :].float().contiguous()
     dt = F.softplus(dt_in @ p["dt_proj"] + p["dt_bias"].to(dt_in.dtype)).float()
     a = -torch.exp(p["a_log"])  # [di, N]
     y, _ = selective_scan(xc.float(), dt.contiguous(), a, b, c, p["d_skip"])
-    y = (y.to(x.dtype) * F.silu(z)) @ p["out_proj"]
+    y = tp.exit(row_product(y.to(x.dtype) * F.silu(z), p["out_proj"], tp.split)).to(x.dtype)
     conv_state = xi_pad[:, t : t + pad]
     ssm_state = torch.zeros((bsz, di, n), dtype=torch.float32, device=x.device)
     return y, (conv_state, ssm_state)
 
 
 def mamba_decode_step(x: torch.Tensor, p: dict, cfg, conv_state: torch.Tensor,
-                      ssm_state: torch.Tensor):
+                      ssm_state: torch.Tensor, tp: ModelAxis = ModelAxis()):
     """One-token step. x: [B, 1, D]; conv_state: [B, d_conv-1, di];
-    ssm_state: [B, di, N] float32. Returns ``(y [B, 1, D], (conv, ssm))``."""
+    ssm_state: [B, di, N] float32 (where ``tp.split``, this rank's
+    channels). Returns ``(y [B, 1, D], (conv, ssm))``."""
+    x = tp.enter(x)
     d = x.shape[-1]
     n = cfg.ssm_state
     dt_rank = max(d // 16, 1)
-    xz = x[:, 0] @ p["in_proj"]  # [B, 2di]
+    xz = _in_proj(x[:, 0], p, tp)  # [B, 2di]
     xi, z = xz.chunk(2, dim=-1)
     window = torch.cat([conv_state, xi[:, None]], dim=1)  # [B, d_conv, di]
     conv = torch.einsum("bkd,kd->bd", window, p["conv_w"]) + p["conv_b"]
     xc = F.silu(conv)  # [B, di]
-    proj = xc @ p["x_proj"]
+    proj = _partial_proj(xc, p, tp, x.dtype)
     dt_in = proj[..., :dt_rank]
     b = proj[..., dt_rank : dt_rank + n].float()
     c = proj[..., dt_rank + n :].float()
@@ -100,5 +139,5 @@ def mamba_decode_step(x: torch.Tensor, p: dict, cfg, conv_state: torch.Tensor,
     da = torch.exp(dt[..., None] * a[None])  # [B, di, N]
     h = da * ssm_state + (dt * xc.float())[..., None] * b[:, None, :]
     y = torch.einsum("bdn,bn->bd", h, c) + xc.float() * p["d_skip"][None]
-    y = (y.to(x.dtype) * F.silu(z)) @ p["out_proj"]
-    return y[:, None], (window[:, 1:], h)
+    y = row_product(y.to(x.dtype) * F.silu(z), p["out_proj"], tp.split)[:, None]
+    return tp.exit(y).to(x.dtype), (window[:, 1:], h)

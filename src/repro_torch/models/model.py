@@ -18,29 +18,46 @@ On a mesh (``Model(cfg, device, ax=, mesh=)``, a ``torch.distributed``
 ``DeviceMesh``) the parameters are DTensors placed by ``param_specs``
 (``launch.mesh.shard_tree``) and the inputs DTensors split over the data
 axes. Each rank computes on plain tensors on ``device``: its batch rows,
-with each layer's weights gathered whole for the layer (the reference's
-``"d"`` convention, FSDP on d_model gathered per layer). A gathered
-weight's gradient is read as ``Partial`` over the axes that split the batch
-and ``Replicate`` over the others (``launch.mesh.batch_grad_placements``),
-so that the shards' gradients are summed once. A decode step gathers each
-layer's cache over the model axis (the reference shards its sequence
-there), steps it, and keeps its own shard. Expert weights placed by
-``specs_moe_fshard`` (``moe_weight_shard="f"``) are never gathered:
-``moe_ffn_fshard`` uses them where they lie.
+with each layer's weights gathered over the data axes for the layer (FSDP
+on d_model, the reference's ``"d"`` convention). A gathered weight's
+gradient is ``Partial`` over the axes that split the batch
+(``launch.mesh.batch_grad_placements``), so that the shards' gradients are
+summed once.
 
-``activation_partitioning="seq"`` on a model axis larger than 1 splits each
-rank's rows along the sequence too (the reference's sequence-parallel
-mode): a rank holds ``[B_local, T_r, D]``, its stripe of the positions
+On a model axis above 1 (``launch.mesh.ModelAxis``) a rank's products are
+split over it as the specs place the weights (the reference's GSPMD does
+the same): a weight the specs split over the model axis stays split
+(``Shard`` there, gathered over the data axes only), and each module is a
+tensor-parallel region: column-parallel products on this rank's chunks
+(``wq``/``wk``/``wv``, ``wq_b``/``wkv_b``, ``w_in``/``w_gate``,
+``in_proj``, ``dt_proj``, the head's vocabulary columns), attention on this
+rank's heads and the scan on its channels, row-parallel products (``wo``,
+``w_out``, ``out_proj``, ``x_proj``) summed over the axis. A leaf the specs
+leave whole but that a split region reads per rank (qk-norm scales, MLA's
+latent projections) gets ``Partial`` gradients over the model axis; a
+module whose weights the specs leave whole (the ``"d"`` MoE, whose experts
+are gathered whole, as the reference's per-rank expert products are
+``E x cap`` rows either way; sanitised dims) runs whole on every rank. The
+embedding is a masked lookup of this rank's vocabulary rows and a sum; the
+forward's logits are this rank's vocabulary columns, which the loss reads
+with a vocabulary-parallel log-softmax (``train.step.token_nll``) and the
+prefill and decode steps gather. A decode step gathers each attention
+layer's cache over the model axis (the reference shards its sequence
+there), steps it on this rank's heads, and keeps its own shard; a Mamba
+layer's state stays on this rank's channels. Expert weights placed by
+``specs_moe_fshard`` (``moe_weight_shard="f"``) are never gathered over the
+data axes: ``moe_ffn_fshard`` uses them where they lie.
+
+``activation_partitioning="seq"`` on a model axis larger than 1 splits the
+residual stream along the sequence too (Megatron's sequence parallelism): a
+rank holds ``[B_local, T_r, D]``, its stripe of the positions
 (``launch.mesh.Stripe``; any T, stripes uneven or empty by DTensor's
-``Shard`` rule). Norms, projections, the dense FFN and the head run on the
-stripe; attention keeps its query stripe, gathers K and V over the model
-axis and runs one launch at ``q_offset`` = the stripe's start; a Mamba
-mixer and a MoE FFN gather their normed input over the model axis, run on
-the whole sequence (so a data shard's tokens are scanned and routed whole,
-as in ``"batch"``) and keep their stripe of the output. The model axis then
-splits the tokens, so a gathered weight's gradient is ``Partial`` over it
-as well as over the data axes. The values are ``"batch"``'s; on a model
-axis of 1 the two modes are one, as in the reference.
+``Shard`` rule), the norms run on the stripe, and each region gathers the
+stripes as it enters and reduce-scatters its partial output back to them as
+it exits (a region that is not split keeps its own stripe). A norm's scale,
+read on stripes, gets ``Partial`` gradients over the model axis. The values
+are ``"batch"``'s; on a model axis of 1 the two modes are one, as in the
+reference.
 
 The decode cache is a list with one dict per layer; ``decode_step`` writes
 it in place (the reference returns a new pytree) and returns it.
@@ -97,20 +114,23 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import (
+    ModelAxis,
     P,
     Stripe,
     batch_grad_placements,
-    gather,
     gather_tree,
     local_slice,
 )
 from repro_torch.models.attention import (
+    _launch_kv,
     gqa_cross_decode,
     gqa_flash_decode,
     gqa_forward,
     init_attention,
     mla_flash_decode,
     mla_forward,
+    own_cols,
+    own_heads,
     specs_attention,
 )
 from repro_torch.models.config import LayerSpec, ModelConfig
@@ -127,6 +147,7 @@ from repro_torch.models.layers import (
     moe_ffn_fshard,
     qk_head_norm,
     rms_norm,
+    row_product,
     specs_dense_ffn,
     specs_moe,
     specs_moe_fshard,
@@ -224,56 +245,97 @@ def specs_layer(spec: LayerSpec, cfg: ModelConfig, ax: Axes) -> dict:
 
 
 def _ffn(x: torch.Tensor, p: dict, spec: LayerSpec, cfg: ModelConfig, ax: Axes | None = None,
-         mesh=None, batch_axes: tuple = (), stripe: Stripe | None = None):
+         mesh=None, batch_axes: tuple = (), regions: dict | None = None):
     """The layer's FFN residual: ``(x + out, aux)``, ``out`` the dense FFN,
-    the MoE, or their sum (in that order), on one normed input. With a
-    ``stripe`` the MoE routes the whole sequence (gathered) and keeps its
-    stripe of the output."""
+    the MoE, or their sum (in that order), on one normed input. Each is a
+    tensor-parallel region, ``regions["ffn"]`` and ``regions["moe"]`` (a
+    ``ModelAxis``; none split where absent). The MoE's is never split: it
+    routes the whole sequence on every rank of the model axis."""
+    regions = regions or {}
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.ffn == "none":
         return x, aux
     h = rms_norm(x, p["norm2"])
     out = None
     if spec.ffn in ("dense", "moe_dense"):
-        out = dense_ffn(h, p["ffn"], cfg.activation)
+        out = dense_ffn(h, p["ffn"], cfg.activation, regions.get("ffn", _NO_AXIS))
     if spec.ffn in ("moe", "moe_dense"):
-        hm = h if stripe is None else stripe.gather(h)
+        moe_tp = regions.get("moe", _NO_AXIS)
+        hm = moe_tp.enter(h)
         if cfg.moe_weight_shard == "f":
-            mo, aux = moe_ffn_fshard(hm, p["moe"], cfg, ax, mesh, batch_axes,
-                                     seq_parallel=stripe is not None)
+            mo, aux = moe_ffn_fshard(hm, p["moe"], cfg, ax, mesh, batch_axes)
         else:
             mo, aux = moe_ffn(hm, p["moe"], cfg,
                               name_output=cfg.remat and cfg.remat_policy == "save_moe")
-        if stripe is not None:
-            mo = stripe.keep(mo)
+        mo = moe_tp.exit(mo)
         out = mo if out is None else out + mo
     return x + out, aux
 
 
 def apply_layer(x: torch.Tensor, p: dict, spec: LayerSpec, cfg: ModelConfig,
                 ax: Axes | None = None, mesh=None, img_embeds=None, batch_axes: tuple = (),
-                stripe: Stripe | None = None):
+                regions: dict | None = None):
     """One layer of the full-sequence forward on plain tensors (a rank's
-    batch rows, or with ``stripe`` their stripe of the sequence, and the
-    layer's weights; expert weights under ``moe_weight_shard="f"`` stay
-    DTensors). Returns ``(x, aux, cache)``: the router loss of its MoE
-    (zero without one) and the cache entry its mixer made (``(k, v)``, the
-    MLA latent or the Mamba states; whole over the sequence). A Mamba mixer
-    scans the whole sequence (its input gathered) and keeps its stripe."""
+    batch rows, under ``"seq"`` their stripe of the sequence, and the
+    layer's weights, this rank's chunks of a split region's; expert weights
+    under ``moe_weight_shard="f"`` stay DTensors). ``regions`` maps each of
+    the layer's regions (``"attn"``, ``"mamba"``, ``"ffn"``, ``"moe"``) to
+    its ``ModelAxis`` (:meth:`Model.regions`; none split where absent).
+    Returns ``(x, aux, cache)``: the router loss of its MoE (zero without
+    one) and the cache entry its mixer made (``(k, v)``, the MLA latent or
+    the Mamba states; whole over the sequence, a split region's this rank's
+    heads or channels)."""
+    regions = regions or {}
     h = rms_norm(x, p["norm1"])
-    if spec.mixer == "attn" and cfg.use_mla:
-        y, cache = mla_forward(h, p["attn"], cfg, window=spec.window, stripe=stripe)
-    elif spec.mixer == "attn":
-        y, cache = gqa_forward(h, p["attn"], cfg, window=spec.window, stripe=stripe)
-    elif spec.mixer == "cross_attn":
-        y, cache = gqa_forward(h, p["attn"], cfg, window=None, kv_x=img_embeds, stripe=stripe)
-    elif stripe is None:
-        y, cache = mamba_forward(h, p["mamba"], cfg)
+    if spec.mixer == "mamba":
+        y, cache = mamba_forward(h, p["mamba"], cfg, tp=regions.get("mamba", _NO_AXIS))
     else:
-        y, cache = mamba_forward(stripe.gather(h), p["mamba"], cfg)
-        y = stripe.keep(y)
-    x, aux = _ffn(x + y, p, spec, cfg, ax, mesh, batch_axes, stripe)
+        tp = regions.get("attn", _NO_AXIS)
+        if spec.mixer == "attn" and cfg.use_mla:
+            y, cache = mla_forward(h, p["attn"], cfg, window=spec.window, tp=tp)
+        elif spec.mixer == "attn":
+            y, cache = gqa_forward(h, p["attn"], cfg, window=spec.window, tp=tp)
+        else:
+            y, cache = gqa_forward(h, p["attn"], cfg, window=None, kv_x=img_embeds, tp=tp)
+    x, aux = _ffn(x + y, p, spec, cfg, ax, mesh, batch_axes, regions)
     return x, aux, cache
+
+
+def _paths(tree: dict, prefix: tuple = ()):
+    """``(path, leaf)`` of every leaf of a nest of dicts."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _paths(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _unpaths(flat: dict) -> dict:
+    """The nest of dicts whose leaves ``flat`` maps by path."""
+    out: dict = {}
+    for path, leaf in flat.items():
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return out
+
+
+# a model axis of one rank: no region split, nothing moves
+_NO_AXIS = ModelAxis()
+# the leaves a layer reads on the residual stream (under "seq", on stripes):
+# its norms' scales, the cross-attention gate (applied after the sum), and
+# ("scale",) the final norm's
+_RESIDUAL = (("norm1", "scale"), ("norm2", "scale"), ("attn", "gate"), ("scale",))
+# the leaves of each region that the specs split over the model axis when
+# the region is split
+_SPLIT_LEAVES = {
+    "gqa": ("wq", "wo"),
+    "mla": ("wkv_b", "wo"),
+    "mamba": ("in_proj", "conv_w", "conv_b", "x_proj", "dt_proj", "dt_bias", "a_log", "d_skip",
+              "out_proj"),
+    "ffn": ("w_in", "w_out"),
+}
 
 
 class Model(nn.Module):
@@ -363,33 +425,55 @@ class Model(nn.Module):
             return None
         return Stripe.of(self.mesh, self.ax.tp, total)
 
-    def token_split(self, batch: dict, rows_dim: int = 0) -> tuple:
-        """``(mesh, mesh dims, stripe)`` for a batch of this model: the mesh
-        dims that split its tokens (those that shard the batch rows, dim
-        ``rows_dim`` of the tokens' or frames' DTensor: 1 under a leading
-        microbatch axis; then the model axis where :meth:`seq_stripe` splits
-        the sequence over it), and this rank's stripe (``None`` without a
-        split); ``(None, (), None)`` for plain tensors unsplit."""
+    def batch_split(self, batch: dict, rows_dim: int = 0) -> tuple:
+        """``(mesh, mesh dims)`` for a batch of this model: the mesh dims that
+        shard its rows (dim ``rows_dim`` of the tokens' or frames' DTensor:
+        1 under a leading microbatch axis); ``(None, ())`` for plain
+        tensors. The model axis never counts: under ``"seq"`` the head sees
+        the whole sequence on every rank of it."""
         from torch.distributed.tensor import DTensor, Shard
 
         t = batch.get("tokens", batch.get("frames"))
-        stripe = self.seq_stripe(t.shape[rows_dim + 1])
-        mesh, dims = None, ()
-        if isinstance(t, DTensor):
-            mesh = t.device_mesh
-            dims = tuple(i for i, pl in enumerate(t.placements)
-                         if isinstance(pl, Shard) and pl.dim == rows_dim)
-        if stripe is not None:
-            mesh = self.mesh
-            dims += (self.mesh.mesh_dim_names.index(self.ax.tp),)
-        return mesh, dims, stripe
+        if not isinstance(t, DTensor):
+            return None, ()
+        return t.device_mesh, tuple(i for i, pl in enumerate(t.placements)
+                                    if isinstance(pl, Shard) and pl.dim == rows_dim)
+
+    def model_axis(self, stripe: Stripe | None = None) -> ModelAxis:
+        """This rank's :class:`~repro_torch.launch.mesh.ModelAxis` (with
+        ``stripe`` under ``"seq"``); ``ModelAxis()``, which splits nothing,
+        without a mesh or on a model axis of one rank."""
+        if self.mesh is None or self.mesh.size(self.mesh.mesh_dim_names.index(self.ax.tp)) == 1:
+            return _NO_AXIS
+        return ModelAxis.of(self.mesh, self.ax.tp, stripe)
+
+    def regions(self, p: dict, tp: ModelAxis) -> dict:
+        """Each region of a layer (its params ``p``, DTensors on a mesh)
+        mapped to ``tp`` handed to it, split or not
+        (:meth:`_region_split`); the MoE's never split. The one place the
+        split is decided: the weights' gathers (:meth:`_weights`), the
+        modules' products and a decode step's cache follow it."""
+        out = {r: tp.region(tp.size > 1 and self._region_split(r, p[r]))
+               for r in ("attn", "mamba", "ffn") if r in p}
+        out["moe"] = tp.region(False)
+        return out
+
+    def _vocab_region(self, leaf, tp: ModelAxis) -> ModelAxis:
+        """``tp`` handed to the embedding or the head (``leaf``, their
+        weight): split where the specs split the vocabulary over it."""
+        return tp.region(tp.size > 1 and self._sharded_on_model(leaf))
+
+    def vocab_axis(self, params: dict, stripe: Stripe | None = None) -> ModelAxis:
+        """The head's model axis: split where the specs split the vocabulary
+        over it (the logits are then this rank's columns)."""
+        head = params["embed"] if self.cfg.tie_embeddings else params["unembed"]
+        return self._vocab_region(head, self.model_axis(stripe))
 
     def _local(self, inputs: dict, split_seq: bool = True) -> tuple[dict, tuple, Stripe | None]:
         """Plain tensors on the model's device for ``inputs`` (DTensors split
-        over the data axes, or plain tensors), the mesh axes that split
-        their batch, and with ``split_seq`` the rank's stripe of the
-        sequence (:meth:`seq_stripe`; the tokens or frames are cut to it on
-        dim 1)."""
+        over the data axes, or plain tensors; whole over the sequence), the
+        mesh axes that split their batch, and with ``split_seq`` the rank's
+        stripe of the sequence (:meth:`seq_stripe`)."""
         from torch.distributed.tensor import DTensor, Shard
 
         batch_axes: tuple = ()
@@ -404,36 +488,129 @@ class Model(nn.Module):
             out[name] = t.to(self.device) if t.device != self.device else t
         seq = "tokens" if "tokens" in out else "frames"
         stripe = self.seq_stripe(out[seq].shape[1]) if split_seq and seq in out else None
-        if stripe is not None:
-            out[seq] = stripe.keep(out[seq])
         return out, batch_axes, stripe
 
-    def _weights(self, tree, batch_axes: tuple, spec: LayerSpec | None = None):
-        """``tree``'s weights gathered whole on the model's device (on a
-        mesh), their gradients read as the batch split over ``batch_axes``;
-        the expert weights of a ``moe_weight_shard="f"`` layer stay put."""
+    def _region_split(self, name: str, p: dict) -> bool:
+        """Whether region ``name`` (a layer's ``"attn"``, ``"mamba"``,
+        ``"ffn"`` dict of DTensors) is split over the model axis: the specs
+        split its weights there (after sanitising) with chunks a rank can
+        use, the products of one set of heads, channels or hidden units."""
+        from torch.distributed.tensor import DTensor, Shard
+
+        if name == "attn":
+            kind = "mla" if "wkv_b" in p else "gqa"
+            if kind == "gqa" and isinstance(p["wq"], DTensor):
+                # heads need a contiguous column chunk: not "f" over data ranks
+                tp_i = self.mesh.mesh_dim_names.index(self.ax.tp)
+                if any(isinstance(pl, Shard) and pl.dim == 1 and i != tp_i
+                       for i, pl in enumerate(p["wq"].placements)):
+                    return False
+            keys = _SPLIT_LEAVES[kind] + (("wq_b" if "wq_b" in p else "wq"),)
+        else:
+            keys = _SPLIT_LEAVES[name]
+        return all(self._sharded_on_model(p[k]) for k in keys)
+
+    def _weights(self, tree, batch_axes: tuple, spec: LayerSpec | None = None,
+                 tp: ModelAxis = _NO_AXIS, regions: dict | None = None, decode: bool = False):
+        """``tree``'s weights (a layer's dict with its ``regions``, a dict of
+        the residual stream's, or one top-level leaf whose region is ``tp``)
+        on the model's device: gathered over the data axes, their gradients
+        read as the batch split over ``batch_axes``. On a model axis of one
+        rank everything is gathered whole. Else each leaf is one of:
+        a split region's weight that the specs split over the model axis,
+        kept as this rank's chunk (``Shard`` gradients there); a split
+        region's leaf left whole (``Partial`` over the model axis: each
+        rank's products read it for their own share); a leaf of the
+        residual stream (norms, the cross-attention gate; ``Partial`` over
+        the model axis under ``"seq"``, where they read stripes); anything
+        else gathered whole. The decode step gathers MLA's ``wkv_b`` whole:
+        the absorbed form reads its columns as the reference's keys-then-
+        values layout, not the forward's per-head one that the chunks
+        follow. The expert weights of a ``moe_weight_shard="f"`` layer stay
+        put."""
+        from torch.distributed.tensor import Partial
+
         if self.mesh is None:
             return tree
         gp = batch_grad_placements(self.mesh, batch_axes)
-        if spec is not None and "moe" in tree and self.cfg.moe_weight_shard == "f":
-            moe = {k: (v if k in EXPERT_WEIGHTS else gather_tree(v, gp, self.device))
-                   for k, v in tree["moe"].items()}
-            rest = gather_tree({k: v for k, v in tree.items() if k != "moe"}, gp, self.device)
-            return {**rest, "moe": moe}
-        return gather_tree(tree, gp, self.device)
+        tp_i = self.mesh.mesh_dim_names.index(self.ax.tp)
+        on_tp = tuple(Partial() if i == tp_i else pl for i, pl in enumerate(gp))
+        fshard = spec is not None and "moe" in tree and self.cfg.moe_weight_shard == "f"
+        if not isinstance(tree, dict):  # a top-level leaf: the embedding, the head
+            kinds = {(): "split" if tp.split else "whole"}
+            leaves = {(): tree}
+        else:
+            leaves, kinds = {}, {}
+            regions = regions or {}
+            for path, leaf in _paths(tree):
+                if fshard and path[0] == "moe" and path[-1] in EXPERT_WEIGHTS and len(path) == 2:
+                    continue
+                leaves[path] = leaf
+                kinds[path] = "whole"
+                if path in _RESIDUAL:
+                    kinds[path] = "residual"
+                elif regions.get(path[0], _NO_AXIS).split:
+                    whole = decode and path == ("attn", "wkv_b")
+                    kinds[path] = "whole" if whole else \
+                        ("split" if self._sharded_on_model(leaf) else "partial")
+        groups = {"split": ((self.ax.tp,), gp), "partial": ((), on_tp),
+                  "residual": ((), on_tp if tp.stripe is not None else gp),
+                  "whole": ((), gp)}
+        out = {}
+        for kind, (keep, places) in groups.items():
+            paths = [q for q, k in kinds.items() if k == kind]
+            if paths:
+                got = gather_tree([leaves[q] for q in paths], places, self.device, keep)
+                out.update(zip(paths, got))
+        if not isinstance(tree, dict):
+            return out[()]
+        if fshard:
+            for k in EXPERT_WEIGHTS:
+                if k in tree["moe"]:
+                    out[("moe", k)] = tree["moe"][k]
+        return _unpaths(out)
+
+    def _sharded_on_model(self, t) -> bool:
+        from torch.distributed.tensor import DTensor, Shard
+
+        tp_i = self.mesh.mesh_dim_names.index(self.ax.tp)
+        return isinstance(t, DTensor) and isinstance(t.placements[tp_i], Shard)
 
     # --------------------------------------------------------------- forward
-    def _embed(self, params: dict, tokens: torch.Tensor, batch_axes: tuple = ()) -> torch.Tensor:
-        x = self._weights(params["embed"], batch_axes)[tokens]
+    def _embed(self, params: dict, tokens: torch.Tensor, batch_axes: tuple = (),
+               tp: ModelAxis = _NO_AXIS) -> torch.Tensor:
+        """The tokens' embeddings (all positions of this rank's rows), on
+        the residual stream: where ``tp`` (the embedding's region,
+        :meth:`_vocab_region`) is split, a masked lookup of this rank's
+        vocabulary rows summed over the model axis (under ``"seq"``,
+        reduce-scattered to the stripes)."""
+        w = self._weights(params["embed"], batch_axes, tp=tp)
+        if tp.split:
+            local = tokens - tp.rank * w.shape[0]
+            own = (local >= 0) & (local < w.shape[0])
+            x = w[local.clamp(0, w.shape[0] - 1)].masked_fill(~own[..., None], 0)
+        else:
+            x = w[tokens]
+        x = tp.exit(x)
         if self.cfg.embed_scale:
             x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype, device=x.device)
         return x
 
-    def _head(self, params: dict, x: torch.Tensor, batch_axes: tuple = ()) -> torch.Tensor:
-        x = rms_norm(x, self._weights(params["final_norm"], batch_axes))
-        if self.cfg.tie_embeddings:
-            return x @ self._weights(params["embed"], batch_axes).T
-        return x @ self._weights(params["unembed"], batch_axes)
+    def _head(self, params: dict, x: torch.Tensor, batch_axes: tuple = (),
+              tp: ModelAxis = _NO_AXIS) -> torch.Tensor:
+        """The logits of the residual stream's ``x``: whole over the
+        sequence; where ``tp`` (the head's region, :meth:`vocab_axis`) is
+        split, this rank's vocabulary columns ``[..., V / n]``."""
+        x = rms_norm(x, self._weights(params["final_norm"], batch_axes, tp=tp))
+        leaf = params["embed"] if self.cfg.tie_embeddings else params["unembed"]
+        w = self._weights(leaf, batch_axes, tp=tp)
+        return tp.enter(x) @ (w.T if self.cfg.tie_embeddings else w)
+
+    def whole_vocab(self, params: dict, logits: torch.Tensor) -> torch.Tensor:
+        """``logits`` over the whole vocabulary: this rank's columns
+        all-gathered over the model axis where the head splits them."""
+        tp = self.vocab_axis(params)
+        return tp.gather(logits, -1, grad_sum=False) if tp.split else logits
 
     def forward(self, params: dict, inputs: dict):
         """Full-sequence forward. inputs: ``{"tokens": [B, S]}`` (or
@@ -443,46 +620,49 @@ class Model(nn.Module):
         reference's does). Returns ``(logits [B, S, V], aux_loss)``;
         ``aux_loss`` is the MoE router loss summed over the layers (float32;
         zero without MoE layers). On a mesh the inputs are DTensors (or this
-        rank's rows) and the logits are this rank's rows, under
-        ``activation_partitioning="seq"`` their stripe of the positions
-        (:meth:`seq_stripe`). Every rank of a sequence split gets the same
-        ``aux``."""
+        rank's rows) and the logits are this rank's rows, on a model axis
+        above 1 whose specs split the vocabulary its columns ``[B, S, V /
+        n]`` (:meth:`whole_vocab` gathers them); every rank of the model
+        axis gets the same ``aux``."""
         cfg = self.cfg
         inputs, batch_axes, stripe = self._local(inputs)
-        # the axes that split the tokens: a gathered weight's gradient is a
-        # part of the sum over them
-        grad_axes = batch_axes + ((self.ax.tp,) if stripe is not None else ())
+        tp = self.model_axis(stripe)
         if cfg.frontend == "frames":
             x = inputs["frames"].to(self.dtype)
+            if stripe is not None:
+                x = stripe.keep(x)
         else:
-            x = self._embed(params, inputs["tokens"], grad_axes)
+            x = self._embed(params, inputs["tokens"], batch_axes,
+                            self._vocab_region(params["embed"], tp))
         img = inputs.get("image_embeds")
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for spec, p in zip(cfg.layers(), params["layers"]):
-            p = self._weights(p, grad_axes, spec)
+            regions = self.regions(p, tp)
+            p = self._weights(p, batch_axes, spec, tp, regions)
             if cfg.remat and _needs_grad(x, p):
                 context = checkpoint.noop_context_fn
                 if cfg.remat_policy in _POLICIES:
                     context = functools.partial(
                         checkpoint.create_selective_checkpoint_contexts,
                         _POLICIES[cfg.remat_policy])
-                x, a = checkpoint.checkpoint(self._layer, x, p, spec, img, batch_axes, stripe,
+                x, a = checkpoint.checkpoint(self._layer, x, p, spec, img, batch_axes, regions,
                                              use_reentrant=False, context_fn=context)
             else:
-                x, a = self._layer(x, p, spec, img, batch_axes, stripe)
+                x, a = self._layer(x, p, spec, img, batch_axes, regions)
             aux = aux + a
-        return self._head(params, x, grad_axes), aux
+        return self._head(params, x, batch_axes, self.vocab_axis(params, stripe)), aux
 
-    def _ffn(self, x: torch.Tensor, p: dict, spec: LayerSpec, batch_axes: tuple = ()):
+    def _ffn(self, x: torch.Tensor, p: dict, spec: LayerSpec, batch_axes: tuple = (),
+             regions: dict | None = None):
         """The layer's FFN residual: ``(x + out, aux)`` (:func:`_ffn`)."""
-        return _ffn(x, p, spec, self.cfg, self.ax, self.mesh, batch_axes)
+        return _ffn(x, p, spec, self.cfg, self.ax, self.mesh, batch_axes, regions)
 
     def _layer(self, x: torch.Tensor, p: dict, spec: LayerSpec, img=None, batch_axes: tuple = (),
-               stripe: Stripe | None = None):
+               regions: dict | None = None):
         """One layer of the full-sequence forward: ``(x, aux)``; ``img`` the
         image embeddings a cross-attention layer reads."""
         x, aux, _ = apply_layer(x, p, spec, self.cfg, self.ax, self.mesh, img, batch_axes,
-                                stripe)
+                                regions)
         return x, aux
 
     # ----------------------------------------------------------------- cache
@@ -522,13 +702,22 @@ class Model(nn.Module):
         return cache
 
     # ---------------------------------------------------------------- decode
-    def _decode_gqa(self, x, h, p, cache: dict, pos: int, spec: LayerSpec):
+    def _decode_gqa(self, x, h, p, cache: dict, pos: int, spec: LayerSpec,
+                    tp: ModelAxis = _NO_AXIS):
         cfg = self.cfg
         b = x.shape[0]
         hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        q = (h @ p["wq"]).reshape(b, 1, hq, dh)
-        k = (h @ p["wk"]).reshape(b, 1, hkv, dh)
-        v = (h @ p["wv"]).reshape(b, 1, hkv, dh)
+        h = tp.enter(h)
+        q, k, v = h @ p["wq"], h @ p["wk"], h @ p["wv"]
+        h0 = 0
+        if tp.split:  # this rank's query heads; the new key and value whole, for the cache
+            q, h0 = own_heads(q, dh, tp)
+            if k.shape[-1] < hkv * dh:
+                kv = tp.gather(torch.cat([k, v], -1), -1).unflatten(-1, (tp.size, 2, -1))
+                k, v = kv[..., 0, :].flatten(-2), kv[..., 1, :].flatten(-2)
+        else:
+            q = q.reshape(b, 1, hq, dh)
+        k, v = k.reshape(b, 1, hkv, dh), v.reshape(b, 1, hkv, dh)
         if cfg.qk_norm:
             q = qk_head_norm(q, p["q_scale"])
             k = qk_head_norm(k, p["k_scale"])
@@ -550,11 +739,19 @@ class Model(nn.Module):
         # q_offset = pos with no window (slot s kept iff s <= pos, which
         # holds for every slot once pos >= length - 1); the kernel sums the
         # slots in slot order, not position order, a float-order difference.
-        out = gqa_flash_decode(q[:, 0], cache["k"], cache["v"], pos,
-                               None if ring else spec.window)  # [B, H, Dh]
-        return x + out.reshape(b, 1, hq * dh) @ p["wo"]
+        kc, vc = cache["k"], cache["v"]
+        nq = q.shape[2]
+        if tp.split:  # the KV heads this rank's query heads read (a view of the cache)
+            g = hq // hkv
+            kv0, kv1 = h0 // g, (h0 + nq - 1) // g + 1
+            kc, vc = _launch_kv(kc[:, :, kv0:kv1], vc[:, :, kv0:kv1], h0, nq, g, kv0)
+        out = gqa_flash_decode(q[:, 0], kc, vc, pos, None if ring else spec.window)  # [B, H, Dh]
+        y = out.reshape(b, 1, nq * dh)
+        if tp.split:
+            y = own_cols(y, h0, dh, p["wo"].shape[0], tp)
+        return x + tp.exit(row_product(y, p["wo"], tp.split)).to(x.dtype)
 
-    def _decode_mla(self, x, h, p, cache: dict, pos: int):
+    def _decode_mla(self, x, h, p, cache: dict, pos: int, tp: ModelAxis = _NO_AXIS):
         """The absorbed-form MLA step, as the reference's ``_decode_mla``: the
         new latent row (``c_kv``, the RoPE'd ``k_pe``) written at ``pos``,
         ``q_nope`` taken into the latent space by ``w_uk``, one launch over
@@ -563,17 +760,28 @@ class Model(nn.Module):
         outside any kernel. They split ``wkv_b``'s columns into a first
         ``H * nope`` (keys) and a last ``H * v_head_dim`` (values), where the
         forward reads it per head (``[nope + v_head_dim]`` a head): the
-        reference's own layouts, copied."""
+        reference's own layouts, copied. Where ``tp.split``, this rank's query
+        heads (``wq_b``'s chunk; their blocks of ``w_uk`` and
+        ``w_uv`` from ``wkv_b``, which the decode step gathers whole) go
+        through one launch over the whole latent cache, and ``wo``'s row
+        chunk to the sum."""
         cfg = self.cfg
         b = x.shape[0]
         nh = cfg.n_heads
         nope, rope_d, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
         r = cfg.kv_lora_rank
+        h = tp.enter(h)
         if cfg.q_lora_rank:
             qa = rms_norm(h @ p["wq_a"], {"scale": p["q_norm"]})
-            q = (qa @ p["wq_b"]).reshape(b, 1, nh, nope + rope_d)
+            q = qa @ p["wq_b"]
         else:
-            q = (h @ p["wq"]).reshape(b, 1, nh, nope + rope_d)
+            q = h @ p["wq"]
+        h0, h1 = 0, nh
+        if tp.split:
+            q, h0 = own_heads(q, nope + rope_d, tp)
+            h1 = h0 + q.shape[2]
+        else:
+            q = q.reshape(b, 1, nh, nope + rope_d)
         q_nope, q_pe = q[..., :nope], q[..., nope:]
         posv = torch.full((b, 1), pos, device=x.device)
         q_pe = apply_rope(q_pe, posv, cfg.rope_theta)
@@ -582,40 +790,54 @@ class Model(nn.Module):
         k_pe = apply_rope(kv_a[..., None, r:], posv, cfg.rope_theta)[:, :, 0]
         cache["ckv"][:, pos] = c_kv[:, 0].to(cache["ckv"].dtype)
         cache["kpe"][:, pos] = k_pe[:, 0].to(cache["kpe"].dtype)
-        w_uk = p["wkv_b"][:, : nh * nope].reshape(r, nh, nope)
-        w_uv = p["wkv_b"][:, nh * nope :].reshape(r, nh, vd)
+        w_uk = p["wkv_b"][:, : nh * nope].reshape(r, nh, nope)[:, h0:h1]
+        w_uv = p["wkv_b"][:, nh * nope :].reshape(r, nh, vd)[:, h0:h1]
         q_lat = torch.einsum("bhn,rhn->bhr", q_nope[:, 0], w_uk)
         ctx_lat = mla_flash_decode(q_lat, q_pe[:, 0], cache["ckv"], cache["kpe"], pos)
-        out = torch.einsum("bhr,rhv->bhv", ctx_lat, w_uv)
-        return x + out.reshape(b, 1, nh * vd) @ p["wo"]
+        out = torch.einsum("bhr,rhv->bhv", ctx_lat, w_uv).reshape(b, 1, (h1 - h0) * vd)
+        if tp.split:
+            out = own_cols(out, h0, vd, p["wo"].shape[0], tp)
+        return x + tp.exit(row_product(out, p["wo"], tp.split)).to(x.dtype)
 
     def _decode_layer(self, x, p, spec: LayerSpec, cache: dict, pos: int,
-                      batch_axes: tuple = ()):
-        """One-token step for one layer. x: [B, 1, D]; ``cache`` is updated."""
+                      batch_axes: tuple = (), regions: dict | None = None):
+        """One-token step for one layer. x: [B, 1, D]; ``cache`` is updated;
+        ``regions`` as :func:`apply_layer`'s."""
+        regions = regions or {}
         h = rms_norm(x, p["norm1"])
+        tp = regions.get("mamba" if spec.mixer == "mamba" else "attn", _NO_AXIS)
         if spec.mixer == "attn" and self.cfg.use_mla:
-            x = self._decode_mla(x, h, p["attn"], cache, pos)
+            x = self._decode_mla(x, h, p["attn"], cache, pos, tp)
         elif spec.mixer == "attn":
-            x = self._decode_gqa(x, h, p["attn"], cache, pos, spec)
+            x = self._decode_gqa(x, h, p["attn"], cache, pos, spec, tp)
         elif spec.mixer == "cross_attn":
-            x = x + gqa_cross_decode(h, p["attn"], self.cfg, cache["k_img"], cache["v_img"])
+            x = x + gqa_cross_decode(h, p["attn"], self.cfg, cache["k_img"], cache["v_img"], tp)
         else:
             y, (cache["conv"], cache["ssm"]) = mamba_decode_step(
-                h, p["mamba"], self.cfg, cache["conv"], cache["ssm"])
+                h, p["mamba"], self.cfg, cache["conv"], cache["ssm"], tp)
             x = x + y
-        x, _ = self._ffn(x, p, spec, batch_axes)  # the router loss of a decode step is dropped
+        # the router loss of a decode step is dropped
+        x, _ = self._ffn(x, p, spec, batch_axes, regions)
         return x
 
-    def _cache_in(self, cache: dict) -> dict:
+    def _kept(self, keep_tp: bool):
+        """The mesh dims whose shards a layer's cache keeps on this rank: the
+        data axes, and the model axis for a Mamba layer split over it."""
+        return set(self.ax.dp) | ({self.ax.tp} if keep_tp else set())
+
+    def _cache_in(self, cache: dict, keep_tp: bool = False) -> dict:
         """A layer's cache on the model's device: this rank's batch rows,
         whole over every other axis (an all-gather over the model axis where
-        the spec shards it). An MLA layer's two leaves become views of one
-        buffer again, which the absorbed decode reads in one launch."""
+        the spec shards it) but the model axis with ``keep_tp`` (a Mamba
+        state on this rank's channels). An MLA layer's two leaves become
+        views of one buffer again, which the absorbed decode reads in one
+        launch."""
         from torch.distributed.tensor import Replicate
 
+        kept = self._kept(keep_tp)
         out = {}
         for name, t in cache.items():
-            keep = tuple(pl if n in self.ax.dp else Replicate()
+            keep = tuple(pl if n in kept else Replicate()
                          for n, pl in zip(self.mesh.mesh_dim_names, t.placements))
             out[name] = t.redistribute(self.mesh, keep).to_local().to(self.device)
         if "ckv" in out:
@@ -624,13 +846,14 @@ class Model(nn.Module):
             out = {"ckv": latent[..., :r], "kpe": latent[..., r:]}
         return out
 
-    def _cache_out(self, cache: dict, stepped: dict) -> None:
+    def _cache_out(self, cache: dict, stepped: dict, keep_tp: bool = False) -> None:
         """Each leaf of ``cache`` (DTensors) replaced by this rank's shard of
-        the stepped whole layer cache (a slice, no communication)."""
+        the stepped layer cache (a slice, no communication)."""
         from torch.distributed.tensor import DTensor, Replicate
 
+        kept = self._kept(keep_tp)
         for name, t in cache.items():
-            split = tuple(Replicate() if n in self.ax.dp else pl
+            split = tuple(Replicate() if n in kept else pl
                           for n, pl in zip(self.mesh.mesh_dim_names, t.placements))
             local = local_slice(stepped[name], split, self.mesh).contiguous()
             cache[name] = DTensor.from_local(local.to(t.device), self.mesh, t.placements,
@@ -641,17 +864,22 @@ class Model(nn.Module):
         written. Returns ``(logits [B, 1, V], cache)``, the cache updated in
         place. On a mesh ``tokens`` is a DTensor (or this rank's rows), the
         cache a list of dicts of DTensors placed by ``cache_specs``, and the
-        logits are this rank's rows."""
+        logits are this rank's rows, over the whole vocabulary."""
         if self.cfg.is_encoder_only:
             raise ValueError(f"{self.cfg.name} is encoder-only: it has no decode path")
         inputs, batch_axes, _ = self._local({"tokens": tokens}, split_seq=False)
-        x = self._embed(params, inputs["tokens"], batch_axes)
+        tp = self.model_axis()
+        x = self._embed(params, inputs["tokens"], batch_axes,
+                        self._vocab_region(params["embed"], tp))
         for spec, p, c in zip(self.cfg.layers(), params["layers"], cache):
-            p = self._weights(p, batch_axes, spec)
+            regions = self.regions(p, tp)
+            p = self._weights(p, batch_axes, spec, tp, regions, decode=True)
             if self.mesh is None:
                 x = self._decode_layer(x, p, spec, c, pos, batch_axes)
                 continue
-            stepped = self._cache_in(c)
-            x = self._decode_layer(x, p, spec, stepped, pos, batch_axes)
-            self._cache_out(c, stepped)
-        return self._head(params, x, batch_axes), cache
+            keep_tp = regions.get("mamba", _NO_AXIS).split  # a state on this rank's channels
+            stepped = self._cache_in(c, keep_tp)
+            x = self._decode_layer(x, p, spec, stepped, pos, batch_axes, regions)
+            self._cache_out(c, stepped, keep_tp)
+        logits = self._head(params, x, batch_axes, self.vocab_axis(params))
+        return self.whole_vocab(params, logits), cache

@@ -18,16 +18,14 @@ mean; the gathered weights' gradients are summed over the batch shards
 (``Partial`` on those axes) and land as the parameters' shards; the metrics
 are all-reduced to the global values on every rank.
 
-Under ``activation_partitioning="seq"`` on a model axis larger than 1 the
-model axis splits the tokens too: a rank's logits are its stripe of the
-positions, its cross-entropy is the sum over its tokens divided by the
-global batch's token count (stripes may be uneven or empty, so a mean per
-rank would weigh them wrongly), and the model axis counts among the
-shards. The router aux loss is the same on every model rank of a data
-shard (each routes the whole sequence), so dividing it by all the shards
-and summing the gradient over them (``Partial`` on the model axis too)
-gives each data shard's aux its weight ``1 / n_data`` once, as in
-``"batch"``; the all-reduced ``aux`` metric is the mean over data shards.
+On a model axis above 1 the logits are this rank's vocabulary columns
+where the specs split the head (``Model.forward``): the float32 cross-entropy
+is then a vocabulary-parallel log-softmax (an all-reduced maximum and sum
+of exponentials, and the label's logit from the rank that holds it), the
+reference's value without gathering ``[B, T, V]``. Every rank of the model
+axis gets the same loss, under ``activation_partitioning="seq"`` too (the
+head reads the whole sequence), so the model axis is never among the
+shards a loss or a metric is divided or summed over.
 """
 from __future__ import annotations
 
@@ -44,14 +42,28 @@ __all__ = ["make_decode_step", "make_eval_step", "make_loss_fn", "make_prefill_s
            "make_train_step", "token_ce"]
 
 
-def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Each token's negative log-likelihood (float32 ``log_softmax``)."""
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    return -torch.take_along_dim(logp, labels[..., None].long(), dim=-1)
+def token_nll(logits: torch.Tensor, labels: torch.Tensor, vocab=None) -> torch.Tensor:
+    """Each token's negative log-likelihood (float32 ``log_softmax``). Where
+    ``vocab`` (a ``launch.mesh.ModelAxis``, ``Model.vocab_axis``) is split,
+    the logits are this rank's columns of a vocabulary split over it: the
+    log-sum-exp from the ranks' maxima and sums of exponentials, the label's
+    logit from its owner (the sums all-reduced; their backward the
+    identity, every rank's loss being the same)."""
+    if vocab is None or not vocab.split:
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        return -torch.take_along_dim(logp, labels[..., None].long(), dim=-1)
+    lf = logits.float()
+    n = lf.shape[-1]
+    m = vocab.max(lf.amax(-1, keepdim=True))
+    lse = m + torch.log(vocab.sum(torch.exp(lf - m).sum(-1, keepdim=True)))
+    local = labels[..., None].long() - vocab.rank * n
+    own = (local >= 0) & (local < n)
+    picked = torch.take_along_dim(lf, local.clamp(0, n - 1), dim=-1).masked_fill(~own, 0)
+    return lse - vocab.sum(picked)
 
 
-def token_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    return token_nll(logits, labels).mean()
+def token_ce(logits: torch.Tensor, labels: torch.Tensor, vocab=None) -> torch.Tensor:
+    return token_nll(logits, labels, vocab).mean()
 
 
 def _local(t: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -85,13 +97,9 @@ def make_loss_fn(model: Model):
     def loss_fn(params, batch):
         logits, aux = model.forward(params, batch)
         labels = _local(batch["labels"], logits.device)
-        mesh, dims, stripe = model.token_split(batch)
+        mesh, dims = model.batch_split(batch)
         n = _shard_count(mesh, dims) if mesh is not None else 1
-        if stripe is None:
-            ce = token_ce(logits, labels) / n
-        else:  # this stripe's tokens over the global batch's B * T
-            n_data = n // stripe.ranks
-            ce = token_nll(logits, stripe.keep(labels)).sum() / (labels.numel() * n_data)
+        ce = token_ce(logits, labels, model.vocab_axis(params)) / n
         if mesh is not None:  # this rank's part of the global batch's mean
             aux = aux / n
         loss = ce + model.cfg.router_aux_weight * aux
@@ -180,7 +188,7 @@ def make_train_step(
             loss = loss / accum
             metrics = {"ce": loss, "aux": torch.zeros((), dtype=torch.float32,
                                                       device=loss.device)}
-        mesh, dims, _ = model.token_split(batch, rows_dim=0 if accum == 1 else 1)
+        mesh, dims = model.batch_split(batch, rows_dim=0 if accum == 1 else 1)
         if mesh is not None:  # the global batch's values on every rank
             loss = _all_reduce(loss, mesh, dims)
             metrics = {k: _all_reduce(v, mesh, dims) for k, v in metrics.items()}
@@ -207,13 +215,12 @@ def make_eval_step(model: Model):
 
 def make_prefill_step(model: Model):
     """Serving prefill: forward only, returns the logits of the last
-    position ``[B, 1, V]`` (on a sequence split over the model axis, the
-    global last position on every rank of it)."""
+    position ``[B, 1, V]`` (on a mesh, this rank's rows over the whole
+    vocabulary)."""
 
     def prefill(params, batch):
         logits, _ = model.forward(params, batch)
-        stripe = model.token_split(batch)[2]
-        return logits[:, -1:] if stripe is None else stripe.last(logits)
+        return model.whole_vocab(params, logits[:, -1:])
 
     return prefill
 

@@ -11,6 +11,9 @@ machine without JAX:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import contextlib
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -1862,16 +1865,192 @@ def test_sharded_train_on_card_equals_one_device(cuda_device):
                                        rtol=1e-4, err_msg=f"{mesh} {key}")
 
 
+# bf16 serving on a model axis against one card, both scoring the one-card
+# loop's tokens with the same expert choices: every step's logits within
+# GRAD_TOL's bf16 relative L2, the greedy choice the same wherever the
+# one-card run's top logit is ahead of the second by SERVE_MARGIN of its
+# size (4 bf16 ulps: a near tie may go either way when the partials add in
+# another order)
+SERVE_MARGIN = 2.0 ** -5
+
+
+@contextlib.contextmanager
+def _routing(record: list, replay: bool = False):
+    """The MoE's expert choices (``layers.top_k``, one entry a routing call)
+    kept in ``record``, or with ``replay`` taken from it, each token's
+    weights its own probabilities at those experts: a one-ulp gap that
+    flips a router's near tie then flips it in neither run."""
+    from repro_torch.models import layers
+
+    saved, calls = layers.top_k, iter(list(record))
+
+    def top_k(probs, k):
+        if replay:
+            idx = torch.tensor(next(calls), device=probs.device)
+            return probs.gather(-1, idx), idx
+        vals, idx = saved(probs, k)
+        record.append(idx.tolist())
+        return vals, idx
+
+    layers.top_k = top_k
+    try:
+        yield
+    finally:
+        layers.top_k = saved
+    assert not replay or next(calls, None) is None, "routing calls left over"
+
+
+def _forced_rank(argv: list, out: dict) -> None:
+    """A rank of ``launch.serve``'s mesh (``argv`` its arguments, then the
+    tokens to feed as JSON): every step's logits of the teacher-forced loop
+    (``serve.forced_logits``) and its expert choices."""
+    from repro_torch.launch import serve as serve_mod
+
+    model, params, prompts = serve_mod.setup(serve_mod._parser().parse_args(argv[:-1]))
+    forced = torch.tensor(json.loads(argv[-1]))
+    out["routing"] = []
+    with _routing(out["routing"]):
+        out["logits"] = serve_mod.forced_logits(model, params, prompts, forced).tolist()
+
+
 @pytest.mark.gpu
 def test_serve_mesh_on_card_gives_one_device_tokens(cuda_device):
-    """``launch.serve --mesh 1x2`` on the card (reduced qwen3-8b, and
-    reduced jamba through ``moe_ffn_fshard``): the 1x1 loop's tokens."""
+    """``launch.serve --mesh 1x2`` on the card (two gloo ranks sharing it;
+    reduced qwen3-8b, and reduced jamba through ``moe_ffn_fshard``). The
+    model axis adds the row-parallel products' partials in another order
+    than one card's product, so their rounding may differ. In float32: the
+    1x1 loop's tokens. In bf16, where a one-ulp gap can flip a near tie (in
+    jamba also an expert choice, which moves a row's logits by a tenth),
+    both runs score the 1x1 loop's tokens (teacher forcing) with the mesh's
+    expert choices: every step's logits within bf16's relative L2
+    tolerance, and the same greedy choice at every step where the 1x1
+    run's choice is clear (``SERVE_MARGIN``)."""
     from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch.ranks import run_in_group
 
     for arch, opt in (("reduced:qwen3-8b", None),
                       ("reduced:jamba-v0.1-52b", "moe_weight_shard=f")):
-        argv = ["--arch", arch, "--batch", "4", "--prompt-len", "6", "--gen", "4",
-                *(["--opt", opt] if opt else [])]
-        want = serve_mod.main(argv)
-        got = serve_mod.main([*argv, "--mesh", "1x2"])
-        assert torch.equal(got.cpu(), want.cpu()), arch
+        for dtype in ("float32", "bfloat16"):
+            argv = ["--arch", arch, "--batch", "4", "--prompt-len", "6", "--gen", "4",
+                    "--opt", ",".join(o for o in (opt, f"dtype={dtype}") if o)]
+            want = serve_mod.main(argv).cpu()
+            if dtype == "float32":
+                got = serve_mod.main([*argv, "--mesh", "1x2"])
+                assert torch.equal(got.cpu(), want), arch
+                continue
+            out = run_in_group(_forced_rank, [*argv, "--mesh", "1x2", json.dumps(want.tolist())],
+                               "cuda", 2)
+            assert "error" not in out, out.get("error")
+            got = torch.tensor(out["logits"])
+            with _routing(out["routing"], replay=True):
+                want_logits = serve_mod.forced_logits(
+                    *serve_mod.setup(serve_mod._parser().parse_args(argv)), want)
+            assert got.shape == want_logits.shape
+            rel = max(_rel_l2(g, w) for g, w in zip(got, want_logits))
+            assert rel <= GRAD_TOL[torch.bfloat16], (arch, rel)
+            top2 = want_logits.topk(2, -1).values
+            clear = top2[..., 0] - top2[..., 1] > SERVE_MARGIN * top2[..., 0].abs().clamp(min=1)
+            assert bool(clear.any()), arch
+            assert torch.equal(got.argmax(-1)[clear], want_logits.argmax(-1)[clear]), arch
+
+
+# ------------------------------------- tensor-parallel heads and channels
+# (name, hq, hkv, t, dh): a tensor-parallel rank's launch, its query heads
+# over the KV heads they read: qwen3-8b's train_4k layer on a model axis of
+# 16 (2 query heads, 1 KV head), repro-100m on 1x2 (5 query heads, K/V of
+# 2.5 heads gathered and expanded to one a query head), reduced qwen3 on
+# 1x4 (1 and 1), deepseek-coder-33b on 16 (3.5 heads a chunk: the 4 it
+# overlaps, one KV head)
+TP_HEAD_CASES = [("qwen3_tp16", 2, 1, 4096, 128), ("repro100m_1x2", 5, 5, 256, 64),
+                 ("qwen3_reduced_1x4", 1, 1, 256, 32), ("coder_tp16", 4, 1, 1024, 128)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,hq,hkv,t,dh", TP_HEAD_CASES)
+def test_flash_kernel_at_tensor_parallel_heads(cuda_device, name, hq, hkv, t, dh, dtype):
+    """A tensor-parallel rank's causal prefill launch in the model's layout:
+    ``wgmma_bf16`` in bf16, ``fma`` in float32, against the plain version."""
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    if dtype == torch.bfloat16:
+        _tensor_core_case(cuda_device, 1, hq, hkv, t, t, dh, t + hq, model_layout=True,
+                          causal=True)
+        return
+    before = fa.variant_launches["fma"]
+    _flash_case(cuda_device, dtype, 1, hq, hkv, t, t, dh, t + hq, causal=True)
+    assert fa.variant_launches["fma"] == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_on_a_ranks_kv_heads_of_the_whole_cache(cuda_device, dtype):
+    """A tensor-parallel rank's decode step: its 2 query heads (qwen3-8b on
+    16 ranks) against its KV head, a view of the whole gathered cache
+    (B=8, 4,096 positions, 8 KV heads, head 3): ``decode_split`` reads the
+    strided slice in place, against the plain version on a copy."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models.attention import gqa_flash_decode
+
+    rng = np.random.default_rng(4096)
+    b, s, hkv, dh, pos = 8, 4096, 8, 128, 4000
+    q = torch.from_numpy(rng.standard_normal((b, 2, dh)).astype(np.float32)).to(cuda_device, dtype)
+    k, v = (torch.from_numpy(rng.standard_normal((b, s, hkv, dh)).astype(np.float32))
+            .to(cuda_device, dtype) for _ in range(2))
+    kc, vc = k[:, :, 3:4], v[:, :, 3:4]
+    before = fa.variant_launches["decode_split"]
+    got = gqa_flash_decode(q, kc, vc, pos, None)
+    torch.cuda.synchronize()
+    assert fa.variant_launches["decode_split"] == before + 1
+    want = flash_attention_ref(q[:, :, None], kc.transpose(1, 2).contiguous(),
+                               vc.transpose(1, 2).contiguous(), causal=True, q_offset=pos)[:, :, 0]
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_scan_kernel_at_tensor_parallel_channels(cuda_device):
+    """A tensor-parallel rank's scan: falcon-mamba-7b's Di 8,192 over a
+    model axis of 16 (512 channels), T = 8,192, the model's A, float32, at
+    ``chip_smoke.py``'s SCAN_LAYER_TOL (1e-3)."""
+    from repro_torch.kernels.mamba_scan import ops as scan
+    from repro_torch.kernels.mamba_scan.ref import selective_scan_ref
+
+    bsz, t, d, n = 1, 8192, 512, 16
+    rng = np.random.default_rng(t + d)
+    f32 = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda_device)  # noqa: E731
+    x = f32(rng.standard_normal((bsz, t, d)))
+    dt = f32(np.abs(rng.standard_normal((bsz, t, d))) * 0.1 + 0.01)
+    a = -torch.arange(1, n + 1, dtype=torch.float32, device=cuda_device).expand(d, n).contiguous()
+    b, c = f32(rng.standard_normal((bsz, t, n))), f32(rng.standard_normal((bsz, t, n)))
+    d_skip = f32(rng.standard_normal(d))
+    before = scan.launches
+    y, h = scan.selective_scan(x, dt, a, b, c, d_skip)
+    torch.cuda.synchronize()
+    assert scan.launches == before + 1
+    y_want, h_want = selective_scan_ref(x, dt, a, b, c, d_skip)
+    torch.testing.assert_close(y, y_want, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(h, h_want, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.gpu
+def test_tensor_parallel_train_on_card_equals_one_device(cuda_device):
+    """``launch.train --mesh 1x2`` on the card (two gloo ranks sharing it),
+    float32: reduced falcon-mamba (a rank's channels), deepseek-v2 (MLA on
+    a rank's heads) and llama-3.2-vision (cross-attention; the launcher
+    feeds no image, so its layers attend to their own input), 3 steps'
+    losses and grad norms within 1e-4 of the 1x1 run on the card."""
+    from repro_torch.launch import train as train_mod
+
+    for arch in ("reduced:falcon-mamba-7b", "reduced:deepseek-v2-236b",
+                 "reduced:llama-3.2-vision-90b"):
+        args = ["--arch", arch, "--steps", "3", "--global-batch", "4", "--seq-len", "64",
+                "--log-every", "100", "--dtype", "float32"]
+        want, got = [], []
+        train_mod.main(args, want)
+        train_mod.main([*args, "--mesh", "1x2"], got)
+        assert [h["step"] for h in got] == [1, 2, 3]
+        for key in ("loss", "grad_norm"):
+            np.testing.assert_allclose([h[key] for h in got], [h[key] for h in want],
+                                       rtol=1e-4, err_msg=f"{arch} {key}")

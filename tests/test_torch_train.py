@@ -606,8 +606,9 @@ def test_elastic_demo_and_mesh_errors(tmp_path, capsys):
     mesh whose size differs from the process group's raises; a
     sequence-parallel config on a model axis of 2 builds and steps (on a
     fake group of 2, on shapes: ``tests/test_torch_seq_parallel.py`` holds
-    its values), its logits this rank's stripe of the positions; a
-    malformed mesh raises."""
+    its values), its logits every position over this rank's half of the
+    vocabulary (the model axis splits the head's columns; the residual
+    stream's stripe is 8 of the 16 positions); a malformed mesh raises."""
     import torch.distributed as dist
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.testing._internal.distributed.fake_pg import FakeStore
@@ -649,7 +650,7 @@ def test_elastic_demo_and_mesh_errors(tmp_path, capsys):
             _, _, metrics = make_train_step(model)(params, adamw_init(params), batch)
             logits, _ = model.forward(params, batch)
         assert set(metrics) == {"loss", "ce", "aux", "grad_norm", "lr"}
-        assert tuple(logits.shape) == (2, 8, cfg.vocab_size)
+        assert tuple(logits.shape) == (2, 16, cfg.vocab_size // 2)
         # a model axis of 1: as "batch"
         assert TModel(cfg, "cpu", mesh=make_debug_mesh(2, 1)).seq_stripe(16) is None
     finally:
